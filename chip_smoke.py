@@ -5,25 +5,41 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
-  2. build     — compile the hand-written CUDA kernels (one nvcc each, in
-                 parallel) from the sources in this checkout.
+  2. build     — compile the four hand-written CUDA kernels (one nvcc
+                 each, in parallel) from the sources in this checkout.
   3. kernels   — each kernel against its plain PyTorch version at the
-                 served shapes (smollm-360m heads, block 16, batch 4 and
-                 8, lengths up to ~600), with its time beside the plain
-                 version's, one library call's, and its bound.
-  4. engine    — a 2-layer f32 model at smollm-360m's head geometry serves
-                 the same prompts on the GPU (through the kernels) and on
-                 the CPU (plain path): the greedy tokens must be equal.
+                 served shapes, with its time beside the plain version's,
+                 one library call's (where one exists) and its bound:
+                 paged decode / prefill attention (K1/K2) at smollm-360m
+                 heads (15/5, head_dim 64; batch 4 and 8, lengths up to
+                 ~600) and at jamba heads (32/8, head_dim 128); the
+                 selective scan (B5) at batch 8, d_inner 8192, d_state 16,
+                 T = 1 and 32, cold and with carried state and t_valid; the
+                 top-k gating (B6) at 8 and 256 tokens x 16 experts, top-2,
+                 and a tie-laden case.
+  4. engine    — two small f32 models serve the same prompts on the GPU
+                 (through the kernels) and on the CPU (plain path); the
+                 greedy tokens must be equal: 2 layers at smollm-360m's
+                 head geometry (K1, K2), and one jamba period at smoke
+                 width (8 layers, 4 experts; K1, K2, B5, B6).
   5. main path — ``repro_torch.launch.serve`` serves smollm-360m at full
                  width (random weights from seed 0, bf16 KV) through the
-                 stream pipeline; both kernels must have launched.  Then
-                 a profiler trace of the same engine: device busy share
-                 and the kernels that take the device time.
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+                 stream pipeline; K1 and K2 must have launched.  Then a
+                 profiler trace of the same engine: device busy share and
+                 the kernels that take the device time.
+  6. jamba     — the engine serves jamba-v0.1 at full width, one period
+                 (8 layers: 1 attention + 7 mamba, 4 MoE with 16 experts
+                 top-2; bf16, random weights from seed 0 made on the
+                 card), 16 requests of 512 prompt tokens, 32 new tokens,
+                 batch 8; all four kernels must have launched.  Then a
+                 profiler trace of the same engine.
+The line before the last is a JSON object with one entry per kernel
+(K1/K2 launches from phase 5, B5/B6 launches from phase 6); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -41,8 +57,19 @@ TOL_REASON = ("bf16: the plain version rounds q*scale, the scores and the "
               "normalized probabilities to bf16 as the reference does; the "
               "kernel keeps scores in f32 and rounds the unnormalized "
               "probabilities; outputs are bf16 (8 significant bits)")
-HEADS = dict(H=15, KV=5, hd=64)    # smollm-360m: 15 query, 5 KV heads
+SCAN_TOL = 1e-4
+SCAN_TOL_REASON = ("scan outputs are f32 of magnitude ~10: the kernel's "
+                   "expf and fused multiply-adds against torch's exp and "
+                   "separate products, and its sequential d_state sum "
+                   "against einsum's")
+SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
+JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
 BS, P, MAX_LEN = 16, 40, 600       # block size, pages per slot, lengths
+REPLACES = {
+    "paged_decode_attention": "src/repro/kernels/decode_attention/kernel.py:195",
+    "paged_prefill_attention": "src/repro/kernels/flash_attention/kernel.py:67",
+    "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
+    "gating_topk": "src/repro/kernels/moe_gating/kernel.py:35"}
 
 
 def log(msg: str) -> None:
@@ -52,6 +79,11 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
 
 
 # -- phase 1 --------------------------------------------------------------------
@@ -87,31 +119,14 @@ def phase_build(kernels) -> None:
 
 # -- phase 3 --------------------------------------------------------------------
 
-def _case(seed, B, T, qdt, kvdt, dev):
-    """Served-shape inputs: shuffled page tables over a pool with spare
-    blocks, cached lengths spread from one page up to MAX_LEN."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    H, KV, hd = HEADS["H"], HEADS["KV"], HEADS["hd"]
-    nb = B * P + 7
-    q = torch.randn((B, T, H, hd), generator=g).to(dev, qdt)
-    k = torch.randn((nb, BS, KV, hd), generator=g).to(dev, kvdt)
-    v = torch.randn((nb, BS, KV, hd), generator=g).to(dev, kvdt)
-    pt = torch.stack([torch.randperm(nb, generator=g)[:P]
-                      for _ in range(B)]).to(dev, torch.int32)
-    # at least one page per slot: a slot with two or three keys outputs
-    # nearly one V row, where one bf16 ulp of |v| ~ 4 exceeds the tolerance
-    lengths = torch.linspace(BS, MAX_LEN - T, B).round().to(torch.int32)
-    lengths = lengths[torch.randperm(B, generator=g)].to(dev)
-    return q, k, v, pt, lengths
-
-
 class Timer:
     """Mean device time of ``fn`` over ``iters`` launches, each on a cold
     L2 (a 64 MB buffer is rewritten before every launch: in serving, the
-    31 other layers' K/V pass through the 50 MB L2 between two calls for
-    the same layer).  Before each launch the GPU spins for ~1 ms, so the
-    host has enqueued the whole launch before the start event runs and
-    the interval holds device time only, not the wrapper's Python."""
+    other layers' weights and K/V pass through the 50 MB L2 between two
+    calls for the same layer).  Before each launch the GPU spins for
+    ~1 ms, so the host has enqueued the whole launch before the start
+    event runs and the interval holds device time only, not the
+    wrapper's Python."""
 
     SPIN_CYCLES = 2_000_000
 
@@ -135,6 +150,24 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def _attn_case(seed, B, T, qdt, kvdt, heads):
+    """Served-shape inputs: shuffled page tables over a pool with spare
+    blocks, cached lengths spread from one page up to MAX_LEN."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    nb = B * P + 7
+    q = torch.randn((B, T, H, hd), generator=g).to("cuda", qdt)
+    k = torch.randn((nb, BS, KV, hd), generator=g).to("cuda", kvdt)
+    v = torch.randn((nb, BS, KV, hd), generator=g).to("cuda", kvdt)
+    pt = torch.stack([torch.randperm(nb, generator=g)[:P]
+                      for _ in range(B)]).to("cuda", torch.int32)
+    # at least one page per slot: a slot with two or three keys outputs
+    # nearly one V row, where one bf16 ulp of |v| ~ 4 exceeds the tolerance
+    lengths = torch.linspace(BS, MAX_LEN - T, B).round().to(torch.int32)
+    lengths = lengths[torch.randperm(B, generator=g)].to("cuda")
+    return q, k, v, pt, lengths
+
+
 def _visible_keys(lengths, T, decode: bool):
     """(B, T) keys each query row attends to, from this run's data."""
     cap = P * BS
@@ -144,36 +177,39 @@ def _visible_keys(lengths, T, decode: bool):
     return (lengths[:, None] + t + 1).clamp(max=cap)
 
 
-def _bound_ms(q, k, lengths, T, decode):
-    """Least time for the same work: the larger of the bytes it must move
-    (q, the K/V rows of the keys this data makes visible, the page-table
-    entries they sit in, lengths, out) over HBM bandwidth and its
-    operations (QK and PV, multiply and add) over the peak rate for the
-    K/V type."""
-    B, H, hd = q.shape[0], HEADS["H"], HEADS["hd"]
-    KV = HEADS["KV"]
+def _bound(n_bytes: float, ops: float, dtype):
+    """The larger of bytes over HBM bandwidth and operations over the
+    peak rate for ``dtype``, in ms, and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _attn_bound_ms(q, k, lengths, T, decode, heads):
+    """Least time for the same work: the bytes it must move (q, the K/V
+    rows of the keys this data makes visible, the page-table entries they
+    sit in, lengths, out) and its operations (QK and PV, multiply and
+    add) at the peak rate for the K/V type."""
+    B, H, hd, KV = q.shape[0], heads["H"], heads["hd"], heads["KV"]
     vis = _visible_keys(lengths, T, decode)
     keys = vis.max(dim=1).values                      # rows read per slot
     kv_bytes = int(keys.sum()) * KV * hd * k.element_size() * 2
     pages = int(((keys + BS - 1) // BS).sum()) * 4
     qo_bytes = q.numel() * (q.element_size() + k.element_size())
-    n_bytes = kv_bytes + pages + qo_bytes + B * 4
-    ops = 4 * H * hd * int(vis.sum())
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[k.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _bound(kv_bytes + pages + qo_bytes + B * 4,
+                  4 * H * hd * int(vis.sum()), k.dtype)
 
 
-def _library_call(q, k, v, pt, lengths, T, decode):
+def _attn_library_call(q, k, v, pt, lengths, T, decode, heads):
     """One PyTorch call computing the same function (timed only as a
     yardstick; the port never calls it): SDPA over K/V gathered through
     the page table and expanded to the query heads beforehand."""
     from repro_torch.models.attention import paged_gather
-    G = HEADS["H"] // HEADS["KV"]
+    G = heads["H"] // heads["KV"]
     B = q.shape[0]
     kg = paged_gather(k, pt).transpose(1, 2).repeat_interleave(G, dim=1)
     vg = paged_gather(v, pt).transpose(1, 2).repeat_interleave(G, dim=1)
-    qh = q.reshape(B, T, HEADS["H"], HEADS["hd"]).transpose(1, 2)
+    qh = q.reshape(B, T, heads["H"], heads["hd"]).transpose(1, 2)
     qh = qh.to(kg.dtype)
     kpos = torch.arange(kg.shape[2], device=q.device)[None, None, :]
     last = (lengths - 1)[:, None] if decode else \
@@ -183,7 +219,22 @@ def _library_call(q, k, v, pt, lengths, T, decode):
     return lambda: sdpa(qh, kg, vg, attn_mask=mask)
 
 
-def phase_kernels(timer: Timer):
+def _time_row(timer, kern, plain, args, library, bound):
+    ms = timer.ms(lambda: kern(*args))
+    plain_ms = timer.ms(lambda: plain(*args))
+    lib_ms = timer.ms(library) if library is not None else None
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib_ms)
+
+
+def _fmt(row) -> str:
+    lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    return (f" kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={row['bound_ms']:.5f} "
+            f"({row['bound_by']})")
+
+
+def phase_attention(timer: Timer):
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     specs = [
@@ -191,44 +242,148 @@ def phase_kernels(timer: Timer):
          dops.paged_decode_attention_plain, 1, True, dops.KERNEL),
         ("paged_prefill_attention", fops.paged_prefill_attention,
          fops.paged_prefill_attention_plain, 32, False, fops.KERNEL)]
-    combos = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
-              (torch.bfloat16, torch.bfloat16)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    geometries = [("smollm", SMOLLM_HEADS, (4, 8),
+                   [(f32, f32), (f32, bf16), (bf16, bf16)]),
+                  ("jamba", JAMBA_HEADS, (8,), [(f32, f32), (bf16, bf16)])]
     served = {}
     for name, kern, plain, T, decode, handle in specs:
-        for B in (4, 8):
-            for qdt, kvdt in combos:
-                q, k, v, pt, lengths = _case(B * 7 + T, B, T, qdt, kvdt,
-                                             "cuda")
-                if decode:
-                    q = q[:, 0].contiguous()
-                args = (q, k, v, pt, lengths)
-                n0 = handle.launches
-                out = kern(*args)
+        for geo, heads, batches, combos in geometries:
+            for B in batches:
+                for qdt, kvdt in combos:
+                    q, k, v, pt, lengths = _attn_case(B * 7 + T, B, T, qdt,
+                                                      kvdt, heads)
+                    if decode:
+                        q = q[:, 0].contiguous()
+                    args = (q, k, v, pt, lengths)
+                    n0 = handle.launches
+                    out = kern(*args)
+                    torch.cuda.synchronize()
+                    check(handle.launches == n0 + 1, f"{name} did not launch")
+                    want = plain(*args)
+                    check(torch.isfinite(out.float()).all().item(),
+                          f"{name}: non-finite output")
+                    err = (out.float() - want.float()).abs().max().item()
+                    tol = TOL[kvdt]
+                    tag = (f"{name} {geo} heads {heads['H']}/{heads['KV']} "
+                           f"hd {heads['hd']} B={B} T={T} q={str(qdt)[6:]} "
+                           f"kv={str(kvdt)[6:]}")
+                    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+                    line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+                    if qdt == kvdt:
+                        row = _time_row(
+                            timer, kern, plain, args,
+                            _attn_library_call(*args, T, decode, heads),
+                            _attn_bound_ms(q, k, lengths, T, decode, heads))
+                        line += _fmt(row)
+                        if geo == "smollm" and B == 8 and kvdt == bf16:
+                            served[name] = dict(max_abs_err=err, **row)
+                    log(line)
+    log(f"[kernels] attention tolerance: f32 1e-5; {TOL_REASON}")
+    return served
+
+
+def _scan_case(seed, B, T, di, N, dtype, carried):
+    """Selective-scan inputs as a Mamba layer makes them: dt from a
+    softplus, A = -(1..N) per channel (the init's A_log), D = 1; with
+    ``carried``, a random state slab and t_valid spread over [0, T]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, di), generator=g))
+    xs = torch.randn((B, T, di), generator=g)
+    Bc = torch.randn((B, T, N), generator=g)
+    Cc = torch.randn((B, T, N), generator=g)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(di, N)
+    D = torch.ones(di)
+    if carried:
+        h0 = torch.randn((B, di, N), generator=g)
+        t_valid = torch.randint(0, T + 1, (B,), generator=g, dtype=torch.int32)
+        t_valid[0], t_valid[-1] = 0, T
+    else:
+        h0 = torch.zeros((B, di, N))
+        t_valid = torch.full((B,), T, dtype=torch.int32)
+    return tuple(a.to("cuda", dtype) for a in (dt, xs, Bc, Cc)) + tuple(
+        a.contiguous().to("cuda") for a in (A, D, h0, t_valid))
+
+
+def _scan_bound_ms(args, carried: bool):
+    """Bytes: every input read once (h0 only when a state is carried),
+    y and h_last written once; operations: per valid position, channel
+    and state element the exp, the dt*A and dt*x*B products, the state
+    update and the C dot product (~7 f32 operations), plus D*x."""
+    dt, xs, Bc, Cc, A, D, h0, t_valid = args
+    B, T, di = dt.shape
+    N = Bc.shape[-1]
+    ins = [dt, xs, Bc, Cc, A, D, t_valid] + ([h0] if carried else [])
+    n_bytes = sum(a.numel() * a.element_size() for a in ins) \
+        + (B * T * di + B * di * N) * 4
+    positions = int(t_valid.clamp(max=T).sum())
+    return _bound(n_bytes, positions * di * (7 * N + 3), torch.float32)
+
+
+def phase_scan(timer: Timer):
+    from repro_torch.kernels.ssm_scan import ops as sops
+    served = None
+    for T in (1, 32):
+        for carried in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                if dtype == torch.float32 and not (carried and T == 32):
+                    continue
+                args = _scan_case(T + carried, 8, T, 8192, 16, dtype, carried)
+                n0 = sops.KERNEL.launches
+                y, h = sops.selective_scan(*args)
                 torch.cuda.synchronize()
-                check(handle.launches == n0 + 1, f"{name} did not launch")
-                want = plain(*args)
-                check(torch.isfinite(out.float()).all().item(),
-                      f"{name}: non-finite output")
-                err = (out.float() - want.float()).abs().max().item()
-                tol = TOL[kvdt]
-                tag = (f"{name} B={B} T={T} q={str(qdt)[6:]} "
-                       f"kv={str(kvdt)[6:]}")
-                check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-                line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
-                if qdt == kvdt:
-                    ms = timer.ms(lambda: kern(*args))
-                    plain_ms = timer.ms(lambda: plain(*args))
-                    lib_ms = timer.ms(_library_call(*args, T, decode))
-                    bound, by = _bound_ms(q, k, lengths, T, decode)
-                    line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                             f"library_ms={lib_ms:.4f} bound_ms={bound:.5f}"
-                             f" ({by})")
-                    if B == 8 and kvdt == torch.bfloat16:
-                        served[name] = dict(
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                check(sops.KERNEL.launches == n0 + 1,
+                      "selective_scan did not launch")
+                wy, wh = sops.selective_scan_plain(*args)
+                check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                      "selective_scan: non-finite output")
+                err = max((y - wy).abs().max().item(),
+                          (h - wh).abs().max().item())
+                tag = (f"selective_scan B=8 T={T} di=8192 N=16 "
+                       f"{str(dtype)[6:]} "
+                       + ("carried h0 + t_valid" if carried else "cold"))
+                check(err <= SCAN_TOL, f"{tag}: max_abs_err {err}")
+                line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {SCAN_TOL})"
+                if dtype == torch.bfloat16:
+                    row = _time_row(timer, sops.selective_scan,
+                                    sops.selective_scan_plain, args, None,
+                                    _scan_bound_ms(args, carried))
+                    line += _fmt(row)
+                    if T == 32 and carried:
+                        served = dict(max_abs_err=err, **row)
                 log(line)
-    log(f"[kernels] tolerance: f32 1e-5; {TOL_REASON}")
+    log(f"[kernels] scan tolerance: {SCAN_TOL}; {SCAN_TOL_REASON}")
+    return served
+
+
+def phase_gating(timer: Timer):
+    from repro_torch.kernels.moe_gating import ops as gops
+    served = None
+    E, k = 16, 2
+    for T, tied in ((8, False), (256, False), (256, True)):
+        g = torch.Generator(device="cpu").manual_seed(T + tied)
+        if tied:   # a 3-level grid: most rows hold exact ties
+            scores = torch.randint(0, 3, (T, E), generator=g).float() / 4
+        else:
+            scores = torch.softmax(torch.randn((T, E), generator=g), dim=-1)
+        scores = scores.to("cuda")
+        n0 = gops.KERNEL.launches
+        vals, idx = gops.gating_topk(scores, k)
+        torch.cuda.synchronize()
+        check(gops.KERNEL.launches == n0 + 1, "gating_topk did not launch")
+        wv, wi = gops.gating_topk_plain(scores, k)
+        exact = torch.equal(vals, wv) and torch.equal(idx, wi)
+        tag = f"gating_topk T={T} E={E} k={k}" + (" ties" if tied else "")
+        check(exact, f"{tag}: kernel and plain version differ")
+        err = (vals - wv).abs().max().item()
+        row = _time_row(timer, gops.gating_topk, gops.gating_topk_plain,
+                        (scores, k), lambda: torch.topk(scores, k),
+                        _bound(T * E * 4 + T * k * 8, 2 * T * k * E,
+                               torch.float32))
+        log(f"[kernels] {tag}: exact (values and indices)" + _fmt(row))
+        if T == 256 and not tied:
+            served = dict(max_abs_err=err, **row)
+    log("[kernels] gating tolerance: exact; library call: torch.topk")
     return served
 
 
@@ -239,32 +394,41 @@ def phase_engine(kernels) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
-    cfg = get_config("smollm-360m").replace(
-        n_layers=2, param_dtype="float32", compute_dtype="float32")
-    rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (37, 5, 70, 18, 33, 50)]
+    cases = [
+        ("2-layer f32 smollm heads",
+         get_config("smollm-360m").replace(
+             n_layers=2, param_dtype="float32", compute_dtype="float32"),
+         ("paged_decode_attention", "paged_prefill_attention")),
+        ("jamba-v0.1 smoke (8 layers, 4 experts, f32)",
+         get_config("jamba-v0.1-52b", smoke=True),
+         tuple(k.name for k in kernels))]
     kw = dict(batch_size=4, capacity=128, max_new_tokens=8,
               prefill_chunk=32, block_size=16, burst=4)
-    cpu_model = build_model(cfg, device="cpu")
-    cpu_params = cpu_model.init(seed=0)
-    want = ServeEngine(cpu_model, cpu_params, device="cpu", **kw).serve(prompts)
-    gpu_model = build_model(cfg, device="cuda")
-    gpu_params = bridge.to_torch(cpu_params, "cuda")
-    for k in kernels:
-        k.launches = 0
-    got = ServeEngine(gpu_model, gpu_params, device="cuda", **kw).serve(prompts)
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
-    for a, b in zip(want, got):
-        check(b.status == "ok", f"request {b.request_id}: {b.status}")
-        check(np.array_equal(a.tokens, b.tokens),
-              f"request {a.request_id}: cpu {a.tokens} != cuda {b.tokens}")
-    check(all(n > 0 for n in launches.values()),
-          f"engine run missed a kernel: {launches}")
-    log(f"[engine] 2-layer f32 smollm heads: {len(prompts)} requests, "
-        f"greedy tokens on cuda == cpu ({sum(len(r.tokens) for r in got)} "
-        f"tokens); launches {launches}")
+    for tag, cfg, path in cases:
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (37, 5, 70, 18, 33, 50)]
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(seed=0)
+        want = ServeEngine(cpu_model, cpu_params, device="cpu",
+                           **kw).serve(prompts)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = bridge.to_torch(cpu_params, "cuda")
+        reset(kernels)
+        got = ServeEngine(gpu_model, gpu_params, device="cuda",
+                          **kw).serve(prompts)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        for a, b in zip(want, got):
+            check(b.status == "ok", f"{tag} request {b.request_id}: {b.status}")
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"{tag} request {a.request_id}: cpu {a.tokens} != "
+                  f"cuda {b.tokens}")
+        check(all(launches[n] > 0 for n in path),
+              f"{tag}: engine run missed a kernel: {launches}")
+        log(f"[engine] {tag}: {len(prompts)} requests, greedy tokens on "
+            f"cuda == cpu ({sum(len(r.tokens) for r in got)} tokens); "
+            f"launches {launches}")
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -275,8 +439,7 @@ def phase_main_path(kernels):
             "--batch", "8", "--prompt-len", "512", "--max-new", "64",
             "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     out = serve.main(argv)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
@@ -286,7 +449,8 @@ def phase_main_path(kernels):
     # (a short micro-batch is padded to its power-of-2 bucket with zero
     # rows, which the engine serves too)
     check(eng.n_evictions >= 16, f"{eng.n_evictions} requests finished")
-    check(all(n > 0 for n in launches.values()),
+    check(launches["paged_decode_attention"] > 0
+          and launches["paged_prefill_attention"] > 0,
           f"main path missed a kernel: {launches}")
     decoded = eng.n_device_steps
     log(f"[main] smollm-360m full width (32 layers, d 960, 15/5 heads, "
@@ -301,36 +465,104 @@ def phase_main_path(kernels):
     return launches, eng
 
 
-def phase_trace(eng) -> None:
-    """Where the device time goes on the main path: the phase-5 engine
-    serves 8 more requests (512-token prompts, 64 new tokens, direct)
-    under a CUDA-only profiler trace; device busy share = summed kernel
-    time over the wall time of the serve (one stream: kernels do not
+def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
+    """Where the device time goes: the engine serves ``n`` more requests
+    (``prompt_len``-token prompts, its max_new_tokens each, direct) under
+    a CUDA-only profiler trace; device busy share = summed kernel time
+    over the wall time of the serve (one stream: kernels do not
     overlap)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, eng.model.cfg.vocab_size, 512).astype(np.int32)
-               for _ in range(8)]
+    prompts = [rng.integers(0, eng.model.cfg.vocab_size,
+                            prompt_len).astype(np.int32) for _ in range(n)]
     steps0 = eng.n_device_steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = eng.serve(prompts)
+        res = eng.serve(prompts, timeout_s=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(all(r.status == "ok" and len(r.tokens) == 64 for r in res),
-          "traced serve failed")
+    check(all(r.status == "ok" and len(r.tokens) == eng.max_new_tokens
+              for r in res), f"[{tag}] traced serve failed")
     rows = sorted(((e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "the profiler recorded no device time")
     steps = eng.n_device_steps - steps0
-    log(f"[trace] 8 x 512-token prompts, 64 new tokens, direct: wall "
+    log(f"[{tag}] trace: {n} x {prompt_len}-token prompts, "
+        f"{eng.max_new_tokens} new tokens, direct: wall "
         f"{wall * 1e3:.1f} ms over {steps} device steps "
         f"({wall * 1e3 / steps:.2f} ms/step), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / wall:.1f}% "
         f"(idle {100 - busy_us / 1e4 / wall:.1f}%)")
-    for key, us, n in rows[:8]:
-        log(f"[trace]   {us / 1e3:9.2f} ms {n:7d} calls  {key[:90]}")
+    for key, us, cnt in rows[:10]:
+        log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  {key[:90]}")
+
+
+# -- phase 6 --------------------------------------------------------------------
+
+def phase_jamba(kernels):
+    """jamba-v0.1 at full width, one period of its layer pattern (the
+    whole 32-layer model, ~104 GB in bf16, does not fit one 80 GB card):
+    16 requests of 512 prompt tokens, 32 new tokens each, batch 8,
+    prefill chunk 32, burst 8, one state slab per slot."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8)
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[jamba] {cfg.arch_id} one period: 8 layers "
+        f"{[d for d in model.period_descs]}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, vocab "
+        f"{cfg.vocab_size}, bf16: {n_params / 1e9:.2f}B parameters made on "
+        f"the card in {time.perf_counter() - t0:.1f}s")
+    max_new, plen = 32, 512
+    eng = ServeEngine(model, params, batch_size=8, capacity=plen + max_new,
+                      max_new_tokens=max_new, prefill_chunk=32, block_size=16,
+                      burst=8, kv_dtype="bf16", num_state_slots=8,
+                      device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
+               for _ in range(16)]
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = eng.serve(prompts, timeout_s=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    check(all(r.status == "ok" and len(r.tokens) == max_new for r in res),
+          f"jamba: {[(r.status, len(r.tokens)) for r in res]}")
+    check(all(int(r.tokens.min()) >= 0 and int(r.tokens.max()) < cfg.vocab_size
+              for r in res), "jamba: token outside the vocab")
+    check(all(n > 0 for n in launches.values()),
+          f"jamba path missed a kernel: {launches}")
+    total = sum(len(r.tokens) for r in res)
+    steps, mixed = eng.n_device_steps, eng.n_prefill_chunks
+    per_tok = {n: round(c / total, 3) for n, c in launches.items()}
+    log(f"[jamba] served {len(res)}/16 requests ok, {total} tokens in "
+        f"{wall:.2f}s = {total / wall:.1f} tok/s (direct); {steps} device "
+        f"steps ({mixed} mixed, {steps - mixed} decode), "
+        f"{wall * 1e3 / steps:.1f} ms/step")
+    log(f"[jamba] launches {launches} ({per_tok} per served token); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; slabs "
+        f"{eng.pool_stats()['num_state_slots']}")
+    return launches, eng
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> None:
@@ -340,21 +572,33 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
-    kernels = [dops.KERNEL, fops.KERNEL]
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL]
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build(kernels)
-    served = phase_kernels(Timer())
+    timer = Timer()
+    served = phase_attention(timer)
+    served["selective_scan"] = phase_scan(timer)
+    served["gating_topk"] = phase_gating(timer)
+    del timer
     phase_engine(kernels)
-    launches, eng = phase_main_path(kernels)
-    phase_trace(eng)
-    replaces = {
-        "paged_decode_attention":
-            "src/repro/kernels/decode_attention/kernel.py:195",
-        "paged_prefill_attention":
-            "src/repro/kernels/flash_attention/kernel.py:67"}
+    launches5, eng = phase_main_path(kernels)
+    phase_trace(eng, "main")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches6, eng = phase_jamba(kernels)
+    phase_trace(eng, "jamba", n=8, prompt_len=512)
+    launches = {"paged_decode_attention": launches5["paged_decode_attention"],
+                "paged_prefill_attention": launches5["paged_prefill_attention"],
+                "selective_scan": launches6["selective_scan"],
+                "gating_topk": launches6["gating_topk"]}
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
                  source=str(k.source.relative_to(ROOT)),
-                 replaces=replaces[k.name], launches=launches[k.name],
+                 replaces=REPLACES[k.name], launches=launches[k.name],
                  **served[k.name]) for k in kernels]
     print(json.dumps({"kernels": rows}))
     print(card)

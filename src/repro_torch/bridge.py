@@ -6,8 +6,11 @@ lists) of arrays; ``np.asarray`` of each leaf gives numpy arrays, bf16
 leaves as ``ml_dtypes.bfloat16``.  ``to_torch`` maps that tree leaf by
 leaf to tensors on a device, keeping the layout (the periodic blocks'
 leaves stay stacked on their leading layer axis, which is the port's
-layout too).  It also moves a tree of tensors between devices.  This
-module imports no JAX: the caller does the ``np.asarray``.
+layout too).  Each leaf keeps its own type, so the mixed trees of the
+mamba and MoE families survive: float32 ``A_log``/``D``/``router``
+leaves inside a bfloat16 model stay float32.  It also moves a tree of
+tensors between devices.  This module imports no JAX: the caller does
+the ``np.asarray``.
 """
 from __future__ import annotations
 

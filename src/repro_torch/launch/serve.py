@@ -11,6 +11,10 @@ are random, drawn from seed 0.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --direct                                     # no pipeline
+    PYTHONPATH=src python -m repro_torch.launch.serve --family hybrid \
+        --device cpu                  # attention + mamba, state slabs
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --smoke --device cpu   # one jamba period
 """
 from __future__ import annotations
 
@@ -22,18 +26,28 @@ import numpy as np
 
 from ..configs import ARCH_IDS, get_config
 from ..models import build_model
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, SSMConfig
 from ..serving import ServeEngine
 
 # demo-scale config per serving family (mirrors the reference's
-# launcher); the recurrent families are not ported yet
+# launcher): attention layers page, mamba layers use state slabs; the
+# xLSTM family is not ported yet
 _FAM_BASE = ModelConfig(
     arch_id="fam-demo", family="dense", n_layers=4, d_model=64,
     n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
     norm="rmsnorm", mlp_act="swiglu", rope="rope",
     param_dtype="float32", compute_dtype="float32")
-FAMILY_CONFIGS = {"transformer": _FAM_BASE}
-_RECURRENT_FAMILIES = ("mamba", "xlstm", "hybrid")
+_FAM_SSM = SSMConfig(d_state=16, d_conv=4, expand=2)
+FAMILY_CONFIGS = {
+    "transformer": _FAM_BASE,
+    "mamba": _FAM_BASE.replace(arch_id="fam-mamba", family="hybrid",
+                               ssm=_FAM_SSM, attn_layer_period=1,
+                               attn_layer_offset=1),
+    "hybrid": _FAM_BASE.replace(arch_id="fam-hybrid", family="hybrid",
+                                ssm=_FAM_SSM, attn_layer_period=2,
+                                attn_layer_offset=0),
+}
+_UNPORTED_FAMILIES = ("xlstm",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,10 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-360m")
     ap.add_argument("--family",
                     choices=["arch"] + sorted(FAMILY_CONFIGS)
-                    + list(_RECURRENT_FAMILIES),
+                    + list(_UNPORTED_FAMILIES),
                     default="arch",
                     help="serve a demo model of this family instead of "
-                         "--arch (recurrent families: not ported yet)")
+                         "--arch; recurrent families run paged via per-slot "
+                         "state slabs (xlstm: not ported yet)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -74,6 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prompt", type=int, default=0,
                     help="give every request this many identical leading "
                          "prompt tokens (exercises prefix sharing)")
+    ap.add_argument("--num-state-slots", type=int, default=None,
+                    help="recurrent families: state slabs in the pool "
+                         "(default: one per batch slot; fewer gates "
+                         "admission like a small block pool)")
     ap.add_argument("--listen", type=int, default=None, metavar="PORT",
                     help="serve over TCP (not ported yet)")
     ap.add_argument("--lanes", default="interactive",
@@ -111,10 +130,10 @@ def validate_args(args) -> None:
         raise NotImplementedError(
             "--lanes: the batch lane and preemption are not ported yet "
             "(ROADMAP A7c)")
-    if args.family in _RECURRENT_FAMILIES:
+    if args.family in _UNPORTED_FAMILIES:
         raise NotImplementedError(
-            f"--family {args.family}: recurrent families are not ported yet "
-            "(ROADMAP A10)")
+            f"--family {args.family}: the xLSTM blocks are not ported yet "
+            "(ROADMAP A10b)")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -139,6 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          num_blocks=args.num_blocks,
                          prefill_chunk=args.prefill_chunk,
                          share_prefix=tri[args.share_prefix],
+                         num_state_slots=args.num_state_slots,
                          burst=args.burst, temperature=args.temperature,
                          mesh=args.mesh, retain_cap=args.retain_cap,
                          retain_ttl_s=args.retain_ttl_s,
@@ -212,6 +232,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{s['n_private']} private after drain")
     print(f"kv storage: {s['kv_dtype']}, {s['bytes_per_block']} "
           f"bytes/block, {s['pool_bytes'] / 1e6:.2f} MB pool")
+    if engine.state_store is not None:
+        print(f"state slabs: {s['num_state_slots']} slots, "
+              f"{s['n_state_free']} free / {s['n_state_live']} live "
+              f"after drain")
     if engine.share_prefix:
         print(f"prefix sharing: {engine.n_prefix_hits} hits, "
               f"{engine.n_shared_tokens} prompt tokens served from "

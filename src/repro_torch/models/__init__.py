@@ -7,8 +7,9 @@ from .transformer import TransformerLM
 
 def build_model(cfg: ModelConfig, device=None) -> TransformerLM:
     """Model for ``cfg`` on ``device`` (default ``cuda``; raises when no
-    GPU is present and no device was named).  Dense family only: the
-    others raise NotImplementedError naming their ROADMAP item."""
+    GPU is present and no device was named).  Dense, MoE (without MLA)
+    and hybrid Mamba+attention families; the others raise
+    NotImplementedError naming their ROADMAP item."""
     return TransformerLM(cfg, device=device)
 
 

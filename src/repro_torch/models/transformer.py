@@ -1,15 +1,19 @@
-"""Decoder-only transformer, dense family (port of the paged serving
-subset of ``repro/models/transformer.py``).
+"""Decoder-only model: dense, MoE and hybrid Mamba+attention families
+(port of the paged serving subset of ``repro/models/transformer.py``).
 
-A config expands to a *layer pattern*: a repeating ``period`` of
-sub-layer descriptors applied ``n_periods`` times.  Parameters keep the
-JAX package's layout — the periodic blocks' leaves are stacked on a
-leading layer axis (``params["blocks"]["s0"]["attn"]["wq"]`` is
-(n_layers, d, H*hd)) — so the weight bridge maps leaf to leaf, and a
-layer reads its weights as views of the stacked tensors.
+A config expands to a *layer pattern*: an optional unrolled ``prefix``
+of sub-layer descriptors plus a repeating ``period`` applied
+``n_periods`` times.  Parameters keep the JAX package's layout — the
+periodic blocks' leaves are stacked on a leading layer axis
+(``params["blocks"]["s0"]["attn"]["wq"]`` is (n_periods, d, H*hd)), each
+period descriptor ``s{j}`` with its own stacked leaves — so the weight
+bridge maps leaf to leaf, and a layer reads its weights as views of the
+stacked tensors.
 
-Sub-layer descriptor: (block, mlp) with block = "attn", mlp = "dense".
-The recurrent, MoE/MLA and encoder-decoder families are not ported yet.
+Sub-layer descriptor: (block, mlp) with block in {attn, mamba} and mlp
+in {dense, moe}.  Not ported yet, each raising with its ROADMAP item:
+MLA attention (A12), the xLSTM blocks (A10b), encoder-decoder and the
+vision-language family (A13).
 """
 from __future__ import annotations
 
@@ -18,49 +22,124 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from . import attention as A
+from . import mamba as M
 from .common import (dense_init, dtype_of, embed_init, make_norm,
                      resolve_device)
 from .config import ModelConfig
 from .mlp import mlp_forward, mlp_params
+from .moe import moe_forward, moe_params
 
 Desc = Tuple[str, str]
 
-_NOT_PORTED = {"moe": "A12 (MoE/MLA)", "hybrid": "A10 (recurrent families)",
-               "ssm": "A10 (recurrent families)",
-               "encdec": "A13 (encoder-decoder)",
-               "audio": "A13 (encoder-decoder)",
-               "vlm": "A13 (mrope/vision, dense engine)"}
+RECURRENT_BLOCKS = ("mamba",)
 
 
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
     """Returns (prefix_descs, period_descs, n_periods)."""
-    if cfg.family == "dense" and not cfg.n_enc_layers:
+    if cfg.n_enc_layers or cfg.family in ("encdec", "audio"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: encoder-decoder is not ported yet "
+            "(ROADMAP A13)")
+    if cfg.family == "dense":
         return [], [("attn", "dense")], cfg.n_layers
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP "
-        f"{_NOT_PORTED.get(cfg.family, 'A10-A13')})")
+    if cfg.family == "moe":
+        if cfg.mla is not None:
+            raise NotImplementedError(
+                "MLA attention is not ported yet (ROADMAP A12: MLA and the "
+                "dense engine it needs)")
+        nd = cfg.moe.first_dense_layers
+        return [("attn", "dense")] * nd, [("attn", "moe")], cfg.n_layers - nd
+    if cfg.family == "hybrid":
+        period = [("attn" if cfg.is_attn_layer(i) else "mamba",
+                   "moe" if cfg.is_moe_layer(i) else "dense")
+                  for i in range(cfg.attn_layer_period)]
+        assert cfg.n_layers % cfg.attn_layer_period == 0
+        return [], period, cfg.n_layers // cfg.attn_layer_period
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "family 'ssm': the xLSTM blocks (mlstm/slstm) are not ported yet "
+            "(ROADMAP A10b)")
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "family 'vlm': mrope and the vision stub are not ported yet "
+            "(ROADMAP A13, dense engine)")
+    raise ValueError(cfg.family)
 
 
-def _sublayer_params(gen, cfg: ModelConfig, dtype, dense_ff: int):
+def _sublayer_params(gen, cfg: ModelConfig, desc: Desc, dtype,
+                     dense_ff: int):
+    block, mlp = desc
     norm_params, _ = make_norm(cfg.norm)
-    return {"norm1": norm_params(cfg.d_model, dtype, gen.device),
-            "attn": A.gqa_params(gen, cfg, dtype),
-            "norm2": norm_params(cfg.d_model, dtype, gen.device),
-            "mlp": mlp_params(gen, cfg.d_model, dense_ff, cfg.mlp_act, dtype)}
+    p: Dict[str, Any] = {"norm1": norm_params(cfg.d_model, dtype, gen.device)}
+    if block == "attn":
+        p["attn"] = A.gqa_params(gen, cfg, dtype)
+    elif block == "mamba":
+        p["mamba"] = M.mamba_params(gen, cfg, dtype)
+    else:
+        raise ValueError(block)
+    p["norm2"] = norm_params(cfg.d_model, dtype, gen.device)
+    if mlp == "dense":
+        p["mlp"] = mlp_params(gen, cfg.d_model, dense_ff, cfg.mlp_act, dtype)
+    else:
+        p["moe"] = moe_params(gen, cfg, dtype)
+    return p
 
 
-def _paged_sublayer(p, cfg: ModelConfig, x, state, page_table, lengths,
-                    t_valid):
-    """Multi-token step through the paged serving cache: attention reads
-    and writes the shared block pool through the page table (in place),
-    then the dense MLP.  Same norm/residual order as the reference."""
+def _sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
+                    block_size: int, num_state_slots: int, dtype, device):
+    """Serving state of one sub-layer.  Attention: the shared (nb, bs,
+    KV, hd) K/V pools.  Mamba: one state slab per slot — conv window in
+    the cache type, SSM state in f32 — plus one spare *dump row* at index
+    ``num_state_slots`` that no slot owns: idle rows of a step scatter
+    their state there, which drops it without a boolean filter (and so
+    without a host sync).  The ``StateStore`` never hands it out."""
+    if desc[0] == "attn":
+        shape = (num_blocks, block_size, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    ns = num_state_slots + 1
+    return {"conv": torch.zeros((ns, cfg.ssm.d_conv - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((ns, cfg.d_inner, cfg.ssm.d_state),
+                               dtype=torch.float32, device=device)}
+
+
+def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
+                    lengths, t_valid, state_slots):
+    """Multi-token step through the paged serving cache, in place.
+
+    Attention blocks read/write the shared block pool through the page
+    table.  Mamba blocks read/write their rows of the per-slot state
+    slabs: gather by ``state_slots``, zero rows whose sequence starts
+    this step (``lengths == 0`` — a slab recycled from an evicted
+    request must never leak state into its successor), advance by up to
+    ``t_valid`` tokens, scatter back; idle rows (``t_valid == 0``) go to
+    the dump row, so a stale slab id on an evicted slot cannot clobber
+    the slab's new owner.  Same norm/residual order as the reference."""
+    block, mlp = desc
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
-    y, _, _ = A.gqa_paged_step(p["attn"], cfg, h, state["k"], state["v"],
-                               page_table, lengths, t_valid)
+    if block == "attn":
+        y, _, _ = A.gqa_paged_step(p["attn"], cfg, h, state["k"], state["v"],
+                                   page_table, lengths, t_valid)
+    else:
+        dump = state["ssm"].shape[0] - 1          # == num_state_slots
+        rows = state_slots.clamp(0, dump - 1).long()
+        fresh = (lengths == 0)[:, None, None]
+        conv = torch.where(fresh, 0, state["conv"][rows])
+        ssm = torch.where(fresh, 0, state["ssm"][rows])
+        y, (conv, ssm) = M.mamba_paged_step(p["mamba"], cfg, h, conv, ssm,
+                                            t_valid)
+        idx = torch.where(t_valid > 0, state_slots, dump).long()
+        state["conv"].index_copy_(0, idx, conv.to(state["conv"].dtype))
+        state["ssm"].index_copy_(0, idx, ssm.to(state["ssm"].dtype))
     x = x + y
     h = norm(p["norm2"], x)
-    return x + mlp_forward(p["mlp"], cfg.mlp_act, h)
+    if mlp == "dense":
+        return x + mlp_forward(p["mlp"], cfg.mlp_act, h)
+    y, _ = moe_forward(p["moe"], cfg, h)
+    return x + y
 
 
 def _index(tree, i: int):
@@ -75,6 +154,9 @@ class TransformerLM:
         self.cfg = cfg
         self.prefix_descs, self.period_descs, self.n_periods = layer_pattern(cfg)
         self.device = resolve_device(device)
+
+    def _descs(self) -> List[Desc]:
+        return list(self.prefix_descs) + list(self.period_descs)
 
     # -- params -------------------------------------------------------------
     def init(self, seed: int = 0) -> Dict[str, Any]:
@@ -92,9 +174,13 @@ class TransformerLM:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                            dtype=dtype)
+        if self.prefix_descs:
+            params["prefix"] = [
+                _sublayer_params(gen, cfg, d, dtype, cfg.prefix_d_ff or cfg.d_ff)
+                for d in self.prefix_descs]
         blocks = {}
-        for j in range(len(self.period_descs)):
-            layers = [_sublayer_params(gen, cfg, dtype, cfg.d_ff)
+        for j, desc in enumerate(self.period_descs):
+            layers = [_sublayer_params(gen, cfg, desc, dtype, cfg.d_ff)
                       for _ in range(self.n_periods)]
             blocks[f"s{j}"] = _stack(layers)
         params["blocks"] = blocks
@@ -113,68 +199,120 @@ class TransformerLM:
 
     # -- paged serving ------------------------------------------------------
     def supports_paged(self) -> bool:
-        """Block-paged serving covers GQA attention stacks without
-        sliding window or mrope."""
+        """Block-paged serving covers GQA attention and mamba blocks
+        (per-slot state slabs) without sliding window or mrope."""
         cfg = self.cfg
-        return (all(d[0] == "attn" for d in self.period_descs)
+        return (all(d[0] == "attn" or d[0] in RECURRENT_BLOCKS
+                    for d in self._descs())
                 and not cfg.sliding_window and cfg.rope != "mrope")
 
     def has_recurrent_state(self) -> bool:
-        """True if any layer carries per-sequence recurrent state (none
-        in the ported families)."""
-        return False
+        """True if any layer carries per-sequence recurrent state (the
+        serving engine must then provision a ``StateStore``)."""
+        return any(d[0] in RECURRENT_BLOCKS for d in self._descs())
 
     def supports_prefix_sharing(self) -> bool:
-        """KV pages are position-indexed and sharable."""
+        """KV pages are position-indexed and sharable; recurrent state
+        summarizes the *whole* prefix and cannot be mapped mid-sequence,
+        so any recurrent layer disables prefix sharing."""
         return self.supports_paged() and not self.has_recurrent_state()
 
+    def supports_speculative(self) -> bool:
+        """Rejected draft tokens roll back by arithmetic on ``lengths``;
+        a recurrent slab advanced through them cannot, so any recurrent
+        layer disables speculative mode."""
+        return self.supports_paged() and not self.has_recurrent_state()
+
+    def n_attn_layers(self) -> int:
+        """Attention layers in the stack (the ones that own K/V pools)."""
+        return (sum(d[0] == "attn" for d in self.prefix_descs)
+                + self.n_periods * sum(d[0] == "attn"
+                                       for d in self.period_descs))
+
     def init_paged_cache(self, num_blocks: int, block_size: int,
-                         dtype=torch.bfloat16, kv_dtype: Optional[str] = None):
-        """Shared block pool: every attention layer gets (nb, bs, KV, hd)
-        K/V stores with no batch axis — slots share the pool through page
-        tables — stacked on a leading layer axis like the params."""
+                         dtype=torch.bfloat16, num_state_slots: int = 0,
+                         kv_dtype: Optional[str] = None):
+        """Shared block pool + recurrent state slabs.
+
+        Every attention layer gets (nb, bs, KV, hd) K/V stores with no
+        batch axis — slots share the pool through page tables.  Every
+        mamba layer gets slabs with a leading ``num_state_slots + 1``
+        axis (the last row is the dump row, see ``_sublayer_state``);
+        the engine's ``StateStore`` hands out rows
+        ``0..num_state_slots-1``.  Periodic layers stack either kind on
+        a leading layer axis."""
         cfg = self.cfg
         if not self.supports_paged():
             raise NotImplementedError(
-                "paged cache needs a GQA attention stack without sliding "
-                "window/mrope")
+                "paged cache needs an attn/mamba stack without sliding "
+                f"window/mrope (family={cfg.family!r})")
+        if self.has_recurrent_state() and num_state_slots < 1:
+            raise ValueError(
+                f"family {cfg.family!r} has recurrent layers: "
+                "init_paged_cache needs num_state_slots >= 1")
         if kv_dtype is not None:
             raise NotImplementedError(
                 f"kv_dtype={kv_dtype!r}: int8 KV is not ported yet (ROADMAP A9)")
-        shape = (self.n_periods, num_blocks, block_size, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"blocks": {
-            f"s{j}": {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                      "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-            for j in range(len(self.period_descs))}}
+
+        def store(desc, lead=()):
+            one = _sublayer_state(cfg, desc, num_blocks, block_size,
+                                  num_state_slots, dtype, self.device)
+            return {k: v.expand(lead + tuple(v.shape)).contiguous()
+                    for k, v in one.items()}
+
+        cache: Dict[str, Any] = {}
+        if self.prefix_descs:
+            cache["prefix"] = [store(d) for d in self.prefix_descs]
+        cache["blocks"] = {f"s{j}": store(d, (self.n_periods,))
+                           for j, d in enumerate(self.period_descs)}
+        return cache
 
     def copy_paged_block(self, cache, src: int, dst: int):
         """COW fork: duplicate physical block ``src`` into ``dst`` across
-        every layer's K/V store, in place."""
-        for st in cache["blocks"].values():
-            for a in st.values():
-                a[:, dst] = a[:, src]
+        every attention layer's K/V store, in place.  Recurrent slabs are
+        never shared (prefix sharing is off for recurrent stacks) and
+        are left untouched."""
+        for d, st in zip(self.prefix_descs, cache.get("prefix", [])):
+            if d[0] == "attn":
+                for a in st.values():
+                    a[dst] = a[src]
+        for j, d in enumerate(self.period_descs):
+            if d[0] == "attn":
+                for a in cache["blocks"][f"s{j}"].values():
+                    a[:, dst] = a[:, src]
         return cache
 
     def paged_step(self, params, cache, tokens, page_table, lengths, t_valid,
-                   *, all_logits: bool = False):
+                   state_slots=None, *, all_logits: bool = False):
         """Advance each slot by up to T tokens through the paged cache.
 
         tokens: (B,T) int32; page_table: (B,P) int32; lengths: (B,)
         tokens already cached per slot; t_valid: (B,) in [0,T] tokens of
-        this call that are real per slot.  Covers decode (T=1) and
-        chunked prefill (T=chunk) uniformly; slots may mix phases.  The
-        cache is updated in place.  Returns (logits (B,V) at each slot's
-        last valid token, cache) — or (logits (B,T,V) at every position,
-        cache) under ``all_logits`` (rows past ``t_valid`` are garbage).
+        this call that are real per slot; state_slots: (B,) int32 slab
+        of each slot's recurrent state (default: row ``b`` owns slab
+        ``b``; the engine passes its ``StateStore`` assignment).  Covers
+        decode (T=1) and chunked prefill (T=chunk) uniformly; slots may
+        mix phases.  The cache is updated in place.  Returns (logits
+        (B,V) at each slot's last valid token, cache) — or (logits
+        (B,T,V) at every position, cache) under ``all_logits`` (rows past
+        ``t_valid`` are garbage).
         """
+        if state_slots is None:
+            state_slots = torch.arange(tokens.shape[0], dtype=torch.int32,
+                                       device=tokens.device)
+        cfg = self.cfg
         x = self._embed(params, tokens)
+        for i, desc in enumerate(self.prefix_descs):
+            x = _paged_sublayer(params["prefix"][i], cfg, desc, x,
+                                cache["prefix"][i], page_table, lengths,
+                                t_valid, state_slots)
         for i in range(self.n_periods):
-            for j in range(len(self.period_descs)):
+            for j, desc in enumerate(self.period_descs):
                 x = _paged_sublayer(_index(params["blocks"][f"s{j}"], i),
-                                    self.cfg, x,
+                                    cfg, desc, x,
                                     _index(cache["blocks"][f"s{j}"], i),
-                                    page_table, lengths, t_valid)
+                                    page_table, lengths, t_valid,
+                                    state_slots)
         if all_logits:
             return self._head(params, x), cache
         if tokens.shape[1] == 1:

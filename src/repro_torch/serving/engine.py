@@ -26,6 +26,15 @@ refcount exceeds one, the engine forks it (private copy, page-table
 swap).  The last matched prompt token is always re-run through the
 model so the joiner's first sampled token has logits to come from.
 
+**Recurrent state slabs** — a model with mamba layers keeps each
+sequence's state in fixed-size slabs beside the block pool, handed out
+by a ``StateStore`` (``num_state_slots``, default one per batch slot).
+Admission takes a slot, its block reservation and a slab all-or-nothing:
+a request with no free slab stays queued.  Eviction frees the slab; the
+model blanks a recycled slab on its new owner's first step.  A slab
+summarizes its whole prefix, so such models never share prefixes
+(``share_prefix=True`` raises, auto resolves to off).
+
 **Decode loop** — per-step slot state (page tables, lengths, last
 tokens, step counters, done flags) lives in device tensors
 (``DeviceSlotState``) that the megasteps replace after every call; the
@@ -40,7 +49,7 @@ hand-written CUDA kernels on a CUDA device (``models/attention.py``).
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: seeded sampling (``temperature > 0``), int8 KV, speculative
 decoding, the dense (``paged=False``) mode, ``mesh=``, the batch lane and
-preemption, fault plans, recurrent families.
+preemption, fault plans.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ import torch
 
 from ..models.common import dtype_of, resolve_device
 from .kv_cache import (ROOT_DIGEST, BlockAllocator, CacheFullError,
-                       DeviceSlotState, chain_digest)
+                       DeviceSlotState, StateStore, chain_digest)
 from .scheduler import SchedRequest, Scheduler
 from .steps import make_paged_burst, make_paged_mixed_step
 
@@ -104,7 +113,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  paged: Optional[bool] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
-                 share_prefix: Optional[bool] = None, burst: int = 1,
+                 share_prefix: Optional[bool] = None,
+                 num_state_slots: Optional[int] = None, burst: int = 1,
                  mesh=None, retain_cap: Optional[int] = None,
                  retain_ttl_s: Optional[float] = None, spec_k: int = 0,
                  kv_dtype: Optional[str] = None, fault_plan=None,
@@ -136,10 +146,11 @@ class ServeEngine:
             raise NotImplementedError(
                 "paged=False: the dense engine mode is not ported yet "
                 "(ROADMAP A7d)")
-        if not model.supports_paged() or model.has_recurrent_state():
+        if not model.supports_paged():
             raise NotImplementedError(
                 f"{type(model).__name__} ({model.cfg.family}) cannot serve "
-                "paged in the port yet (ROADMAP A10)")
+                "paged: sliding window and mrope need the dense engine "
+                "(ROADMAP A7d)")
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.device = resolve_device(device)
@@ -177,8 +188,19 @@ class ServeEngine:
         self._step_lock = threading.Lock()
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
-        self.share_prefix = model.supports_prefix_sharing() \
-            if share_prefix is None else bool(share_prefix)
+        # recurrent state slabs disable prefix sharing: a slab summarizes
+        # the whole prefix, so resident KV pages alone cannot seed a joiner
+        sharable = model.supports_prefix_sharing()
+        if share_prefix and not sharable:
+            raise ValueError(
+                f"share_prefix=True but {type(model).__name__} "
+                f"(family={model.cfg.family!r}) "
+                "has recurrent layers whose state cannot be shared across "
+                "requests: a mamba/xLSTM state slab summarizes its entire "
+                "prefix, so mapping resident KV pages cannot reconstruct "
+                "it.  Run with share_prefix=False (or leave it on auto).")
+        self.share_prefix = sharable if share_prefix is None \
+            else bool(share_prefix)
         self._pages_per_slot = -(-capacity // block_size)
         if num_blocks is None:
             num_blocks = batch_size * self._pages_per_slot
@@ -187,7 +209,14 @@ class ServeEngine:
                                         retain_ttl_s=retain_ttl_s)
         self._page_table = np.zeros((batch_size, self._pages_per_slot),
                                     np.int32)
+        # recurrent families: per-slot state slabs beside the block pool
+        needs_state = model.has_recurrent_state()
+        self.num_state_slots = (batch_size if num_state_slots is None
+                                else num_state_slots) if needs_state else 0
+        self.state_store = StateStore(self.num_state_slots) \
+            if needs_state else None
         self._lengths = np.zeros((batch_size,), np.int32)
+        self._state_slots = np.zeros((batch_size,), np.int32)
         self._reserved = 0            # lazily-claimable blocks promised out
         self._paged_cache = None
         self._mixed_fn = make_paged_mixed_step(
@@ -269,16 +298,17 @@ class ServeEngine:
 
     def kv_bytes_per_block(self) -> int:
         """Device bytes one physical block costs across every attention
-        layer's K and V pools."""
+        layer's K and V pools (state slabs, sized by slots, not blocks,
+        are not counted)."""
         cfg = self.model.cfg
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
-        return (2 * self.model.n_periods * self.block_size
+        return (2 * self.model.n_attn_layers() * self.block_size
                 * cfg.n_kv_heads * cfg.resolved_head_dim * itemsize)
 
     def pool_stats(self) -> Dict[str, Any]:
-        """Block-pool occupancy incl. shared vs private split, plus the
-        pool footprint: ``kv_dtype``, ``bytes_per_block`` and
-        ``pool_bytes``."""
+        """Block-pool occupancy incl. shared vs private split, plus
+        state-slab occupancy for recurrent families, plus the pool
+        footprint: ``kv_dtype``, ``bytes_per_block`` and ``pool_bytes``."""
         stats: Dict[str, Any] = self.allocator.stats()
         stats["n_reserved"] = self._reserved
         stats["kv_dtype"] = {torch.float32: "f32",
@@ -286,6 +316,11 @@ class ServeEngine:
         stats["bytes_per_block"] = self.kv_bytes_per_block()
         stats["pool_bytes"] = \
             stats["bytes_per_block"] * self.allocator.num_blocks
+        if self.state_store is not None:
+            s = self.state_store.stats()
+            stats["num_state_slots"] = s["num_slots"]
+            stats["n_state_free"] = s["n_free"]
+            stats["n_state_live"] = s["n_live"]
         return stats
 
     def loop_stats(self) -> Dict[str, int]:
@@ -439,7 +474,7 @@ class ServeEngine:
                          and int(self._lengths[i]) < self.capacity)
         return {"tokens": tokens, "rids": rids, "steps": steps,
                 "active": active, "page_table": self._page_table,
-                "lengths": self._lengths}
+                "lengths": self._lengths, "state_slots": self._state_slots}
 
     def _drain_burst(self, tok_buf, val_buf, *, k: int) -> None:
         """One host sync per burst: fetch the token ring buffer, append
@@ -673,7 +708,9 @@ class ServeEngine:
                 except CacheFullError:
                     continue           # the candidate stays queued
                 if fit is None:
-                    if self.allocator.n_live == 0 and self._reserved == 0:
+                    if self.allocator.n_live == 0 and self._reserved == 0 \
+                            and (self.state_store is None
+                                 or self.state_store.n_live == 0):
                         # does not fit an *empty* pool: it never will —
                         # fail it instead of wedging the queue forever
                         self.scheduler.remove(req)
@@ -685,7 +722,7 @@ class ServeEngine:
                     continue           # size-aware: scan past this one
                 self.scheduler.remove(req)
                 joins.append(fit)
-        for slot_i, req, blocks, reserve, matched, digests in joins:
+        for slot_i, req, blocks, reserve, matched, digests, slab in joins:
             if mid_decode:
                 self.n_joins += 1
             if matched:
@@ -697,6 +734,7 @@ class ServeEngine:
             self._page_table[slot_i, :] = 0
             self._page_table[slot_i, :len(blocks)] = blocks
             self._lengths[slot_i] = matched
+            self._state_slots[slot_i] = slab
         if joins:
             self._dev.mark_dirty()
 
@@ -716,6 +754,8 @@ class ServeEngine:
         n_resurrect = sum(1 for b in mapped if self.allocator.ref(b) == 0)
         if needed + n_resurrect > self.allocator.n_free - self._reserved:
             return None
+        if self.state_store is not None and self.state_store.n_free == 0:
+            return None                # state slabs exhausted: stay queued
         # share (and resurrect) the mapped prefix *before* acquiring
         # fresh blocks — acquire recycles retained blocks and must never
         # recycle one this very admission is about to map
@@ -727,14 +767,20 @@ class ServeEngine:
             self.allocator.release(mapped)
             return None
         self._reserved += needed - n_fresh
+        slab = 0
+        if self.state_store is not None:
+            slab = self.state_store.admit(req.rid)
+            # the slab's previous state is zeroed by the model's first
+            # step for this slot (lengths == 0 blanking)
+            self.state_store.mark_reset(slab)
         return (free.pop(0), req, mapped + fresh, needed - n_fresh,
-                matched, digests)
+                matched, digests, slab)
 
     def _ensure_paged_cache(self) -> None:
         if self._paged_cache is None:
             self._paged_cache = self.model.init_paged_cache(
                 self.allocator.num_blocks, self.block_size,
-                dtype=self.cache_dtype)
+                dtype=self.cache_dtype, num_state_slots=self.num_state_slots)
 
     def _extend_blocks(self, slot_i: int, slot: _PagedSlot,
                        n_tokens: int) -> None:
@@ -822,6 +868,8 @@ class ServeEngine:
             # registered blocks at refcount 0 are *retained* — the next
             # identical prompt maps them instead of re-prefilling
             self.allocator.release(slot.blocks)
+            if self.state_store is not None:
+                self.state_store.evict(slot.rid)
             self._reserved -= slot.reserve_left
             self._page_table[i, :] = 0
             self._lengths[i] = 0

@@ -24,6 +24,8 @@ blocks (cf. vLLM):
     valid KV.
   * ``DeviceSlotState`` — the device-resident copy of the engine's
     per-slot arrays and its coherence protocol with the host mirror.
+  * ``StateStore`` — the recurrent families' per-request state slabs
+    (mamba conv/ssm state): exclusive ownership, no sharing.
 
 The page primitives (``paged_scatter`` / ``paged_gather``) live with
 the attention math in ``models/attention.py``.
@@ -48,13 +50,14 @@ from __future__ import annotations
 import collections
 import hashlib
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
 
 __all__ = ["BlockAllocator", "CacheFullError", "DeviceSlotState",
-           "ROOT_DIGEST", "chain_digest"]
+           "ROOT_DIGEST", "StateStore", "chain_digest"]
 
 # Chain root: the digest "before" a sequence's first page.
 ROOT_DIGEST = hashlib.sha256(b"repro.kv_cache.root").digest()
@@ -115,6 +118,103 @@ class DeviceSlotState:
             self._dirty = False
             self.n_uploads += 1
         return self._dev
+
+
+class StateStore:
+    """Fixed-capacity pool of recurrent-state slabs, keyed by request.
+
+    Recurrent layers (mamba conv/ssm, xLSTM matrix/scalar memory) carry
+    constant-size per-sequence state that page tables cannot address: a
+    slab is a running summary of the *entire* prefix, so — unlike KV
+    pages — it can never be shared between slots or grown lazily.  The
+    store therefore mirrors only ``BlockAllocator``'s *lifecycle*
+    semantics, not its refcounting: ``admit`` hands a request exclusive
+    ownership of one slab (all-or-nothing — a full store raises
+    ``CacheFullError`` with the store unchanged, so the engine keeps the
+    request queued), ``evict`` frees the slab on eos.
+
+    The device arrays live in the model's paged cache (leading
+    ``num_slots`` axis per recurrent layer leaf); this class is the
+    host-side source of truth for who owns which slab and which slabs
+    still hold a *previous* occupant's state.  A recycled slab is
+    ``stale`` until its new owner's first step zeroes it (the model's
+    paged step blanks rows whose ``lengths == 0``); the engine marks
+    that handoff via ``mark_reset`` at admission.  The property suite
+    checks exactly these invariants: no slab is ever owned twice, no
+    slab leaks, and stale state is never handed to a new owner
+    unreset.
+    """
+
+    def __init__(self, num_slots: int):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        self.num_slots = int(num_slots)
+        # FIFO reuse keeps slab placement deterministic for tests
+        self._free: collections.deque = collections.deque(range(num_slots))
+        self._slab_of: Dict[int, int] = {}       # request id -> slab
+        self._owner: Dict[int, int] = {}         # slab -> request id
+        self._stale: Set[int] = set()            # freed slabs, state resident
+
+    # -- occupancy ----------------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_live(self) -> int:
+        return len(self._owner)
+
+    def slab_of(self, rid: int) -> Optional[int]:
+        """Slab owned by request ``rid`` (None if not admitted)."""
+        return self._slab_of.get(rid)
+
+    def owner_of(self, slab: int) -> Optional[int]:
+        """Request owning ``slab`` (None if free)."""
+        return self._owner.get(slab)
+
+    def is_stale(self, slab: int) -> bool:
+        """True while a previous occupant's state is still resident."""
+        return slab in self._stale
+
+    def stats(self) -> Dict[str, int]:
+        return {"num_slots": self.num_slots, "n_free": self.n_free,
+                "n_live": self.n_live}
+
+    # -- lifecycle ----------------------------------------------------------
+    def admit(self, rid: int) -> int:
+        """Give request ``rid`` exclusive ownership of one slab,
+        all-or-nothing."""
+        if rid in self._slab_of:
+            raise ValueError(f"request {rid} already holds slab "
+                             f"{self._slab_of[rid]}")
+        if not self._free:
+            raise CacheFullError(
+                f"no state slab free (0/{self.num_slots}) for request {rid}")
+        slab = self._free.popleft()
+        self._slab_of[rid] = slab
+        self._owner[slab] = rid
+        return slab
+
+    def mark_reset(self, slab: int) -> None:
+        """Record that ``slab``'s resident state has been (or is about
+        to be, on the owner's first step) zeroed for its new owner."""
+        if slab not in self._owner:
+            raise ValueError(f"cannot reset free slab {slab}")
+        self._stale.discard(slab)
+
+    def evict(self, rid: int) -> int:
+        """Free request ``rid``'s slab (eos / truncation).  The slab
+        returns to the pool but keeps the evictee's state until the next
+        owner resets it — hence it becomes ``stale``."""
+        slab = self._slab_of.pop(rid, None)
+        if slab is None:
+            raise ValueError(
+                f"request {rid} holds no state slab (double evict?)")
+        del self._owner[slab]
+        self._stale.add(slab)
+        self._free.append(slab)
+        return slab
+
 
 
 class BlockAllocator:

@@ -20,6 +20,7 @@ Slot-state dict contract (all tensors on the engine's device):
   ``active (B,) bool``       slot is decoding (not idle / prefilling / done)
   ``page_table (B,P) int32`` logical page -> physical block per slot
   ``lengths (B,) int32``     tokens cached per slot (true position)
+  ``state_slots (B,) int32`` recurrent state slab per slot
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ def make_paged_mixed_step(model, *, eos_id, max_new, capacity):
 
     def mixed_step(params, cache, st, tokens, t_valid, emit):
         logits, cache = model.paged_step(
-            params, cache, tokens, st["page_table"], st["lengths"], t_valid)
+            params, cache, tokens, st["page_table"], st["lengths"], t_valid,
+            st["state_slots"])
         nxt = greedy_sample(logits)
         st = _advance(st, nxt, emit, t_valid, eos=eos, max_new=max_new,
                       capacity=capacity)
@@ -90,7 +92,7 @@ def make_paged_burst(model, *, eos_id, max_new, capacity, k_static: int):
             t_valid = emit.to(torch.int32)
             logits, cache = model.paged_step(
                 params, cache, st["tokens"][:, None], st["page_table"],
-                st["lengths"], t_valid)
+                st["lengths"], t_valid, st["state_slots"])
             nxt = greedy_sample(logits)
             st = _advance(st, nxt, emit, t_valid, eos=eos, max_new=max_new,
                           capacity=capacity)

@@ -108,13 +108,19 @@ def test_unsupported_lane_family_and_listen_raise(pair):
     eng = ServeEngine(tm, tp, device="cpu")
     with pytest.raises(NotImplementedError, match="A7c"):
         eng.submit(np.arange(4, dtype=np.int32), lane="batch")
-    for fam, item in (("hybrid", "A10"), ("ssm", "A10"), ("moe", "A12")):
+    from repro_torch.models.config import MLAConfig, MoEConfig
+    mla = TINY_SERVE.replace(family="moe", mla=MLAConfig(),
+                             moe=MoEConfig(n_experts=4, d_expert=32))
+    for cfg, item in ((TINY_SERVE.replace(family="ssm"), "A10b"),
+                      (mla, "A12"), (TINY_SERVE.replace(family="vlm"), "A13"),
+                      (TINY_SERVE.replace(family="encdec", n_enc_layers=2),
+                       "A13")):
         with pytest.raises(NotImplementedError, match=item):
-            build_model(TINY_SERVE.replace(family=fam), device="cpu")
+            build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="A7a"):
         tserve.main(["--smoke", "--device", "cpu", "--listen", "0"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        tserve.main(["--device", "cpu", "--family", "mamba"])
+    with pytest.raises(NotImplementedError, match="A10b"):
+        tserve.main(["--device", "cpu", "--family", "xlstm"])
 
 
 @pytest.mark.parametrize("mode", [[], ["--direct"]])

@@ -18,6 +18,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20 and files[-1].exists()
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"models/mamba.py", "models/moe.py", "kernels/ssm_scan/ops.py",
+            "kernels/moe_gating/ops.py"} <= names
     return files
 
 

@@ -198,3 +198,31 @@ def test_prefill_kernel_matches_plain(cuda, B, qdt, kvdt):
     assert fops.KERNEL.launches == n0 + 1
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _TOL[kvdt], err
+
+
+_JAMBA = dict(H=32, KV=8, hd=128, bs=16, P=40, max_len=600, min_len=16)
+
+
+@pytest.mark.parametrize("T", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_at_jamba_heads(cuda, T, dtype):
+    """Jamba's attention geometry (32 query / 8 KV heads, head_dim 128):
+    both kernels stage ~70 KB of dynamic shared memory, above the 48 KB
+    default, which the wrappers opt into."""
+    c = _case(T + 5, B=8, T=T, **_JAMBA)
+    lengths = c["lengths"] - (T > 1)
+    q = c["q"][:, 0] if T == 1 else c["q"]
+    args = (_t(q, cuda, dtype), _t(c["k"], cuda, dtype),
+            _t(c["v"], cuda, dtype), _t(c["pt"], cuda), _t(lengths, cuda))
+    ops = dops if T == 1 else fops
+    kern = dops.paged_decode_attention if T == 1 else \
+        fops.paged_prefill_attention
+    plain = dops.paged_decode_attention_plain if T == 1 else \
+        fops.paged_prefill_attention_plain
+    n0 = ops.KERNEL.launches
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert ops.KERNEL.launches == n0 + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[dtype], err
