@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
-  2. build     — compile the four hand-written CUDA kernels (one nvcc
+  2. build     — compile the six hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout.
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
@@ -16,12 +16,20 @@ result line):
                  selective scan (B5) at batch 8, d_inner 8192, d_state 16,
                  T = 1 and 32, cold and with carried state and t_valid; the
                  top-k gating (B6) at 8 and 256 tokens x 16 experts, top-2,
-                 and a tie-laden case.
-  4. engine    — two small f32 models serve the same prompts on the GPU
+                 and a tie-laden case; the dense engine's contiguous flash
+                 prefill (B2) at batch 8, S = 512, causal and with a
+                 128-token window, f32 and bf16, and its dense decode (B4)
+                 at batch 8, a 584-slot cache, smollm and jamba heads, a
+                 partly filled cache and a full (wrapped) ring.
+  4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
-                 greedy tokens must be equal: 2 layers at smollm-360m's
-                 head geometry (K1, K2), and one jamba period at smoke
-                 width (8 layers, 4 experts; K1, K2, B5, B6).
+                 greedy tokens must be equal.  Paged: 2 layers at
+                 smollm-360m's head geometry (K1, K2), and one jamba
+                 period at smoke width (8 layers, 4 experts; K1, K2, B5,
+                 B6).  Dense (paged=False): the same smollm-shaped model
+                 (B2, B4), with a 48-token sliding window whose ring wraps
+                 (B2, B4), and the smoke jamba (B2, B4, B5, B6); the paged
+                 kernels must not launch there.
   5. main path — ``repro_torch.launch.serve`` serves smollm-360m at full
                  width (random weights from seed 0, bf16 KV) through the
                  stream pipeline; K1 and K2 must have launched.  Then a
@@ -31,11 +39,20 @@ result line):
                  (8 layers: 1 attention + 7 mamba, 4 MoE with 16 experts
                  top-2; bf16, random weights from seed 0 made on the
                  card), 16 requests of 512 prompt tokens, 32 new tokens,
-                 batch 8; all four kernels must have launched.  Then a
-                 profiler trace of the same engine.
-The line before the last is a JSON object with one entry per kernel
-(K1/K2 launches from phase 5, B5/B6 launches from phase 6); the last
-line is ``{"ok": true, "device": {...}}``.
+                 batch 8; the four paged-path kernels must have launched
+                 and the dense ones must not.
+                 Then a profiler trace of the same engine.
+  7. dense     — ``repro_torch.launch.serve --paged off`` serves
+                 smollm-360m at full width and depth through the stream
+                 pipeline on the dense engine (bf16 cache, batch 8,
+                 capacity 584 as the launcher derives it, 16 requests of
+                 up to 512 prompt tokens, 64 new, burst 8); B2
+                 (contiguous) and B4 must have launched and K1/K2 must
+                 not.  Then a profiler trace.
+Two lines before the last is a JSON object with one entry per kernel
+(K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
+phase 7); then the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -57,17 +74,27 @@ TOL_REASON = ("bf16: the plain version rounds q*scale, the scores and the "
               "normalized probabilities to bf16 as the reference does; the "
               "kernel keeps scores in f32 and rounds the unnormalized "
               "probabilities; outputs are bf16 (8 significant bits)")
+# bf16 tolerances of the dense engine's kernels, each just above the
+# largest error seen on the card at these inputs: B2's outputs reach
+# |out| ~ 3, where one bf16 ulp is 1.56e-2, and it differs by one ulp;
+# B4's, averaged over 544+ keys, stay below 0.5, where an ulp is
+# 1.95e-3, and it differs by up to two
+DENSE_BF16_TOL = {"flash_attention": 2e-2, "decode_attention": 6e-3}
 SCAN_TOL = 1e-4
 SCAN_TOL_REASON = ("scan outputs are f32 of magnitude ~10: the kernel's "
                    "expf and fused multiply-adds against torch's exp and "
                    "separate products, and its sequential d_state sum "
                    "against einsum's")
+PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+DENSE_KERNELS = ("flash_attention", "decode_attention")
 SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
 JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
 BS, P, MAX_LEN = 16, 40, 600       # block size, pages per slot, lengths
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention/kernel.py:195",
     "paged_prefill_attention": "src/repro/kernels/flash_attention/kernel.py:67",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:67",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:240",
     "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
     "gating_topk": "src/repro/kernels/moe_gating/kernel.py:35"}
 
@@ -387,6 +414,119 @@ def phase_gating(timer: Timer):
     return served
 
 
+def _dense_qkv(seed, B, S, T, heads, dtype):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    return tuple(torch.randn(shape, generator=g).to("cuda", dtype)
+                 for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+
+
+def _sdpa(q, k, v, G, mask=None, causal=False):
+    """One SDPA call on (B, S, H, hd) q and K/V expanded to the query
+    heads beforehand (the yardstick; the port never calls it)."""
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kh, vh, attn_mask=mask, is_causal=causal)
+
+
+def phase_dense_kernels(timer: Timer):
+    """The dense engine's kernels at its served shapes: the contiguous
+    flash prefill (B2) at B=8, S=T=512 and the dense decode (B4) at B=8
+    over a 584-slot cache, the capacity phase 7 serves at."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    served = {}
+    B, S = 8, 512
+    heads = SMOLLM_HEADS
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (0, 128):
+            q, k, v = _dense_qkv(S + window, B, S, S, heads, dtype)
+            n0 = fops.FLASH_KERNEL.launches
+            out = fops.flash_attention(q, k, v, causal=True,
+                                       sliding_window=window)
+            torch.cuda.synchronize()
+            check(fops.FLASH_KERNEL.launches == n0 + 1,
+                  "flash_attention did not launch")
+            want = fops.flash_attention_plain(q, k, v, causal=True,
+                                              sliding_window=window)
+            check(torch.isfinite(out.float()).all().item(),
+                  "flash_attention: non-finite output")
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL[dtype] if dtype == torch.float32 \
+                else DENSE_BF16_TOL["flash_attention"]
+            tag = (f"flash_attention (contiguous) smollm heads 15/5 hd 64 "
+                   f"B={B} S=T={S} causal"
+                   + (f" window {window}" if window else "")
+                   + f" {str(dtype)[6:]}")
+            check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+            pos = torch.arange(S, device="cuda")
+            visible = (pos[None, :] <= pos[:, None])
+            if window:
+                visible &= pos[None, :] > pos[:, None] - window
+            # q, k, v read once; out (q's shape and type) written once
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            ops = 4 * B * H * hd * int(visible.sum())
+            library = _sdpa(q, k, v, H // KV, mask=None if not window
+                            else visible, causal=not window)
+            row = _time_row(timer, lambda *a: fops.flash_attention(
+                                *a, causal=True, sliding_window=window),
+                            lambda *a: fops.flash_attention_plain(
+                                *a, causal=True, sliding_window=window),
+                            (q, k, v), library,
+                            _bound(n_bytes, ops, dtype))
+            log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+                + _fmt(row))
+            if dtype == torch.bfloat16 and not window:
+                served["flash_attention"] = dict(max_abs_err=err, **row)
+    C = 584
+    for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        for n_valid, fill in ((544, "partly filled"), (C, "wrapped ring")):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _dense_qkv(n_valid + hd, B, 1, C, heads, dtype)
+                q = q[:, 0].contiguous()
+                n0 = dops.DENSE_KERNEL.launches
+                out = dops.decode_attention(q, k, v, n_valid)
+                torch.cuda.synchronize()
+                check(dops.DENSE_KERNEL.launches == n0 + 1,
+                      "decode_attention did not launch")
+                want = dops.decode_attention_plain(q, k, v, n_valid)
+                check(torch.isfinite(out.float()).all().item(),
+                      "decode_attention: non-finite output")
+                err = (out.float() - want.float()).abs().max().item()
+                tol = TOL[dtype] if dtype == torch.float32 \
+                    else DENSE_BF16_TOL["decode_attention"]
+                tag = (f"decode_attention (dense) {geo} heads {H}/{KV} hd "
+                       f"{hd} B={B} C={C} n_valid={n_valid} ({fill}) "
+                       f"{str(dtype)[6:]}")
+                check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+                es = k.element_size()
+                n_bytes = (q.numel() * (q.element_size() + es)
+                           + 2 * B * n_valid * KV * hd * es)
+                mask = (torch.arange(C, device="cuda") < n_valid)
+                library = _sdpa(q[:, None], k, v, H // KV,
+                                mask=mask[None, None, None, :])
+                row = _time_row(timer, dops.decode_attention,
+                                dops.decode_attention_plain,
+                                (q, k, v, n_valid), library,
+                                _bound(n_bytes, 4 * B * H * hd * n_valid,
+                                       dtype))
+                log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+                    + _fmt(row))
+                if geo == "smollm" and n_valid == 544 \
+                        and dtype == torch.bfloat16:
+                    served["decode_attention"] = dict(max_abs_err=err, **row)
+    log(f"[kernels] dense attention tolerance: f32 1e-5; bf16 "
+        f"{DENSE_BF16_TOL} (the kernels round scores and probabilities "
+        f"where the plain version does, but the unnormalized probabilities "
+        f"of an online softmax; outputs are bf16)")
+    return served
+
+
 # -- phase 4 --------------------------------------------------------------------
 
 def phase_engine(kernels) -> None:
@@ -394,17 +534,24 @@ def phase_engine(kernels) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
+    smollm2 = get_config("smollm-360m").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    jamba = get_config("jamba-v0.1-52b", smoke=True)
+    scan_gate = ("selective_scan", "gating_topk")
     cases = [
-        ("2-layer f32 smollm heads",
-         get_config("smollm-360m").replace(
-             n_layers=2, param_dtype="float32", compute_dtype="float32"),
-         ("paged_decode_attention", "paged_prefill_attention")),
-        ("jamba-v0.1 smoke (8 layers, 4 experts, f32)",
-         get_config("jamba-v0.1-52b", smoke=True),
-         tuple(k.name for k in kernels))]
-    kw = dict(batch_size=4, capacity=128, max_new_tokens=8,
-              prefill_chunk=32, block_size=16, burst=4)
-    for tag, cfg, path in cases:
+        ("paged 2-layer f32 smollm heads", smollm2, True, PAGED_KERNELS),
+        ("paged jamba-v0.1 smoke (8 layers, 4 experts, f32)", jamba, True,
+         PAGED_KERNELS + scan_gate),
+        ("dense 2-layer f32 smollm heads", smollm2, False, DENSE_KERNELS),
+        ("dense 2-layer f32 smollm heads, 48-token window (ring wraps)",
+         smollm2.replace(sliding_window=48), False, DENSE_KERNELS),
+        ("dense jamba-v0.1 smoke (8 layers, 4 experts, f32)", jamba, False,
+         DENSE_KERNELS + scan_gate)]
+    for tag, cfg, paged, path in cases:
+        kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4,
+                  paged=paged)
+        if paged:
+            kw.update(prefill_chunk=32, block_size=16)
         rng = np.random.default_rng(4)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in (37, 5, 70, 18, 33, 50)]
@@ -426,6 +573,9 @@ def phase_engine(kernels) -> None:
                   f"cuda {b.tokens}")
         check(all(launches[n] > 0 for n in path),
               f"{tag}: engine run missed a kernel: {launches}")
+        other = DENSE_KERNELS if paged else PAGED_KERNELS
+        check(all(launches[n] == 0 for n in other),
+              f"{tag}: the other mode's kernels launched: {launches}")
         log(f"[engine] {tag}: {len(prompts)} requests, greedy tokens on "
             f"cuda == cpu ({sum(len(r.tokens) for r in got)} tokens); "
             f"launches {launches}")
@@ -449,9 +599,10 @@ def phase_main_path(kernels):
     # (a short micro-batch is padded to its power-of-2 bucket with zero
     # rows, which the engine serves too)
     check(eng.n_evictions >= 16, f"{eng.n_evictions} requests finished")
-    check(launches["paged_decode_attention"] > 0
-          and launches["paged_prefill_attention"] > 0,
+    check(all(launches[n] > 0 for n in PAGED_KERNELS),
           f"main path missed a kernel: {launches}")
+    check(all(launches[n] == 0 for n in DENSE_KERNELS),
+          f"the paged path launched a dense kernel: {launches}")
     decoded = eng.n_device_steps
     log(f"[main] smollm-360m full width (32 layers, d 960, 15/5 heads, "
         f"vocab 49152, bf16): {out['total_tokens'] / out['wall_s']:.1f} tok/s "
@@ -475,7 +626,7 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.model.cfg.vocab_size,
                             prompt_len).astype(np.int32) for _ in range(n)]
-    steps0 = eng.n_device_steps
+    steps0, waves0 = eng.n_device_steps, eng.n_prefills
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = eng.serve(prompts, timeout_s=600)
@@ -488,9 +639,11 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "the profiler recorded no device time")
     steps = eng.n_device_steps - steps0
+    waves = "" if eng.paged else \
+        f" + {eng.n_prefills - waves0} prefill waves"
     log(f"[{tag}] trace: {n} x {prompt_len}-token prompts, "
         f"{eng.max_new_tokens} new tokens, direct: wall "
-        f"{wall * 1e3:.1f} ms over {steps} device steps "
+        f"{wall * 1e3:.1f} ms over {steps} device steps{waves} "
         f"({wall * 1e3 / steps:.2f} ms/step), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / wall:.1f}% "
         f"(idle {100 - busy_us / 1e4 / wall:.1f}%)")
@@ -539,8 +692,11 @@ def phase_jamba(kernels):
           f"jamba: {[(r.status, len(r.tokens)) for r in res]}")
     check(all(int(r.tokens.min()) >= 0 and int(r.tokens.max()) < cfg.vocab_size
               for r in res), "jamba: token outside the vocab")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[n] > 0 for n in PAGED_KERNELS
+              + ("selective_scan", "gating_topk")),
           f"jamba path missed a kernel: {launches}")
+    check(all(launches[n] == 0 for n in DENSE_KERNELS),
+          f"the paged path launched a dense kernel: {launches}")
     total = sum(len(r.tokens) for r in res)
     steps, mixed = eng.n_device_steps, eng.n_prefill_chunks
     per_tok = {n: round(c / total, 3) for n, c in launches.items()}
@@ -551,6 +707,52 @@ def phase_jamba(kernels):
     log(f"[jamba] launches {launches} ({per_tok} per served token); peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; slabs "
         f"{eng.pool_stats()['num_state_slots']}")
+    return launches, eng
+
+
+# -- phase 7 --------------------------------------------------------------------
+
+def phase_dense(kernels):
+    """smollm-360m at full width and depth on the dense engine, through
+    the stream pipeline: bf16 cache, batch 8, 16 requests of up to 512
+    prompt tokens (left-padded by the pipeline to the longest), 64 new
+    tokens, burst 8; the launcher sizes the cache at prompt-len + max-new
+    + 8 = 584 positions."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "smollm-360m", "--kv-dtype", "bf16", "--paged", "off",
+            "--requests", "16", "--batch", "8", "--prompt-len", "512",
+            "--max-new", "64", "--burst", "8",
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    out = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    eng = out["engine"]
+    check(not eng.paged and eng.capacity == 512 + 64 + 8,
+          f"the dense phase ran paged={eng.paged}, capacity {eng.capacity}")
+    check(out["n_results"] == 16 and out["total_tokens"] == 16 * 64,
+          f"served {out['n_results']} requests / {out['total_tokens']} tokens")
+    check(all(launches[n] > 0 for n in DENSE_KERNELS),
+          f"dense path missed a kernel: {launches}")
+    check(all(launches[n] == 0 for n in PAGED_KERNELS),
+          f"the dense path launched a paged kernel: {launches}")
+    ls = eng.loop_stats()
+    cache_mb = sum(a.numel() * a.element_size()
+                   for a in _leaves(eng._cache)) / 1e6
+    log(f"[dense] smollm-360m full width (32 layers, d 960, 15/5 heads, "
+        f"vocab 49152, bf16), dense engine: "
+        f"{out['total_tokens'] / out['wall_s']:.1f} tok/s "
+        f"({out['total_tokens']} tokens in {out['wall_s']:.2f}s, pipeline)")
+    per_tok = {n: round(c / out["total_tokens"], 3) for n, c in launches.items()}
+    log(f"[dense] {ls['n_device_steps']} device steps, {eng.n_prefills} "
+        f"prefill waves, {eng.n_joins} joins, {ls['n_bursts']} bursts, "
+        f"{ls['n_host_syncs']} host syncs (token drains) + "
+        f"{ls['n_flag_reads']} blocking reads of the active flags, "
+        f"{ls['n_state_uploads']} state uploads; dense cache "
+        f"{eng.capacity} positions, {cache_mb:.1f} MB; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[dense] launches {launches} ({per_tok} per served token)")
     return launches, eng
 
 
@@ -574,7 +776,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.moe_gating import ops as gops
     from repro_torch.kernels.ssm_scan import ops as sops
-    kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL]
+    kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL,
+               fops.FLASH_KERNEL, dops.DENSE_KERNEL]
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(kernels)
@@ -582,6 +785,7 @@ def main() -> None:
     served = phase_attention(timer)
     served["selective_scan"] = phase_scan(timer)
     served["gating_topk"] = phase_gating(timer)
+    served.update(phase_dense_kernels(timer))
     del timer
     phase_engine(kernels)
     launches5, eng = phase_main_path(kernels)
@@ -591,10 +795,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches6, eng = phase_jamba(kernels)
     phase_trace(eng, "jamba", n=8, prompt_len=512)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches7, eng = phase_dense(kernels)
+    phase_trace(eng, "dense", n=8, prompt_len=512)
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],
-                "gating_topk": launches6["gating_topk"]}
+                "gating_topk": launches6["gating_topk"],
+                "flash_attention": launches7["flash_attention"],
+                "decode_attention": launches7["decode_attention"]}
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
                  source=str(k.source.relative_to(ROOT)),

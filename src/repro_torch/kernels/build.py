@@ -6,8 +6,10 @@ A kernel source (``csrc/*.cu``, plain C entry points) is compiled with
         -Xcompiler -fPIC -Xptxas -v
 
 into ``build/kernels/<name>-<hash>.so`` at the repository root, at first
-use.  The hash covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  The library is loaded with
+use.  The hash covers the source, the headers it includes with quotes
+(``kernels/csrc/common.cuh`` and a kernel family's shared body) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  The library is loaded with
 ``ctypes``; every C entry returns ``cudaGetLastError()`` after its launch,
 and ``CudaKernel.launch`` raises when that is not 0.  Nothing here runs
 at import time: this module imports on machines without ``nvcc``.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,15 +43,40 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(source: Path) -> List[Path]:
+    """``source`` and every file it includes with quotes, recursively,
+    in a fixed order: what the library is built from."""
+    seen: List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend((path.parent / inc).resolve()
+                    for inc in _INCLUDE.findall(path.read_text()))
+    return seen
+
+
+def library_path(name: str, source: Path) -> Path:
+    """Where the library of ``source`` built with ``NVCC_FLAGS`` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(source):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def build(name: str, source: Path) -> Path:
     """Compile ``source`` into a shared library unless an up-to-date one
     exists; returns its path.  Writes go through a temporary file and an
     atomic rename, so concurrent builders never load a half-written
     library.  The compiler's resource report (``-Xptxas -v``) is kept
     beside the library as ``<name>-<hash>.log``."""
-    h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    out = library_path(name, source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,75 @@
+// Helpers shared by the hand-written kernels (each kernel library is one
+// translation unit that includes this header once).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace kern {
+
+constexpr float kNeg = -1e30f;  // the reference's masked score
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T's precision, returned as f32
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// the type q . k is produced in: bf16 only when both operands are bf16
+template <typename A, typename B> struct Promote { using type = float; };
+template <> struct Promote<__nv_bfloat16, __nv_bfloat16> {
+  using type = __nv_bfloat16;
+};
+
+// One 16-byte chunk of a K/V row (4 f32 or 8 bf16 values), widened to
+// f32.  Rows start at multiples of hd elements and the wrappers require
+// hd % 8 == 0, so every chunk is 16-byte aligned.
+template <typename T> struct Chunk;
+template <> struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* src, float* dst) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+};
+template <> struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
+                                              float* dst) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      dst[2 * i] = f.x;
+      dst[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// Page-table addressing of the serving engine's pools (nb, bs, KV, hd):
+// the index of the (KV, hd) slab that holds logical position pos of a
+// sequence whose pages are pt[0..].
+__device__ __forceinline__ size_t paged_row(const int* pt, int bs, int pos) {
+  return (size_t)pt[pos / bs] * bs + pos % bs;
+}
+
+}  // namespace kern
+
+// Every C entry returns cudaGetLastError(); the binding turns a non-zero
+// code into this message.
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

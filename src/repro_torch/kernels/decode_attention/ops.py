@@ -1,11 +1,13 @@
-"""Paged decode attention: CUDA kernel wrapper, plain version, checks.
+"""Decode attention: CUDA kernel wrappers, plain versions, checks.
 
 ``paged_decode_attention`` is the port of
 ``repro/kernels/decode_attention/kernel.py::paged_decode_attention``
 (see ``csrc/paged_decode.cu`` for the kernel and what bounds it).  It
 takes the serving engine's pool layout ``(nb, bs, KV, hd)`` directly.
-On a CPU tensor it runs ``paged_decode_attention_plain``; on a CUDA
-tensor it launches the kernel or raises.
+``decode_attention`` is the port of ``decode_attention`` in the same
+file, the dense engine's one-token step over a contiguous cache (see
+``csrc/dense_decode.cu``).  On a CPU tensor each runs its plain
+version; on a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -23,6 +25,12 @@ KERNEL = CudaKernel(
     Path(__file__).parent / "csrc" / "paged_decode.cu",
     {f"paged_decode_attention_{q}_{kv}":
      [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+     for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+
+DENSE_KERNEL = CudaKernel(
+    "decode_attention",
+    Path(__file__).parent / "csrc" / "dense_decode.cu",
+    {f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P]
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -97,4 +105,64 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, H, KV, hd, bs, page_table.shape[1],
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return out
+
+
+def check_dense_operands(q, k_cache, v_cache, n_valid):
+    """Raise unless the operands are what the dense decode kernel takes:
+    one CUDA device, contiguous, a supported (q, K/V) type pair, q (B, H,
+    hd) and caches (B, C, KV, hd) with KV dividing H and hd % 8 == 0, and
+    1 <= n_valid <= C."""
+    ts = (q, k_cache, v_cache)
+    if any(t.device != q.device for t in ts):
+        raise ValueError("decode attention operands must share one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("decode attention operands must be contiguous")
+    if (q.dtype, k_cache.dtype) not in SUPPORTED \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"unsupported dtypes q={q.dtype} k={k_cache.dtype} "
+                        f"v={v_cache.dtype}; the kernel takes "
+                        f"{sorted(map(str, SUPPORTED))}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} "
+                         f"k={tuple(k_cache.shape)} v={tuple(v_cache.shape)}")
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B or k_cache.shape[3] != hd or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache "
+                         f"{tuple(k_cache.shape)}")
+    if hd % 8:
+        raise ValueError(f"head_dim {hd}: the kernel loads K/V rows in "
+                         "16-byte chunks and needs head_dim % 8 == 0")
+    if not 1 <= n_valid <= C:
+        raise ValueError(f"n_valid {n_valid} outside [1, {C}]")
+
+
+def decode_attention_plain(q, k_cache, v_cache, n_valid: int):
+    """The same function in plain PyTorch: the reference's
+    ``decode_attention`` with the new token at position ``n_valid - 1``
+    (slots ``< n_valid`` are visible)."""
+    # imported here: models.attention imports this module
+    from ...models.attention import decode_attention as reference
+    return reference(q[:, None], k_cache, v_cache, n_valid - 1)[:, 0]
+
+
+def decode_attention(q, k_cache, v_cache, n_valid: int):
+    """q: (B, H, hd); k_cache/v_cache: (B, C, KV, hd); n_valid: host int,
+    the slots every row attends to (``min(pos + 1, C)``: a wrapped ring
+    has all C valid) -> (B, H, hd) in the cache's dtype."""
+    n_valid = int(n_valid)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    check_dense_operands(q, k_cache, v_cache, n_valid)
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    DENSE_KERNEL.launch(
+        f"decode_attention_{_NAMES[q.dtype]}_{_NAMES[k_cache.dtype]}",
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        B, C, H, KV, hd, n_valid, ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out

@@ -1,11 +1,12 @@
-"""Paged chunked-prefill attention: CUDA kernel wrapper and plain version.
+"""Prefill attention: CUDA kernel wrappers and plain versions.
 
 ``paged_prefill_attention`` is the paged form of
 ``repro/kernels/flash_attention/kernel.py::flash_attention`` that the
 serving engine's mixed prefill+decode steps need (see
-``csrc/paged_prefill.cu``).  On a CPU tensor it runs
-``paged_prefill_attention_plain``; on a CUDA tensor it launches the
-kernel or raises.
+``csrc/paged_prefill.cu``).  ``flash_attention`` is its contiguous
+form, with causal and sliding-window masks, for the dense engine's
+prefill (see ``csrc/flash_prefill.cu``).  On a CPU tensor each runs its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ KERNEL = CudaKernel(
     {f"paged_prefill_attention_{q}_{kv}":
      [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+FLASH_KERNEL = CudaKernel(
+    "flash_attention",
+    Path(__file__).parent / "csrc" / "flash_prefill.cu",
+    {f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+     for t in ("f32", "bf16")})
 
 
 def prefill_positions(lengths, T: int):
@@ -64,5 +70,71 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, lengths):
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, T, H, KV, hd, bs, page_table.shape[1],
+        ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return out
+
+
+def check_flash_operands(q, k, v, causal: bool, sliding_window: int):
+    """Raise unless the operands are what the contiguous kernel takes:
+    one CUDA device, contiguous, q/k/v of one type (f32 or bf16), q (B,
+    S, H, hd) and k/v (B, T, KV, hd) with KV dividing H, hd % 8 == 0 and
+    1 <= S <= T, and a window only under the causal mask (so every query
+    row sees at least one key)."""
+    ts = (q, k, v)
+    if any(t.device != q.device for t in ts):
+        raise ValueError("flash attention operands must share one device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("flash attention operands must be contiguous")
+    if q.dtype not in _NAMES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one of f32/bf16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
+                         f"{tuple(k.shape)}")
+    if hd % 8:
+        raise ValueError(f"head_dim {hd}: the kernel loads K/V rows in "
+                         "16-byte chunks and needs head_dim % 8 == 0")
+    if not 1 <= S <= T:
+        raise ValueError(f"{S} queries over {T} keys: the kernel takes "
+                         "1 <= S <= T")
+    if sliding_window < 0 or (sliding_window and not causal):
+        raise ValueError(f"sliding_window={sliding_window} needs "
+                         "causal=True and a window >= 0")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          sliding_window: int = 0):
+    """The same function in plain PyTorch: the reference's
+    ``naive_attention``."""
+    # imported here: models.attention imports this module
+    from ...models.attention import naive_attention
+    return naive_attention(q, k, v, causal=causal,
+                           sliding_window=sliding_window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
+    """q: (B, S, H, hd); k/v: (B, T, KV, hd), one type; query s at
+    position s sees keys kpos < T with kpos <= s (causal) and
+    kpos > s - sliding_window (window > 0) -> (B, S, H, hd) in q's
+    type."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    check_flash_operands(q, k, v, causal, sliding_window)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    FLASH_KERNEL.launch(
+        f"flash_attention_{_NAMES[q.dtype]}",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, T, H, KV, hd, int(causal), int(sliding_window),
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out

@@ -20,7 +20,7 @@
 // then lowest index.  The winning lane masks its entry in registers.
 // Nothing touches shared memory; a block of 8 warps serves 8 tokens.
 
-#include <cuda_runtime.h>
+#include "../../csrc/common.cuh"
 
 #include <cmath>
 
@@ -91,8 +91,4 @@ extern "C" int gating_topk_f32(const void* scores, void* vals, void* idx,
   gating_topk_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)scores, (float*)vals, (int*)idx, n_tokens, E, k);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }

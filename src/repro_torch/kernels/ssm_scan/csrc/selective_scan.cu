@@ -37,19 +37,15 @@
 // Later work: split the time loop into chunks across blocks (a two-pass
 // scan) when B * di / kThreads leaves SMs idle at long T.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "../../csrc/common.cuh"
 
 namespace {
+
+using kern::to_f32;
 
 constexpr int kThreads = 128;
 constexpr int kMaxN = 16;
 constexpr int kTileT = 32;  // steps of B_t / C_t staged per shared tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -146,7 +142,3 @@ int launch(const void* dt, const void* x, const void* Bc, const void* Cc,
 
 SELECTIVE_SCAN_ENTRY(selective_scan_f32, float)
 SELECTIVE_SCAN_ENTRY(selective_scan_bf16, __nv_bfloat16)
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}

@@ -15,6 +15,8 @@ are random, drawn from seed 0.
         --device cpu                  # attention + mamba, state slabs
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --smoke --device cpu   # one jamba period
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --paged off                  # the dense engine (contiguous cache)
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ FAMILY_CONFIGS = {
                                 attn_layer_offset=0),
 }
 _UNPORTED_FAMILIES = ("xlstm",)
+_RECURRENT_FAMILIES = ("mamba", "hybrid", "xlstm")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--direct", action="store_true",
                     help="call engine.serve() directly instead of the pipeline")
     ap.add_argument("--paged", choices=["auto", "on", "off"], default="auto",
-                    help="block-paged KV cache (off: not ported yet)")
+                    help="block-paged KV cache (auto: on when the model "
+                         "supports it; off: the dense engine, one "
+                         "contiguous cache per slot)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -130,6 +135,37 @@ def validate_args(args) -> None:
         raise NotImplementedError(
             "--lanes: the batch lane and preemption are not ported yet "
             "(ROADMAP A7c)")
+    if args.spec_k > 0:
+        if args.mesh is not None:
+            raise SystemExit(
+                "--spec-k and --mesh are incompatible: speculative "
+                "decoding under a device mesh is not implemented")
+        if args.share_prefix == "on":
+            raise SystemExit(
+                "--spec-k and --share-prefix on are incompatible: the "
+                "draft pool rides the target's page tables but COW forks "
+                "only cover the target pool (leave --share-prefix auto)")
+        if args.family in _RECURRENT_FAMILIES:
+            raise SystemExit(
+                f"--spec-k and --family {args.family} are incompatible: "
+                "recurrent state cannot roll back rejected draft tokens")
+        if args.paged == "off":
+            raise SystemExit(
+                "--spec-k and --paged off are incompatible: speculative "
+                "rollback is arithmetic on the paged per-slot lengths")
+    if args.kv_dtype == "int8":
+        if args.paged == "off":
+            raise SystemExit(
+                "--kv-dtype int8 and --paged off are incompatible: "
+                "quantized KV lives in the paged block pool")
+        if args.spec_k > 0:
+            raise SystemExit(
+                "--kv-dtype int8 and --spec-k are incompatible: the "
+                "draft/verify path is not quantization-aware")
+        if args.mesh is not None:
+            raise SystemExit(
+                "--kv-dtype int8 and --mesh are incompatible: the scale "
+                "pools have no sharding specs yet")
     if args.family in _UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"--family {args.family}: the xLSTM blocks are not ported yet "
@@ -215,31 +251,38 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"in {wall:.2f}s ({total_tokens / wall:.1f} tok/s) "
           f"on {engine.device}")
     print(f"scheduler: prefills={engine.n_prefills} joins={engine.n_joins} "
-          f"evictions={engine.n_evictions} "
-          f"prefill_chunks={engine.n_prefill_chunks}")
+          f"evictions={engine.n_evictions}"
+          + (f" prefill_chunks={engine.n_prefill_chunks}" if engine.paged
+             else ""))
     ls = engine.loop_stats()
     decoded = max(1, ls["n_device_steps"])
     print(f"decode loop: burst K={ls['burst']}, {ls['n_bursts']} bursts / "
           f"{ls['n_device_steps']} device steps, "
           f"{ls['n_host_syncs']} host syncs "
-          f"({ls['n_host_syncs'] / decoded:.2f}/step), "
+          f"({ls['n_host_syncs'] / decoded:.2f}/step) + "
+          f"{ls['n_flag_reads']} reads of the active flags, "
           f"{ls['n_state_uploads']} state uploads, "
           f"{ls['n_burst_early_exits']} early exits")
-    a = engine.allocator
-    s = engine.pool_stats()
-    print(f"paged cache: {a.num_blocks} blocks x {a.block_size} tokens, "
-          f"{s['n_free']} free / {s['n_shared']} shared / "
-          f"{s['n_private']} private after drain")
-    print(f"kv storage: {s['kv_dtype']}, {s['bytes_per_block']} "
-          f"bytes/block, {s['pool_bytes'] / 1e6:.2f} MB pool")
-    if engine.state_store is not None:
-        print(f"state slabs: {s['num_state_slots']} slots, "
-              f"{s['n_state_free']} free / {s['n_state_live']} live "
-              f"after drain")
-    if engine.share_prefix:
-        print(f"prefix sharing: {engine.n_prefix_hits} hits, "
-              f"{engine.n_shared_tokens} prompt tokens served from "
-              f"resident blocks, {engine.n_cow_forks} COW forks")
+    if engine.paged:
+        a = engine.allocator
+        s = engine.pool_stats()
+        print(f"paged cache: {a.num_blocks} blocks x {a.block_size} tokens, "
+              f"{s['n_free']} free / {s['n_shared']} shared / "
+              f"{s['n_private']} private after drain")
+        print(f"kv storage: {s['kv_dtype']}, {s['bytes_per_block']} "
+              f"bytes/block, {s['pool_bytes'] / 1e6:.2f} MB pool")
+        if engine.state_store is not None:
+            print(f"state slabs: {s['num_state_slots']} slots, "
+                  f"{s['n_state_free']} free / {s['n_state_live']} live "
+                  f"after drain")
+        if engine.share_prefix:
+            print(f"prefix sharing: {engine.n_prefix_hits} hits, "
+                  f"{engine.n_shared_tokens} prompt tokens served from "
+                  f"resident blocks, {engine.n_cow_forks} COW forks")
+    else:
+        print(f"dense cache: {engine.batch_size} slots x {engine.capacity} "
+              f"positions, final position {engine._pos}, "
+              f"{engine.n_batches} prefill waves")
     if args.direct:
         for r in results[:3]:
             print(f"  req {r.request_id}: prompt[{len(r.prompt)}] -> "

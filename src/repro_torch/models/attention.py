@@ -1,15 +1,22 @@
-"""GQA attention through the block-paged KV cache (port of the paged
-subset of ``repro/models/attention.py``).
+"""GQA attention (port of the GQA part of ``repro/models/attention.py``):
+through the block-paged KV cache, and over the dense engine's
+contiguous per-row cache.
 
 Shapes: hidden (B, T, D); q (B, T, H, hd); the shared pools
-(num_blocks, block_size, KV, hd).  GQA groups query heads by KV head
-(H = KV * G) without materializing a K/V repeat.
+(num_blocks, block_size, KV, hd); the dense cache (B, C, KV, hd).  GQA
+groups query heads by KV head (H = KV * G) without materializing a K/V
+repeat.
 
-``paged_attention`` over ``paged_gather`` is the plain version of the
-served attention.  ``gqa_paged_step`` sends it through the kernels:
+Paged: ``paged_attention`` over ``paged_gather`` is the plain version of
+the served attention.  ``gqa_paged_step`` sends it through the kernels:
 T = 1 to ``paged_decode_attention``, T > 1 to
-``paged_prefill_attention``; on CPU tensors those wrappers run the
-plain version.
+``paged_prefill_attention``.  Dense: ``naive_attention`` and
+``decode_attention`` are the plain versions; ``gqa_prefill`` runs the
+contiguous ``flash_attention`` kernel and ``gqa_decode`` the
+``decode_attention`` kernel.  On CPU tensors every wrapper runs its
+plain version.  The reference's ``chunked_attention`` computes the same
+function as ``naive_attention`` and serves only training (ROADMAP A15):
+on the card the flash kernel covers every length.
 """
 from __future__ import annotations
 
@@ -54,6 +61,69 @@ def _grouped_out(probs, v):
     B, KV, G, S, T = probs.shape
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, KV * G, v.shape[-1])
+
+
+def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    kv_len=None, sliding_window: int = 0,
+                    scale: Optional[float] = None):
+    """Full-score attention.  q: (B,S,H,hd) k,v: (B,T,KV,hd).  Query s
+    sits at position ``s + q_offset``; ``kv_len`` (B,) masks keys past
+    each row's valid length.  Scores in the input type, softmax in f32,
+    probabilities rounded to the V type (the reference's rounding)."""
+    S = q.shape[1]
+    T = k.shape[1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    scores = _grouped_scores(q * scale, k).float()               # (B,KV,G,S,T)
+    q_pos = torch.arange(S, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if sliding_window:
+        mask &= k_pos > q_pos - sliding_window
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    if kv_len is not None:
+        valid = k_pos < kv_len[:, None]
+        scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return _grouped_out(probs, v)
+
+
+def _dynamic_token_update(cache, new, idx: int):
+    """Write one token at slot ``idx`` of every row, in place.  cache:
+    (B, C, KV, hd); new: (B, 1, KV, hd); ``idx`` a host int, clamped to
+    [0, C-1] as ``lax.dynamic_update_slice`` clamps its start.  A slice
+    write: no index tensor, no host sync."""
+    idx = min(max(int(idx), 0), cache.shape[1] - 1)
+    cache[:, idx] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_update_one(k_cache, v_cache, k_new, v_new, pos: int, window: int):
+    """Insert one token at ``pos`` (ring index if window), in place."""
+    cap = k_cache.shape[1]
+    idx = pos % cap if window else pos
+    return (_dynamic_token_update(k_cache, k_new, idx),
+            _dynamic_token_update(v_cache, v_new, idx))
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
+                     scale: Optional[float] = None):
+    """One-token attention over the dense cache (the plain version of
+    the ``decode_attention`` kernel).
+
+    q: (B,1,H,hd); caches (B,C,KV,hd); ``pos`` = the new token's
+    position, already inserted.  Slots ``< min(pos + 1, C)`` are valid:
+    with a ring buffer (window) every slot is valid once it wraps.
+    """
+    hd = q.shape[-1]
+    C = k_cache.shape[1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    scores = _grouped_scores(q * scale, k_cache).float()         # (B,KV,G,1,C)
+    valid = torch.arange(C, device=q.device) < min(int(pos) + 1, C)
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    return _grouped_out(probs, v_cache)
 
 
 def paged_gather(storage, page_table):
@@ -135,7 +205,7 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
     elif cfg.rope != "none":
         raise NotImplementedError(
-            f"rope={cfg.rope!r} is not paged (dense-engine only)")
+            f"rope={cfg.rope!r}: mrope is not ported yet (ROADMAP A13)")
     return q, k
 
 
@@ -170,3 +240,34 @@ def gqa_paged_step(p, cfg: ModelConfig, x, k_store, v_store, page_table,
         out = flash_ops.paged_prefill_attention(
             q.contiguous(), k_store, v_store, page_table, lengths)
     return mm(out.reshape(B, T, -1), p["wo"]), k_store, v_store
+
+
+def gqa_prefill(p, cfg: ModelConfig, x, positions):
+    """Prefill: causal (sliding-window) attention over the whole prompt
+    through the contiguous flash kernel.  x: (B,S,D); positions: (B,S).
+    Returns (out (B,S,D), (k, v) (B,S,KV,hd)) for cache seeding."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rope_qk(cfg, q, k, positions)
+    out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True,
+                                    sliding_window=cfg.sliding_window)
+    B, S = x.shape[:2]
+    return mm(out.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
+    """Decode one token.  x: (B,1,D); ``pos``: host int, the position of
+    this token, shared by every row.  The token's K/V land at slot
+    ``pos`` (``pos % C`` with a window) by a slice write, in place; the
+    decode kernel then reads ``min(pos + 1, C)`` slots.  Returns (out,
+    k_cache, v_cache)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
+                           device=x.device)
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rope_qk(cfg, q, k, positions)
+    cache_update_one(k_cache, v_cache, k, v, pos, cfg.sliding_window)
+    C = k_cache.shape[1]
+    out = decode_ops.decode_attention(q[:, 0].contiguous(), k_cache,
+                                      v_cache, min(int(pos) + 1, C))
+    return mm(out.reshape(B, 1, -1), p["wo"]), k_cache, v_cache

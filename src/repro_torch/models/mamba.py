@@ -3,8 +3,10 @@ the serving subset of ``repro/models/mamba.py``).
 
 State per sequence: a conv window (B, d_conv-1, d_inner) in the cache
 type and an SSM state (B, d_inner, d_state) in f32 — constant size per
-token.  ``mamba_paged_step`` advances each row by up to T tokens from
-its carried state; the recurrence runs through the selective-scan
+token.  ``mamba_forward`` runs a whole prompt from zero state (the
+dense engine's prefill) and returns the state it leaves;
+``mamba_paged_step`` advances each row by up to T tokens from its
+carried state.  Both run the recurrence through the selective-scan
 kernel (``kernels/ssm_scan``) on a CUDA device and through its plain
 version on the CPU.  Everything around it (projections, the conv taps,
 softplus, the gate) stays torch ops in the reference's order and types.
@@ -51,6 +53,13 @@ def _conv_taps(xp, w, b, T: int):
     return out + b[None, None, :]
 
 
+def _causal_conv(x, w, b):
+    """Depthwise causal conv from zero history.  x: (B,S,di); w: (dc,di)."""
+    dc = w.shape[0]
+    xp = F.pad(x, (0, 0, dc - 1, 0))
+    return _conv_taps(xp, w, b, x.shape[1])
+
+
 def _softplus(x):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``) in the same ops."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
@@ -89,6 +98,30 @@ def selective_scan(dt, Bc, Cc, xs, A, D, h0=None):
     y, h_last = scan_ops.selective_scan_plain(dt, xs, Bc, Cc, A, D, h0,
                                               t_valid)
     return y.to(xs.dtype), h_last
+
+
+def mamba_forward(p, cfg: ModelConfig, x):
+    """Prefill from zero state.  x: (B,S,d) -> (y (B,S,d), (conv_state,
+    ssm_state)): the last d_conv-1 pre-conv inputs seed the decode conv
+    window, the scan's final state (f32) the SSM state.  The scan is the
+    selective-scan kernel's cold-start case (``h0`` zero, every row
+    valid for all S tokens)."""
+    dc = cfg.ssm.d_conv
+    B, S, _ = x.shape
+    xz = mm(x, p["in_proj"])
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    conv_tail = xs[:, -(dc - 1):, :]                            # decode seed
+    xs = F.silu(_causal_conv(xs, p["conv_w"], p["conv_b"]))
+    dt, Bc, Cc = _ssm_inputs(p, cfg, xs)
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((B, cfg.d_inner, cfg.ssm.d_state), dtype=torch.float32,
+                     device=x.device)
+    t_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    y, h_last = scan_ops.selective_scan(
+        dt, xs.contiguous(), Bc.contiguous(), Cc.contiguous(), A, p["D"], h0,
+        t_valid)
+    y = y.to(xs.dtype) * F.silu(z)
+    return mm(y, p["out_proj"]), (conv_tail, h_last)
 
 
 def mamba_paged_step(p, cfg: ModelConfig, x, conv_state, ssm_state,

@@ -1,5 +1,7 @@
 """Decoder-only model: dense, MoE and hybrid Mamba+attention families
-(port of the paged serving subset of ``repro/models/transformer.py``).
+(port of the serving subset of ``repro/models/transformer.py``): the
+block-paged step (``paged_step``) and the dense engine's contiguous
+cache (``init_cache``, ``prefill``, ``decode_step``).
 
 A config expands to a *layer pattern*: an optional unrolled ``prefix``
 of sub-layer descriptors plus a repeating ``period`` applied
@@ -11,9 +13,10 @@ bridge maps leaf to leaf, and a layer reads its weights as views of the
 stacked tensors.
 
 Sub-layer descriptor: (block, mlp) with block in {attn, mamba} and mlp
-in {dense, moe}.  Not ported yet, each raising with its ROADMAP item:
-MLA attention (A12), the xLSTM blocks (A10b), encoder-decoder and the
-vision-language family (A13).
+in {dense, moe}.  The layer stack runs as a Python loop over the
+periods; the caches are updated in place.  Not ported yet, each raising
+with its ROADMAP item: MLA attention (A12), the xLSTM blocks (A10b),
+encoder-decoder and the vision-language family (A13).
 """
 from __future__ import annotations
 
@@ -45,8 +48,7 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
     if cfg.family == "moe":
         if cfg.mla is not None:
             raise NotImplementedError(
-                "MLA attention is not ported yet (ROADMAP A12: MLA and the "
-                "dense engine it needs)")
+                "MLA attention is not ported yet (ROADMAP A12)")
         nd = cfg.moe.first_dense_layers
         return [("attn", "dense")] * nd, [("attn", "moe")], cfg.n_layers - nd
     if cfg.family == "hybrid":
@@ -62,7 +64,7 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
     if cfg.family == "vlm":
         raise NotImplementedError(
             "family 'vlm': mrope and the vision stub are not ported yet "
-            "(ROADMAP A13, dense engine)")
+            "(ROADMAP A13)")
     raise ValueError(cfg.family)
 
 
@@ -85,9 +87,30 @@ def _sublayer_params(gen, cfg: ModelConfig, desc: Desc, dtype,
     return p
 
 
-def _sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
-                    block_size: int, num_state_slots: int, dtype, device):
-    """Serving state of one sub-layer.  Attention: the shared (nb, bs,
+def _sublayer_state(cfg: ModelConfig, desc: Desc, batch: int, capacity: int,
+                    dtype, device) -> Dict[str, torch.Tensor]:
+    """Dense decode-time state of one sub-layer.  Attention: (batch, cap,
+    KV, hd) K/V, ``cap = min(capacity, sliding_window)`` with a window (a
+    ring).  Mamba: the conv window in the cache type, the SSM state in
+    f32."""
+    if desc[0] == "attn":
+        kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
+            else capacity
+        return {"k": torch.zeros((batch, cap, kv, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, cap, kv, hd), dtype=dtype,
+                                 device=device)}
+    return {"conv": torch.zeros((batch, cfg.ssm.d_conv - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm.d_state),
+                               dtype=torch.float32, device=device)}
+
+
+def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
+                          block_size: int, num_state_slots: int, dtype,
+                          device):
+    """Paged serving state of one sub-layer.  Attention: the shared (nb, bs,
     KV, hd) K/V pools.  Mamba: one state slab per slot — conv window in
     the cache type, SSM state in f32 — plus one spare *dump row* at index
     ``num_state_slots`` that no slot owns: idle rows of a step scatter
@@ -117,10 +140,9 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
     ``t_valid`` tokens, scatter back; idle rows (``t_valid == 0``) go to
     the dump row, so a stale slab id on an evicted slot cannot clobber
     the slab's new owner.  Same norm/residual order as the reference."""
-    block, mlp = desc
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
-    if block == "attn":
+    if desc[0] == "attn":
         y, _, _ = A.gqa_paged_step(p["attn"], cfg, h, state["k"], state["v"],
                                    page_table, lengths, t_valid)
     else:
@@ -134,12 +156,70 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
         idx = torch.where(t_valid > 0, state_slots, dump).long()
         state["conv"].index_copy_(0, idx, conv.to(state["conv"].dtype))
         state["ssm"].index_copy_(0, idx, ssm.to(state["ssm"].dtype))
-    x = x + y
+    return _mlp_residual(p, cfg, x + y)
+
+
+def _mlp_residual(p, cfg: ModelConfig, x):
+    _, norm = make_norm(cfg.norm)
     h = norm(p["norm2"], x)
-    if mlp == "dense":
+    if "mlp" in p:
         return x + mlp_forward(p["mlp"], cfg.mlp_act, h)
     y, _ = moe_forward(p["moe"], cfg, h)
     return x + y
+
+
+def _prefill_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions, *,
+                      capacity: int, cache_dtype):
+    """Full-sequence forward that also emits the sub-layer's dense
+    decode state.  Attention runs the contiguous flash kernel; mamba
+    the cold-start scan."""
+    _, norm = make_norm(cfg.norm)
+    h = norm(p["norm1"], x)
+    if desc[0] == "attn":
+        y, (k, v) = A.gqa_prefill(p["attn"], cfg, h, positions)
+        w = cfg.sliding_window
+        cap = min(capacity, w) if w else capacity
+        state = {"k": _seed_cache(k, cap, cache_dtype, w),
+                 "v": _seed_cache(v, cap, cache_dtype, w)}
+    else:
+        y, (conv, ssm) = M.mamba_forward(p["mamba"], cfg, h)
+        state = {"conv": conv.to(cache_dtype), "ssm": ssm}
+    return _mlp_residual(p, cfg, x + y), state
+
+
+def _seed_cache(seq_kv, capacity: int, dtype, window: int):
+    """Embed prefill K/V (B,S,...) into a new capacity-C cache buffer
+    (contiguous, as the decode kernel reads it).
+
+    With a sliding window keeps the last ``capacity`` tokens, each at
+    its ring slot ``position % capacity`` (the order decode inserts
+    continue); without one, the first ``capacity``."""
+    B, S = seq_kv.shape[:2]
+    buf = torch.zeros((B, capacity) + tuple(seq_kv.shape[2:]), dtype=dtype,
+                      device=seq_kv.device)
+    if window and S > capacity:
+        slots = torch.arange(S - capacity, S, device=seq_kv.device) % capacity
+        buf[:, slots] = seq_kv[:, S - capacity:].to(dtype)
+    else:
+        n = min(S, capacity)
+        buf[:, :n] = seq_kv[:, :n]
+    return buf
+
+
+def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int):
+    """One token through one sub-layer; ``state`` is updated in place
+    (attention: the slice write at ``pos``; mamba: the new conv window
+    and SSM state copied over the old)."""
+    _, norm = make_norm(cfg.norm)
+    h = norm(p["norm1"], x)
+    if desc[0] == "attn":
+        y, _, _ = A.gqa_decode(p["attn"], cfg, h, state["k"], state["v"], pos)
+    else:
+        y, (conv, ssm) = M.mamba_decode(p["mamba"], cfg, h, state["conv"],
+                                        state["ssm"])
+        state["conv"].copy_(conv)
+        state["ssm"].copy_(ssm)
+    return _mlp_residual(p, cfg, x + y)
 
 
 def _index(tree, i: int):
@@ -197,10 +277,80 @@ class TransformerLM:
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ w.to(h.dtype)
 
+    # -- dense serving ------------------------------------------------------
+    def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):
+        """Zeroed dense cache: per sub-layer state (``_sublayer_state``),
+        periodic layers stacked on a leading layer axis."""
+        cfg = self.cfg
+
+        def state(desc, lead=()):
+            one = _sublayer_state(cfg, desc, batch, capacity, dtype,
+                                  self.device)
+            return {k: v.expand(lead + tuple(v.shape)).contiguous()
+                    for k, v in one.items()}
+
+        cache: Dict[str, Any] = {}
+        if self.prefix_descs:
+            cache["prefix"] = [state(d) for d in self.prefix_descs]
+        cache["blocks"] = {f"s{j}": state(d, (self.n_periods,))
+                           for j, d in enumerate(self.period_descs)}
+        return cache
+
+    def prefill(self, params, tokens, capacity: int, extra_embeds=None,
+                cache_dtype=torch.bfloat16):
+        """tokens: (B,S) int32, every row at positions 0..S-1 -> (last-
+        token logits (B,V), a dense cache of ``capacity`` slots seeded
+        with the prompt's state)."""
+        if extra_embeds is not None:
+            raise NotImplementedError(
+                "extra_embeds: the vision-language stub is not ported yet "
+                "(ROADMAP A13)")
+        cfg = self.cfg
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        x = self._embed(params, tokens)
+        kw = dict(capacity=capacity, cache_dtype=cache_dtype)
+        cache: Dict[str, Any] = {}
+        if self.prefix_descs:
+            pc = []
+            for i, desc in enumerate(self.prefix_descs):
+                x, st = _prefill_sublayer(params["prefix"][i], cfg, desc, x,
+                                          positions, **kw)
+                pc.append(st)
+            cache["prefix"] = pc
+        per: List[Dict[str, Any]] = []
+        for i in range(self.n_periods):
+            states = {}
+            for j, desc in enumerate(self.period_descs):
+                x, states[f"s{j}"] = _prefill_sublayer(
+                    _index(params["blocks"][f"s{j}"], i), cfg, desc, x,
+                    positions, **kw)
+            per.append(states)
+        cache["blocks"] = _stack(per)
+        return self._head(params, x[:, -1:, :])[:, 0], cache
+
+    def decode_step(self, params, cache, token, pos: int):
+        """token: (B,1) int32; ``pos``: host int, the position of this
+        token in every row.  -> (logits (B,V), cache updated in place)."""
+        cfg = self.cfg
+        x = self._embed(params, token)
+        for i, desc in enumerate(self.prefix_descs):
+            x = _decode_sublayer(params["prefix"][i], cfg, desc, x,
+                                 cache["prefix"][i], pos)
+        for i in range(self.n_periods):
+            for j, desc in enumerate(self.period_descs):
+                x = _decode_sublayer(_index(params["blocks"][f"s{j}"], i),
+                                     cfg, desc, x,
+                                     _index(cache["blocks"][f"s{j}"], i),
+                                     pos)
+        return self._head(params, x)[:, 0], cache
+
     # -- paged serving ------------------------------------------------------
     def supports_paged(self) -> bool:
         """Block-paged serving covers GQA attention and mamba blocks
-        (per-slot state slabs) without sliding window or mrope."""
+        (per-slot state slabs) without sliding window or mrope (the
+        reference's rule); the rest serves dense."""
         cfg = self.cfg
         return (all(d[0] == "attn" or d[0] in RECURRENT_BLOCKS
                     for d in self._descs())
@@ -237,7 +387,7 @@ class TransformerLM:
         Every attention layer gets (nb, bs, KV, hd) K/V stores with no
         batch axis — slots share the pool through page tables.  Every
         mamba layer gets slabs with a leading ``num_state_slots + 1``
-        axis (the last row is the dump row, see ``_sublayer_state``);
+        axis (the last row is the dump row, see ``_paged_sublayer_state``);
         the engine's ``StateStore`` hands out rows
         ``0..num_state_slots-1``.  Periodic layers stack either kind on
         a leading layer axis."""
@@ -255,8 +405,8 @@ class TransformerLM:
                 f"kv_dtype={kv_dtype!r}: int8 KV is not ported yet (ROADMAP A9)")
 
         def store(desc, lead=()):
-            one = _sublayer_state(cfg, desc, num_blocks, block_size,
-                                  num_state_slots, dtype, self.device)
+            one = _paged_sublayer_state(cfg, desc, num_blocks, block_size,
+                                        num_state_slots, dtype, self.device)
             return {k: v.expand(lead + tuple(v.shape)).contiguous()
                     for k, v in one.items()}
 

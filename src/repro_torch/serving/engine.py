@@ -1,10 +1,25 @@
-"""Continuous-batching serving engine, paged greedy mode (port of the
-paged subset of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine, greedy, in its paged and dense
+modes (port of the greedy subset of ``repro/serving/engine.py``).
 
 Requests enter a thread-safe queue (``submit``) and are scheduled into a
 fixed array of ``batch_size`` *slots*; the decode loop never waits for a
 full group: finished sequences (``eos_id`` or ``max_new_tokens``) are
-evicted at once, and queued requests join mid-decode.
+evicted at once, and queued requests join mid-decode.  ``paged`` picks
+the mode: on by default when the model supports it
+(``model.supports_paged()``), else dense.
+
+**Dense mode** (``paged=False``, and every model the paged mode cannot
+serve: sliding windows) — one contiguous cache of ``capacity`` slots
+per batch row and layer (a ring of ``sliding_window`` slots with a
+window); all rows share one decode position ``_pos``.  A fresh wave
+prefills its prompts left-padded to the longest and re-anchors ``_pos``
+there; a mid-decode joiner must fit (prompt length <= ``_pos``) and is
+prefilled left-padded to ``_pos`` with the whole batch, its rows then
+spliced into the live cache.  Decode runs bursts at the shared position
+(a host int: every layer's cache update is a slice write, no index
+tensor and no host sync per layer); when ``_pos`` reaches ``capacity``
+every in-flight request is truncated.  ``generate_batch`` is the
+synchronous fixed-batch entry of the same model steps.
 
 **Paged KV cache** — one shared pool of fixed-size blocks
 (``kv_cache.py``); each slot owns a page table and a true position
@@ -48,8 +63,9 @@ Sampling is greedy argmax.  The attention of every step runs through the
 hand-written CUDA kernels on a CUDA device (``models/attention.py``).
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: seeded sampling (``temperature > 0``), int8 KV, speculative
-decoding, the dense (``paged=False``) mode, ``mesh=``, the batch lane and
-preemption, fault plans.
+decoding, ``mesh=``, the batch lane and preemption, fault plans.  In
+dense mode ``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
+reference's ``ValueError``: they need the block pool.
 """
 from __future__ import annotations
 
@@ -65,7 +81,8 @@ from ..models.common import dtype_of, resolve_device
 from .kv_cache import (ROOT_DIGEST, BlockAllocator, CacheFullError,
                        DeviceSlotState, StateStore, chain_digest)
 from .scheduler import SchedRequest, Scheduler
-from .steps import make_paged_burst, make_paged_mixed_step
+from .steps import (greedy_sample, make_dense_burst, make_paged_burst,
+                    make_paged_mixed_step, make_prefill_step)
 
 
 @dataclasses.dataclass
@@ -78,6 +95,24 @@ class GenerationResult:
     # tokens were generated before the request was failed
     status: str = "ok"
     ttft_s: Optional[float] = None    # submit -> first generated token
+
+
+class _Slot:
+    """Per-slot decode state in dense mode: the position is the engine's
+    shared ``_pos``; admission samples the first token."""
+    __slots__ = ("rid", "prompt", "tokens", "t_submit", "done", "status",
+                 "t_first")
+
+    def __init__(self, req: SchedRequest, first_token: int,
+                 eos_id: Optional[int], max_new: int):
+        self.rid = req.rid
+        self.prompt = req.prompt
+        self.tokens: List[int] = [int(first_token)]
+        self.t_submit = req.t_submit
+        self.done = (eos_id is not None and int(first_token) == eos_id) \
+            or max_new <= 1
+        self.status = "ok"
+        self.t_first: Optional[float] = None
 
 
 class _PagedSlot:
@@ -128,6 +163,34 @@ class ServeEngine:
         if kv_dtype not in (None, "f32", "bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'f32', 'bf16' or 'int8', got {kv_dtype!r}")
+        # paged mode: auto-on when the model supports it
+        has_paged = model.supports_paged()
+        if paged and not has_paged:
+            raise ValueError(
+                f"paged=True but {type(model).__name__} does not implement "
+                "init_paged_cache/paged_step (or supports_paged() is False)")
+        self.paged = has_paged if paged is None else bool(paged)
+        if not self.paged:
+            # the reference's refusals: each needs the block pool
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= requires paged mode: tensor-parallel serving "
+                    "shards the paged block pool (the dense per-slot cache "
+                    "has no sharded layout)")
+            if share_prefix:
+                raise ValueError(
+                    "share_prefix=True requires paged mode (the dense cache "
+                    "has no block pool to share)")
+            if spec_k:
+                raise ValueError(
+                    "spec_k > 0 requires paged mode: speculative rollback "
+                    "is arithmetic on per-slot lengths, which only the "
+                    "block-paged cache tracks")
+            if kv_dtype == "int8":
+                raise ValueError(
+                    "kv_dtype='int8' requires paged mode: quantized KV "
+                    "lives in the shared block pool (the dense per-slot "
+                    "cache stays full precision)")
         if kv_dtype == "int8":
             raise NotImplementedError(
                 "kv_dtype='int8': int8 paged KV is not ported yet (ROADMAP A9)")
@@ -142,15 +205,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "fault_plan=: fault injection comes with the front door "
                 "(ROADMAP A7a)")
-        if paged is False:
-            raise NotImplementedError(
-                "paged=False: the dense engine mode is not ported yet "
-                "(ROADMAP A7d)")
-        if not model.supports_paged():
-            raise NotImplementedError(
-                f"{type(model).__name__} ({model.cfg.family}) cannot serve "
-                "paged: sliding window and mrope need the dense engine "
-                "(ROADMAP A7d)")
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.device = resolve_device(device)
@@ -162,7 +216,9 @@ class ServeEngine:
         compute = dtype_of(model.cfg.compute_dtype)
         if compute == torch.bfloat16 and cache_dtype == torch.float32:
             # the reference cannot serve this either: f32 K/V promote the
-            # attention output and the residual stream out of bf16
+            # attention output and the residual stream out of bf16, which
+            # fails its paged mode's first step and its dense mode's first
+            # decode step
             raise ValueError(
                 "a bf16 model with an f32 KV pool is not supported: pass "
                 "kv_dtype='bf16'")
@@ -177,7 +233,9 @@ class ServeEngine:
         self.max_burst = int(burst)
         self.burst = int(burst)
         self.scheduler = Scheduler()
-        self._slots: List[Optional[_PagedSlot]] = [None] * batch_size
+        self._slots: List[Any] = [None] * batch_size
+        self._cache = None            # dense mode: the live cache
+        self._pos = 0                 # dense mode: shared decode position
         self._lock = threading.Lock()
         self._next_rid = 0
         # completed results, keyed by rid until a wait() collects them;
@@ -190,7 +248,7 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         # recurrent state slabs disable prefix sharing: a slab summarizes
         # the whole prefix, so resident KV pages alone cannot seed a joiner
-        sharable = model.supports_prefix_sharing()
+        sharable = not self.paged or model.supports_prefix_sharing()
         if share_prefix and not sharable:
             raise ValueError(
                 f"share_prefix=True but {type(model).__name__} "
@@ -199,18 +257,19 @@ class ServeEngine:
                 "requests: a mamba/xLSTM state slab summarizes its entire "
                 "prefix, so mapping resident KV pages cannot reconstruct "
                 "it.  Run with share_prefix=False (or leave it on auto).")
-        self.share_prefix = sharable if share_prefix is None \
-            else bool(share_prefix)
+        self.share_prefix = (self.paged and sharable) \
+            if share_prefix is None else bool(share_prefix)
         self._pages_per_slot = -(-capacity // block_size)
         if num_blocks is None:
             num_blocks = batch_size * self._pages_per_slot
         self.allocator = BlockAllocator(num_blocks, block_size,
                                         retain_cap=retain_cap,
-                                        retain_ttl_s=retain_ttl_s)
+                                        retain_ttl_s=retain_ttl_s) \
+            if self.paged else None
         self._page_table = np.zeros((batch_size, self._pages_per_slot),
                                     np.int32)
         # recurrent families: per-slot state slabs beside the block pool
-        needs_state = model.has_recurrent_state()
+        needs_state = self.paged and model.has_recurrent_state()
         self.num_state_slots = (batch_size if num_state_slots is None
                                 else num_state_slots) if needs_state else 0
         self.state_store = StateStore(self.num_state_slots) \
@@ -219,16 +278,27 @@ class ServeEngine:
         self._state_slots = np.zeros((batch_size,), np.int32)
         self._reserved = 0            # lazily-claimable blocks promised out
         self._paged_cache = None
-        self._mixed_fn = make_paged_mixed_step(
-            model, eos_id=eos_id, max_new=max_new_tokens, capacity=capacity)
-        self._burst_fn = make_paged_burst(
-            model, eos_id=eos_id, max_new=max_new_tokens, capacity=capacity,
-            k_static=self.max_burst)
+        self._prefill = make_prefill_step(model, capacity, cache_dtype)
+        if self.paged:
+            self._mixed_fn = make_paged_mixed_step(
+                model, eos_id=eos_id, max_new=max_new_tokens,
+                capacity=capacity)
+            self._burst_fn = make_paged_burst(
+                model, eos_id=eos_id, max_new=max_new_tokens,
+                capacity=capacity, k_static=self.max_burst)
+        else:
+            self._mixed_fn = None
+            self._burst_fn = make_dense_burst(
+                model, eos_id=eos_id, max_new=max_new_tokens,
+                k_static=self.max_burst)
         # slot state on the device: uploaded (copied) only after
         # structural host mutations, otherwise replaced by each megastep
         self._dev = DeviceSlotState(
             put=lambda v: torch.tensor(v, device=self.device))
         # scheduler counters
+        self.n_batches = 0            # prefill launches (generate_batch,
+        #                               dense admission waves)
+        self.last_batch_latency_s = 0.0
         self.n_requests = 0
         self.n_prefills = 0
         self.n_joins = 0              # requests admitted mid-decode
@@ -241,7 +311,43 @@ class ServeEngine:
         self.n_bursts = 0             # burst launches (>= 1 device step each)
         self.n_device_steps = 0       # megasteps executed
         self.n_host_syncs = 0         # decode-loop device->host drains
+        self.n_flag_reads = 0         # burst early-out reads of `active`
         self.n_burst_early_exits = 0  # bursts cut short by all-done
+
+    # -- synchronous fixed batch API ------------------------------------------
+    def generate_batch(self, prompts: np.ndarray,
+                       extra_embeds=None) -> np.ndarray:
+        """prompts: (B, S) int32 -> generated (B, max_new_tokens), greedy:
+        one prefill, then ``max_new_tokens - 1`` dense decode steps at
+        positions S, S+1, ...  (in either mode: it runs the model's dense
+        steps, not the engine's cache)."""
+        B, S = prompts.shape
+        if B != self.batch_size:
+            raise ValueError(f"generate_batch takes batch_size="
+                             f"{self.batch_size} prompts, got {B}")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            return self._generate_batch_impl(prompts, extra_embeds, t0)
+
+    def _generate_batch_impl(self, prompts, extra_embeds, t0):
+        B, S = prompts.shape
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
+                                 device=self.device)
+        logits, cache = self._prefill(self.params, tokens, extra_embeds)
+        token = greedy_sample(logits)[:, None]
+        out = [token]
+        pos = S
+        for _ in range(self.max_new_tokens - 1):
+            logits, cache = self.model.decode_step(self.params, cache, token,
+                                                   pos)
+            token = greedy_sample(logits)[:, None]
+            out.append(token)
+            pos += 1
+        gen = torch.cat(out, dim=1).cpu().numpy()
+        self.n_batches += 1
+        self.n_requests += B
+        self.last_batch_latency_s = time.perf_counter() - t0
+        return gen
 
     # -- continuous batching ------------------------------------------------
     def submit(self, prompt: np.ndarray, *, lane: str = "interactive") -> int:
@@ -299,16 +405,21 @@ class ServeEngine:
     def kv_bytes_per_block(self) -> int:
         """Device bytes one physical block costs across every attention
         layer's K and V pools (state slabs, sized by slots, not blocks,
-        are not counted)."""
+        are not counted); 0 in dense mode (no block pool)."""
+        if self.allocator is None:
+            return 0
         cfg = self.model.cfg
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
         return (2 * self.model.n_attn_layers() * self.block_size
                 * cfg.n_kv_heads * cfg.resolved_head_dim * itemsize)
 
-    def pool_stats(self) -> Dict[str, Any]:
+    def pool_stats(self) -> Optional[Dict[str, Any]]:
         """Block-pool occupancy incl. shared vs private split, plus
         state-slab occupancy for recurrent families, plus the pool
-        footprint: ``kv_dtype``, ``bytes_per_block`` and ``pool_bytes``."""
+        footprint: ``kv_dtype``, ``bytes_per_block`` and ``pool_bytes``.
+        None in dense mode (no block pool), as in the reference."""
+        if self.allocator is None:
+            return None
         stats: Dict[str, Any] = self.allocator.stats()
         stats["n_reserved"] = self._reserved
         stats["kv_dtype"] = {torch.float32: "f32",
@@ -326,21 +437,27 @@ class ServeEngine:
     def loop_stats(self) -> Dict[str, int]:
         """Decode-loop counters: device steps vs host drains vs state
         uploads (``n_state_uploads`` counts host->device slot-state
-        rebuilds — structural events only)."""
+        rebuilds — structural events only).  ``n_host_syncs`` counts the
+        reference's syncs (one token drain per burst or mixed step);
+        ``n_flag_reads``, which the reference does not have, counts the
+        burst loop's blocking reads of the ``active`` flags (one per
+        step, plus one at an early exit)."""
         return {"burst": self.burst, "max_burst": self.max_burst,
                 "n_bursts": self.n_bursts,
                 "n_device_steps": self.n_device_steps,
                 "n_host_syncs": self.n_host_syncs,
+                "n_flag_reads": self.n_flag_reads,
                 "n_burst_early_exits": self.n_burst_early_exits,
                 "n_state_uploads": self._dev.n_uploads}
 
     def step(self) -> List[GenerationResult]:
         """Admit what fits, run one decode burst (or a mixed
-        prefill+decode megastep), evict what finished.  Returns results
-        for requests that completed during this step.  A failing step
-        raises (restart after a failure is ROADMAP A7b)."""
+        prefill+decode megastep, or a dense prefill wave), evict what
+        finished.  Returns results for requests that completed during
+        this step.  A failing step raises (restart after a failure is
+        ROADMAP A7b)."""
         with torch.inference_mode():
-            return self._step_paged()
+            return self._step_paged() if self.paged else self._step_dense()
 
     def serve(self, requests: List[np.ndarray],
               timeout_s: float = 120.0) -> List[GenerationResult]:
@@ -403,14 +520,19 @@ class ServeEngine:
                         request_id=req.rid, prompt=req.prompt,
                         tokens=np.asarray(req.tokens, np.int32),
                         latency_s=now - req.t_submit, status=status))
+            dirty = False
             dead_blocks: List[int] = []
             for slot in self._slots:
                 if slot is not None and slot.rid in rids:
                     slot.status = status
                     slot.done = True
-                    dead_blocks += list(slot.blocks)
-            if dead_blocks:
-                self._evict_paged()
+                    if self.paged:
+                        dead_blocks += list(slot.blocks)
+                    dirty = True
+            if dirty:
+                self._evict_paged() if self.paged else self._evict()
+                # a cancelled request's pages must not linger as
+                # retained prefix bait
                 for b in dead_blocks:
                     self.allocator.retire(b)
 
@@ -451,6 +573,23 @@ class ServeEngine:
         return fn
 
     # -- device-resident slot state -----------------------------------------
+    def _dense_state(self) -> Dict[str, np.ndarray]:
+        """Host rebuild of the dense-mode device state (dirty path)."""
+        B = self.batch_size
+        tokens = np.zeros((B,), np.int32)
+        rids = np.zeros((B,), np.int32)
+        steps = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        for i, s in enumerate(self._slots):
+            if s is None:
+                continue
+            rids[i] = s.rid
+            steps[i] = len(s.tokens)
+            tokens[i] = s.tokens[-1]
+            active[i] = not s.done
+        return {"tokens": tokens, "rids": rids, "steps": steps,
+                "active": active}
+
     def _paged_state(self) -> Dict[str, np.ndarray]:
         """Host rebuild of the device slot state (dirty path)."""
         B = self.batch_size
@@ -479,10 +618,12 @@ class ServeEngine:
     def _drain_burst(self, tok_buf, val_buf, *, k: int) -> None:
         """One host sync per burst: fetch the token ring buffer, append
         tokens to their slots, and replay the device-side done rule (eos
-        / max_new / cache exhausted) so the host mirror stays coherent
-        with the device's ``active`` flags."""
+        / max_new / paged: cache exhausted) so the host mirror stays
+        coherent with the device's ``active`` flags.  Dense mode advances
+        the shared position by the steps the burst ran."""
         toks, valid = tok_buf.cpu().numpy(), val_buf.cpu().numpy()
         self.n_host_syncs += 1
+        paged = self.paged
         n_steps = int(valid.any(axis=1).sum())
         self.n_bursts += 1
         self.n_device_steps += n_steps
@@ -495,18 +636,139 @@ class ServeEngine:
                     continue
                 slot.tokens.append(int(toks[kstep, i]))
                 fresh.add(i)
-                self._lengths[i] += 1
+                if paged:
+                    self._lengths[i] += 1
                 if ((self.eos_id is not None
                      and slot.tokens[-1] == self.eos_id)
                         or len(slot.tokens) >= self.max_new_tokens
-                        or int(self._lengths[i]) >= self.capacity):
+                        or (paged
+                            and int(self._lengths[i]) >= self.capacity)):
                     slot.done = True
+        if not paged:
+            self._pos += n_steps
         now = time.monotonic()
         for i in fresh:
             if self._slots[i].t_first is None:
                 self._slots[i].t_first = now
 
-    # -- scheduler internals ------------------------------------------------
+    # -- dense scheduler ----------------------------------------------------
+    def _step_dense(self) -> List[GenerationResult]:
+        """One engine tick in dense mode: admit (a fresh prefill wave, or
+        joiners that fit the shared position), then one decode burst at
+        the shared position — K = 1 while requests are queued, capped at
+        the cache strip's remainder; an exhausted strip truncates every
+        in-flight request."""
+        self._admit()
+        finished = self._evict()
+        if self.n_active == 0:
+            return finished
+        if self._pos >= self.capacity:
+            for slot in self._slots:
+                if slot is not None:
+                    slot.done = True
+            return finished + self._evict()
+        with self._lock:
+            pending = self.scheduler.pending
+        k = 1 if pending else min(self.burst, self.max_burst)
+        k = max(1, min(k, self.capacity - self._pos))
+        st = self._dev.device(self._dense_state)
+        self._cache, st, tok_buf, val_buf, n_reads = self._burst_fn(
+            self.params, self._cache, st, self._pos, k)
+        self._dev.adopt(st)
+        self.n_flag_reads += n_reads
+        self._drain_burst(tok_buf, val_buf, k=k)
+        return finished + self._evict()
+
+    def _admit(self) -> None:
+        """Dense admission.  With no request in flight, a fresh wave takes
+        up to one request per free slot (FIFO), re-anchors ``_pos`` to its
+        longest prompt and prefills them left-padded into a new cache.
+        Mid-decode, only prompts with ``len <= _pos`` join (the whole
+        queue is scanned: a long prompt never blocks a short one behind
+        it); they are left-padded to ``_pos``, the whole (B, _pos) batch
+        is prefilled once, and the joiners' rows are spliced into the
+        live cache.  The first token is sampled from the prefill."""
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        if not free:
+            return
+        with self._lock:
+            if not self.scheduler.pending:
+                return
+            if self.n_active == 0:
+                self._cache = None
+                take = list(self.scheduler.candidates())[:len(free)]
+                for req in take:
+                    self.scheduler.remove(req)
+                joins = list(zip(free, take))
+                fresh = True
+            elif self._pos >= self.capacity:
+                # cache exhausted: in-flight slots are about to be
+                # truncated; hold newcomers for the fresh re-anchor
+                return
+            else:
+                joins = []
+                for req in self.scheduler.candidates():
+                    if len(joins) < len(free) \
+                            and req.prompt.shape[0] <= self._pos:
+                        self.scheduler.remove(req)
+                        joins.append((free[len(joins)], req))
+                fresh = False
+        if not joins:
+            return
+        B = self.batch_size
+        if fresh:
+            self._pos = max(req.prompt.shape[0] for _, req in joins)
+        batch = np.zeros((B, self._pos), np.int32)
+        for slot_i, req in joins:
+            batch[slot_i, self._pos - req.prompt.shape[0]:] = req.prompt
+        logits, cache = self._prefill(
+            self.params, torch.as_tensor(batch, device=self.device))
+        first_np = greedy_sample(logits).cpu().numpy()
+        self.n_prefills += 1
+        self.n_batches += 1
+        if fresh:
+            self._cache = cache
+        else:
+            self._splice_cache(self._cache, cache,
+                               [slot_i for slot_i, _ in joins])
+            self.n_joins += len(joins)
+        now = time.monotonic()
+        for slot_i, req in joins:
+            slot = _Slot(req, first_np[slot_i], self.eos_id,
+                         self.max_new_tokens)
+            slot.t_first = now
+            self._slots[slot_i] = slot
+        self._dev.mark_dirty()
+
+    def _evict(self) -> List[GenerationResult]:
+        """Dense eviction: finished slots leave; their cache rows stay
+        until a joiner's splice or the next wave overwrites them."""
+        out: List[GenerationResult] = []
+        now = time.monotonic()
+        for i, slot in enumerate(self._slots):
+            if slot is None or not slot.done:
+                continue
+            res = self._make_result(slot, now)
+            out.append(res)
+            self._finish(res)
+            self._slots[i] = None
+            self.n_evictions += 1
+        return out
+
+    def _splice_cache(self, live, fresh, slot_ids: List[int]) -> None:
+        """Copy the joiners' rows of a fresh prefill cache into the live
+        cache, in place.  The batch axis is known by construction: axis 1
+        of the stacked ``blocks/s{j}`` leaves (after the layer axis),
+        axis 0 of the ``prefix`` leaves."""
+        sel = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
+        for st, new in zip(live.get("prefix", []), fresh.get("prefix", [])):
+            for name, leaf in st.items():
+                leaf[sel] = new[name][sel]
+        for j, st in live["blocks"].items():
+            for name, leaf in st.items():
+                leaf[:, sel] = fresh["blocks"][j][name][:, sel]
+
+    # -- paged scheduler ----------------------------------------------------
     def _step_paged(self) -> List[GenerationResult]:
         """One engine tick.
 
@@ -629,9 +891,10 @@ class ServeEngine:
         if not any_active:
             return
         st = self._dev.device(self._paged_state)
-        self._paged_cache, st, tok_buf, val_buf = self._burst_fn(
+        self._paged_cache, st, tok_buf, val_buf, n_reads = self._burst_fn(
             self.params, self._paged_cache, st, k)
         self._dev.adopt(st)
+        self.n_flag_reads += n_reads
         self._drain_burst(tok_buf, val_buf, k=k)
 
     def _match_prefix(self, prompt: np.ndarray) \

@@ -53,6 +53,11 @@ def _serve_both(pair, prompts, **kw):
     for name in ("n_bursts", "n_device_steps", "n_host_syncs",
                  "n_burst_early_exits", "n_state_uploads"):
         assert tl[name] == jl[name], name
+    # the port's burst loop reads the active flags before each burst step
+    # and once more where it exits early (the reference tests them on the
+    # device)
+    assert tl["n_flag_reads"] == (tl["n_device_steps"] - te.n_prefill_chunks
+                                  + tl["n_burst_early_exits"])
     return je, te
 
 
@@ -93,13 +98,19 @@ def test_bf16_model_with_f32_pool_raises(pair):
     assert [len(r.tokens) for r in res] == [4, 4]
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"temperature": 0.7}, "A8"), ({"kv_dtype": "int8"}, "A9"),
-    ({"spec_k": 2}, "A11"), ({"paged": False}, "A7d"),
-    ({"mesh": object()}, "A17"), ({"fault_plan": object()}, "A7a")])
-def test_unsupported_options_raise(pair, kw, item):
+@pytest.mark.parametrize("kw,exc,item", [
+    ({"temperature": 0.7}, NotImplementedError, "A8"),
+    ({"kv_dtype": "int8"}, NotImplementedError, "A9"),
+    ({"spec_k": 2}, NotImplementedError, "A11"),
+    # the dense mode is ported: what it refuses is what the reference's
+    # dense mode refuses
+    ({"paged": False, "share_prefix": True}, ValueError,
+     "share_prefix=True requires paged mode"),
+    ({"mesh": object()}, NotImplementedError, "A17"),
+    ({"fault_plan": object()}, NotImplementedError, "A7a")])
+def test_unsupported_options_raise(pair, kw, exc, item):
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         ServeEngine(tm, tp, device="cpu", **kw)
 
 

@@ -154,6 +154,35 @@ def test_wrappers_reject_unsupported_operands():
     dops.check_paged_operands(q, k, v, pt, ln, 3)      # the valid call
 
 
+def test_library_hash_covers_included_headers(tmp_path):
+    """A kernel library is rebuilt when a header that its source includes
+    with quotes changes, directly or through another header."""
+    from repro_torch.kernels import build
+    (tmp_path / "inc").mkdir()
+    src, body = tmp_path / "k.cu", tmp_path / "inc" / "body.cuh"
+    common = tmp_path / "common.cuh"
+    src.write_text('#include "inc/body.cuh"\n#include <cuda_runtime.h>\n')
+    body.write_text('#pragma once\n#include "../common.cuh"\n')
+    common.write_text("// one\n")
+    assert [f.name for f in build.source_files(src)] == \
+        ["k.cu", "body.cuh", "common.cuh"]
+    before = build.library_path("k", src)
+    assert build.library_path("k", src) == before
+    common.write_text("// two\n")
+    assert build.library_path("k", src) != before
+
+
+@pytest.mark.parametrize("kernel,body", [
+    (dops.KERNEL, "decode_body.cuh"), (dops.DENSE_KERNEL, "decode_body.cuh"),
+    (fops.KERNEL, "prefill_body.cuh"), (fops.FLASH_KERNEL, "prefill_body.cuh")])
+def test_attention_kernels_share_their_family_body(kernel, body):
+    """The paged and contiguous entries of each attention family are
+    built from one shared body and the shared helpers."""
+    from repro_torch.kernels import build
+    names = [f.name for f in build.source_files(kernel.source)]
+    assert names == [kernel.source.name, body, "common.cuh"]
+
+
 # -- on the card: each kernel against its plain version ----------------------
 
 # bf16: the plain version rounds q*scale, the scores and the normalized
@@ -226,3 +255,80 @@ def test_kernels_match_plain_at_jamba_heads(cuda, T, dtype):
     assert ops.KERNEL.launches == n0 + 1
     err = (got.float() - want.float()).abs().max().item()
     assert err <= _TOL[dtype], err
+
+
+# -- the dense engine's kernels: contiguous flash prefill (B2) and dense
+#    decode (B4), each against its plain version on the card ------------------
+
+def _dense_qkv(seed, B, S, T, heads, dtype, device):
+    rng = np.random.default_rng(seed)
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    return (_t(rng.standard_normal((B, S, H, hd)).astype(np.float32),
+               device, dtype),
+            _t(rng.standard_normal((B, T, KV, hd)).astype(np.float32),
+               device, dtype),
+            _t(rng.standard_normal((B, T, KV, hd)).astype(np.float32),
+               device, dtype))
+
+
+_SMOLLM = dict(H=15, KV=5, hd=64)
+_JAMBA_HEADS = dict(H=32, KV=8, hd=128)
+
+
+@pytest.mark.parametrize("S,window", [(512, 0), (512, 128), (77, 0),
+                                      (77, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, S, window, dtype):
+    """Causal, causal with a window, and S not a multiple of the kernel's
+    16-token query tile or 32-key tile."""
+    q, k, v = _dense_qkv(S + window, 2, S, S, _SMOLLM, dtype, cuda)
+    n0 = fops.FLASH_KERNEL.launches
+    got = fops.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = fops.flash_attention_plain(q, k, v, causal=True,
+                                      sliding_window=window)
+    torch.cuda.synchronize()
+    assert fops.FLASH_KERNEL.launches == n0 + 1
+    assert got.dtype == want.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[dtype], err
+
+
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS])
+@pytest.mark.parametrize("n_valid", [1, 300, 576])
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.bfloat16, torch.bfloat16)])
+def test_dense_decode_kernel_matches_plain(cuda, heads, n_valid, qdt, kvdt):
+    """A first token, a partly filled cache and a full one (a wrapped
+    ring: every slot valid)."""
+    q, k, v = _dense_qkv(n_valid, 8, 1, 576, heads, torch.float32, cuda)
+    q, k, v = q[:, 0].to(qdt).contiguous(), k.to(kvdt), v.to(kvdt)
+    n0 = dops.DENSE_KERNEL.launches
+    got = dops.decode_attention(q, k, v, n_valid)
+    want = dops.decode_attention_plain(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    assert dops.DENSE_KERNEL.launches == n0 + 1
+    assert got.dtype == want.dtype == kvdt
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[kvdt], err
+
+
+def test_dense_wrappers_reject_unsupported_operands():
+    q, k, v = _dense_qkv(0, 2, 8, 8, dict(H=4, KV=2, hd=8), torch.float32,
+                         "cpu")
+    with pytest.raises(ValueError, match="causal"):
+        fops.check_flash_operands(q, k, v, False, 4)
+    with pytest.raises(ValueError, match="1 <= S <= T"):
+        fops.check_flash_operands(q, k[:, :4].contiguous(),
+                                  v[:, :4].contiguous(), True, 0)
+    with pytest.raises(TypeError):
+        fops.check_flash_operands(q, k.bfloat16(), v, True, 0)
+    fops.check_flash_operands(q, k, v, True, 4)        # the valid call
+    qd = q[:, 0].contiguous()
+    with pytest.raises(ValueError, match="n_valid"):
+        dops.check_dense_operands(qd, k, v, 9)
+    with pytest.raises(TypeError):
+        dops.check_dense_operands(qd.bfloat16(), k, v, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        dops.check_dense_operands(qd, k.transpose(1, 2), v, 3)
+    dops.check_dense_operands(qd, k, v, 8)             # the valid call
