@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
-  2. build     — compile the six hand-written CUDA kernels (one nvcc
+  2. build     — compile the nine hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout.
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
@@ -20,16 +20,22 @@ result line):
                  prefill (B2) at batch 8, S = 512, causal and with a
                  128-token window, f32 and bf16, and its dense decode (B4)
                  at batch 8, a 584-slot cache, smollm and jamba heads, a
-                 partly filled cache and a full (wrapped) ring.
+                 partly filled cache and a full (wrapped) ring; the int8
+                 paged decode (B3) and int8 paged prefill (K2q) at smollm
+                 heads, f32 q over int8 pools with per-row scales (batch 4
+                 and 8; T = 32 for K2q); the fused transform (B7) at e4's
+                 (64, 224, 224, 3) uint8 -> f32 and uint8 -> uint8,
+                 bit-exact.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
                  smollm-360m's head geometry (K1, K2), and one jamba
                  period at smoke width (8 layers, 4 experts; K1, K2, B5,
-                 B6).  Dense (paged=False): the same smollm-shaped model
-                 (B2, B4), with a 48-token sliding window whose ring wraps
-                 (B2, B4), and the smoke jamba (B2, B4, B5, B6); the paged
-                 kernels must not launch there.
+                 B6), and the smollm-shaped model over an int8 pool (B3,
+                 K2q; K1/K2 must not launch).  Dense (paged=False): the
+                 same smollm-shaped model (B2, B4), with a 48-token sliding
+                 window whose ring wraps (B2, B4), and the smoke jamba (B2,
+                 B4, B5, B6); the paged kernels must not launch there.
   5. main path — ``repro_torch.launch.serve`` serves smollm-360m at full
                  width (random weights from seed 0, bf16 KV) through the
                  stream pipeline; K1 and K2 must have launched.  Then a
@@ -49,10 +55,25 @@ result line):
                  up to 512 prompt tokens, 64 new, burst 8); B2
                  (contiguous) and B4 must have launched and K1/K2 must
                  not.  Then a profiler trace.
+  8. int8      — smollm-360m at full width and depth with f32 weights
+                 (random, seed 0) serves phase 5's 16 requests through the
+                 pipeline over an int8 pool (batch 8, chunk 32, burst 8);
+                 B3 and K2q must have launched and K1/K2 must not.  Then
+                 the same model over an f32 pool: greedy-token agreement
+                 logged, bytes per block f32/int8 = 512/136 asserted.
+                 Then a profiler trace of the int8 engine.
+  9. preproc   — ``videotestsrc ! tensor_converter ! tensor_transform
+                 option=<e4 chain> backend=fused ! tensor_sink`` parsed
+                 and run at 224x224x3 frames, then batched by
+                 ``tensor_aggregator`` to e4's (64, 224, 224, 3); outputs
+                 equal the numpy chain within 1e-6 and B7 must have
+                 launched; frames per second and the host copies against
+                 B7's device time are logged.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
-phase 7); then the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+phase 7, B3/K2q from phase 8, B7 from phase 9); then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.  The
+whole run takes ~4-6 minutes on one H100, the build included.
 """
 from __future__ import annotations
 
@@ -87,6 +108,10 @@ SCAN_TOL_REASON = ("scan outputs are f32 of magnitude ~10: the kernel's "
                    "against einsum's")
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 DENSE_KERNELS = ("flash_attention", "decode_attention")
+QUANT_KERNELS = ("paged_decode_attention_quant",
+                 "paged_prefill_attention_quant")
+ATTN_KERNELS = PAGED_KERNELS + DENSE_KERNELS + QUANT_KERNELS
+E4_CHAIN = "typecast:float32,divide:255.0,subtract:0.5,clamp:-0.5:0.5"
 SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
 JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
 BS, P, MAX_LEN = 16, 40, 600       # block size, pages per slot, lengths
@@ -96,7 +121,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:67",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:240",
     "selective_scan": "src/repro/kernels/ssm_scan/kernel.py:53",
-    "gating_topk": "src/repro/kernels/moe_gating/kernel.py:35"}
+    "gating_topk": "src/repro/kernels/moe_gating/kernel.py:35",
+    "paged_decode_attention_quant":
+        "src/repro/kernels/decode_attention/kernel.py:141",
+    # the int8 form of K2 (the reference dequantizes in XLA for T > 1)
+    "paged_prefill_attention_quant":
+        "src/repro/kernels/flash_attention/kernel.py:67",
+    "fused_transform": "src/repro/kernels/transform/kernel.py:31"}
 
 
 def log(msg: str) -> None:
@@ -527,6 +558,121 @@ def phase_dense_kernels(timer: Timer):
     return served
 
 
+def _quant_pools(k, v):
+    """int8 pools and their f32 per-row scales from f32 pools, by the
+    port's quantizer (the reference's arithmetic)."""
+    from repro_torch.models.attention import quantize_kv
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+def _quant_bound_ms(q, lengths, T, decode, heads):
+    """Least time for the int8 kernels' work: q (f32) read and out (f32)
+    written once; per visible row one int8 K and V row of KV x hd and
+    their 2 x KV f32 scales, the page-table entries and lengths; the QK
+    and PV operations (multiply and add) at the f32 peak: the reference
+    dequantizes to f32 and computes in f32."""
+    B, H, hd, KV = q.shape[0], heads["H"], heads["hd"], heads["KV"]
+    vis = _visible_keys(lengths, T, decode)
+    keys = vis.max(dim=1).values
+    kv_bytes = int(keys.sum()) * KV * (2 * hd + 2 * 4)
+    pages = int(((keys + BS - 1) // BS).sum()) * 4
+    return _bound(kv_bytes + pages + 2 * q.numel() * 4 + B * 4,
+                  4 * H * hd * int(vis.sum()), torch.float32)
+
+
+def phase_quant_kernels(timer: Timer):
+    """B3 (T = 1) and K2q (T = 32) at smollm heads over int8 pools made
+    from _attn_case's f32 pools, f32 q; the library call is SDPA over the
+    cache dequantized and gathered beforehand."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.attention import dequantize_kv
+    served = {}
+    specs = [("paged_decode_attention_quant",
+              dops.paged_decode_attention_quant,
+              dops.paged_decode_attention_quant_plain, 1, True,
+              dops.QUANT_KERNEL),
+             ("paged_prefill_attention_quant",
+              fops.paged_prefill_attention_quant,
+              fops.paged_prefill_attention_quant_plain, 32, False,
+              fops.QUANT_KERNEL)]
+    f32 = torch.float32
+    heads = SMOLLM_HEADS
+    for name, kern, plain, T, decode, handle in specs:
+        for B in (4, 8):
+            q, k, v, pt, lengths = _attn_case(B * 7 + T + 1, B, T, f32, f32,
+                                              heads)
+            if decode:
+                q = q[:, 0].contiguous()
+            kq, vq, ks, vs = _quant_pools(k, v)
+            args = (q, kq, vq, ks, vs, pt, lengths)
+            n0 = handle.launches
+            out = kern(*args)
+            torch.cuda.synchronize()
+            check(handle.launches == n0 + 1, f"{name} did not launch")
+            want = plain(*args)
+            check(out.dtype == f32 and torch.isfinite(out).all().item(),
+                  f"{name}: non-finite or non-f32 output")
+            err = (out - want).abs().max().item()
+            tol = TOL[f32]
+            tag = (f"{name} smollm heads 15/5 hd 64 B={B} T={T} q=float32 "
+                   f"kv=int8 (+f32 row scales)")
+            check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+            row = _time_row(
+                timer, kern, plain, args,
+                _attn_library_call(q, dequantize_kv(kq, ks),
+                                   dequantize_kv(vq, vs), pt, lengths, T,
+                                   decode, heads),
+                _quant_bound_ms(q, lengths, T, decode, heads))
+            log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+                + _fmt(row))
+            if B == 8:
+                served[name] = dict(max_abs_err=err, **row)
+    log("[kernels] int8 attention tolerance: 1e-5 (f32 outputs; the "
+        "kernels dequantize each row with one f32 product, as the plain "
+        "version does, and sum in another order)")
+    return served
+
+
+def phase_transform(timer: Timer):
+    """B7 at e4's pre-processing shape, (64, 224, 224, 3) uint8: the e4
+    chain to f32 (scale 1/255, bias -0.5, clip +-0.5) and a uint8 ->
+    uint8 affine that saturates; bit-exact against the plain version."""
+    from repro_torch.kernels.transform import ops as tops
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randint(0, 256, (64, 224, 224, 3), generator=g,
+                      dtype=torch.uint8).to("cuda")
+    served = None
+    for tag, kw in (
+            ("uint8 -> float32, e4 chain (scale 1/255, bias -0.5, "
+             "clip +-0.5)",
+             dict(scale=1 / 255.0, bias=-0.5, lo=-0.5, hi=0.5,
+                  out_dtype=torch.float32)),
+            ("uint8 -> uint8 (scale 1.5, bias -20, saturating)",
+             dict(scale=1.5, bias=-20.0, out_dtype=torch.uint8))):
+        n0 = tops.KERNEL.launches
+        out = tops.fused_transform(x, **kw)
+        torch.cuda.synchronize()
+        check(tops.KERNEL.launches == n0 + 1, "fused_transform did not launch")
+        want = tops.fused_transform_plain(x, **kw)
+        check(out.dtype == want.dtype and torch.equal(out, want),
+              f"fused_transform {tag}: kernel and plain version differ")
+        err = (out.float() - want.float()).abs().max().item()
+        n = x.numel()
+        row = _time_row(timer, lambda a: tops.fused_transform(a, **kw),
+                        lambda a: tops.fused_transform_plain(a, **kw), (x,),
+                        None, _bound(n * (1 + out.element_size()), 4 * n,
+                                     torch.float32))
+        log(f"[kernels] fused_transform (64, 224, 224, 3) {tag}: exact"
+            + _fmt(row))
+        if served is None:
+            served = dict(max_abs_err=err, **row)
+    log("[kernels] fused_transform tolerance: exact; no single PyTorch "
+        "call computes it (library_ms null)")
+    return served
+
+
 # -- phase 4 --------------------------------------------------------------------
 
 def phase_engine(kernels) -> None:
@@ -539,17 +685,21 @@ def phase_engine(kernels) -> None:
     jamba = get_config("jamba-v0.1-52b", smoke=True)
     scan_gate = ("selective_scan", "gating_topk")
     cases = [
-        ("paged 2-layer f32 smollm heads", smollm2, True, PAGED_KERNELS),
+        ("paged 2-layer f32 smollm heads", smollm2, True, None,
+         PAGED_KERNELS),
+        ("paged 2-layer f32 smollm heads, int8 KV", smollm2, True, "int8",
+         QUANT_KERNELS),
         ("paged jamba-v0.1 smoke (8 layers, 4 experts, f32)", jamba, True,
-         PAGED_KERNELS + scan_gate),
-        ("dense 2-layer f32 smollm heads", smollm2, False, DENSE_KERNELS),
+         None, PAGED_KERNELS + scan_gate),
+        ("dense 2-layer f32 smollm heads", smollm2, False, None,
+         DENSE_KERNELS),
         ("dense 2-layer f32 smollm heads, 48-token window (ring wraps)",
-         smollm2.replace(sliding_window=48), False, DENSE_KERNELS),
+         smollm2.replace(sliding_window=48), False, None, DENSE_KERNELS),
         ("dense jamba-v0.1 smoke (8 layers, 4 experts, f32)", jamba, False,
-         DENSE_KERNELS + scan_gate)]
-    for tag, cfg, paged, path in cases:
+         None, DENSE_KERNELS + scan_gate)]
+    for tag, cfg, paged, kv_dtype, path in cases:
         kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4,
-                  paged=paged)
+                  paged=paged, kv_dtype=kv_dtype)
         if paged:
             kw.update(prefill_chunk=32, block_size=16)
         rng = np.random.default_rng(4)
@@ -573,9 +723,10 @@ def phase_engine(kernels) -> None:
                   f"cuda {b.tokens}")
         check(all(launches[n] > 0 for n in path),
               f"{tag}: engine run missed a kernel: {launches}")
-        other = DENSE_KERNELS if paged else PAGED_KERNELS
+        other = [n for n in ATTN_KERNELS if n not in path]
         check(all(launches[n] == 0 for n in other),
-              f"{tag}: the other mode's kernels launched: {launches}")
+              f"{tag}: another path's attention kernels launched: "
+              f"{launches}")
         log(f"[engine] {tag}: {len(prompts)} requests, greedy tokens on "
             f"cuda == cpu ({sum(len(r.tokens) for r in got)} tokens); "
             f"launches {launches}")
@@ -601,8 +752,8 @@ def phase_main_path(kernels):
     check(eng.n_evictions >= 16, f"{eng.n_evictions} requests finished")
     check(all(launches[n] > 0 for n in PAGED_KERNELS),
           f"main path missed a kernel: {launches}")
-    check(all(launches[n] == 0 for n in DENSE_KERNELS),
-          f"the paged path launched a dense kernel: {launches}")
+    check(all(launches[n] == 0 for n in DENSE_KERNELS + QUANT_KERNELS),
+          f"the paged bf16 path launched another path's kernel: {launches}")
     decoded = eng.n_device_steps
     log(f"[main] smollm-360m full width (32 layers, d 960, 15/5 heads, "
         f"vocab 49152, bf16): {out['total_tokens'] / out['wall_s']:.1f} tok/s "
@@ -649,6 +800,9 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
         f"(idle {100 - busy_us / 1e4 / wall:.1f}%)")
     for key, us, cnt in rows[:10]:
         log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  {key[:90]}")
+    d2h = sum(cnt for key, _, cnt in rows if "DtoH" in key)
+    log(f"[{tag}] device-to-host copies (host syncs): {d2h} = "
+        f"{d2h / steps:.2f} per device step")
 
 
 # -- phase 6 --------------------------------------------------------------------
@@ -756,6 +910,161 @@ def phase_dense(kernels):
     return launches, eng
 
 
+# -- phase 8 --------------------------------------------------------------------
+
+def phase_int8(kernels):
+    """smollm-360m at full width and depth with f32 weights (a bf16 model
+    cannot serve over an int8 pool, in the reference either) serving
+    phase 5's requests through the pipeline over an int8 pool, then over
+    an f32 pool for the token agreement and the bytes per block."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("smollm-360m").replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    requests = serve.make_requests(cfg.vocab_size, 16, 512)
+    kw = dict(batch_size=8, capacity=512 + 64 + 8, max_new_tokens=64,
+              prefill_chunk=32, block_size=16, burst=8, device="cuda")
+    tokens, engines = {}, {}
+    for kv_dtype in ("int8", "f32"):
+        eng = ServeEngine(model, params, kv_dtype=kv_dtype, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        t0 = time.perf_counter()
+        out = serve.serve_pipeline(eng, requests, batch=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        total = sum(np.asarray(b.data).size for b in out)
+        check(len(out) == 16 and total == 16 * 64,
+              f"int8 phase ({kv_dtype}): {len(out)} results, {total} tokens")
+        tokens[kv_dtype] = {b.meta["request"]: np.asarray(b.data)
+                            for b in out}
+        engines[kv_dtype] = eng
+        path = QUANT_KERNELS if kv_dtype == "int8" else PAGED_KERNELS
+        check(all(launches[n] > 0 for n in path),
+              f"{kv_dtype} pool: path missed a kernel: {launches}")
+        check(all(launches[n] == 0 for n in ATTN_KERNELS if n not in path),
+              f"{kv_dtype} pool: another path's kernel launched: {launches}")
+        ls, ps = eng.loop_stats(), eng.pool_stats()
+        per_tok = {n: round(c / total, 3) for n, c in launches.items()}
+        log(f"[int8] smollm-360m full width (32 layers, d 960, 15/5 heads, "
+            f"vocab 49152, f32 weights), {ps['kv_dtype']} pool: "
+            f"{total / wall:.1f} tok/s ({total} tokens in {wall:.2f}s, "
+            f"pipeline); {ls['n_device_steps']} device steps "
+            f"({eng.n_prefill_chunks} mixed), {ls['n_host_syncs']} host "
+            f"syncs + {ls['n_flag_reads']} flag reads; "
+            f"{ps['bytes_per_block']} bytes/block, "
+            f"{ps['pool_bytes'] / 1e6:.1f} MB pool; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[int8] launches {launches} ({per_tok} per served token)")
+        if kv_dtype == "int8":
+            launches8 = launches
+    agree = sum(int((tokens["int8"][i] == tokens["f32"][i]).sum())
+                for i in range(16))
+    first = sum(int(tokens["int8"][i][0] == tokens["f32"][i][0])
+                for i in range(16))
+    log(f"[int8] greedy tokens equal to the f32 pool's: {agree}/{16 * 64} "
+        f"({100 * agree / (16 * 64):.1f}%); first tokens {first}/16 "
+        f"(logged, not gated: int8 KV is a bounded drift, not identity)")
+    b8 = engines["int8"].kv_bytes_per_block()
+    b32 = engines["f32"].kv_bytes_per_block()
+    hd = cfg.resolved_head_dim
+    check(b32 * (2 * hd + 2 * 4) == b8 * (2 * hd * 4),
+          f"bytes per block f32/int8 = {b32}/{b8}, not 512/136")
+    log(f"[int8] bytes per block f32/int8 = {b32}/{b8} = {b32 / b8:.4f} "
+        f"(= 512/136: 2 x 64 x 4 bytes against 2 x 64 + 2 x 4)")
+    del engines["f32"]
+    return launches8, engines["int8"]
+
+
+# -- phase 9 --------------------------------------------------------------------
+
+def phase_preproc(kernels):
+    """The e4 pre-processing chain on B7 through the port's parser: one
+    frame at a time, then 64 frames stacked by tensor_aggregator."""
+    from repro_torch.core import parse_pipeline
+    from repro_torch.core.elements.sources import VideoTestSrc
+    from repro_torch.core.elements.transform import (apply_chain_numpy,
+                                                     parse_chain)
+    from repro_torch.kernels.transform import ops as tops
+    chain = parse_chain(E4_CHAIN)
+    src = VideoTestSrc("ref")
+    frames = {}
+
+    def frame(i):
+        if i not in frames:
+            frames[i] = src.create(i).data
+        return frames[i]
+
+    launches = 0
+    for tag, n_frames, batch in (("per frame", 64, 0), ("batched", 128, 64)):
+        agg = (f"tensor_aggregator frames_in={batch} stack=true ! "
+               if batch else "")
+        pipe = parse_pipeline(
+            f"videotestsrc num_buffers={n_frames} ! tensor_converter ! {agg}"
+            f"tensor_transform option={E4_CHAIN} backend=fused ! "
+            "tensor_sink name=out keep=true")
+        reset(kernels)
+        t0 = time.perf_counter()
+        pipe.start()
+        try:
+            check(pipe["out"].eos_seen.wait(timeout=300),
+                  f"preproc {tag}: pipeline did not drain")
+            pipe.check_bus()
+        finally:
+            pipe.stop()
+        wall = time.perf_counter() - t0
+        outs = [np.asarray(b.data) for b in pipe["out"].buffers]
+        n_out = n_frames // batch if batch else n_frames
+        check(len(outs) == n_out, f"preproc {tag}: {len(outs)} outputs")
+        err = 0.0
+        for j, out in enumerate(outs):
+            idx = range(j * batch, (j + 1) * batch) if batch else [j]
+            want = (np.stack([frame(i) for i in idx]) if batch
+                    else frame(j))
+            want = apply_chain_numpy(want, chain)
+            check(out.shape == want.shape and out.dtype == np.float32,
+                  f"preproc {tag}: {out.shape} {out.dtype}")
+            err = max(err, float(np.abs(out - want).max()))
+        check(err <= 1e-6, f"preproc {tag}: max_abs_err {err} > 1e-6")
+        launches += tops.KERNEL.launches
+        check(tops.KERNEL.launches == n_out,
+              f"preproc {tag}: B7 launched {tops.KERNEL.launches} times")
+        log(f"[preproc] {tag}: {n_frames} frames of 224x224x3 uint8 -> "
+            f"{outs[0].shape} f32 through the parsed pipeline in "
+            f"{wall:.3f}s = {n_frames / wall:.1f} frames/s; max_abs_err "
+            f"vs the numpy chain {err:.3e} (tol 1e-6); B7 launches "
+            f"{tops.KERNEL.launches}")
+    # what one batch costs the element: upload, kernel, download
+    x = np.stack([frame(i) for i in range(64)])
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # the spin keeps the start event behind the enqueued launch, so the
+    # interval holds device time only (as Timer does)
+    torch.cuda._sleep(Timer.SPIN_CYCLES)
+    events[0].record()
+    y = tops.fused_transform(xd, scale=1 / 255.0, bias=-0.5, lo=-0.5,
+                             hi=0.5, out_dtype=torch.float32)
+    events[1].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    y.cpu().numpy()
+    t3 = time.perf_counter()
+    log(f"[preproc] one (64, 224, 224, 3) batch: host-to-device copy "
+        f"{(t1 - t0) * 1e3:.3f} ms (9.6 MB), B7 "
+        f"{events[0].elapsed_time(events[1]):.4f} ms on the device, "
+        f"device-to-host copy {(t3 - t2) * 1e3:.3f} ms (38.5 MB)")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -776,8 +1085,10 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.moe_gating import ops as gops
     from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.transform import ops as tops
     kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL,
-               fops.FLASH_KERNEL, dops.DENSE_KERNEL]
+               fops.FLASH_KERNEL, dops.DENSE_KERNEL, dops.QUANT_KERNEL,
+               fops.QUANT_KERNEL, tops.KERNEL]
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(kernels)
@@ -786,6 +1097,8 @@ def main() -> None:
     served["selective_scan"] = phase_scan(timer)
     served["gating_topk"] = phase_gating(timer)
     served.update(phase_dense_kernels(timer))
+    served.update(phase_quant_kernels(timer))
+    served["fused_transform"] = phase_transform(timer)
     del timer
     phase_engine(kernels)
     launches5, eng = phase_main_path(kernels)
@@ -800,12 +1113,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches7, eng = phase_dense(kernels)
     phase_trace(eng, "dense", n=8, prompt_len=512)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches8, eng = phase_int8(kernels)
+    phase_trace(eng, "int8", n=8, prompt_len=512)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches9 = phase_preproc(kernels)
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],
                 "gating_topk": launches6["gating_topk"],
                 "flash_attention": launches7["flash_attention"],
-                "decode_attention": launches7["decode_attention"]}
+                "decode_attention": launches7["decode_attention"],
+                "fused_transform": launches9}
+    launches.update({n: launches8[n] for n in QUANT_KERNELS})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
                  source=str(k.source.relative_to(ROOT)),

@@ -9,16 +9,21 @@ Chains parse from gst-style option strings:
 
 Backends:
   * "numpy"  — eager, one pass per op (the naive baseline in E4 terms)
-  * "fused"  — single fused pass through a hand-written kernel; not
-               ported yet (raises).  ``fold_affine`` folds the arith
-               chain into the one scale/bias/clamp op that kernel takes.
+  * "fused"  — single fused pass through the hand-written kernel
+               (``kernels/transform``, B7) on the element's device: CUDA
+               unless the caller names the CPU, where the kernel's plain
+               version runs; the arith chain is folded into one
+               scale/bias/clamp affine op (``fold_affine``) before launch.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ...kernels.transform import ops as tops
+from ...models.common import resolve_device
 from ..element import Element, Pad
 from ..stream import Buffer, canonical_dtype
 
@@ -113,20 +118,49 @@ def apply_chain_numpy(arr: np.ndarray, ops: Sequence[TransformOp]) -> np.ndarray
     return out
 
 
+def _to_torch(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":      # numpy has no bf16 of its own
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 class TensorTransform(Element):
-    def __init__(self, name: str, option: str, backend: str = "numpy"):
+    def __init__(self, name: str, option: str, backend: str = "numpy",
+                 device=None):
         super().__init__(name)
-        if backend == "fused":
-            raise NotImplementedError(
-                "TensorTransform(backend='fused') needs the fused_transform_2d "
-                "kernel, not yet ported (ROADMAP B7, A14)")
-        if backend != "numpy":
+        if backend not in ("numpy", "fused"):
             raise ValueError(f"unknown TensorTransform backend {backend!r}")
         self.add_sink_pad()
         self.add_src_pad()
         self.ops = parse_chain(option)
         self.backend = backend
+        self._fused = None
+        self.device = None
+        if backend == "fused":
+            folded = fold_affine(self.ops)
+            if folded is None:
+                raise ValueError(
+                    "fused backend requires a foldable arith/typecast chain")
+            self._fused = folded
+            self.device = resolve_device(device)
 
     def transform(self, pad: Pad, buf: Buffer) -> Optional[Buffer]:
-        return buf.with_chunks(apply_chain_numpy(np.asarray(buf.data),
-                                                 self.ops))
+        arr = np.asarray(buf.data)
+        if self.backend == "fused":
+            scale, bias, lo, hi, dtype = self._fused
+            out = _to_numpy(tops.fused_transform(
+                _to_torch(arr, self.device), scale=scale, bias=bias, lo=lo,
+                hi=hi, out_dtype=getattr(torch, dtype) if dtype else None))
+        else:
+            out = apply_chain_numpy(arr, self.ops)
+        return buf.with_chunks(out)

@@ -95,7 +95,8 @@ def _register_builtins() -> None:
         name, framerate=float(p["framerate"]),
         throttle=str(p.get("throttle", "true")).lower() == "true"))
     register_element("tensor_transform", lambda name, **p: E.TensorTransform(
-        name, option=p["option"], backend=p.get("backend", "numpy")))
+        name, option=p["option"], backend=p.get("backend", "numpy"),
+        device=p.get("device")))
     register_element("tensor_if", lambda name, **p: E.TensorIf(
         name, reduction=p.get("reduction", "mean"),
         compare=p.get("compare", "gt"), value=float(p.get("value", 0.0)),

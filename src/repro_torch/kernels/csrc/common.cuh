@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace kern {
 
@@ -33,9 +34,15 @@ template <> struct Promote<__nv_bfloat16, __nv_bfloat16> {
   using type = __nv_bfloat16;
 };
 
-// One 16-byte chunk of a K/V row (4 f32 or 8 bf16 values), widened to
-// f32.  Rows start at multiples of hd elements and the wrappers require
-// hd % 8 == 0, so every chunk is 16-byte aligned.
+// The type a K/V element computes in, and the attention output's type:
+// the pool's own for f32/bf16 pools, f32 for int8 pools (dequantized).
+template <typename T> struct Compute { using type = T; };
+template <> struct Compute<int8_t> { using type = float; };
+
+// One 16-byte chunk of a K/V row (4 f32, 8 bf16 or 16 int8 values),
+// widened to f32.  Rows start at multiples of hd elements and the
+// wrappers require hd % 8 == 0 (hd % 16 == 0 for int8), so every chunk
+// is 16-byte aligned.
 template <typename T> struct Chunk;
 template <> struct Chunk<float> {
   static constexpr int N = 4;
@@ -57,6 +64,34 @@ template <> struct Chunk<__nv_bfloat16> {
       dst[2 * i + 1] = f.y;
     }
   }
+};
+
+template <> struct Chunk<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* src, float* dst) {
+    const int4 v = *reinterpret_cast<const int4*>(src);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = (float)b[i];
+  }
+};
+
+// Dequantization of the K/V rows a tile loads.  f32/bf16 pools carry
+// none.  int8 pools carry one f32 scale per (block row, KV head) for K
+// and one for V, at the same index as the row's slab in (nb, bs, KV):
+// a row is widened to f32 and multiplied by its scale (rounded once, as
+// the reference's `k.astype(f32) * ks[:, None]`) before the dot.
+struct NoScales {
+  static constexpr bool kQuant = false;
+  __device__ float k(size_t) const { return 1.f; }
+  __device__ float v(size_t) const { return 1.f; }
+};
+struct RowScales {
+  const float* ks;  // (nb, bs, KV)
+  const float* vs;
+  static constexpr bool kQuant = true;
+  __device__ float k(size_t i) const { return ks[i]; }
+  __device__ float v(size_t i) const { return vs[i]; }
 };
 
 // Page-table addressing of the serving engine's pools (nb, bs, KV, hd):

@@ -1,12 +1,15 @@
 // One-token attention over a row's K/V for Hopper (sm_90a): the body
-// shared by paged_decode.cu (K1, keys through a page table) and
-// dense_decode.cu (B4, keys in a contiguous cache).  The two differ only
-// in a row policy, a struct with
+// shared by paged_decode.cu (K1, keys through a page table),
+// paged_decode_quant.cu (B3, the same over int8 pools) and
+// dense_decode.cu (B4, keys in a contiguous cache).  They differ only in
+// a row policy, a struct with
 //   int n_keys(int b) const;           // keys of batch row b (0..n-1)
 //   size_t row(int b, int pos) const;  // (KV, hd) slab holding key pos
 //   static constexpr bool kRoundScores;  // round q.k to the promoted
 //                                        // q/K type, as the reference's
 //                                        // dense path does
+// and in a scales policy (common.cuh: NoScales, or RowScales for int8
+// pools, whose rows are dequantized as a tile is loaded).
 // Query head h reads KV head h / G; softmax with an online (m, l, acc) in
 // f32, the reference's -1e30 masking and a max(l, 1e-30) denominator.
 //
@@ -31,7 +34,7 @@
 // Rounding follows the reference: q * scale in q's type, (with
 // kRoundScores) scores in the promoted q/K type, the probabilities
 // rounded to the K/V type before the P.V product, the output in the K/V
-// type.
+// type (f32 for int8 pools, which compute in f32).
 
 #pragma once
 
@@ -51,14 +54,30 @@ inline size_t smem_bytes(int G, int hd) {
                                   kKeyTile * hd + G * kKeyTile + 3 * G);
 }
 
-template <typename Tq, typename Tkv, typename Rows>
+// The paged row policy (K1, B3): keys at logical positions
+// kpos < lengths[b] of slot b, read through its page table.
+struct PagedRows {
+  const int* page_table;  // (B, P)
+  const int* lengths;     // (B,) valid keys
+  int bs, P;
+  static constexpr bool kRoundScores = false;
+  // keys past the page table do not exist (the reference's gather view
+  // ends at P * bs); unallocated entries are never dereferenced
+  __device__ int n_keys(int b) const { return min(lengths[b], P * bs); }
+  __device__ size_t row(int b, int pos) const {
+    return paged_row(page_table + (size_t)b * P, bs, pos);
+  }
+};
+
+template <typename Tq, typename Tkv, typename Rows, typename Scales>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
               const Tkv* __restrict__ k,   // slabs of (KV, hd), see Rows
               const Tkv* __restrict__ v,
-              Tkv* __restrict__ out,       // (B, H, hd)
-              Rows rows, int H, int KV, int hd, float scale) {
-  using Ts = typename Promote<Tq, Tkv>::type;
+              typename Compute<Tkv>::type* __restrict__ out,  // (B, H, hd)
+              Rows rows, Scales scales, int H, int KV, int hd, float scale) {
+  using Tv = typename Compute<Tkv>::type;
+  using Ts = typename Promote<Tq, Tv>::type;
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
   const int G = H / KV;
@@ -92,10 +111,19 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
 #pragma unroll 4
     for (int i = tid; i < nk * cpr; i += kThreads) {
       const int j = i / cpr, d = (i - j * cpr) * N;
-      const size_t off = (rows.row(b, k0 + j) * KV + kvh) * hd + d;
+      const size_t slab = rows.row(b, k0 + j) * KV + kvh;
+      const size_t off = slab * hd + d;
       float kf[N], vf[N];
       Chunk<Tkv>::load(k + off, kf);
       Chunk<Tkv>::load(v + off, vf);
+      if constexpr (Scales::kQuant) {
+        const float sk = scales.k(slab), sv = scales.v(slab);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          kf[e] = __fmul_rn(kf[e], sk);
+          vf[e] = __fmul_rn(vf[e], sv);
+        }
+      }
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         k_s[j * ld + d + e] = kf[e];
@@ -130,7 +158,7 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
       for (int j = lane; j < kKeyTile; j += 32) {
         const float p = expf(sr[j] - m_new);  // keys past nk: exp(-1e30) = 0
         sum += p;
-        sr[j] = round_to<Tkv>(p);
+        sr[j] = round_to<Tv>(p);
       }
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -155,25 +183,28 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
 
   for (int i = tid; i < G * hd; i += kThreads) {
     const int g = i / hd;
-    out[q_base + i] = from_f32<Tkv>(acc[i] / fmaxf(l_s[g], 1e-30f));
+    out[q_base + i] = from_f32<Tv>(acc[i] / fmaxf(l_s[g], 1e-30f));
   }
 }
 
 // Launch one block per (row, KV head); returns cudaGetLastError().
-template <typename Tq, typename Tkv, typename Rows>
+template <typename Tq, typename Tkv, typename Rows,
+          typename Scales = NoScales>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
-           int B, int H, int KV, int hd, float scale, void* stream) {
+           int B, int H, int KV, int hd, float scale, void* stream,
+           Scales scales = Scales()) {
+  using Tv = typename Compute<Tkv>::type;
   const size_t smem = smem_bytes(H / KV, hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<Tq, Tkv, Rows>,
+        decode_kernel<Tq, Tkv, Rows, Scales>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_kernel<Tq, Tkv, Rows>
+  decode_kernel<Tq, Tkv, Rows, Scales>
       <<<dim3(B, KV), kThreads, smem, (cudaStream_t)stream>>>(
-          (const Tq*)q, (const Tkv*)k, (const Tkv*)v, (Tkv*)out, rows, H, KV,
-          hd, scale);
+          (const Tq*)q, (const Tkv*)k, (const Tkv*)v, (Tv*)out, rows, scales,
+          H, KV, hd, scale);
   return (int)cudaGetLastError();
 }
 

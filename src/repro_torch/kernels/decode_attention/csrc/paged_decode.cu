@@ -17,30 +17,13 @@
 
 #include "decode_body.cuh"
 
-namespace {
-
-struct PagedRows {
-  const int* page_table;  // (B, P)
-  const int* lengths;     // (B,) valid keys
-  int bs, P;
-  static constexpr bool kRoundScores = false;
-  // keys past the page table do not exist (the reference's gather view
-  // ends at P * bs); unallocated entries are never dereferenced
-  __device__ int n_keys(int b) const { return min(lengths[b], P * bs); }
-  __device__ size_t row(int b, int pos) const {
-    return kern::paged_row(page_table + (size_t)b * P, bs, pos);
-  }
-};
-
-}  // namespace
-
 #define PAGED_DECODE_ENTRY(NAME, TQ, TKV)                                    \
   extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool, \
                       const void* page_table, const void* lengths,           \
                       void* out, int B, int H, int KV, int hd, int bs,       \
                       int P, float scale, void* stream) {                    \
-    const PagedRows rows{(const int*)page_table, (const int*)lengths, bs,    \
-                         P};                                                 \
+    const kern::decode::PagedRows rows{(const int*)page_table,             \
+                                       (const int*)lengths, bs, P};        \
     return kern::decode::launch<TQ, TKV>(q, k_pool, v_pool, out, rows, B, H, \
                                          KV, hd, scale, stream);             \
   }

@@ -6,8 +6,11 @@
 takes the serving engine's pool layout ``(nb, bs, KV, hd)`` directly.
 ``decode_attention`` is the port of ``decode_attention`` in the same
 file, the dense engine's one-token step over a contiguous cache (see
-``csrc/dense_decode.cu``).  On a CPU tensor each runs its plain
-version; on a CUDA tensor it launches its kernel or raises.
+``csrc/dense_decode.cu``).  ``paged_decode_attention_quant`` is the port
+of ``paged_decode_attention_quant`` there, the paged step over int8
+pools with per-row f32 scales (see ``csrc/paged_decode_quant.cu``).  On
+a CPU tensor each runs its plain version; on a CUDA tensor it launches
+its kernel or raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,12 @@ KERNEL = CudaKernel(
      [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
 
+QUANT_KERNEL = CudaKernel(
+    "paged_decode_attention_quant",
+    Path(__file__).parent / "csrc" / "paged_decode_quant.cu",
+    {"paged_decode_attention_quant_f32": [_P] * 8 + [_I] * 6
+     + [ctypes.c_float, _P]})
+
 DENSE_KERNEL = CudaKernel(
     "decode_attention",
     Path(__file__).parent / "csrc" / "dense_decode.cu",
@@ -40,17 +49,32 @@ SUPPORTED = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
              (torch.bfloat16, torch.bfloat16)}
 
 
-def check_paged_operands(q, k_pool, v_pool, page_table, lengths, n_q_dims):
+def check_paged_operands(q, k_pool, v_pool, page_table, lengths, n_q_dims,
+                         scales=()):
     """Raise unless the operands are what the paged kernels take: one
     CUDA device, contiguous, a supported (q, K/V) type pair, pools of
     shape (nb, bs, KV, hd) with KV dividing q's heads and hd % 8 == 0,
-    int32 page table (B, P) and lengths (B,)."""
-    ts = (q, k_pool, v_pool, page_table, lengths)
+    int32 page table (B, P) and lengths (B,).  With ``scales`` (the
+    int8 kernels' k_scale, v_scale): f32 q, int8 pools, f32 scales of
+    shape (nb, bs, KV) and hd % 16 == 0."""
+    ts = (q, k_pool, v_pool, page_table, lengths) + tuple(scales)
     if any(t.device != q.device for t in ts):
         raise ValueError("paged attention operands must share one device")
     if any(not t.is_contiguous() for t in ts):
         raise ValueError("paged attention operands must be contiguous")
-    if (q.dtype, k_pool.dtype) not in SUPPORTED or v_pool.dtype != k_pool.dtype:
+    if scales:
+        if q.dtype != torch.float32 or k_pool.dtype != torch.int8 \
+                or v_pool.dtype != torch.int8 \
+                or any(s.dtype != torch.float32 for s in scales):
+            raise TypeError(f"the int8 kernels take f32 q, int8 pools and "
+                            f"f32 scales, got q={q.dtype} k={k_pool.dtype} "
+                            f"v={v_pool.dtype} scales="
+                            f"{[s.dtype for s in scales]}")
+        if any(tuple(s.shape) != tuple(k_pool.shape[:3]) for s in scales):
+            raise ValueError(f"scales {[tuple(s.shape) for s in scales]} do "
+                             f"not match pool {tuple(k_pool.shape)}")
+    elif (q.dtype, k_pool.dtype) not in SUPPORTED \
+            or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"unsupported dtypes q={q.dtype} k={k_pool.dtype} "
                         f"v={v_pool.dtype}; kernels take {sorted(map(str, SUPPORTED))}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
@@ -63,9 +87,10 @@ def check_paged_operands(q, k_pool, v_pool, page_table, lengths, n_q_dims):
     if k_pool.shape[3] != hd or H % KV:
         raise ValueError(f"q heads/head_dim {H}/{hd} do not fit pool "
                          f"{tuple(k_pool.shape)}")
-    if hd % 8:
+    chunk = 16 if scales else 8          # values per 16-byte load
+    if hd % chunk:
         raise ValueError(f"head_dim {hd}: the kernels load K/V rows in "
-                         "16-byte chunks and need head_dim % 8 == 0")
+                         f"16-byte chunks and need head_dim % {chunk} == 0")
     if page_table.dim() != 2 or page_table.shape[0] != B \
             or tuple(lengths.shape) != (B,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
@@ -105,6 +130,44 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, H, KV, hd, bs, page_table.shape[1],
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return out
+
+
+def paged_decode_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                       page_table, lengths):
+    """The same function in plain PyTorch: the reference's
+    ``paged_attention`` over ``dequant_gather`` with
+    query position ``lengths - 1``."""
+    # imported here: models.attention imports this module
+    from ...models.attention import dequant_gather, paged_attention
+    k = dequant_gather(k_pool, k_scale, page_table)
+    v = dequant_gather(v_pool, v_scale, page_table)
+    return paged_attention(q[:, None], k, v, (lengths - 1)[:, None])[:, 0]
+
+
+def paged_decode_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                 page_table, lengths):
+    """q: (B, H, hd) f32; k_pool/v_pool: (nb, bs, KV, hd) int8;
+    k_scale/v_scale: (nb, bs, KV) f32 per-row scales; page_table: (B, P)
+    int32; lengths: (B,) int32 >= 1 valid keys -> (B, H, hd) f32."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention_quant: no kernel for {q.device}")
+    check_paged_operands(q, k_pool, v_pool, page_table, lengths, 3,
+                         scales=(k_scale, v_scale))
+    B, H, hd = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    QUANT_KERNEL.launch(
+        "paged_decode_attention_quant_f32",
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, H, KV, hd, bs,
+        page_table.shape[1], ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out
 
 

@@ -24,20 +24,6 @@
 
 namespace {
 
-struct PagedRows {
-  const int* page_table;  // (B, P)
-  const int* lengths;     // (B,) tokens cached before this chunk
-  int bs, P;
-  static constexpr bool kRoundScores = false;
-  __device__ int q_pos0(int b) const { return lengths[b]; }
-  // keys past the page table do not exist (the reference's gather view
-  // ends at P * bs)
-  __device__ int n_keys(int) const { return P * bs; }
-  __device__ size_t row(int b, int pos) const {
-    return kern::paged_row(page_table + (size_t)b * P, bs, pos);
-  }
-};
-
 constexpr int kQTile = 8;  // query tokens per block
 
 }  // namespace
@@ -47,8 +33,8 @@ constexpr int kQTile = 8;  // query tokens per block
                       const void* page_table, const void* lengths,            \
                       void* out, int B, int T, int H, int KV, int hd, int bs, \
                       int P, float scale, void* stream) {                     \
-    const PagedRows rows{(const int*)page_table, (const int*)lengths, bs,     \
-                         P};                                                  \
+    const kern::prefill::PagedRows rows{(const int*)page_table,             \
+                                        (const int*)lengths, bs, P};        \
     return kern::prefill::launch<TQ, TKV, kQTile>(                            \
         q, k_pool, v_pool, out, rows, B, T, H, KV, hd, /*causal=*/1,          \
         /*window=*/0, scale, stream);                                         \

@@ -1,14 +1,17 @@
 // Blockwise attention of a chunk of query tokens over a row's K/V for
 // Hopper (sm_90a): the body shared by paged_prefill.cu (K2, keys through
-// a page table) and flash_prefill.cu (B2's contiguous entry).  The two
-// differ only in a row policy, a struct with
+// a page table), paged_prefill_quant.cu (K2q, the same over int8 pools)
+// and flash_prefill.cu (B2's contiguous entry).  They differ only in a
+// row policy, a struct with
 //   int q_pos0(int b) const;           // position of row b's query 0
 //   int n_keys(int b) const;           // keys row b holds (0..n-1)
 //   size_t row(int b, int pos) const;  // (KV, hd) slab holding key pos
 //   static constexpr bool kRoundScores;  // round q.k to the promoted
 //                                        // q/K type, as the reference's
 //                                        // dense path does
-// and in the query tile kQTile.  Query t of row b sits at position
+// in a scales policy (common.cuh: NoScales, or RowScales for int8 pools,
+// whose rows are dequantized as a tile is loaded) and in the query tile
+// kQTile.  Query t of row b sits at position
 // q_pos0(b) + t and sees key kpos iff kpos < n_keys(b), kpos <= its
 // position (causal) and kpos > its position - window (window > 0).  Key
 // padding never enters the softmax: the loop stops at n_keys.  Query
@@ -32,7 +35,7 @@
 // Rounding follows the reference: q * scale in q's type, (with
 // kRoundScores) scores in the promoted q/K type before the f32 softmax,
 // the probabilities rounded to the K/V type before the P.V product, the
-// output in the K/V type.
+// output in the K/V type (f32 for int8 pools, which compute in f32).
 
 #pragma once
 
@@ -53,15 +56,33 @@ inline size_t smem_bytes(int q_tile, int G, int hd) {
                                   kKeyTile * hd + R * kKeyTile + 5 * R);
 }
 
-template <typename Tq, typename Tkv, typename Rows, int kQTile>
+// The paged row policy (K2, K2q): query t of slot b at position
+// lengths[b] + t, keys read through the slot's page table.
+struct PagedRows {
+  const int* page_table;  // (B, P)
+  const int* lengths;     // (B,) tokens cached before this chunk
+  int bs, P;
+  static constexpr bool kRoundScores = false;
+  __device__ int q_pos0(int b) const { return lengths[b]; }
+  // keys past the page table do not exist (the reference's gather view
+  // ends at P * bs)
+  __device__ int n_keys(int) const { return P * bs; }
+  __device__ size_t row(int b, int pos) const {
+    return paged_row(page_table + (size_t)b * P, bs, pos);
+  }
+};
+
+template <typename Tq, typename Tkv, typename Rows, typename Scales,
+          int kQTile>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const Tq* __restrict__ q,    // (B, S, H, hd)
                const Tkv* __restrict__ k,   // slabs of (KV, hd), see Rows
                const Tkv* __restrict__ v,
-               Tkv* __restrict__ out,       // (B, S, H, hd)
-               Rows rows, int S, int H, int KV, int hd, int causal,
-               int window, float scale) {
-  using Ts = typename Promote<Tq, Tkv>::type;
+               typename Compute<Tkv>::type* __restrict__ out,  // (B,S,H,hd)
+               Rows rows, Scales scales, int S, int H, int KV, int hd,
+               int causal, int window, float scale) {
+  using Tv = typename Compute<Tkv>::type;
+  using Ts = typename Promote<Tq, Tv>::type;
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, t0 = blockIdx.z * kQTile;
   const int tid = threadIdx.x;
@@ -119,10 +140,19 @@ prefill_kernel(const Tq* __restrict__ q,    // (B, S, H, hd)
 #pragma unroll 4
     for (int i = tid; i < nk * cpr; i += kThreads) {
       const int j = i / cpr, d = (i - j * cpr) * N;
-      const size_t off = (rows.row(b, k0 + j) * KV + kvh) * hd + d;
+      const size_t slab = rows.row(b, k0 + j) * KV + kvh;
+      const size_t off = slab * hd + d;
       float kf[N], vf[N];
       Chunk<Tkv>::load(k + off, kf);
       Chunk<Tkv>::load(v + off, vf);
+      if constexpr (Scales::kQuant) {
+        const float sk = scales.k(slab), sv = scales.v(slab);
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          kf[e] = __fmul_rn(kf[e], sk);
+          vf[e] = __fmul_rn(vf[e], sv);
+        }
+      }
 #pragma unroll
       for (int e = 0; e < N; ++e) {
         k_s[j * ld + d + e] = kf[e];
@@ -156,7 +186,7 @@ prefill_kernel(const Tq* __restrict__ q,    // (B, S, H, hd)
       // visible key; before that its terms are cleared by the correction
       // exp(-1e30 - m) = 0 that the first visible key brings
       const float p = expf(sr[lane] - m_new);
-      sr[lane] = round_to<Tkv>(p);
+      sr[lane] = round_to<Tv>(p);
       float sum = p;
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -184,28 +214,30 @@ prefill_kernel(const Tq* __restrict__ q,    // (B, S, H, hd)
     const int tq = r / G, g = r - tq * G;
     if (tq < n_tok)
       out[((size_t)b * S + t0 + tq) * q_row + ((size_t)kvh * G + g) * hd +
-          d] = from_f32<Tkv>(acc[i] / fmaxf(l_s[r], 1e-30f));
+          d] = from_f32<Tv>(acc[i] / fmaxf(l_s[r], 1e-30f));
   }
 }
 
 // Launch one block per (row, KV head, kQTile query tokens); returns
 // cudaGetLastError().
-template <typename Tq, typename Tkv, int kQTile, typename Rows>
+template <typename Tq, typename Tkv, int kQTile, typename Rows,
+          typename Scales = NoScales>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
            int B, int S, int H, int KV, int hd, int causal, int window,
-           float scale, void* stream) {
+           float scale, void* stream, Scales scales = Scales()) {
+  using Tv = typename Compute<Tkv>::type;
   const size_t smem = smem_bytes(kQTile, H / KV, hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_kernel<Tq, Tkv, Rows, kQTile>,
+        prefill_kernel<Tq, Tkv, Rows, Scales, kQTile>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(B, KV, (S + kQTile - 1) / kQTile);
-  prefill_kernel<Tq, Tkv, Rows, kQTile>
+  prefill_kernel<Tq, Tkv, Rows, Scales, kQTile>
       <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-          (const Tq*)q, (const Tkv*)k, (const Tkv*)v, (Tkv*)out, rows, S, H,
-          KV, hd, causal, window, scale);
+          (const Tq*)q, (const Tkv*)k, (const Tkv*)v, (Tv*)out, rows, scales,
+          S, H, KV, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,9 @@ serving engine's mixed prefill+decode steps need (see
 form, with causal and sliding-window masks, for the dense engine's
 prefill (see ``csrc/flash_prefill.cu``).  On a CPU tensor each runs its
 plain version; on a CUDA tensor it launches its kernel or raises.
+``paged_prefill_attention_quant`` is the paged form over int8 pools with
+per-row f32 scales (see ``csrc/paged_prefill_quant.cu``): the int8
+engine's mixed steps, which the reference serves without a kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ KERNEL = CudaKernel(
     {f"paged_prefill_attention_{q}_{kv}":
      [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+QUANT_KERNEL = CudaKernel(
+    "paged_prefill_attention_quant",
+    Path(__file__).parent / "csrc" / "paged_prefill_quant.cu",
+    {"paged_prefill_attention_quant_f32": [_P] * 8 + [_I] * 7
+     + [ctypes.c_float, _P]})
 FLASH_KERNEL = CudaKernel(
     "flash_attention",
     Path(__file__).parent / "csrc" / "flash_prefill.cu",
@@ -71,6 +79,44 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, lengths):
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, T, H, KV, hd, bs, page_table.shape[1],
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return out
+
+
+def paged_prefill_attention_quant_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                        page_table, lengths):
+    """The same function in plain PyTorch: the reference's
+    ``paged_attention`` over ``dequant_gather``."""
+    # imported here: models.attention imports this module
+    from ...models.attention import dequant_gather, paged_attention
+    k = dequant_gather(k_pool, k_scale, page_table)
+    v = dequant_gather(v_pool, v_scale, page_table)
+    return paged_attention(q, k, v, prefill_positions(lengths, q.shape[1]))
+
+
+def paged_prefill_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                  page_table, lengths):
+    """q: (B, T, H, hd) f32, token t of slot b at position lengths[b] + t;
+    k_pool/v_pool: (nb, bs, KV, hd) int8; k_scale/v_scale: (nb, bs, KV)
+    f32; page_table: (B, P) int32; lengths: (B,) int32 tokens cached
+    before this chunk -> (B, T, H, hd) f32."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_quant_plain(
+            q, k_pool, v_pool, k_scale, v_scale, page_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_prefill_attention_quant: no kernel for {q.device}")
+    check_paged_operands(q, k_pool, v_pool, page_table, lengths, 4,
+                         scales=(k_scale, v_scale))
+    B, T, H, hd = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    QUANT_KERNEL.launch(
+        "paged_prefill_attention_quant_f32",
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, T, H, KV, hd, bs,
+        page_table.shape[1], ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out
 
 

@@ -17,12 +17,14 @@ are random, drawn from seed 0.
         --arch jamba-v0.1-52b --smoke --device cpu   # one jamba period
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --paged off                  # the dense engine (contiguous cache)
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --kv-dtype int8              # int8 paged KV (an f32 model)
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -112,7 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
                     default=None,
                     help="KV cache storage precision (default f32; a bf16 "
-                         "model needs bf16; int8: not ported yet)")
+                         "model needs bf16; int8: paged only, an f32 model "
+                         "such as --smoke's)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding (not ported yet)")
     ap.add_argument("--burst", type=int, default=8,
@@ -172,6 +175,55 @@ def validate_args(args) -> None:
             "(ROADMAP A10b)")
 
 
+def make_requests(vocab_size: int, n: int, prompt_len: int,
+                  shared_prompt: int = 0) -> List[np.ndarray]:
+    """``n`` random prompts of 4 .. ``prompt_len`` - 1 tokens (the first
+    ``shared_prompt`` tokens common to all), drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab_size, shared_prompt).astype(np.int32)
+    lengths = [int(rng.integers(max(4, shared_prompt + 1), prompt_len))
+               for _ in range(n)]
+    return [np.concatenate(
+                [shared, rng.integers(0, vocab_size,
+                                      m - len(shared)).astype(np.int32)])
+            for m in lengths]
+
+
+def serve_pipeline(engine: ServeEngine, requests: List[np.ndarray], *,
+                   batch: int, max_wait_ms: float = 50.0):
+    """Serve ``requests`` through ``appsrc ! tensor_batcher ! queue !
+    tensor_filter ! tensor_unbatcher ! tensor_sink`` with the engine as
+    the filter; returns the sink's buffers (one per request, its tokens
+    as data and ``meta["request"]`` its index).  Raises if the pipeline
+    has not drained within 300 s."""
+    from ..core import parse_pipeline
+    pipe = parse_pipeline(
+        "appsrc name=req ! tensor_batcher max_batch=%d max_wait_ms=%s ! "
+        "queue max_size=8 ! tensor_filter framework=python model=llm "
+        "max_batch=%d ! tensor_unbatcher ! tensor_sink name=out keep=true"
+        % (batch, max_wait_ms, batch),
+        models={"llm": engine.as_pipeline_filter()})
+    pipe.start()
+    # batcher stacks frames, so pad prompts to a common length up front
+    # (left-pad: the engine treats leading zeros as prompt tokens)
+    maxlen = max(len(r) for r in requests)
+    for i, r in enumerate(requests):
+        pipe["req"].push(np.pad(r, (maxlen - len(r), 0)),
+                         meta={"request": i, "prompt_len": len(r)})
+    pipe["req"].end_of_stream()
+    # an element that fails posts to the bus instead of passing EOS on
+    deadline = time.monotonic() + 300
+    try:
+        while not pipe["out"].eos_seen.wait(timeout=0.1):
+            pipe.check_bus()
+            if time.monotonic() > deadline:
+                raise RuntimeError("pipeline did not drain within 300 s")
+        pipe.check_bus()
+    finally:
+        pipe.stop()
+    return pipe["out"].buffers
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the launcher; returns the engine and the served totals."""
     args = build_parser().parse_args(argv)
@@ -201,50 +253,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          spec_k=args.spec_k, kv_dtype=args.kv_dtype,
                          device=model.device)
 
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab_size, args.shared_prompt).astype(np.int32)
-    lengths = [int(rng.integers(max(4, args.shared_prompt + 1),
-                                args.prompt_len))
-               for _ in range(args.requests)]
-    requests = [np.concatenate(
-                    [shared, rng.integers(0, cfg.vocab_size,
-                                          n - len(shared)).astype(np.int32)])
-                for n in lengths]
+    requests = make_requests(cfg.vocab_size, args.requests, args.prompt_len,
+                             args.shared_prompt)
 
     t0 = time.perf_counter()
     if args.direct:
         results = engine.serve(requests)
         total_tokens = sum(len(r.tokens) for r in results)
-        n_results = len(results)
     else:
-        from ..core import parse_pipeline
-        pipe = parse_pipeline(
-            "appsrc name=req ! tensor_batcher max_batch=%d max_wait_ms=%s ! "
-            "queue max_size=8 ! tensor_filter framework=python model=llm "
-            "max_batch=%d ! tensor_unbatcher ! tensor_sink name=out keep=true"
-            % (args.batch, args.max_wait_ms, args.batch),
-            models={"llm": engine.as_pipeline_filter()})
-        pipe.start()
-        # batcher stacks frames, so pad prompts to a common length up front
-        # (left-pad: the engine treats leading zeros as prompt tokens)
-        maxlen = max(lengths)
-        for i, r in enumerate(requests):
-            pipe["req"].push(np.pad(r, (maxlen - len(r), 0)),
-                             meta={"request": i, "prompt_len": len(r)})
-        pipe["req"].end_of_stream()
-        # an element that fails posts to the bus instead of passing EOS on
-        deadline = time.monotonic() + 300
-        try:
-            while not pipe["out"].eos_seen.wait(timeout=0.1):
-                pipe.check_bus()
-                if time.monotonic() > deadline:
-                    raise RuntimeError("pipeline did not drain within 300 s")
-            pipe.check_bus()
-        finally:
-            pipe.stop()
-        results = pipe["out"].buffers
+        results = serve_pipeline(engine, requests, batch=args.batch,
+                                 max_wait_ms=args.max_wait_ms)
         total_tokens = sum(np.asarray(b.data).size for b in results)
-        n_results = len(results)
+    n_results = len(results)
     wall = time.perf_counter() - t0
 
     print(f"served {n_results} requests / {total_tokens} tokens "

@@ -7,10 +7,12 @@ Shapes: hidden (B, T, D); q (B, T, H, hd); the shared pools
 groups query heads by KV head (H = KV * G) without materializing a K/V
 repeat.
 
-Paged: ``paged_attention`` over ``paged_gather`` is the plain version of
-the served attention.  ``gqa_paged_step`` sends it through the kernels:
-T = 1 to ``paged_decode_attention``, T > 1 to
-``paged_prefill_attention``.  Dense: ``naive_attention`` and
+Paged: ``paged_attention`` over ``paged_gather`` (``dequant_gather`` for
+an int8 pool) is the plain version of the served attention.
+``gqa_paged_step`` sends it through the kernels: T = 1 to
+``paged_decode_attention``, T > 1 to ``paged_prefill_attention``, or
+their int8 forms over an int8 pool (``quantize_kv`` post-RoPE, four
+pools written).  Dense: ``naive_attention`` and
 ``decode_attention`` are the plain versions; ``gqa_prefill`` runs the
 contiguous ``flash_attention`` kernel and ``gqa_decode`` the
 ``decode_attention`` kernel.  On CPU tensors every wrapper runs its
@@ -140,27 +142,42 @@ def paged_gather(storage, page_table):
     return g.reshape((B, P * storage.shape[1]) + tuple(storage.shape[2:]))
 
 
-def paged_scatter(storage, vals, page_table, lengths, t_valid):
-    """Write per-slot token runs into the shared block pool, in place.
+def paged_write_index(page_table, lengths, t_valid, T: int, bs: int):
+    """Where a step's tokens land in a block pool of block size ``bs``
+    (the index half of the reference's ``paged_scatter``).
 
-    storage: (num_blocks, block_size, ...); vals: (B, T, ...).  Token
-    ``t`` of row ``b`` lands at logical position ``lengths[b] + t`` iff
-    ``t < t_valid[b]``; invalid tokens (padding, inactive slots,
+    Token ``t`` of row ``b`` lands at logical position ``lengths[b] + t``
+    iff ``t < t_valid[b]``; invalid tokens (padding, inactive slots,
     positions past the page table) are dropped, not written.  Torch has
-    no ``mode="drop"``, so the valid indices are selected before the
-    ``index_put_``.  Returns ``storage``.
+    no ``mode="drop"``, so the kept tokens are selected here, once: the
+    selection costs a host sync (``nonzero``).  Returns (rows, flat):
+    the kept tokens' indices into the (B*T) flattened token axis and
+    their rows in the (num_blocks*bs) flattened pool.  Every pool of
+    every attention layer of a step (K, V and, under int8, their
+    scales) shares one index, so a step pays that sync once.
     """
-    nb, bs = storage.shape[:2]
-    B, T = vals.shape[:2]
     P = page_table.shape[1]
-    t = torch.arange(T, dtype=torch.int32, device=vals.device)[None, :]
+    t = torch.arange(T, dtype=torch.int32, device=lengths.device)[None, :]
     pos = lengths[:, None] + t                                   # (B,T)
     page = pos // bs
     block = torch.gather(page_table, 1, page.clamp(0, P - 1).long())
     ok = (t < t_valid[:, None]) & (page < P)
-    flat = storage.view((nb * bs,) + tuple(storage.shape[2:]))
-    flat_idx = (block * bs + pos % bs)[ok].long()
-    flat.index_put_((flat_idx,), vals[ok].to(storage.dtype))
+    rows = ok.reshape(-1).nonzero().squeeze(1)
+    flat = (block * bs + pos % bs).reshape(-1)[rows].long()
+    return rows, flat
+
+
+def paged_write(storage, vals, index):
+    """Write ``vals`` (B, T, ...) into ``storage`` (num_blocks,
+    block_size, ...) in place at a ``paged_write_index`` (the write half
+    of the reference's ``paged_scatter``): long-tensor indexing, no host
+    sync.  Returns ``storage``."""
+    rows, flat = index
+    nb, bs = storage.shape[:2]
+    B, T = vals.shape[:2]
+    dst = storage.view((nb * bs,) + tuple(storage.shape[2:]))
+    src = vals.reshape((B * T,) + tuple(vals.shape[2:]))
+    dst.index_put_((flat,), src[rows].to(storage.dtype))
     return storage
 
 
@@ -209,37 +226,86 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
     return q, k
 
 
-def gqa_paged_step(p, cfg: ModelConfig, x, k_store, v_store, page_table,
-                   lengths, t_valid):
+# -- int8 block-quantized paged KV ---------------------------------------------
+
+QUANT_EPS = 1e-8
+
+
+def quantize_kv(x):
+    """Symmetric per-row-per-head int8 quantization over head_dim.
+
+    x: (..., hd) float -> (q (..., hd) int8, scale (...) f32) with
+    ``dequant = q.to(f32) * scale[..., None]``; scale = max(amax, eps) /
+    127 over head_dim, so every (token, head) row carries its own scale
+    and a row written once is never requantized.  The reference's
+    arithmetic in its order (``torch.round`` is half-to-even, as
+    ``jnp.round``), so the codes and scales equal its bit for bit.
+    """
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=QUANT_EPS) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of ``quantize_kv``: (..., hd) int8 x (...) f32 -> f32."""
+    return q.to(torch.float32) * scale[..., None]
+
+
+def dequant_gather(pool, scale, page_table):
+    """``paged_gather`` of an int8 pool and its scale pool, dequantized:
+    (B, P * block_size, KV, hd) f32 (the reference's read of an int8
+    pool, and the plain versions' input)."""
+    return dequantize_kv(paged_gather(pool, page_table),
+                         paged_gather(scale, page_table))
+
+
+def gqa_paged_step(p, cfg: ModelConfig, x, pools, page_table, lengths,
+                   index):
     """Process T tokens per slot through a block-paged KV cache.
 
-    x: (B,T,D); k_store/v_store: (num_blocks, block_size, KV, hd) shared
-    pools; page_table: (B,P) int32; lengths: (B,) tokens already cached
-    per slot; t_valid: (B,) how many of this call's T tokens are real
-    for each slot (0 = slot idle this step).
+    x: (B,T,D); pools: the layer's shared pools, updated in place —
+    ``k``/``v`` (num_blocks, block_size, KV, hd), and under int8 KV
+    also ``k_scale``/``v_scale`` (num_blocks, block_size, KV) f32;
+    page_table: (B,P) int32; lengths: (B,) tokens already cached per
+    slot; index: the step's ``paged_write_index``, shared by every
+    attention layer (it carries which of the T tokens are real).
 
-    Decode is T=1/t_valid=1, chunked prefill is T=chunk with t_valid up
-    to chunk; slots may mix phases.  K/V are scattered through the page
-    table *before* attention, so in-chunk causal self-attention falls
-    out of the position mask.  The pools are updated in place (the JAX
-    reference donates them and returns new arrays); they are returned
-    for the same call shape.  Returns (out (B,T,D), k_store, v_store).
+    Decode is T=1, chunked prefill is T=chunk; slots may mix phases.
+    K/V are written through the page table *before* attention, so
+    in-chunk causal self-attention falls out of the position mask.  T = 1
+    goes to the paged decode kernel, T > 1 to the paged prefill kernel.
+    Under int8 the new rows are quantized post-RoPE and written with
+    their scales (four pools, one index), and the int8 kernels
+    dequantize rows as they load them; the output is then f32 (the
+    dequantized K/V are), so the model must compute in f32.  Returns out
+    (B,T,D).
     """
     B, T, _ = x.shape
     positions = flash_ops.prefill_positions(lengths, T)
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope_qk(cfg, q, k, positions)
-    paged_scatter(k_store, k, page_table, lengths, t_valid)
-    paged_scatter(v_store, v, page_table, lengths, t_valid)
+    quant = "k_scale" in pools
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        paged_write(pools["k_scale"], ks, index)
+        paged_write(pools["v_scale"], vs, index)
+    paged_write(pools["k"], k, index)
+    paged_write(pools["v"], v, index)
+    stores = [pools[n] for n in ("k", "v", "k_scale", "v_scale")
+              if n in pools]
     if T == 1:
+        decode = (decode_ops.paged_decode_attention_quant if quant
+                  else decode_ops.paged_decode_attention)
         # the new token is already in the pool: lengths + 1 keys visible
-        out = decode_ops.paged_decode_attention(
-            q[:, 0].contiguous(), k_store, v_store, page_table,
-            lengths + 1)[:, None]
+        out = decode(q[:, 0].contiguous(), *stores, page_table,
+                     lengths + 1)[:, None]
     else:
-        out = flash_ops.paged_prefill_attention(
-            q.contiguous(), k_store, v_store, page_table, lengths)
-    return mm(out.reshape(B, T, -1), p["wo"]), k_store, v_store
+        prefill = (flash_ops.paged_prefill_attention_quant if quant
+                   else flash_ops.paged_prefill_attention)
+        out = prefill(q.contiguous(), *stores, page_table, lengths)
+    return mm(out.reshape(B, T, -1), p["wo"])
 
 
 def gqa_prefill(p, cfg: ModelConfig, x, positions):

@@ -109,9 +109,12 @@ def _sublayer_state(cfg: ModelConfig, desc: Desc, batch: int, capacity: int,
 
 def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
                           block_size: int, num_state_slots: int, dtype,
-                          device):
+                          device, kv_dtype: Optional[str] = None):
     """Paged serving state of one sub-layer.  Attention: the shared (nb, bs,
-    KV, hd) K/V pools.  Mamba: one state slab per slot — conv window in
+    KV, hd) K/V pools — under ``kv_dtype="int8"`` int8 pools plus f32
+    ``k_scale``/``v_scale`` pools (nb, bs, KV), one scale per row and
+    head, as the reference lays them out.  Mamba (never quantized): one
+    state slab per slot — conv window in
     the cache type, SSM state in f32 — plus one spare *dump row* at index
     ``num_state_slots`` that no slot owns: idle rows of a step scatter
     their state there, which drops it without a boolean filter (and so
@@ -119,6 +122,12 @@ def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
     if desc[0] == "attn":
         shape = (num_blocks, block_size, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
+        if kv_dtype == "int8":
+            pools = {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                     "k_scale": (shape[:3], torch.float32),
+                     "v_scale": (shape[:3], torch.float32)}
+            return {name: torch.zeros(shp, dtype=dt, device=device)
+                    for name, (shp, dt) in pools.items()}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     ns = num_state_slots + 1
@@ -129,11 +138,12 @@ def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
 
 
 def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
-                    lengths, t_valid, state_slots):
+                    lengths, t_valid, state_slots, index):
     """Multi-token step through the paged serving cache, in place.
 
     Attention blocks read/write the shared block pool through the page
-    table.  Mamba blocks read/write their rows of the per-slot state
+    table at the step's write ``index`` (int8 pools when the state holds
+    scales, as the reference dispatches).  Mamba blocks read/write their rows of the per-slot state
     slabs: gather by ``state_slots``, zero rows whose sequence starts
     this step (``lengths == 0`` — a slab recycled from an evicted
     request must never leak state into its successor), advance by up to
@@ -143,8 +153,8 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
     if desc[0] == "attn":
-        y, _, _ = A.gqa_paged_step(p["attn"], cfg, h, state["k"], state["v"],
-                                   page_table, lengths, t_valid)
+        y = A.gqa_paged_step(p["attn"], cfg, h, state, page_table, lengths,
+                             index)
     else:
         dump = state["ssm"].shape[0] - 1          # == num_state_slots
         rows = state_slots.clamp(0, dump - 1).long()
@@ -389,8 +399,9 @@ class TransformerLM:
         mamba layer gets slabs with a leading ``num_state_slots + 1``
         axis (the last row is the dump row, see ``_paged_sublayer_state``);
         the engine's ``StateStore`` hands out rows
-        ``0..num_state_slots-1``.  Periodic layers stack either kind on
-        a leading layer axis."""
+        ``0..num_state_slots-1``.  ``kv_dtype="int8"`` makes the
+        attention pools int8 with f32 per-row scale pools beside them.
+        Periodic layers stack either kind on a leading layer axis."""
         cfg = self.cfg
         if not self.supports_paged():
             raise NotImplementedError(
@@ -400,13 +411,14 @@ class TransformerLM:
             raise ValueError(
                 f"family {cfg.family!r} has recurrent layers: "
                 "init_paged_cache needs num_state_slots >= 1")
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: int8 KV is not ported yet (ROADMAP A9)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', "
+                             f"got {kv_dtype!r}")
 
         def store(desc, lead=()):
             one = _paged_sublayer_state(cfg, desc, num_blocks, block_size,
-                                        num_state_slots, dtype, self.device)
+                                        num_state_slots, dtype, self.device,
+                                        kv_dtype)
             return {k: v.expand(lead + tuple(v.shape)).contiguous()
                     for k, v in one.items()}
 
@@ -419,7 +431,8 @@ class TransformerLM:
 
     def copy_paged_block(self, cache, src: int, dst: int):
         """COW fork: duplicate physical block ``src`` into ``dst`` across
-        every attention layer's K/V store, in place.  Recurrent slabs are
+        every attention layer's K/V store (and, under int8, its scale
+        pools), in place.  Recurrent slabs are
         never shared (prefix sharing is off for recurrent stacks) and
         are left untouched."""
         for d, st in zip(self.prefix_descs, cache.get("prefix", [])):
@@ -451,18 +464,25 @@ class TransformerLM:
             state_slots = torch.arange(tokens.shape[0], dtype=torch.int32,
                                        device=tokens.device)
         cfg = self.cfg
+        stores = cache.get("prefix", []) + list(cache["blocks"].values())
+        block_size = next((st["k"].shape[-3] for st in stores if "k" in st),
+                          None)
+        # every attention layer writes through one index, so the step
+        # pays its selection's host sync once, not once per layer
+        index = (None if block_size is None else A.paged_write_index(
+            page_table, lengths, t_valid, tokens.shape[1], block_size))
         x = self._embed(params, tokens)
         for i, desc in enumerate(self.prefix_descs):
             x = _paged_sublayer(params["prefix"][i], cfg, desc, x,
                                 cache["prefix"][i], page_table, lengths,
-                                t_valid, state_slots)
+                                t_valid, state_slots, index)
         for i in range(self.n_periods):
             for j, desc in enumerate(self.period_descs):
                 x = _paged_sublayer(_index(params["blocks"][f"s{j}"], i),
                                     cfg, desc, x,
                                     _index(cache["blocks"][f"s{j}"], i),
                                     page_table, lengths, t_valid,
-                                    state_slots)
+                                    state_slots, index)
         if all_logits:
             return self._head(params, x), cache
         if tokens.shape[1] == 1:

@@ -59,12 +59,18 @@ chunks are pending, the engine runs **decode bursts** of up to
 ``burst`` megasteps per host drain; whenever the request queue is
 non-empty it degrades to K = 1 so join latency is unchanged.
 
+**Int8 KV** — ``kv_dtype="int8"`` (paged mode only) keeps the pool as
+int8 K/V with one f32 scale per (block row, KV head) beside it; the
+model must compute in f32 (the dequantized K/V are f32), as in the
+reference, which fails a bf16 model over an int8 pool (this port raises
+``ValueError`` at construction).
+
 Sampling is greedy argmax.  The attention of every step runs through the
 hand-written CUDA kernels on a CUDA device (``models/attention.py``).
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: seeded sampling (``temperature > 0``), int8 KV, speculative
-decoding, ``mesh=``, the batch lane and preemption, fault plans.  In
-dense mode ``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
+item: seeded sampling (``temperature > 0``), speculative decoding,
+``mesh=``, the batch lane and preemption, fault plans.  In dense mode
+``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
 reference's ``ValueError``: they need the block pool.
 """
 from __future__ import annotations
@@ -192,8 +198,18 @@ class ServeEngine:
                     "lives in the shared block pool (the dense per-slot "
                     "cache stays full precision)")
         if kv_dtype == "int8":
-            raise NotImplementedError(
-                "kv_dtype='int8': int8 paged KV is not ported yet (ROADMAP A9)")
+            # the reference's int8 gates
+            if spec_k:
+                raise ValueError(
+                    "kv_dtype='int8' is incompatible with spec_k > 0: the "
+                    "draft pool and the greedy verify-identity guarantee "
+                    "are not quantization-aware.  Serve quantized without "
+                    "speculation (spec_k=0).")
+            if mesh is not None:
+                raise NotImplementedError(
+                    "kv_dtype='int8' under mesh= is not implemented yet: "
+                    "the f32 scale pools need audited sharding specs "
+                    "before the quantized pool can be distributed")
         if spec_k:
             raise NotImplementedError(
                 "spec_k > 0: speculative decoding is not ported yet "
@@ -211,9 +227,17 @@ class ServeEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}: build both on one device")
-        if kv_dtype is not None:
+        if kv_dtype in _KV_DTYPES:
             cache_dtype = _KV_DTYPES[kv_dtype]
         compute = dtype_of(model.cfg.compute_dtype)
+        if compute == torch.bfloat16 and kv_dtype == "int8":
+            # the reference cannot serve this either: the dequantized K/V
+            # are f32 and promote the attention output and the residual
+            # stream out of bf16, which fails its first step
+            raise ValueError(
+                "a bf16 model with kv_dtype='int8' is not supported: the "
+                "dequantized K/V are f32; serve an f32 model, or a bf16 "
+                "model with kv_dtype='bf16'")
         if compute == torch.bfloat16 and cache_dtype == torch.float32:
             # the reference cannot serve this either: f32 K/V promote the
             # attention output and the residual stream out of bf16, which
@@ -404,14 +428,21 @@ class ServeEngine:
 
     def kv_bytes_per_block(self) -> int:
         """Device bytes one physical block costs across every attention
-        layer's K and V pools (state slabs, sized by slots, not blocks,
-        are not counted); 0 in dense mode (no block pool)."""
+        layer's pools — K and V, plus the f32 ``k_scale``/``v_scale``
+        rows under ``kv_dtype='int8'``, as the reference's leaf-name rule
+        counts them (state slabs, sized by slots, not blocks, are not
+        counted); 0 in dense mode (no block pool)."""
         if self.allocator is None:
             return 0
         cfg = self.model.cfg
-        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
-        return (2 * self.model.n_attn_layers() * self.block_size
-                * cfg.n_kv_heads * cfg.resolved_head_dim * itemsize)
+        hd = cfg.resolved_head_dim
+        if self.kv_dtype == "int8":
+            row = 2 * hd + 2 * 4              # int8 K, V + two f32 scales
+        else:
+            row = 2 * hd * torch.empty(
+                (), dtype=self.cache_dtype).element_size()
+        return (self.model.n_attn_layers() * self.block_size
+                * cfg.n_kv_heads * row)
 
     def pool_stats(self) -> Optional[Dict[str, Any]]:
         """Block-pool occupancy incl. shared vs private split, plus
@@ -422,8 +453,8 @@ class ServeEngine:
             return None
         stats: Dict[str, Any] = self.allocator.stats()
         stats["n_reserved"] = self._reserved
-        stats["kv_dtype"] = {torch.float32: "f32",
-                             torch.bfloat16: "bf16"}[self.cache_dtype]
+        stats["kv_dtype"] = "int8" if self.kv_dtype == "int8" else \
+            {torch.float32: "f32", torch.bfloat16: "bf16"}[self.cache_dtype]
         stats["bytes_per_block"] = self.kv_bytes_per_block()
         stats["pool_bytes"] = \
             stats["bytes_per_block"] * self.allocator.num_blocks
@@ -1039,11 +1070,19 @@ class ServeEngine:
         return (free.pop(0), req, mapped + fresh, needed - n_fresh,
                 matched, digests, slab)
 
+    def _paged_cache_kwargs(self) -> Dict[str, Any]:
+        """Keyword args for ``model.init_paged_cache`` beyond the block
+        geometry: state-slab provisioning, and the int8 switch."""
+        kw: Dict[str, Any] = {"num_state_slots": self.num_state_slots}
+        if self.kv_dtype == "int8":
+            kw["kv_dtype"] = "int8"
+        return kw
+
     def _ensure_paged_cache(self) -> None:
         if self._paged_cache is None:
             self._paged_cache = self.model.init_paged_cache(
                 self.allocator.num_blocks, self.block_size,
-                dtype=self.cache_dtype, num_state_slots=self.num_state_slots)
+                dtype=self.cache_dtype, **self._paged_cache_kwargs())
 
     def _extend_blocks(self, slot_i: int, slot: _PagedSlot,
                        n_tokens: int) -> None:
@@ -1063,7 +1102,7 @@ class ServeEngine:
     def _cow_write_range(self, slot_i: int, slot: _PagedSlot, start: int,
                          n_new: int) -> None:
         """Copy-on-write: fork every *shared* block in the page range
-        the coming ``paged_scatter`` will touch, so the write can never
+        the coming ``paged_write`` will touch, so the write can never
         leak into another slot's view of the pool."""
         bs = self.block_size
         first = start // bs

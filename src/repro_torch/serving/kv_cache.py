@@ -27,8 +27,9 @@ blocks (cf. vLLM):
   * ``StateStore`` — the recurrent families' per-request state slabs
     (mamba conv/ssm state): exclusive ownership, no sharing.
 
-The page primitives (``paged_scatter`` / ``paged_gather``) live with
-the attention math in ``models/attention.py``.
+The page primitives (``paged_write_index``/``paged_write``,
+``paged_gather``) live with the attention math in
+``models/attention.py``.
 
 Layout convention: storage is ``(num_blocks, block_size, ...)``; a page
 table row ``page_table[b]`` lists the physical block of each logical

@@ -100,7 +100,6 @@ def test_bf16_model_with_f32_pool_raises(pair):
 
 @pytest.mark.parametrize("kw,exc,item", [
     ({"temperature": 0.7}, NotImplementedError, "A8"),
-    ({"kv_dtype": "int8"}, NotImplementedError, "A9"),
     ({"spec_k": 2}, NotImplementedError, "A11"),
     # the dense mode is ported: what it refuses is what the reference's
     # dense mode refuses

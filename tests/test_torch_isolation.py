@@ -20,7 +20,7 @@ def _sources():
     assert len(files) > 20 and files[-1].exists()
     names = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"models/mamba.py", "models/moe.py", "kernels/ssm_scan/ops.py",
-            "kernels/moe_gating/ops.py"} <= names
+            "kernels/moe_gating/ops.py", "kernels/transform/ops.py"} <= names
     return files
 
 

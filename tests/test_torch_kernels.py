@@ -1,4 +1,5 @@
-"""The port's paged attention kernels against the JAX reference.
+"""The port's attention kernels and its fused transform (B7) against
+the JAX reference and their plain versions.
 
 On the CPU the kernel wrappers run their plain PyTorch versions, which
 must equal the reference's Pallas kernels (interpret mode) and its
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.transform import ops as tops
 
 ATOL_F32 = 1e-5
 
@@ -35,8 +37,13 @@ def ref():
                                           interpret=True),
                            flash=partial(jf.flash_attention_bshd,
                                          interpret=True),
+                           decode_quant=partial(
+                               jd.paged_decode_attention_quant_bhd,
+                               interpret=True),
                            gather=ja.paged_gather,
-                           attention=ja.paged_attention)
+                           attention=ja.paged_attention,
+                           quantize=ja.quantize_kv,
+                           dequantize=ja.dequantize_kv)
 
 
 @pytest.fixture
@@ -174,7 +181,9 @@ def test_library_hash_covers_included_headers(tmp_path):
 
 @pytest.mark.parametrize("kernel,body", [
     (dops.KERNEL, "decode_body.cuh"), (dops.DENSE_KERNEL, "decode_body.cuh"),
-    (fops.KERNEL, "prefill_body.cuh"), (fops.FLASH_KERNEL, "prefill_body.cuh")])
+    (dops.QUANT_KERNEL, "decode_body.cuh"),
+    (fops.KERNEL, "prefill_body.cuh"), (fops.FLASH_KERNEL, "prefill_body.cuh"),
+    (fops.QUANT_KERNEL, "prefill_body.cuh")])
 def test_attention_kernels_share_their_family_body(kernel, body):
     """The paged and contiguous entries of each attention family are
     built from one shared body and the shared helpers."""
@@ -332,3 +341,158 @@ def test_dense_wrappers_reject_unsupported_operands():
     with pytest.raises(ValueError, match="contiguous"):
         dops.check_dense_operands(qd, k.transpose(1, 2), v, 3)
     dops.check_dense_operands(qd, k, v, 8)             # the valid call
+
+
+# -- int8 pools: B3 (decode) and the int8 paged prefill (K2q) ----------------
+
+def _quant_case(seed, **kw):
+    """``_case`` with int8 K/V pools and their f32 per-row scales, made by
+    the port's quantizer (bitwise the reference's, tests/test_torch_quant.py)
+    from the f32 pools."""
+    from repro_torch.models.attention import quantize_kv
+    c = _case(seed, **kw)
+    for name in ("k", "v"):
+        codes, scale = quantize_kv(torch.from_numpy(c[name]))
+        c[name], c[name + "_scale"] = codes.numpy(), scale.numpy()
+    return c
+
+
+def _quant_args(c, q, device="cpu", lengths=None):
+    return (_t(q, device), _t(c["k"], device), _t(c["v"], device),
+            _t(c["k_scale"], device), _t(c["v_scale"], device),
+            _t(c["pt"], device),
+            _t(c["lengths"] if lengths is None else lengths, device))
+
+
+@pytest.mark.parametrize("B,H,KV,hd,bs,P", [(3, 4, 2, 16, 4, 4),
+                                            (2, 6, 3, 32, 8, 3)])
+def test_plain_paged_decode_quant_matches_pallas_and_reference(ref, B, H, KV,
+                                                               hd, bs, P):
+    """B3's plain version against the reference's Pallas kernel
+    (interpret mode) and its ``paged_attention`` over the dequantized
+    gather, within 1e-5 (f32)."""
+    c = _quant_case(B * 10 + hd, B=B, T=1, H=H, KV=KV, hd=hd, bs=bs, P=P,
+                    max_len=P * bs)
+    c["lengths"][0] = P * bs
+    got = dops.paged_decode_attention_quant(*_quant_args(c, c["q"][:, 0]))
+    assert got.dtype == torch.float32
+    jnp = ref.jnp
+    args = [jnp.asarray(c[n]) for n in ("k", "v", "k_scale", "v_scale", "pt",
+                                        "lengths")]
+    pallas = np.asarray(ref.decode_quant(jnp.asarray(c["q"]), *args))[:, 0]
+    pt = jnp.asarray(c["pt"])
+    kd = ref.dequantize(ref.gather(args[0], pt), ref.gather(args[2], pt))
+    vd = ref.dequantize(ref.gather(args[1], pt), ref.gather(args[3], pt))
+    plain = np.asarray(ref.attention(jnp.asarray(c["q"]), kd, vd,
+                                     jnp.asarray(c["lengths"] - 1)[:, None]))
+    np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL_F32, rtol=0)
+    np.testing.assert_allclose(got.numpy(), plain[:, 0], atol=ATOL_F32,
+                               rtol=0)
+
+
+def test_plain_paged_prefill_quant_matches_reference(ref):
+    """K2q's plain version: T tokens per slot over the dequantized gather,
+    a chunk that overruns the page table included."""
+    B, T, H, KV, hd, bs, P = 3, 6, 4, 2, 16, 4, 6
+    c = _quant_case(17, B=B, T=T, H=H, KV=KV, hd=hd, bs=bs, P=P,
+                    max_len=P * bs)
+    lengths = c["lengths"] - 1
+    lengths[0], lengths[-1] = 0, P * bs - 2
+    got = fops.paged_prefill_attention_quant(
+        *_quant_args(c, c["q"], lengths=lengths)).numpy()
+    jnp = ref.jnp
+    pt = jnp.asarray(c["pt"])
+    kd = ref.dequantize(ref.gather(jnp.asarray(c["k"]), pt),
+                        ref.gather(jnp.asarray(c["k_scale"]), pt))
+    vd = ref.dequantize(ref.gather(jnp.asarray(c["v"]), pt),
+                        ref.gather(jnp.asarray(c["v_scale"]), pt))
+    pos = lengths[:, None] + np.arange(T, dtype=np.int32)[None, :]
+    want = np.asarray(ref.attention(jnp.asarray(c["q"]), kd, vd,
+                                    jnp.asarray(pos)))
+    np.testing.assert_allclose(got, want, atol=ATOL_F32, rtol=0)
+
+
+def test_quant_wrappers_reject_unsupported_operands():
+    c = _quant_case(0, B=2, T=1, H=4, KV=2, hd=16, bs=4, P=2, max_len=8)
+    q, k, v, ks, vs, pt, ln = _quant_args(c, c["q"][:, 0])
+    check = partial(dops.check_paged_operands, n_q_dims=3)
+    check(q, k, v, pt, ln, scales=(ks, vs))           # the valid call
+    with pytest.raises(TypeError, match="int8 kernels"):
+        check(q.bfloat16(), k, v, pt, ln, scales=(ks, vs))
+    with pytest.raises(TypeError, match="int8 kernels"):
+        check(q, k.float(), v.float(), pt, ln, scales=(ks, vs))
+    with pytest.raises(TypeError, match="int8 kernels"):
+        check(q, k, v, pt, ln, scales=(ks.double(), vs))
+    with pytest.raises(ValueError, match="scales"):
+        check(q, k, v, pt, ln, scales=(ks[:, :2].contiguous(), vs))
+    c8 = _quant_case(1, B=2, T=1, H=4, KV=2, hd=8, bs=4, P=2, max_len=8)
+    with pytest.raises(ValueError, match="head_dim % 16"):
+        check(*_quant_args(c8, c8["q"][:, 0])[:3], pt, ln,
+              scales=_quant_args(c8, c8["q"][:, 0])[3:5])
+
+
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("heads", [_SERVED, _JAMBA])
+def test_decode_quant_kernel_matches_plain(cuda, B, heads):
+    c = _quant_case(B + 30, B=B, T=1, **heads)
+    args = _quant_args(c, c["q"][:, 0], cuda)
+    n0 = dops.QUANT_KERNEL.launches
+    got = dops.paged_decode_attention_quant(*args)
+    want = dops.paged_decode_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert dops.QUANT_KERNEL.launches == n0 + 1
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= ATOL_F32, err
+
+
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("heads", [_SERVED, _JAMBA])
+def test_prefill_quant_kernel_matches_plain(cuda, B, heads):
+    c = _quant_case(B + 31, B=B, T=32, **heads)
+    args = _quant_args(c, c["q"], cuda, lengths=c["lengths"] - 1)
+    n0 = fops.QUANT_KERNEL.launches
+    got = fops.paged_prefill_attention_quant(*args)
+    want = fops.paged_prefill_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert fops.QUANT_KERNEL.launches == n0 + 1
+    err = (got - want).abs().max().item()
+    assert err <= ATOL_F32, err
+
+
+# -- B7: the fused transform, bit-exact against its plain version ------------
+
+@pytest.mark.parametrize("in_dt,out_dt", [
+    (torch.uint8, torch.float32), (torch.uint8, torch.uint8),
+    (torch.float32, torch.int8), (torch.float32, torch.uint32),
+    (torch.float32, torch.int32), (torch.float32, torch.bool),
+    (torch.int32, torch.float16), (torch.float16, torch.bfloat16),
+    (torch.bfloat16, torch.int16), (torch.bool, torch.uint16)])
+def test_fused_transform_kernel_matches_plain_bitwise(cuda, in_dt, out_dt):
+    """Every element equal, at a size that is no multiple of a block, with
+    NaN, +-inf and out-of-range values among the float inputs and
+    settings whose products land on .5 boundaries."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(100_003).astype(np.float32) * 300
+    if in_dt.is_floating_point:
+        x[:4] = [np.nan, np.inf, -np.inf, 3e9]
+    x = torch.from_numpy(x)
+    x = (x.abs() if in_dt in (torch.uint8, torch.bool) else x).to(in_dt)
+    for scale, bias, lo, hi in ((1 / 255.0, -0.5, -0.5, 0.5),
+                                (0.1, 0.05, -1e9, 1e9),
+                                (2.5, -0.5, -np.inf, np.inf)):
+        kw = dict(scale=scale, bias=bias, lo=lo, hi=hi, out_dtype=out_dt)
+        xc = x.to(cuda)
+        n0 = tops.KERNEL.launches
+        got = tops.fused_transform(xc, **kw)
+        want = tops.fused_transform_plain(xc, **kw)
+        torch.cuda.synchronize()
+        assert tops.KERNEL.launches == n0 + 1
+        assert got.dtype == want.dtype == out_dt
+        for other in (want, tops.fused_transform_plain(x, **kw)):
+            other = other.to(cuda)
+            same = got == other
+            if out_dt.is_floating_point:      # NaN where the other has NaN
+                same |= got.isnan() & other.isnan()
+            assert bool(same.all()), (kw, int((~same).sum()))
+

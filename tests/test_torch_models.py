@@ -112,10 +112,12 @@ def test_gqa_paged_step_matches_with_scatter_and_oob_drop(tiny):
                                    jnp.asarray(pt), jnp.asarray(lengths),
                                    jnp.asarray(t_valid))
     tk, tv = torch.tensor(k0), torch.tensor(v0)
-    ty, tk2, tv2 = TA.gqa_paged_step(tattn, cfg, torch.tensor(x), tk, tv,
-                                     torch.tensor(pt), torch.tensor(lengths),
-                                     torch.tensor(t_valid))
-    assert tk2 is tk and tv2 is tv          # updated in place
+    pools = {"k": tk, "v": tv}
+    index = TA.paged_write_index(torch.tensor(pt), torch.tensor(lengths),
+                                 torch.tensor(t_valid), T, bs)
+    ty = TA.gqa_paged_step(tattn, cfg, torch.tensor(x), pools,
+                           torch.tensor(pt), torch.tensor(lengths), index)
+    assert pools["k"] is tk and pools["v"] is tv          # updated in place
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-5, rtol=0)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5, rtol=0)
     # rows past t_valid are garbage on both sides: compare the real ones
