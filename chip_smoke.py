@@ -6,7 +6,9 @@ Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
   2. build     — compile the nine hand-written CUDA kernels (one nvcc
-                 each, in parallel) from the sources in this checkout.
+                 each, in parallel) from the sources in this checkout;
+                 log the registers, spills and shared memory of the
+                 tensor-core prefill body (prefill_mma.cuh) per head_dim.
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -18,7 +20,9 @@ result line):
                  top-k gating (B6) at 8 and 256 tokens x 16 experts, top-2,
                  and a tie-laden case; the dense engine's contiguous flash
                  prefill (B2) at batch 8, S = 512, causal and with a
-                 128-token window, f32 and bf16, and its dense decode (B4)
+                 128-token window, f32 and bf16, smollm and jamba heads
+                 (bf16 K2 and B2 must run their tensor-core entries, the
+                 ``*_mma`` ones), and its dense decode (B4)
                  at batch 8, a 584-slot cache, smollm and jamba heads, a
                  partly filled cache and a full (wrapped) ring; the int8
                  paged decode (B3) and int8 paged prefill (K2q) at smollm
@@ -38,7 +42,8 @@ result line):
                  B4, B5, B6); the paged kernels must not launch there.
   5. main path — ``repro_torch.launch.serve`` serves smollm-360m at full
                  width (random weights from seed 0, bf16 KV) through the
-                 stream pipeline; K1 and K2 must have launched.  Then a
+                 stream pipeline; K1 and K2 must have launched, K2 only
+                 through its tensor-core entry.  Then a
                  profiler trace of the same engine: device busy share and
                  the kernels that take the device time.
   6. jamba     — the engine serves jamba-v0.1 at full width, one period
@@ -53,8 +58,9 @@ result line):
                  pipeline on the dense engine (bf16 cache, batch 8,
                  capacity 584 as the launcher derives it, 16 requests of
                  up to 512 prompt tokens, 64 new, burst 8); B2
-                 (contiguous) and B4 must have launched and K1/K2 must
-                 not.  Then a profiler trace.
+                 (contiguous, only through its tensor-core entry) and B4
+                 must have launched and K1/K2 must not.  Then a profiler
+                 trace.
   8. int8      — smollm-360m at full width and depth with f32 weights
                  (random, seed 0) serves phase 5's 16 requests through the
                  pipeline over an int8 pool (batch 8, chunk 32, burst 8);
@@ -79,6 +85,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -141,7 +148,17 @@ def check(cond: bool, msg: str) -> None:
 
 def reset(kernels) -> None:
     for k in kernels:
-        k.launches = 0
+        k.reset_launches()
+
+
+def check_served_by(kernels, name: str, entry: str, tag: str) -> None:
+    """Every launch of kernel ``name`` since the last reset was of its C
+    entry ``entry`` (which body served the run), and there was one."""
+    k = next(k for k in kernels if k.name == name)
+    check(k.launches > 0 and k.entry_launches[entry] == k.launches,
+          f"{tag}: {name} launched {k.entry_launches}, not all {entry}")
+    log(f"[{tag}] {name} launches by entry: "
+        f"{ {e: n for e, n in k.entry_launches.items() if n} }")
 
 
 # -- phase 1 --------------------------------------------------------------------
@@ -169,10 +186,32 @@ def phase_build(kernels) -> None:
     log(f"[build] {len(paths)} kernels built in "
         f"{time.perf_counter() - t0:.2f}s")
     for k, p in zip(kernels, paths):
-        report = [ln.strip() for ln in p.with_suffix(".log").read_text()
-                  .splitlines() if "registers" in ln or "spill" in ln]
+        text = p.with_suffix(".log").read_text()
+        report = [ln.strip() for ln in text.splitlines()
+                  if "registers" in ln or "spill" in ln]
         log(f"[build] {k.name}: {p.relative_to(ROOT)}; "
             + " | ".join(report[:6]))
+        _log_mma_build(k.name, text)
+
+
+def _log_mma_build(name: str, text: str) -> None:
+    """The tensor-core body's instantiations in a ptxas report: head_dim
+    and ring stages from the mangled template arguments, registers and
+    spills, and the dynamic shared memory the launch asks for (K and V
+    tiles x stages x 64 keys x (head_dim + 8) bf16)."""
+    fn, props = None, []
+    for ln in text.splitlines() + ["Compiling entry function 'end'"]:
+        if "Compiling entry function" in ln:
+            if fn and "prefill_mma_kernel" in fn:
+                targs = fn.split("prefill_mma_kernel", 1)[1]
+                hd, stages = map(int, re.findall(r"Li(\d+)E", targs))
+                smem = 2 * stages * 64 * (hd + 8) * 2
+                log(f"[build] {name} tensor-core body hd {hd}: {stages} ring "
+                    f"stages, {smem} bytes of dynamic shared memory; "
+                    + " | ".join(props))
+            fn, props = ln, []
+        elif "registers" in ln or "spill" in ln:
+            props.append(ln.strip())
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -315,9 +354,15 @@ def phase_attention(timer: Timer):
                         q = q[:, 0].contiguous()
                     args = (q, k, v, pt, lengths)
                     n0 = handle.launches
+                    entry = None if decode else \
+                        fops.paged_prefill_entry(qdt, kvdt, heads["hd"])
+                    e0 = handle.entry_launches.get(entry, 0)
                     out = kern(*args)
                     torch.cuda.synchronize()
                     check(handle.launches == n0 + 1, f"{name} did not launch")
+                    check(entry is None
+                          or handle.entry_launches[entry] == e0 + 1,
+                          f"{name} did not launch {entry}")
                     want = plain(*args)
                     check(torch.isfinite(out.float()).all().item(),
                           f"{name}: non-finite output")
@@ -325,7 +370,8 @@ def phase_attention(timer: Timer):
                     tol = TOL[kvdt]
                     tag = (f"{name} {geo} heads {heads['H']}/{heads['KV']} "
                            f"hd {heads['hd']} B={B} T={T} q={str(qdt)[6:]} "
-                           f"kv={str(kvdt)[6:]}")
+                           f"kv={str(kvdt)[6:]}"
+                           + ("" if entry is None else f" [{entry}]"))
                     check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
                     line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
                     if qdt == kvdt:
@@ -470,49 +516,54 @@ def phase_dense_kernels(timer: Timer):
     from repro_torch.kernels.flash_attention import ops as fops
     served = {}
     B, S = 8, 512
-    heads = SMOLLM_HEADS
-    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
-    for dtype in (torch.float32, torch.bfloat16):
-        for window in (0, 128):
-            q, k, v = _dense_qkv(S + window, B, S, S, heads, dtype)
-            n0 = fops.FLASH_KERNEL.launches
-            out = fops.flash_attention(q, k, v, causal=True,
-                                       sliding_window=window)
-            torch.cuda.synchronize()
-            check(fops.FLASH_KERNEL.launches == n0 + 1,
-                  "flash_attention did not launch")
-            want = fops.flash_attention_plain(q, k, v, causal=True,
-                                              sliding_window=window)
-            check(torch.isfinite(out.float()).all().item(),
-                  "flash_attention: non-finite output")
-            err = (out.float() - want.float()).abs().max().item()
-            tol = TOL[dtype] if dtype == torch.float32 \
-                else DENSE_BF16_TOL["flash_attention"]
-            tag = (f"flash_attention (contiguous) smollm heads 15/5 hd 64 "
-                   f"B={B} S=T={S} causal"
-                   + (f" window {window}" if window else "")
-                   + f" {str(dtype)[6:]}")
-            check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-            pos = torch.arange(S, device="cuda")
-            visible = (pos[None, :] <= pos[:, None])
-            if window:
-                visible &= pos[None, :] > pos[:, None] - window
-            # q, k, v read once; out (q's shape and type) written once
-            n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
-                * q.element_size()
-            ops = 4 * B * H * hd * int(visible.sum())
-            library = _sdpa(q, k, v, H // KV, mask=None if not window
-                            else visible, causal=not window)
-            row = _time_row(timer, lambda *a: fops.flash_attention(
-                                *a, causal=True, sliding_window=window),
-                            lambda *a: fops.flash_attention_plain(
-                                *a, causal=True, sliding_window=window),
-                            (q, k, v), library,
-                            _bound(n_bytes, ops, dtype))
-            log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
-                + _fmt(row))
-            if dtype == torch.bfloat16 and not window:
-                served["flash_attention"] = dict(max_abs_err=err, **row)
+    cases = [(geo, heads, dt, w)
+             for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS))
+             for dt in (torch.float32, torch.bfloat16) for w in (0, 128)]
+    for geo, heads, dtype, window in cases:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        seed = S + window if geo == "smollm" else S + window + hd
+        q, k, v = _dense_qkv(seed, B, S, S, heads, dtype)
+        n0 = fops.FLASH_KERNEL.launches
+        entry = fops.flash_entry(dtype, hd)
+        e0 = fops.FLASH_KERNEL.entry_launches[entry]
+        out = fops.flash_attention(q, k, v, causal=True,
+                                   sliding_window=window)
+        torch.cuda.synchronize()
+        check(fops.FLASH_KERNEL.launches == n0 + 1
+              and fops.FLASH_KERNEL.entry_launches[entry] == e0 + 1,
+              f"flash_attention did not launch {entry}")
+        want = fops.flash_attention_plain(q, k, v, causal=True,
+                                          sliding_window=window)
+        check(torch.isfinite(out.float()).all().item(),
+              "flash_attention: non-finite output")
+        err = (out.float() - want.float()).abs().max().item()
+        tol = TOL[dtype] if dtype == torch.float32 \
+            else DENSE_BF16_TOL["flash_attention"]
+        tag = (f"flash_attention (contiguous) {geo} heads {H}/{KV} hd "
+               f"{hd} B={B} S=T={S} causal"
+               + (f" window {window}" if window else "")
+               + f" {str(dtype)[6:]} [{entry}]")
+        check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+        pos = torch.arange(S, device="cuda")
+        visible = (pos[None, :] <= pos[:, None])
+        if window:
+            visible &= pos[None, :] > pos[:, None] - window
+        # q, k, v read once; out (q's shape and type) written once
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+            * q.element_size()
+        ops = 4 * B * H * hd * int(visible.sum())
+        library = _sdpa(q, k, v, H // KV, mask=None if not window
+                        else visible, causal=not window)
+        row = _time_row(timer, lambda *a: fops.flash_attention(
+                            *a, causal=True, sliding_window=window),
+                        lambda *a: fops.flash_attention_plain(
+                            *a, causal=True, sliding_window=window),
+                        (q, k, v), library,
+                        _bound(n_bytes, ops, dtype))
+        log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+            + _fmt(row))
+        if geo == "smollm" and dtype == torch.bfloat16 and not window:
+            served["flash_attention"] = dict(max_abs_err=err, **row)
     C = 584
     for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
         H, KV, hd = heads["H"], heads["KV"], heads["hd"]
@@ -754,6 +805,8 @@ def phase_main_path(kernels):
           f"main path missed a kernel: {launches}")
     check(all(launches[n] == 0 for n in DENSE_KERNELS + QUANT_KERNELS),
           f"the paged bf16 path launched another path's kernel: {launches}")
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_bf16_bf16_mma", "main")
     decoded = eng.n_device_steps
     log(f"[main] smollm-360m full width (32 layers, d 960, 15/5 heads, "
         f"vocab 49152, bf16): {out['total_tokens'] / out['wall_s']:.1f} tok/s "
@@ -800,6 +853,11 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
         f"(idle {100 - busy_us / 1e4 / wall:.1f}%)")
     for key, us, cnt in rows[:10]:
         log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  {key[:90]}")
+    # the hand-written kernels, wherever they rank
+    for key, us, cnt in rows:
+        if "kern::" in key:
+            log(f"[{tag}]   kernel {us / 1e3:9.2f} ms {cnt:7d} calls  "
+                f"{key[:90]}")
     d2h = sum(cnt for key, _, cnt in rows if "DtoH" in key)
     log(f"[{tag}] device-to-host copies (host syncs): {d2h} = "
         f"{d2h / steps:.2f} per device step")
@@ -851,6 +909,8 @@ def phase_jamba(kernels):
           f"jamba path missed a kernel: {launches}")
     check(all(launches[n] == 0 for n in DENSE_KERNELS),
           f"the paged path launched a dense kernel: {launches}")
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_bf16_bf16_mma", "jamba")
     total = sum(len(r.tokens) for r in res)
     steps, mixed = eng.n_device_steps, eng.n_prefill_chunks
     per_tok = {n: round(c / total, 3) for n, c in launches.items()}
@@ -891,6 +951,8 @@ def phase_dense(kernels):
           f"dense path missed a kernel: {launches}")
     check(all(launches[n] == 0 for n in PAGED_KERNELS),
           f"the dense path launched a paged kernel: {launches}")
+    check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                    "dense")
     ls = eng.loop_stats()
     cache_mb = sum(a.numel() * a.element_size()
                    for a in _leaves(eng._cache)) / 1e6
@@ -949,6 +1011,9 @@ def phase_int8(kernels):
               f"{kv_dtype} pool: path missed a kernel: {launches}")
         check(all(launches[n] == 0 for n in ATTN_KERNELS if n not in path),
               f"{kv_dtype} pool: another path's kernel launched: {launches}")
+        if kv_dtype == "f32":
+            check_served_by(kernels, "paged_prefill_attention",
+                            "paged_prefill_attention_f32_f32", "int8")
         ls, ps = eng.loop_stats(), eng.pool_stats()
         per_tok = {n: round(c / total, 3) for n, c in launches.items()}
         log(f"[int8] smollm-360m full width (32 layers, d 960, 15/5 heads, "

@@ -96,7 +96,8 @@ class CudaKernel:
     """One kernel library: built and loaded at first use, its C entries
     bound with ``ctypes``.  ``launches`` counts launches that the runtime
     accepted — the count a run reads to show it went through the
-    kernel."""
+    kernel — and ``entry_launches`` the same per C entry, which shows
+    which of a library's bodies served a run."""
 
     def __init__(self, name: str, source: Path,
                  entries: Dict[str, Sequence]):
@@ -104,6 +105,7 @@ class CudaKernel:
         self.source = source
         self.entries = dict(entries)
         self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
         self.library_path: Path | None = None
         self._lib = None
         self._lock = threading.Lock()
@@ -131,6 +133,11 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: {entry} failed to launch: "
                                f"CUDA error {rc} ({msg})")
         self.launches += 1
+        self.entry_launches[entry] += 1
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
 
 
 def load_all(kernels: Iterable[CudaKernel]) -> List[Path]:

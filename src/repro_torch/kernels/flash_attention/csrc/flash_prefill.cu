@@ -16,10 +16,16 @@
 // ~4 GFLOP against ~21 MB of q/k/v/out, ~190 operations per byte — below
 // the H100's ~295 bf16 operations per byte, so on paper bytes (~0.006
 // ms); with causal masking about half the score matrix is skipped.
-// Design and rounding: K2's, see prefill_body.cuh (16 query tokens a
-// block; scores rounded to the input type, as naive_attention does).
+// Two bodies, chosen by the wrapper from dtype and head_dim alone:
+// flash_attention_bf16_mma runs bf16 at head_dim 64 and 128 on the tensor
+// cores (prefill_mma.cuh: 64 packed q-head rows a block, cp.async K/V
+// ring); flash_attention_f32 and flash_attention_bf16 (any other
+// head_dim) run prefill_body.cuh on CUDA cores (16 query tokens a block).
+// Rounding: K2's, and scores rounded to the input type, as
+// naive_attention does.
 
 #include "prefill_body.cuh"
+#include "prefill_mma.cuh"
 
 namespace {
 
@@ -47,3 +53,12 @@ constexpr int kQTile = 16;  // query tokens per block
 
 FLASH_PREFILL_ENTRY(flash_attention_f32, float)
 FLASH_PREFILL_ENTRY(flash_attention_bf16, __nv_bfloat16)
+
+extern "C" int flash_attention_bf16_mma(const void* q, const void* k,
+                                        const void* v, void* out, int B,
+                                        int S, int T_len, int H, int KV,
+                                        int hd, int causal, int window,
+                                        float scale, void* stream) {
+  return kern::prefill_mma::launch(q, k, v, out, ContiguousRows{T_len}, B, S,
+                                   H, KV, hd, causal, window, scale, stream);
+}

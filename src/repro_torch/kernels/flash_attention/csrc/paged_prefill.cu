@@ -17,10 +17,15 @@
 // operations (two products, multiply and add) against its K and V rows of
 // 4 * hd bytes in bf16, i.e. at most G * T = 96 operations per byte for
 // G = 3, T = 32 — below the H100's ~295 bf16 operations per byte.
-// Design and rounding: see prefill_body.cuh (8 query tokens a block; the
-// reference's paged path keeps its scores in f32).
+// Two bodies, chosen by the wrapper from dtypes and head_dim alone:
+// paged_prefill_attention_bf16_bf16_mma runs bf16 q and pools at head_dim
+// 64 and 128 on the tensor cores (prefill_mma.cuh: 64 packed q-head rows
+// a block, cp.async K/V ring through the page table); the other entries
+// run prefill_body.cuh on CUDA cores (8 query tokens a block).  Both keep
+// the scores in f32 (PagedRows::kRoundScores is false).
 
 #include "prefill_body.cuh"
+#include "prefill_mma.cuh"
 
 namespace {
 
@@ -44,3 +49,14 @@ PAGED_PREFILL_ENTRY(paged_prefill_attention_f32_f32, float, float)
 PAGED_PREFILL_ENTRY(paged_prefill_attention_f32_bf16, float, __nv_bfloat16)
 PAGED_PREFILL_ENTRY(paged_prefill_attention_bf16_bf16, __nv_bfloat16,
                     __nv_bfloat16)
+
+extern "C" int paged_prefill_attention_bf16_bf16_mma(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* lengths, void* out, int B, int T,
+    int H, int KV, int hd, int bs, int P, float scale, void* stream) {
+  const kern::prefill::PagedRows rows{(const int*)page_table,
+                                      (const int*)lengths, bs, P};
+  return kern::prefill_mma::launch(q, k_pool, v_pool, out, rows, B, T, H, KV,
+                                   hd, /*causal=*/1, /*window=*/0, scale,
+                                   stream);
+}

@@ -29,8 +29,9 @@
 // position] — so key tiles that the causal or window mask removes
 // entirely are never loaded (the TPU grid visits and masks them).
 // Scores, the softmax update and P.V run on CUDA cores in f32, bound by
-// shared-memory traffic in the score and P.V loops.  Later work: wgmma
-// tiles, TMA loads, a ring of K/V stages, a split of long key ranges.
+// shared-memory traffic in the score and P.V loops.  This body serves the
+// f32 entries, K2q and bf16 at head_dims other than 64 and 128; bf16 at
+// those runs on the tensor cores (prefill_mma.cuh).
 //
 // Rounding follows the reference: q * scale in q's type, (with
 // kRoundScores) scores in the promoted q/K type before the f32 softmax,

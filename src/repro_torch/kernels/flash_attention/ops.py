@@ -10,6 +10,12 @@ plain version; on a CUDA tensor it launches its kernel or raises.
 ``paged_prefill_attention_quant`` is the paged form over int8 pools with
 per-row f32 scales (see ``csrc/paged_prefill_quant.cu``): the int8
 engine's mixed steps, which the reference serves without a kernel.
+
+The paged and contiguous libraries each hold two bodies: bf16 at
+head_dim 64 or 128 runs on the tensor cores (``csrc/prefill_mma.cuh``,
+the ``*_mma`` entries), everything else on CUDA cores
+(``csrc/prefill_body.cuh``).  ``paged_prefill_entry`` and
+``flash_entry`` pick the entry from dtypes and head_dim alone.
 """
 from __future__ import annotations
 
@@ -26,9 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "paged_prefill_attention",
     Path(__file__).parent / "csrc" / "paged_prefill.cu",
-    {f"paged_prefill_attention_{q}_{kv}":
+    {f"paged_prefill_attention_{q}_{kv}{body}":
      [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
-     for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+     for q, kv, body in (("f32", "f32", ""), ("f32", "bf16", ""),
+                         ("bf16", "bf16", ""), ("bf16", "bf16", "_mma"))})
 QUANT_KERNEL = CudaKernel(
     "paged_prefill_attention_quant",
     Path(__file__).parent / "csrc" / "paged_prefill_quant.cu",
@@ -38,7 +45,29 @@ FLASH_KERNEL = CudaKernel(
     "flash_attention",
     Path(__file__).parent / "csrc" / "flash_prefill.cu",
     {f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
-     for t in ("f32", "bf16")})
+     for t in ("f32", "bf16", "bf16_mma")})
+# head_dims the tensor-core body is instantiated for: smollm-360m's and
+# jamba-v0.1's (and most configs'; 56 and 192 take the CUDA-core body)
+MMA_HEAD_DIMS = (64, 128)
+
+
+def _body(dtypes, hd: int) -> str:
+    """Entry suffix of the body that serves these operands: ``_mma`` (the
+    tensor cores) for bf16 throughout at head_dim 64 or 128, else ``""``
+    (the CUDA-core body)."""
+    bf16 = all(d == torch.bfloat16 for d in dtypes)
+    return "_mma" if bf16 and hd in MMA_HEAD_DIMS else ""
+
+
+def paged_prefill_entry(q_dtype, kv_dtype, hd: int) -> str:
+    """The C entry of ``KERNEL`` that serves these operands."""
+    return (f"paged_prefill_attention_{_NAMES[q_dtype]}_{_NAMES[kv_dtype]}"
+            + _body((q_dtype, kv_dtype), hd))
+
+
+def flash_entry(dtype, hd: int) -> str:
+    """The C entry of ``FLASH_KERNEL`` that serves these operands."""
+    return f"flash_attention_{_NAMES[dtype]}" + _body((dtype,), hd)
 
 
 def prefill_positions(lengths, T: int):
@@ -74,7 +103,7 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, lengths):
     # the kernel launches on the runtime's current device: one card
     stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNEL.launch(
-        f"paged_prefill_attention_{_NAMES[q.dtype]}_{_NAMES[k_pool.dtype]}",
+        paged_prefill_entry(q.dtype, k_pool.dtype, hd),
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, T, H, KV, hd, bs, page_table.shape[1],
@@ -179,7 +208,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     FLASH_KERNEL.launch(
-        f"flash_attention_{_NAMES[q.dtype]}",
+        flash_entry(q.dtype, hd),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, T, H, KV, hd, int(causal), int(sliding_window),
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)

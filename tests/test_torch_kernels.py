@@ -179,17 +179,22 @@ def test_library_hash_covers_included_headers(tmp_path):
     assert build.library_path("k", src) != before
 
 
-@pytest.mark.parametrize("kernel,body", [
-    (dops.KERNEL, "decode_body.cuh"), (dops.DENSE_KERNEL, "decode_body.cuh"),
-    (dops.QUANT_KERNEL, "decode_body.cuh"),
-    (fops.KERNEL, "prefill_body.cuh"), (fops.FLASH_KERNEL, "prefill_body.cuh"),
-    (fops.QUANT_KERNEL, "prefill_body.cuh")])
-def test_attention_kernels_share_their_family_body(kernel, body):
+_PREFILL_BODIES = ["prefill_mma.cuh", "common.cuh", "prefill_body.cuh"]
+
+
+@pytest.mark.parametrize("kernel,bodies", [
+    (dops.KERNEL, ["decode_body.cuh", "common.cuh"]),
+    (dops.DENSE_KERNEL, ["decode_body.cuh", "common.cuh"]),
+    (dops.QUANT_KERNEL, ["decode_body.cuh", "common.cuh"]),
+    (fops.KERNEL, _PREFILL_BODIES), (fops.FLASH_KERNEL, _PREFILL_BODIES),
+    (fops.QUANT_KERNEL, ["prefill_body.cuh", "common.cuh"])])
+def test_attention_kernels_share_their_family_body(kernel, bodies):
     """The paged and contiguous entries of each attention family are
-    built from one shared body and the shared helpers."""
+    built from shared bodies and the shared helpers: the bf16 paged and
+    contiguous prefill entries also from the tensor-core body."""
     from repro_torch.kernels import build
     names = [f.name for f in build.source_files(kernel.source)]
-    assert names == [kernel.source.name, body, "common.cuh"]
+    assert names == [kernel.source.name] + bodies
 
 
 # -- on the card: each kernel against its plain version ----------------------
@@ -341,6 +346,97 @@ def test_dense_wrappers_reject_unsupported_operands():
     with pytest.raises(ValueError, match="contiguous"):
         dops.check_dense_operands(qd, k.transpose(1, 2), v, 3)
     dops.check_dense_operands(qd, k, v, 8)             # the valid call
+
+
+# -- the tensor-core prefill body (prefill_mma.cuh): bf16 at hd 64 / 128 -----
+
+def _entry_counts(kernel):
+    return dict(kernel.entry_launches)
+
+
+def _assert_one_launch_of(kernel, before, entry):
+    """Exactly one launch since ``before``, and of ``entry``."""
+    after = _entry_counts(kernel)
+    assert {e: after[e] - before[e] for e in after} == \
+        {e: int(e == entry) for e in after}
+
+
+_SMOLLM_PAGED = dict(H=15, KV=5, hd=64, bs=16, P=8)
+_JAMBA_PAGED = dict(H=32, KV=8, hd=128, bs=16, P=8)
+
+
+@pytest.mark.parametrize("T", [5, 17, 32])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
+                         ids=["smollm", "jamba"])
+def test_prefill_mma_kernel_matches_plain(cuda, heads, T):
+    """bf16 K2 on the tensor-core body: a slot with nothing cached (every
+    prompt's first chunk), a chunk that straddles a page boundary, one
+    that ends at the page table's end, and T * G rows that are no
+    multiple of the 16-row warp tile (T = 5, 17 at G = 3)."""
+    B = 4
+    c = _case(T + heads["hd"], B=B, T=T, max_len=heads["P"] * 16 - T,
+              **heads)
+    lengths = c["lengths"]
+    lengths[0] = 0
+    lengths[1] = 2 * heads["bs"] - 3           # straddles pages 1 and 2
+    lengths[2] = heads["P"] * heads["bs"] - T  # the last page's last key
+    args = (_t(c["q"], cuda, torch.bfloat16), _t(c["k"], cuda, torch.bfloat16),
+            _t(c["v"], cuda, torch.bfloat16), _t(c["pt"], cuda),
+            _t(lengths, cuda))
+    before = _entry_counts(fops.KERNEL)
+    got = fops.paged_prefill_attention(*args)
+    want = fops.paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.KERNEL, before,
+                          "paged_prefill_attention_bf16_bf16_mma")
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("S,window", [(77, 0), (77, 16), (77, 128),
+                                      (512, 0), (512, 16), (512, 128)])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
+                         ids=["smollm", "jamba"])
+def test_flash_mma_kernel_matches_plain(cuda, heads, S, window):
+    """bf16 B2 contiguous on the tensor-core body: causal, with windows
+    narrower and wider than a 64-key tile, S no multiple of a tile."""
+    q, k, v = _dense_qkv(S + window + heads["hd"], 2, S, S, heads,
+                         torch.bfloat16, cuda)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = fops.flash_attention_plain(q, k, v, causal=True,
+                                      sliding_window=window)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before, "flash_attention_bf16_mma")
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[torch.bfloat16], err
+
+
+def test_bf16_head_dim_32_stays_on_the_cuda_core_body(cuda):
+    """bf16 at a head_dim the tensor-core body is not built for runs the
+    CUDA-core body, paged and contiguous."""
+    heads = dict(H=4, KV=2, hd=32)
+    c = _case(11, B=2, T=9, bs=16, P=4, max_len=40, min_len=16, **heads)
+    args = (_t(c["q"], cuda, torch.bfloat16), _t(c["k"], cuda, torch.bfloat16),
+            _t(c["v"], cuda, torch.bfloat16), _t(c["pt"], cuda),
+            _t(c["lengths"], cuda))
+    before = _entry_counts(fops.KERNEL)
+    got = fops.paged_prefill_attention(*args)
+    want = fops.paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.KERNEL, before,
+                          "paged_prefill_attention_bf16_bf16")
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _TOL[torch.bfloat16]
+    q, k, v = _dense_qkv(12, 2, 40, 40, heads, torch.bfloat16, cuda)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before, "flash_attention_bf16")
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _TOL[torch.bfloat16]
 
 
 # -- int8 pools: B3 (decode) and the int8 paged prefill (K2q) ----------------
