@@ -8,7 +8,9 @@ result line):
   2. build     — compile the nine hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout;
                  log the registers, spills and shared memory of the
-                 tensor-core prefill body (prefill_mma.cuh) per head_dim.
+                 tensor-core prefill bodies (prefill_mma.cuh, bf16;
+                 prefill_tf32.cuh, split TF32) per head_dim and K/V type,
+                 and of the split decode body (decode_body.cuh).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -22,14 +24,21 @@ result line):
                  prefill (B2) at batch 8, S = 512, causal and with a
                  128-token window, f32 and bf16, smollm and jamba heads
                  (bf16 K2 and B2 must run their tensor-core entries, the
-                 ``*_mma`` ones), and its dense decode (B4)
+                 ``*_mma`` ones, f32 ones the ``*_tf32`` ones), and its
+                 dense decode (B4)
                  at batch 8, a 584-slot cache, smollm and jamba heads, a
                  partly filled cache and a full (wrapped) ring; the int8
                  paged decode (B3) and int8 paged prefill (K2q) at smollm
                  heads, f32 q over int8 pools with per-row scales (batch 4
-                 and 8; T = 32 for K2q); the fused transform (B7) at e4's
-                 (64, 224, 224, 3) uint8 -> f32 and uint8 -> uint8,
-                 bit-exact.
+                 and 8; T = 32 for K2q, on its ``_tf32`` entry); the fused
+                 transform (B7) at e4's (64, 224, 224, 3) uint8 -> f32 and
+                 uint8 -> uint8, bit-exact.  Then the split decode body at
+                 its split boundaries (K1, B3: rows of 0, 1, one split, one
+                 split + 1 and all P * bs keys in one batch; B4: n_valid 1,
+                 one split, one more, the whole cache), each decode entry
+                 twice (the same bits), and the split-TF32 body's edges
+                 (lengths 0, page straddles, T = 5 and 17; windows 16 and
+                 128 at S = 77).
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -44,8 +53,10 @@ result line):
                  width (random weights from seed 0, bf16 KV) through the
                  stream pipeline; K1 and K2 must have launched, K2 only
                  through its tensor-core entry.  Then a
-                 profiler trace of the same engine: device busy share and
-                 the kernels that take the device time.
+                 profiler trace of the same engine: device busy share, the
+                 kernels that take the device time, and the device-to-host
+                 copies per step (2.22; under 2.5 checked: no decode call
+                 reads a device tensor on the host).
   6. jamba     — the engine serves jamba-v0.1 at full width, one period
                  (8 layers: 1 attention + 7 mamba, 4 MoE with 16 experts
                  top-2; bf16, random weights from seed 0 made on the
@@ -64,8 +75,10 @@ result line):
   8. int8      — smollm-360m at full width and depth with f32 weights
                  (random, seed 0) serves phase 5's 16 requests through the
                  pipeline over an int8 pool (batch 8, chunk 32, burst 8);
-                 B3 and K2q must have launched and K1/K2 must not.  Then
-                 the same model over an f32 pool: greedy-token agreement
+                 B3 and K2q (only through its ``_tf32`` entry) must have
+                 launched and K1/K2 must not.  Then
+                 the same model over an f32 pool (K2 only through
+                 ``paged_prefill_attention_f32_f32_tf32``): greedy-token agreement
                  logged, bytes per block f32/int8 = 512/136 asserted.
                  Then a profiler trace of the int8 engine.
   9. preproc   — ``videotestsrc ! tensor_converter ! tensor_transform
@@ -191,14 +204,18 @@ def phase_build(kernels) -> None:
                   if "registers" in ln or "spill" in ln]
         log(f"[build] {k.name}: {p.relative_to(ROOT)}; "
             + " | ".join(report[:6]))
-        _log_mma_build(k.name, text)
+        _log_body_build(k.name, text)
 
 
-def _log_mma_build(name: str, text: str) -> None:
-    """The tensor-core body's instantiations in a ptxas report: head_dim
-    and ring stages from the mangled template arguments, registers and
-    spills, and the dynamic shared memory the launch asks for (K and V
-    tiles x stages x 64 keys x (head_dim + 8) bf16)."""
+def _log_body_build(name: str, text: str) -> None:
+    """The redesigned bodies' instantiations in a ptxas report, registers
+    and spills each: the tensor-core bodies (prefill_mma.cuh, bf16;
+    prefill_tf32.cuh, split TF32) with head_dim and ring stages from the
+    mangled template arguments and the dynamic shared memory the launch
+    asks for (K and V tiles x stages x keys x padded rows, plus the int8
+    row scales, and q at head_dim 128 in the TF32 body), and the split
+    decode body (decode_body.cuh) by its types."""
+    elt = {"f": 4, "13__nv_bfloat16": 2, "a": 1}
     fn, props = None, []
     for ln in text.splitlines() + ["Compiling entry function 'end'"]:
         if "Compiling entry function" in ln:
@@ -208,6 +225,29 @@ def _log_mma_build(name: str, text: str) -> None:
                 smem = 2 * stages * 64 * (hd + 8) * 2
                 log(f"[build] {name} tensor-core body hd {hd}: {stages} ring "
                     f"stages, {smem} bytes of dynamic shared memory; "
+                    + " | ".join(props))
+            elif fn and "prefill_tf32_kernel" in fn:
+                targs = fn.split("prefill_tf32_kernel", 1)[1]
+                hd, stages = map(int, re.findall(r"Li(\d+)E", targs)[-2:])
+                kv = next(t for t in ("13__nv_bfloat16", "f", "a")
+                          if targs.startswith("I" + t))
+                quant = "RowScales" in targs
+                # the ring, and q (64 rows x hd + 4 f32) at hd 128
+                smem = stages * (2 * 32 * (hd * elt[kv] + 16)
+                                 + (2 * 32 * 4 if quant else 0)) \
+                    + (4 * 64 * (hd + 4) if hd > 64 else 0)
+                log(f"[build] {name} split-TF32 body kv "
+                    f"{ {'f': 'f32', 'a': 'int8'}.get(kv, 'bf16')} hd {hd}: "
+                    f"{stages} ring stages, {smem} bytes of dynamic shared "
+                    f"memory; " + " | ".join(props))
+            elif fn and "decode_kernel" in fn:
+                targs = fn.split("decode_kernel", 1)[1]
+                names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+                qt, kvt = re.match(r"I(13__nv_bfloat16|f)(S2_|13__nv_bfloat16"
+                                   r"|f|a)", targs).groups()
+                rows = "paged" if "PagedRows" in targs else "contiguous"
+                log(f"[build] {name} split decode body q {names[qt]} kv "
+                    f"{names.get(kvt, names[qt])} {rows}: "
                     + " | ".join(props))
             fn, props = ln, []
         elif "registers" in ln or "spill" in ln:
@@ -659,16 +699,21 @@ def phase_quant_kernels(timer: Timer):
             kq, vq, ks, vs = _quant_pools(k, v)
             args = (q, kq, vq, ks, vs, pt, lengths)
             n0 = handle.launches
+            entry = None if decode else fops.quant_prefill_entry(heads["hd"])
+            e0 = handle.entry_launches.get(entry, 0)
             out = kern(*args)
             torch.cuda.synchronize()
             check(handle.launches == n0 + 1, f"{name} did not launch")
+            check(entry is None or handle.entry_launches[entry] == e0 + 1,
+                  f"{name} did not launch {entry}")
             want = plain(*args)
             check(out.dtype == f32 and torch.isfinite(out).all().item(),
                   f"{name}: non-finite or non-f32 output")
             err = (out - want).abs().max().item()
             tol = TOL[f32]
             tag = (f"{name} smollm heads 15/5 hd 64 B={B} T={T} q=float32 "
-                   f"kv=int8 (+f32 row scales)")
+                   f"kv=int8 (+f32 row scales)"
+                   + ("" if entry is None else f" [{entry}]"))
             check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
             row = _time_row(
                 timer, kern, plain, args,
@@ -684,6 +729,125 @@ def phase_quant_kernels(timer: Timer):
         "kernels dequantize each row with one f32 product, as the plain "
         "version does, and sum in another order)")
     return served
+
+
+def phase_splits() -> None:
+    """The split decode body at its split boundaries and the split-TF32
+    prefill body at its edges, each against its plain version: K1 and B3
+    with rows of 0, 1, one split's keys, one more and all P * bs keys in
+    one batch (a row with no keys outputs 0), B4 at n_valid 1, one split,
+    one more and the whole cache; two launches of each decode entry must
+    give the same bits.  f32 K2 and K2q with a slot that has nothing
+    cached, a chunk straddling a page and T = 5 and 17; f32 B2 with 16-
+    and 128-token windows and S = 77."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    f32, bf16 = torch.float32, torch.bfloat16
+    B = 8
+    for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
+        KV = heads["KV"]
+        n_split, split_keys = dops.split_plan(P * BS, B * KV)
+        edge = torch.tensor([0, 1, split_keys, split_keys + 1, P * BS, 7,
+                             300, 555], dtype=torch.int32, device="cuda")
+        for qdt, kvdt in ((f32, f32), (f32, bf16), (bf16, bf16), ("q8", f32)):
+            q, k, v, pt, _ = _attn_case(17 + KV, B, 1, f32 if qdt == "q8"
+                                        else qdt, kvdt, heads)
+            q = q[:, 0].contiguous()
+            if qdt == "q8":
+                kern, plain = (dops.paged_decode_attention_quant,
+                               dops.paged_decode_attention_quant_plain)
+                kq, vq, ks, vs = _quant_pools(k, v)
+                args, tol, what = (q, kq, vq, ks, vs, pt, edge), TOL[f32], \
+                    "paged_decode_attention_quant (B3) f32/int8"
+            else:
+                kern, plain = (dops.paged_decode_attention,
+                               dops.paged_decode_attention_plain)
+                args, tol, what = (q, k, v, pt, edge), TOL[kvdt], \
+                    f"paged_decode_attention (K1) {str(qdt)[6:]}/{str(kvdt)[6:]}"
+            out, again = kern(*args), kern(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"{what}: two launches differ")
+            check(not out[0].any().item(), f"{what}: a row with no keys "
+                  "is not 0")
+            err = (out[1:].float() - want[1:].float()).abs().max().item()
+            check(err <= tol, f"{what} {geo} split boundaries: max_abs_err "
+                  f"{err} > {tol}")
+            log(f"[splits] {what} {geo} B={B} lengths {edge.tolist()} "
+                f"({n_split} splits of {split_keys}): max_abs_err={err:.3e} "
+                f"(tol {tol}); bitwise repeatable; empty row 0")
+        C = 584
+        n_split, split_keys = dops.split_plan(C, B * KV)
+        for dtype in (f32, bf16):
+            tol = TOL[f32] if dtype == f32 \
+                else DENSE_BF16_TOL["decode_attention"]
+            errs = []
+            for n_valid in (1, split_keys, split_keys + 1, C):
+                q, k, v = _dense_qkv(n_valid + 3, B, 1, C, heads, dtype)
+                q = q[:, 0].contiguous()
+                out = dops.decode_attention(q, k, v, n_valid)
+                again = dops.decode_attention(q, k, v, n_valid)
+                want = dops.decode_attention_plain(q, k, v, n_valid)
+                torch.cuda.synchronize()
+                check(torch.equal(out, again),
+                      f"decode_attention n_valid {n_valid}: launches differ")
+                errs.append((out.float() - want.float()).abs().max().item())
+                check(errs[-1] <= tol, f"decode_attention (B4) {geo} "
+                      f"n_valid {n_valid}: max_abs_err {errs[-1]} > {tol}")
+            log(f"[splits] decode_attention (B4) {geo} {str(dtype)[6:]} "
+                f"n_valid 1/{split_keys}/{split_keys + 1}/{C} ({n_split} "
+                f"splits of {split_keys} at C): max_abs_err "
+                f"{max(errs):.3e} (tol {tol}); bitwise repeatable")
+    # the split-TF32 prefill body at its edges
+    for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
+        for T in (5, 17):
+            for kvdt in (f32, bf16, "int8"):
+                q, k, v, pt, lengths = _attn_case(
+                    T + heads["hd"], 4, T, f32, f32 if kvdt == "int8"
+                    else kvdt, heads)
+                lengths[0], lengths[1] = 0, 2 * BS - 3
+                if kvdt == "int8":
+                    kq, vq, ks, vs = _quant_pools(k, v)
+                    args = (q, kq, vq, ks, vs, pt, lengths)
+                    kern, plain, handle, entry = (
+                        fops.paged_prefill_attention_quant,
+                        fops.paged_prefill_attention_quant_plain,
+                        fops.QUANT_KERNEL,
+                        fops.quant_prefill_entry(heads["hd"]))
+                else:
+                    args = (q, k, v, pt, lengths)
+                    kern, plain, handle, entry = (
+                        fops.paged_prefill_attention,
+                        fops.paged_prefill_attention_plain, fops.KERNEL,
+                        fops.paged_prefill_entry(f32, kvdt, heads["hd"]))
+                e0 = handle.entry_launches[entry]
+                out = kern(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                check(entry.endswith("_tf32")
+                      and handle.entry_launches[entry] == e0 + 1,
+                      f"{entry} did not launch")
+                err = (out.float() - want.float()).abs().max().item()
+                tol = TOL[bf16 if kvdt == bf16 else f32]
+                check(err <= tol, f"[{entry}] {geo} T={T}: max_abs_err "
+                      f"{err} > {tol}")
+                log(f"[splits] {entry} {geo} B=4 T={T} lengths "
+                    f"{lengths.tolist()}: max_abs_err={err:.3e} (tol {tol})")
+        for window in (16, 128):
+            q, k, v = _dense_qkv(77 + window, 2, 77, 77, heads, f32)
+            e0 = fops.FLASH_KERNEL.entry_launches["flash_attention_f32_tf32"]
+            out = fops.flash_attention(q, k, v, causal=True,
+                                       sliding_window=window)
+            want = fops.flash_attention_plain(q, k, v, causal=True,
+                                              sliding_window=window)
+            torch.cuda.synchronize()
+            check(fops.FLASH_KERNEL.entry_launches["flash_attention_f32_tf32"]
+                  == e0 + 1, "flash_attention_f32_tf32 did not launch")
+            err = (out - want).abs().max().item()
+            check(err <= TOL[f32], f"flash_attention_f32_tf32 {geo} window "
+                  f"{window}: max_abs_err {err}")
+            log(f"[splits] flash_attention_f32_tf32 {geo} B=2 S=T=77 window "
+                f"{window}: max_abs_err={err:.3e} (tol {TOL[f32]})")
 
 
 def phase_transform(timer: Timer):
@@ -763,10 +927,12 @@ def phase_engine(kernels) -> None:
         gpu_model = build_model(cfg, device="cuda")
         gpu_params = bridge.to_torch(cpu_params, "cuda")
         reset(kernels)
-        got = ServeEngine(gpu_model, gpu_params, device="cuda",
-                          **kw).serve(prompts)
+        eng = ServeEngine(gpu_model, gpu_params, device="cuda", **kw)
+        got = eng.serve(prompts)
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in kernels}
+        check(eng.n_step_failures == 0,
+              f"{tag}: {eng.n_step_failures} failed steps")
         for a, b in zip(want, got):
             check(b.status == "ok", f"{tag} request {b.request_id}: {b.status}")
             check(np.array_equal(a.tokens, b.tokens),
@@ -820,7 +986,7 @@ def phase_main_path(kernels):
     return launches, eng
 
 
-def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
+def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> float:
     """Where the device time goes: the engine serves ``n`` more requests
     (``prompt_len``-token prompts, its max_new_tokens each, direct) under
     a CUDA-only profiler trace; device busy share = summed kernel time
@@ -861,6 +1027,7 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> None:
     d2h = sum(cnt for key, _, cnt in rows if "DtoH" in key)
     log(f"[{tag}] device-to-host copies (host syncs): {d2h} = "
         f"{d2h / steps:.2f} per device step")
+    return d2h / steps
 
 
 # -- phase 6 --------------------------------------------------------------------
@@ -953,6 +1120,9 @@ def phase_dense(kernels):
           f"the dense path launched a paged kernel: {launches}")
     check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
                     "dense")
+    check(eng.n_step_failures == 0 and eng.n_restarts == 0,
+          f"dense: {eng.n_step_failures} failed steps, {eng.n_restarts} "
+          "restarts")
     ls = eng.loop_stats()
     cache_mb = sum(a.numel() * a.element_size()
                    for a in _leaves(eng._cache)) / 1e6
@@ -1013,7 +1183,10 @@ def phase_int8(kernels):
               f"{kv_dtype} pool: another path's kernel launched: {launches}")
         if kv_dtype == "f32":
             check_served_by(kernels, "paged_prefill_attention",
-                            "paged_prefill_attention_f32_f32", "int8")
+                            "paged_prefill_attention_f32_f32_tf32", "int8")
+        else:
+            check_served_by(kernels, "paged_prefill_attention_quant",
+                            "paged_prefill_attention_quant_f32_tf32", "int8")
         ls, ps = eng.loop_stats(), eng.pool_stats()
         per_tok = {n: round(c / total, 3) for n, c in launches.items()}
         log(f"[int8] smollm-360m full width (32 layers, d 960, 15/5 heads, "
@@ -1163,11 +1336,15 @@ def main() -> None:
     served["gating_topk"] = phase_gating(timer)
     served.update(phase_dense_kernels(timer))
     served.update(phase_quant_kernels(timer))
+    phase_splits()
     served["fused_transform"] = phase_transform(timer)
     del timer
     phase_engine(kernels)
     launches5, eng = phase_main_path(kernels)
-    phase_trace(eng, "main")
+    d2h = phase_trace(eng, "main")
+    # the split decode reads no device tensor on the host: 2.22 copies per
+    # step before and after it (a read per decode call would add 32)
+    check(d2h < 2.5, f"[main] {d2h:.3f} device-to-host copies per step")
     del eng
     gc.collect()
     torch.cuda.empty_cache()

@@ -15,7 +15,8 @@
 // What bounds it on the card: bytes.  At the dense engine's decode
 // (B = 8, C = 576, smollm-360m's 5 KV heads, head_dim 64, bf16) it reads
 // ~5.6 MB of K and V for 544 valid slots, ~0.0017 ms at 3.35 TB/s.
-// Design: K1's (decode_body.cuh) with contiguous rows.  Rounding as the
+// Design: K1's (decode_body.cuh) with contiguous rows; the key range is
+// split by the host-known n_valid.  Rounding as the
 // reference's decode_attention: scores in the promoted q/K type.
 
 #include "decode_body.cuh"
@@ -38,10 +39,11 @@ struct ContiguousRows {
   extern "C" int NAME(const void* q, const void* k_cache,                    \
                       const void* v_cache, void* out, int B, int C, int H,   \
                       int KV, int hd, int n_valid, float scale,              \
+                      int split_keys, int n_split, void* ws, void* counters, \
                       void* stream) {                                         \
-    return kern::decode::launch<TQ, TKV>(q, k_cache, v_cache, out,            \
-                                         ContiguousRows{C, n_valid}, B, H,    \
-                                         KV, hd, scale, stream);              \
+    return kern::decode::launch<TQ, TKV>(                                     \
+        q, k_cache, v_cache, out, ContiguousRows{C, n_valid}, B, H, KV, hd,   \
+        scale, split_keys, n_split, ws, counters, stream);                    \
   }
 
 DENSE_DECODE_ENTRY(decode_attention_f32_f32, float, float)

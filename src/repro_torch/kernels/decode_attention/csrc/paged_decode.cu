@@ -13,7 +13,8 @@
 // What bounds it on the card: bytes — one K and one V row per valid key
 // (at B = 8, smollm-360m's 5 KV heads, head_dim 64, bf16 and ~300 keys a
 // slot, ~3 MB, ~0.001 ms at 3.35 TB/s).  Design and rounding: see
-// decode_body.cuh.  The reference's paged path keeps its scores in f32.
+// decode_body.cuh; the key range is split by the page table's P * bs
+// keys, never by lengths (the host does not read them).  The reference's paged path keeps its scores in f32.
 
 #include "decode_body.cuh"
 
@@ -21,11 +22,13 @@
   extern "C" int NAME(const void* q, const void* k_pool, const void* v_pool, \
                       const void* page_table, const void* lengths,           \
                       void* out, int B, int H, int KV, int hd, int bs,       \
-                      int P, float scale, void* stream) {                    \
+                      int P, float scale, int split_keys, int n_split,       \
+                      void* ws, void* counters, void* stream) {              \
     const kern::decode::PagedRows rows{(const int*)page_table,             \
                                        (const int*)lengths, bs, P};        \
     return kern::decode::launch<TQ, TKV>(q, k_pool, v_pool, out, rows, B, H, \
-                                         KV, hd, scale, stream);             \
+                                         KV, hd, scale, split_keys, n_split, \
+                                         ws, counters, stream);              \
   }
 
 PAGED_DECODE_ENTRY(paged_decode_attention_f32_f32, float, float)

@@ -19,10 +19,10 @@
 // (2 * KV * hd bytes) and their two f32 scales (2 * KV * 4 bytes): at
 // B = 8, smollm-360m's 5 KV heads, head_dim 64 and ~540 keys a slot,
 // ~3 MB, ~0.0009 ms at 3.35 TB/s, a quarter of the f32 stream.  Design
-// and rounding: see decode_body.cuh; int8 rows are loaded 16 values per
-// 16-byte load, so head_dim % 16 == 0.  Each thread that loads a chunk
-// reads its row's two scales: KV consecutive floats per row (20 bytes at
-// 5 KV heads), not 16-byte aligned, served from L1 for a row's chunks.
+// and rounding: see decode_body.cuh (int8 tiles in the ring, each key's
+// two scales copied beside its tile and folded into its score and its
+// probability); int8 rows are loaded 16 values per 16-byte load, so
+// head_dim % 16 == 0.
 
 #include "decode_body.cuh"
 
@@ -30,10 +30,12 @@ extern "C" int paged_decode_attention_quant_f32(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* lengths, void* out, int B, int H, int KV, int hd, int bs,
-    int P, float scale, void* stream) {
+    int P, float scale, int split_keys, int n_split, void* ws,
+    void* counters, void* stream) {
   const kern::decode::PagedRows rows{(const int*)page_table,
                                      (const int*)lengths, bs, P};
   return kern::decode::launch<float, int8_t>(
-      q, k_pool, v_pool, out, rows, B, H, KV, hd, scale, stream,
+      q, k_pool, v_pool, out, rows, B, H, KV, hd, scale, split_keys, n_split,
+      ws, counters, stream,
       kern::RowScales{(const float*)k_scale, (const float*)v_scale});
 }

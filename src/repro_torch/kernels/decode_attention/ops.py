@@ -11,6 +11,14 @@ of ``paged_decode_attention_quant`` there, the paged step over int8
 pools with per-row f32 scales (see ``csrc/paged_decode_quant.cu``).  On
 a CPU tensor each runs its plain version; on a CUDA tensor it launches
 its kernel or raises.
+
+All three split each row's key range over ``n_split`` blocks and combine
+the partial softmaxes in the same launch (``csrc/decode_body.cuh``).
+``split_plan`` picks the split from host-known values only (shapes,
+``P * bs``, ``n_valid``), never from ``lengths``, so a call reads no
+device tensor on the host; the f32 partials and the per-pair counters
+live in one workspace per device (``workspace``), grown when a shape
+needs more and used on the current stream.
 """
 from __future__ import annotations
 
@@ -23,24 +31,78 @@ import torch
 from ..build import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# every entry ends in: scale, split_keys, n_split, workspace, counters,
+# stream
+_SPLIT = [ctypes.c_float, _I, _I, _P, _P, _P]
 KERNEL = CudaKernel(
     "paged_decode_attention",
     Path(__file__).parent / "csrc" / "paged_decode.cu",
-    {f"paged_decode_attention_{q}_{kv}":
-     [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+    {f"paged_decode_attention_{q}_{kv}": [_P] * 6 + [_I] * 6 + _SPLIT
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
 
 QUANT_KERNEL = CudaKernel(
     "paged_decode_attention_quant",
     Path(__file__).parent / "csrc" / "paged_decode_quant.cu",
-    {"paged_decode_attention_quant_f32": [_P] * 8 + [_I] * 6
-     + [ctypes.c_float, _P]})
+    {"paged_decode_attention_quant_f32": [_P] * 8 + [_I] * 6 + _SPLIT})
 
 DENSE_KERNEL = CudaKernel(
     "decode_attention",
     Path(__file__).parent / "csrc" / "dense_decode.cu",
-    {f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P]
+    {f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + _SPLIT
      for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+
+KEY_TILE = 32          # keys per tile of the kernels: splits are multiples
+MIN_SPLIT_KEYS = 64    # no split takes fewer keys
+TARGET_BLOCKS = 264    # two blocks for each of an H100's 132 SMs
+
+
+def split_plan(max_keys: int, pairs: int):
+    """(n_split, split_keys) for ``pairs`` (row, KV head) pairs whose rows
+    hold at most ``max_keys`` keys: enough splits that ``pairs * n_split``
+    reaches ``TARGET_BLOCKS``, none shorter than ``MIN_SPLIT_KEYS``, each
+    a whole number of key tiles.  Host ints in, host ints out: the plan
+    never depends on what a device tensor holds."""
+    if isinstance(max_keys, torch.Tensor) or isinstance(pairs, torch.Tensor):
+        raise TypeError("split_plan takes host ints: reading a tensor would "
+                        "sync the device")
+    max_keys, pairs = int(max_keys), int(pairs)
+    if max_keys < 1 or pairs < 1:
+        raise ValueError(f"split_plan({max_keys}, {pairs}): both must be >= 1")
+    n_split = max(1, min(-(-max_keys // MIN_SPLIT_KEYS),
+                         -(-TARGET_BLOCKS // pairs)))
+    split_keys = -(-max_keys // n_split)
+    split_keys = -(-split_keys // KEY_TILE) * KEY_TILE
+    return -(-max_keys // split_keys), split_keys
+
+
+_WORKSPACE = {}
+
+
+def workspace(device, n_floats: int, n_pairs: int):
+    """(f32 partials, int32 counters) of at least these sizes on
+    ``device``: one pair per device, allocated at first use and grown (the
+    counters zeroed) when a call needs more.  The kernels leave every
+    counter at 0, so the buffers carry nothing from one call to the next
+    on a stream."""
+    key = torch.device(device)
+    ws, cnt = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty((max(n_floats, 1),), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < n_pairs:
+        cnt = torch.zeros((n_pairs,), dtype=torch.int32, device=device)
+    _WORKSPACE[key] = (ws, cnt)
+    return ws, cnt
+
+
+def _split_args(q, max_keys: int, KV: int):
+    """The kernels' trailing split arguments for q (B, H, hd) over rows of
+    at most ``max_keys`` keys: split_keys, n_split and the workspace."""
+    B, H, hd = q.shape
+    n_split, split_keys = split_plan(max_keys, B * KV)
+    G = H // KV
+    ws, cnt = workspace(q.device, B * KV * n_split * G * (hd + 2), B * KV)
+    return (split_keys, n_split, ws.data_ptr(), cnt.data_ptr())
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # (query type, K/V type) pairs the kernels are built for: a bf16 model
@@ -124,12 +186,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     out = torch.empty(q.shape, dtype=k_pool.dtype, device=q.device)
     # the kernel launches on the runtime's current device: one card
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    P = page_table.shape[1]
     KERNEL.launch(
         f"paged_decode_attention_{_NAMES[q.dtype]}_{_NAMES[k_pool.dtype]}",
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, KV, hd, bs, page_table.shape[1],
-        ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+        B, H, KV, hd, bs, P, ctypes.c_float(1.0 / np.sqrt(hd)),
+        *_split_args(q, P * bs, KV), stream)
     return out
 
 
@@ -162,12 +225,14 @@ def paged_decode_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
     bs, KV = k_pool.shape[1], k_pool.shape[2]
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    P = page_table.shape[1]
     QUANT_KERNEL.launch(
         "paged_decode_attention_quant_f32",
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, KV, hd, bs,
-        page_table.shape[1], ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+        lengths.data_ptr(), out.data_ptr(), B, H, KV, hd, bs, P,
+        ctypes.c_float(1.0 / np.sqrt(hd)), *_split_args(q, P * bs, KV),
+        stream)
     return out
 
 
@@ -227,5 +292,6 @@ def decode_attention(q, k_cache, v_cache, n_valid: int):
     DENSE_KERNEL.launch(
         f"decode_attention_{_NAMES[q.dtype]}_{_NAMES[k_cache.dtype]}",
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, n_valid, ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+        B, C, H, KV, hd, n_valid, ctypes.c_float(1.0 / np.sqrt(hd)),
+        *_split_args(q, n_valid, KV), stream)
     return out

@@ -16,16 +16,19 @@
 // ~4 GFLOP against ~21 MB of q/k/v/out, ~190 operations per byte — below
 // the H100's ~295 bf16 operations per byte, so on paper bytes (~0.006
 // ms); with causal masking about half the score matrix is skipped.
-// Two bodies, chosen by the wrapper from dtype and head_dim alone:
-// flash_attention_bf16_mma runs bf16 at head_dim 64 and 128 on the tensor
-// cores (prefill_mma.cuh: 64 packed q-head rows a block, cp.async K/V
-// ring); flash_attention_f32 and flash_attention_bf16 (any other
-// head_dim) run prefill_body.cuh on CUDA cores (16 query tokens a block).
+// Three bodies, chosen by the wrapper from dtype and head_dim alone, at
+// head_dim 64 and 128 on the tensor cores: flash_attention_bf16_mma runs
+// bf16 (prefill_mma.cuh: 64 packed q-head rows a block, cp.async K/V
+// ring), flash_attention_f32_tf32 f32 in split TF32 (prefill_tf32.cuh,
+// the same walk); at any other head_dim flash_attention_f32 and
+// flash_attention_bf16 run prefill_body.cuh on CUDA cores (16 query
+// tokens a block).
 // Rounding: K2's, and scores rounded to the input type, as
 // naive_attention does.
 
 #include "prefill_body.cuh"
 #include "prefill_mma.cuh"
+#include "prefill_tf32.cuh"
 
 namespace {
 
@@ -61,4 +64,14 @@ extern "C" int flash_attention_bf16_mma(const void* q, const void* k,
                                         float scale, void* stream) {
   return kern::prefill_mma::launch(q, k, v, out, ContiguousRows{T_len}, B, S,
                                    H, KV, hd, causal, window, scale, stream);
+}
+
+extern "C" int flash_attention_f32_tf32(const void* q, const void* k,
+                                        const void* v, void* out, int B,
+                                        int S, int T_len, int H, int KV,
+                                        int hd, int causal, int window,
+                                        float scale, void* stream) {
+  return kern::prefill_tf32::launch<float>(q, k, v, out, ContiguousRows{T_len},
+                                           B, S, H, KV, hd, causal, window,
+                                           scale, stream);
 }

@@ -19,10 +19,16 @@
 // int8 bytes and 8 scale bytes, ~180 operations per byte for G = 3,
 // T = 32, hd = 64, above the H100's ~20 f32 operations per byte of
 // device memory (67 TFLOP/s outside the tensor cores over 3.35 TB/s).
-// Design and rounding: see prefill_body.cuh (8 query tokens a block);
-// int8 rows are loaded 16 values per 16-byte load, so head_dim % 16 == 0.
+// Two bodies, chosen by the wrapper from head_dim alone: at head_dim 64
+// and 128 paged_prefill_attention_quant_f32_tf32 runs prefill_tf32.cuh
+// (tensor cores in split TF32, int8 tiles in the ring, the row scales
+// folded into the scores and probabilities); at any other head_dim
+// paged_prefill_attention_quant_f32 runs prefill_body.cuh (CUDA cores, 8
+// query tokens a block, rows dequantized as they load).  int8 rows are
+// loaded 16 values per 16-byte load, so head_dim % 16 == 0.
 
 #include "prefill_body.cuh"
+#include "prefill_tf32.cuh"
 
 extern "C" int paged_prefill_attention_quant_f32(
     const void* q, const void* k_pool, const void* v_pool,
@@ -32,6 +38,19 @@ extern "C" int paged_prefill_attention_quant_f32(
   const kern::prefill::PagedRows rows{(const int*)page_table,
                                       (const int*)lengths, bs, P};
   return kern::prefill::launch<float, int8_t, 8>(
+      q, k_pool, v_pool, out, rows, B, T, H, KV, hd, /*causal=*/1,
+      /*window=*/0, scale, stream,
+      kern::RowScales{(const float*)k_scale, (const float*)v_scale});
+}
+
+extern "C" int paged_prefill_attention_quant_f32_tf32(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* lengths, void* out, int B, int T, int H, int KV, int hd,
+    int bs, int P, float scale, void* stream) {
+  const kern::prefill::PagedRows rows{(const int*)page_table,
+                                      (const int*)lengths, bs, P};
+  return kern::prefill_tf32::launch<int8_t>(
       q, k_pool, v_pool, out, rows, B, T, H, KV, hd, /*causal=*/1,
       /*window=*/0, scale, stream,
       kern::RowScales{(const float*)k_scale, (const float*)v_scale});

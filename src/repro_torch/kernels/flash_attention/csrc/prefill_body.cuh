@@ -29,9 +29,10 @@
 // position] — so key tiles that the causal or window mask removes
 // entirely are never loaded (the TPU grid visits and masks them).
 // Scores, the softmax update and P.V run on CUDA cores in f32, bound by
-// shared-memory traffic in the score and P.V loops.  This body serves the
-// f32 entries, K2q and bf16 at head_dims other than 64 and 128; bf16 at
-// those runs on the tensor cores (prefill_mma.cuh).
+// shared-memory traffic in the score and P.V loops.  This body serves
+// head_dims other than 64 and 128 only (f32, bf16 and int8 pools); at
+// those, bf16 runs on the tensor cores (prefill_mma.cuh) and f32 q (over
+// f32, bf16 or int8 pools) in split TF32 (prefill_tf32.cuh).
 //
 // Rounding follows the reference: q * scale in q's type, (with
 // kRoundScores) scores in the promoted q/K type before the f32 softmax,

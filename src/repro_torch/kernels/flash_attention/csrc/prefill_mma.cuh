@@ -6,8 +6,9 @@
 // and computes the same function: query t of row b sits at position
 // q_pos0(b) + t and sees key kpos iff kpos < n_keys(b), kpos <= its
 // position (causal) and kpos > its position - window (window > 0); query
-// head h reads KV head h / G.  The f32 entries, K2q and bf16 at any other
-// head_dim stay on prefill_body.cuh.
+// head h reads KV head h / G.  f32 q at these head_dims runs its split
+// TF32 twin (prefill_tf32.cuh); bf16 at any other head_dim stays on
+// prefill_body.cuh.
 //
 // Replaces, with prefill_body.cuh, src/repro/kernels/flash_attention/
 // kernel.py::flash_attention (body _flash_kernel).
@@ -89,24 +90,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kKeyTile = 64;  // keys per K/V tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -145,15 +128,6 @@ __device__ __forceinline__ void round_pair(float& a, float& b) {
   const uint32_t p = pack_bf16(a, b);
   a = __uint_as_float(p << 16);
   b = __uint_as_float(p & 0xffff0000u);
-}
-
-// 2^x on the special-function unit; a result below 2^-126 flushes to 0
-// (a probability that small is lost beside the row's largest, which is
-// 1).  2^0 is exactly 1.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 template <int kHd, int kStages>

@@ -11,11 +11,13 @@ plain version; on a CUDA tensor it launches its kernel or raises.
 per-row f32 scales (see ``csrc/paged_prefill_quant.cu``): the int8
 engine's mixed steps, which the reference serves without a kernel.
 
-The paged and contiguous libraries each hold two bodies: bf16 at
-head_dim 64 or 128 runs on the tensor cores (``csrc/prefill_mma.cuh``,
-the ``*_mma`` entries), everything else on CUDA cores
-(``csrc/prefill_body.cuh``).  ``paged_prefill_entry`` and
-``flash_entry`` pick the entry from dtypes and head_dim alone.
+The libraries hold three bodies.  At head_dim 64 or 128 everything
+runs on the tensor cores: bf16 (``csrc/prefill_mma.cuh``, the ``*_mma``
+entries) and f32 q over f32, bf16 or int8 K/V in split TF32
+(``csrc/prefill_tf32.cuh``, the ``*_tf32`` entries); at any other
+head_dim on CUDA cores (``csrc/prefill_body.cuh``).
+``paged_prefill_entry``, ``quant_prefill_entry`` and ``flash_entry``
+pick the entry from dtypes and head_dim alone.
 """
 from __future__ import annotations
 
@@ -35,34 +37,44 @@ KERNEL = CudaKernel(
     {f"paged_prefill_attention_{q}_{kv}{body}":
      [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
      for q, kv, body in (("f32", "f32", ""), ("f32", "bf16", ""),
-                         ("bf16", "bf16", ""), ("bf16", "bf16", "_mma"))})
+                         ("bf16", "bf16", ""), ("bf16", "bf16", "_mma"),
+                         ("f32", "f32", "_tf32"), ("f32", "bf16", "_tf32"))})
 QUANT_KERNEL = CudaKernel(
     "paged_prefill_attention_quant",
     Path(__file__).parent / "csrc" / "paged_prefill_quant.cu",
-    {"paged_prefill_attention_quant_f32": [_P] * 8 + [_I] * 7
-     + [ctypes.c_float, _P]})
+    {f"paged_prefill_attention_quant_f32{body}": [_P] * 8 + [_I] * 7
+     + [ctypes.c_float, _P] for body in ("", "_tf32")})
 FLASH_KERNEL = CudaKernel(
     "flash_attention",
     Path(__file__).parent / "csrc" / "flash_prefill.cu",
     {f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
-     for t in ("f32", "bf16", "bf16_mma")})
-# head_dims the tensor-core body is instantiated for: smollm-360m's and
+     for t in ("f32", "bf16", "bf16_mma", "f32_tf32")})
+# head_dims the tensor-core bodies are instantiated for: smollm-360m's and
 # jamba-v0.1's (and most configs'; 56 and 192 take the CUDA-core body)
 MMA_HEAD_DIMS = (64, 128)
 
 
 def _body(dtypes, hd: int) -> str:
-    """Entry suffix of the body that serves these operands: ``_mma`` (the
-    tensor cores) for bf16 throughout at head_dim 64 or 128, else ``""``
-    (the CUDA-core body)."""
-    bf16 = all(d == torch.bfloat16 for d in dtypes)
-    return "_mma" if bf16 and hd in MMA_HEAD_DIMS else ""
+    """Entry suffix of the body that serves these operands (q's type
+    first): at head_dim 64 or 128 ``_mma`` (bf16 tensor cores) for bf16
+    throughout and ``_tf32`` (split TF32 tensor cores) for f32 q, else
+    ``""`` (the CUDA-core body)."""
+    if hd not in MMA_HEAD_DIMS:
+        return ""
+    if all(d == torch.bfloat16 for d in dtypes):
+        return "_mma"
+    return "_tf32" if dtypes[0] == torch.float32 else ""
 
 
 def paged_prefill_entry(q_dtype, kv_dtype, hd: int) -> str:
     """The C entry of ``KERNEL`` that serves these operands."""
     return (f"paged_prefill_attention_{_NAMES[q_dtype]}_{_NAMES[kv_dtype]}"
             + _body((q_dtype, kv_dtype), hd))
+
+
+def quant_prefill_entry(hd: int) -> str:
+    """The C entry of ``QUANT_KERNEL`` that serves head_dim ``hd``."""
+    return "paged_prefill_attention_quant_f32" + _body((torch.float32,), hd)
 
 
 def flash_entry(dtype, hd: int) -> str:
@@ -141,7 +153,7 @@ def paged_prefill_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     QUANT_KERNEL.launch(
-        "paged_prefill_attention_quant_f32",
+        quant_prefill_entry(hd),
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, T, H, KV, hd, bs,

@@ -67,6 +67,13 @@ reference, which fails a bf16 model over an int8 pool (this port raises
 
 Sampling is greedy argmax.  The attention of every step runs through the
 hand-written CUDA kernels on a CUDA device (``models/attention.py``).
+
+**Bounded restart** — a failing dense step fails its in-flight slots
+(``"lost in engine restart"``), keeps queued work and drops the cache;
+``max_restarts`` consecutive failures fail everything and re-raise, as
+in the reference.  A failing paged step raises: the reference's paged
+restart spills survivors through preemption, not ported yet (A7b/A7c).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: seeded sampling (``temperature > 0``), speculative decoding,
 ``mesh=``, the batch lane and preemption, fault plans.  In dense mode
@@ -101,6 +108,7 @@ class GenerationResult:
     # tokens were generated before the request was failed
     status: str = "ok"
     ttft_s: Optional[float] = None    # submit -> first generated token
+    error: Optional[str] = None       # failure message (status "error")
 
 
 class _Slot:
@@ -159,7 +167,7 @@ class ServeEngine:
                  mesh=None, retain_cap: Optional[int] = None,
                  retain_ttl_s: Optional[float] = None, spec_k: int = 0,
                  kv_dtype: Optional[str] = None, fault_plan=None,
-                 device=None):
+                 max_restarts: int = 3, device=None):
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if temperature > 0:
@@ -337,6 +345,12 @@ class ServeEngine:
         self.n_host_syncs = 0         # decode-loop device->host drains
         self.n_flag_reads = 0         # burst early-out reads of `active`
         self.n_burst_early_exits = 0  # bursts cut short by all-done
+        # bounded-restart accounting for non-attributable step failures
+        self.max_restarts = int(max_restarts)
+        self.n_step_failures = 0      # step() exceptions caught
+        self.n_restarts = 0           # engine pool rebuilds performed
+        self.n_cancelled = 0          # requests cancelled via cancel()
+        self._consec_failures = 0     # resets on every clean step
 
     # -- synchronous fixed batch API ------------------------------------------
     def generate_batch(self, prompts: np.ndarray,
@@ -485,10 +499,102 @@ class ServeEngine:
         """Admit what fits, run one decode burst (or a mixed
         prefill+decode megastep, or a dense prefill wave), evict what
         finished.  Returns results for requests that completed during
-        this step.  A failing step raises (restart after a failure is
-        ROADMAP A7b)."""
-        with torch.inference_mode():
-            return self._step_paged() if self.paged else self._step_dense()
+        this step.
+
+        Dense mode: a step exception is *non-attributable* (no way to
+        know which resident request poisoned the burst), so the engine
+        restarts: in-flight slots are failed with ``"lost in engine
+        restart"``, queued work survives, the cache is dropped, and
+        serving continues.  Restarts are bounded by ``max_restarts``
+        *consecutive* failures; past that every in-flight and queued
+        request is failed and the exception propagates.  Paged mode
+        raises at once: its restart spills survivors through the
+        preemption path, which is not ported yet (ROADMAP A7b/A7c)."""
+        if self.paged:
+            with torch.inference_mode():
+                return self._step_paged()
+        try:
+            with torch.inference_mode():
+                out = self._step_dense()
+        except Exception as exc:
+            return self._handle_step_failure(exc)
+        self._consec_failures = 0
+        return out
+
+    def _handle_step_failure(self, exc: Exception) -> List[GenerationResult]:
+        """Recover from a dense step exception: bounded restart (fail
+        the in-flight slots, drop the cache) or, past the budget, fail
+        everything and re-raise."""
+        self.n_step_failures += 1
+        self._consec_failures += 1
+        if self._consec_failures > self.max_restarts:
+            now = time.monotonic()
+            msg = f"engine wedged after {self.n_restarts} restarts: {exc}"
+            with self._lock:
+                queued = list(self.scheduler.candidates())
+                for req in queued:
+                    self.scheduler.remove(req)
+            for req in queued:
+                self._finish(GenerationResult(
+                    request_id=req.rid, prompt=req.prompt,
+                    tokens=np.asarray(req.tokens, np.int32),
+                    latency_s=now - req.t_submit, status="error", error=msg))
+            self._fail_slots(msg, now)
+            self._reset_pools()
+            raise exc
+        self.n_restarts += 1
+        self._restart()
+        return []
+
+    def _fail_slots(self, msg: str, now: float) -> None:
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            self._finish(GenerationResult(
+                request_id=slot.rid, prompt=slot.prompt,
+                tokens=np.asarray(slot.tokens, np.int32),
+                latency_s=now - slot.t_submit, status="error", error=msg))
+            self._slots[i] = None
+
+    def _restart(self) -> None:
+        """Dense restart: there is no spill path, so every live slot is
+        failed with ``"lost in engine restart"``; queued work survives
+        untouched and the next step admits it as a fresh wave."""
+        self._fail_slots("lost in engine restart", time.monotonic())
+        self._reset_pools()
+
+    def _reset_pools(self) -> None:
+        """Drop the dense cache and the host accounting (all slots must
+        already be empty); the device slot state is rebuilt on next use."""
+        self._cache = None
+        self._pos = 0
+        self._reserved = 0
+        self._page_table[:, :] = 0
+        self._lengths[:] = 0
+        self._state_slots[:] = 0
+        self._dev.mark_dirty()
+
+    def cancel(self, rid: int, status: str = "cancelled") -> bool:
+        """Cancel one request wherever it is: queued, or in flight (its
+        result carries every token generated so far).  Returns True if
+        the request was live and is now terminal with ``status``; False
+        if it was unknown or already finished (the existing result is
+        left for its waiter)."""
+        with self._results_cv:
+            if rid in self._results:
+                return False
+        self._cancel([rid], status)
+        with self._results_cv:
+            done = rid in self._results
+        if done:
+            self.n_cancelled += 1
+        return done
+
+    def inflight_rids(self) -> List[int]:
+        """Rids with no result yet: queued plus resident in a slot."""
+        with self._lock:
+            queued = [req.rid for req in self.scheduler.candidates()]
+        return queued + [s.rid for s in self._slots if s is not None]
 
     def serve(self, requests: List[np.ndarray],
               timeout_s: float = 120.0) -> List[GenerationResult]:

@@ -179,7 +179,8 @@ def test_library_hash_covers_included_headers(tmp_path):
     assert build.library_path("k", src) != before
 
 
-_PREFILL_BODIES = ["prefill_mma.cuh", "common.cuh", "prefill_body.cuh"]
+_PREFILL_BODIES = ["prefill_tf32.cuh", "common.cuh", "prefill_mma.cuh",
+                   "prefill_body.cuh"]
 
 
 @pytest.mark.parametrize("kernel,bodies", [
@@ -187,11 +188,13 @@ _PREFILL_BODIES = ["prefill_mma.cuh", "common.cuh", "prefill_body.cuh"]
     (dops.DENSE_KERNEL, ["decode_body.cuh", "common.cuh"]),
     (dops.QUANT_KERNEL, ["decode_body.cuh", "common.cuh"]),
     (fops.KERNEL, _PREFILL_BODIES), (fops.FLASH_KERNEL, _PREFILL_BODIES),
-    (fops.QUANT_KERNEL, ["prefill_body.cuh", "common.cuh"])])
+    (fops.QUANT_KERNEL, ["prefill_tf32.cuh", "common.cuh",
+                         "prefill_body.cuh"])])
 def test_attention_kernels_share_their_family_body(kernel, bodies):
     """The paged and contiguous entries of each attention family are
-    built from shared bodies and the shared helpers: the bf16 paged and
-    contiguous prefill entries also from the tensor-core body."""
+    built from shared bodies and the shared helpers: the paged and
+    contiguous prefill entries also from the two tensor-core bodies, the
+    int8 prefill from the split-TF32 one."""
     from repro_torch.kernels import build
     names = [f.name for f in build.source_files(kernel.source)]
     assert names == [kernel.source.name] + bodies
@@ -437,6 +440,204 @@ def test_bf16_head_dim_32_stays_on_the_cuda_core_body(cuda):
     _assert_one_launch_of(fops.FLASH_KERNEL, before, "flash_attention_bf16")
     assert (got.float() - want.float()).abs().max().item() <= \
         _TOL[torch.bfloat16]
+
+
+# -- the split-TF32 prefill body (prefill_tf32.cuh): f32 q at hd 64 / 128 ---
+
+def _paged_straddle_lengths(c, T, heads):
+    """A slot with nothing cached, a chunk straddling a page boundary and
+    one ending at the page table's last key."""
+    lengths = c["lengths"]
+    lengths[0] = 0
+    lengths[1] = 2 * heads["bs"] - 3
+    lengths[2] = heads["P"] * heads["bs"] - T
+    return lengths
+
+
+@pytest.mark.parametrize("T", [5, 17, 32])
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
+                         ids=["smollm", "jamba"])
+def test_prefill_tf32_kernel_matches_plain(cuda, heads, kvdt, T):
+    """f32 K2 over f32 and bf16 pools on the split-TF32 body: lengths 0,
+    page straddles, T * G rows that are no multiple of a warp's 16."""
+    c = _case(T + heads["hd"] + 1, B=4, T=T, max_len=heads["P"] * 16 - T,
+              **heads)
+    lengths = _paged_straddle_lengths(c, T, heads)
+    args = (_t(c["q"], cuda), _t(c["k"], cuda, kvdt), _t(c["v"], cuda, kvdt),
+            _t(c["pt"], cuda), _t(lengths, cuda))
+    before = _entry_counts(fops.KERNEL)
+    got = fops.paged_prefill_attention(*args)
+    want = fops.paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.KERNEL, before,
+                          f"paged_prefill_attention_f32_{dops._NAMES[kvdt]}"
+                          "_tf32")
+    assert got.dtype == want.dtype == kvdt
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[kvdt], err
+
+
+@pytest.mark.parametrize("T", [5, 17, 32])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
+                         ids=["smollm", "jamba"])
+def test_prefill_quant_tf32_kernel_matches_plain(cuda, heads, T):
+    """K2q on the split-TF32 body (int8 tiles, row scales folded into the
+    scores and probabilities) within f32's 1e-5 of the plain version's
+    dequantize-then-dot."""
+    c = _quant_case(T + heads["hd"] + 2, B=4, T=T,
+                    max_len=heads["P"] * 16 - T, **heads)
+    lengths = _paged_straddle_lengths(c, T, heads)
+    args = _quant_args(c, c["q"], cuda, lengths=lengths)
+    before = _entry_counts(fops.QUANT_KERNEL)
+    got = fops.paged_prefill_attention_quant(*args)
+    want = fops.paged_prefill_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.QUANT_KERNEL, before,
+                          "paged_prefill_attention_quant_f32_tf32")
+    err = (got - want).abs().max().item()
+    assert err <= ATOL_F32, err
+
+
+@pytest.mark.parametrize("S,window", [(77, 0), (77, 16), (77, 128),
+                                      (512, 0), (512, 16), (512, 128)])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
+                         ids=["smollm", "jamba"])
+def test_flash_tf32_kernel_matches_plain(cuda, heads, S, window):
+    """f32 B2 contiguous on the split-TF32 body: causal, with windows
+    narrower and wider than a 32-key tile, S no multiple of a tile."""
+    q, k, v = _dense_qkv(S + window + heads["hd"] + 1, 2, S, S, heads,
+                         torch.float32, cuda)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = fops.flash_attention_plain(q, k, v, causal=True,
+                                      sliding_window=window)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before, "flash_attention_f32_tf32")
+    err = (got - want).abs().max().item()
+    assert err <= ATOL_F32, err
+
+
+# -- the split decode body (decode_body.cuh): K1, B4, B3 ---------------------
+
+def _split_lengths(B, P, bs, KV):
+    """Lengths at the split planner's boundaries for B slots of P pages:
+    0, 1, exactly one split, one split + 1, the whole page table, and
+    ragged rows between."""
+    _, split_keys = dops.split_plan(P * bs, B * KV)
+    edge = [0, 1, split_keys, split_keys + 1, P * bs]
+    rng = np.random.default_rng(B + P)
+    return np.array(edge + list(rng.integers(1, P * bs + 1, B - len(edge))),
+                    np.int32)
+
+
+def _check_decode_rows(got, want, lengths, tol):
+    """Rows with keys equal the plain version within ``tol``; a row with
+    none outputs 0, as the kernel always has (the plain version averages
+    every V row there: all its scores are masked alike)."""
+    empty = torch.as_tensor(lengths == 0, device=got.device)
+    assert torch.equal(got[empty].float(),
+                       torch.zeros_like(got[empty].float()))
+    err = (got[~empty].float() - want[~empty].float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("max_keys,pairs", [
+    (592, 40), (544, 40), (640, 64), (1, 1), (64, 40), (65, 40), (600, 4),
+    (5000, 1), (96, 300)])
+def test_decode_split_plan_covers_the_keys_from_host_ints(max_keys, pairs):
+    """The split plan (CPU): whole key tiles, every key in exactly one
+    split, no split under MIN_SPLIT_KEYS unless there is one, no more
+    splits than fill TARGET_BLOCKS; computed from host ints only."""
+    n_split, split_keys = dops.split_plan(max_keys, pairs)
+    assert split_keys % dops.KEY_TILE == 0
+    assert (n_split - 1) * split_keys < max_keys <= n_split * split_keys
+    assert n_split == 1 or split_keys >= dops.MIN_SPLIT_KEYS
+    assert pairs * (n_split - 1) < dops.TARGET_BLOCKS
+    with pytest.raises(TypeError, match="host ints"):
+        dops.split_plan(torch.tensor(max_keys), pairs)
+
+
+def test_decode_split_args_come_from_shapes(monkeypatch):
+    """The wrappers' split arguments depend on q's shape, the KV heads and
+    the row bound (P * bs, or n_valid) alone, and the workspace is one
+    buffer pair per device, grown, never shrunk, counters zeroed."""
+    monkeypatch.setattr(dops, "_WORKSPACE", {})
+    q = torch.zeros((8, 15, 64))
+    split_keys, n_split, ws_ptr, cnt_ptr = dops._split_args(q, 592, 5)
+    assert (n_split, split_keys) == dops.split_plan(592, 8 * 5)
+    ws, cnt = dops._WORKSPACE[torch.device("cpu")]
+    assert (ws.data_ptr(), cnt.data_ptr()) == (ws_ptr, cnt_ptr)
+    assert ws.numel() == 8 * 5 * n_split * 3 * (64 + 2)
+    assert cnt.numel() == 8 * 5 and not cnt.any()
+    assert dops._split_args(q[:4], 100, 5)[2:] == (ws_ptr, cnt_ptr)
+    big = dops._split_args(torch.zeros((16, 15, 64)), 592, 5)
+    assert dops._WORKSPACE[torch.device("cpu")][1].numel() == 16 * 5
+    assert big[:2] == dops.split_plan(592, 16 * 5)[::-1]
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
+                         ids=["smollm", "jamba"])
+def test_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
+    """K1 with rows of 0, 1, one split's keys, one more, and all P * bs
+    in one batch; two launches give the same bits."""
+    B, P, bs = 8, 40, heads["bs"]
+    c = _case(P + heads["hd"], B=B, T=1, max_len=P * bs,
+              **dict(heads, P=P))
+    lengths = _split_lengths(B, P, bs, heads["KV"])
+    args = (_t(c["q"][:, 0], cuda, qdt), _t(c["k"], cuda, kvdt),
+            _t(c["v"], cuda, kvdt), _t(c["pt"], cuda), _t(lengths, cuda))
+    assert dops.split_plan(P * bs, B * heads["KV"])[0] > 1
+    n0 = dops.KERNEL.launches
+    got = dops.paged_decode_attention(*args)
+    again = dops.paged_decode_attention(*args)
+    want = dops.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert dops.KERNEL.launches == n0 + 2
+    assert torch.equal(got, again)
+    _check_decode_rows(got, want, lengths, _TOL[kvdt])
+
+
+@pytest.mark.parametrize("heads", [_SERVED, _JAMBA], ids=["smollm", "jamba"])
+def test_decode_quant_split_boundaries_match_plain(cuda, heads):
+    """B3 at the same boundaries, within f32's 1e-5; bitwise repeatable."""
+    B = 8
+    c = _quant_case(heads["hd"] + 3, B=B, T=1, **heads)
+    lengths = _split_lengths(B, heads["P"], heads["bs"], heads["KV"])
+    args = _quant_args(c, c["q"][:, 0], cuda, lengths=lengths)
+    n0 = dops.QUANT_KERNEL.launches
+    got = dops.paged_decode_attention_quant(*args)
+    again = dops.paged_decode_attention_quant(*args)
+    want = dops.paged_decode_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert dops.QUANT_KERNEL.launches == n0 + 2
+    assert torch.equal(got, again)
+    _check_decode_rows(got, want, lengths, ATOL_F32)
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
+                         ids=["smollm", "jamba"])
+def test_dense_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
+    """B4 with n_valid at 1, one split's keys, one more, and the whole
+    cache; bitwise repeatable."""
+    C, B = 584, 8
+    n_split, split_keys = dops.split_plan(C, B * heads["KV"])
+    assert n_split > 1
+    for n_valid in (1, split_keys, split_keys + 1, C):
+        q, k, v = _dense_qkv(n_valid + 7, B, 1, C, heads, qdt, cuda)
+        q = q[:, 0].contiguous()
+        got = dops.decode_attention(q, k, v, n_valid)
+        again = dops.decode_attention(q, k, v, n_valid)
+        want = dops.decode_attention_plain(q, k, v, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), n_valid
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _TOL[kvdt], (n_valid, err)
 
 
 # -- int8 pools: B3 (decode) and the int8 paged prefill (K2q) ----------------

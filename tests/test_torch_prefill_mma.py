@@ -21,12 +21,17 @@ F32, BF16 = torch.float32, torch.bfloat16
     (BF16, BF16, 128, "paged_prefill_attention_bf16_bf16_mma"),
     (BF16, BF16, 32, "paged_prefill_attention_bf16_bf16"),
     (BF16, BF16, 96, "paged_prefill_attention_bf16_bf16"),
-    (F32, BF16, 64, "paged_prefill_attention_f32_bf16"),
-    (F32, F32, 128, "paged_prefill_attention_f32_f32")])
+    # (ids as the entries before the split-TF32 body took f32 q)
+    pytest.param(F32, BF16, 64, "paged_prefill_attention_f32_bf16_tf32",
+                 id="q_dtype4-kv_dtype4-64-paged_prefill_attention_f32_bf16"),
+    pytest.param(F32, F32, 128, "paged_prefill_attention_f32_f32_tf32",
+                 id="q_dtype5-kv_dtype5-128-paged_prefill_attention_f32_f32"),
+    (F32, F32, 96, "paged_prefill_attention_f32_f32"),
+    (F32, BF16, 32, "paged_prefill_attention_f32_bf16")])
 def test_paged_prefill_dispatch(q_dtype, kv_dtype, hd, entry):
-    """bf16 q and pools at head_dim 64 or 128 go to the tensor-core body;
-    f32 q or pools, and bf16 at any other head_dim, to the CUDA-core
-    body."""
+    """bf16 q and pools at head_dim 64 or 128 go to the bf16 tensor-core
+    body, f32 q there to the split-TF32 body; any other head_dim to the
+    CUDA-core body."""
     assert fops.paged_prefill_entry(q_dtype, kv_dtype, hd) == entry
     assert entry in fops.KERNEL.entries
 
@@ -35,11 +40,26 @@ def test_paged_prefill_dispatch(q_dtype, kv_dtype, hd, entry):
     (BF16, 64, "flash_attention_bf16_mma"),
     (BF16, 128, "flash_attention_bf16_mma"),
     (BF16, 32, "flash_attention_bf16"),
-    (F32, 64, "flash_attention_f32"),
-    (F32, 128, "flash_attention_f32")])
+    pytest.param(F32, 64, "flash_attention_f32_tf32",
+                 id="dtype3-64-flash_attention_f32"),
+    pytest.param(F32, 128, "flash_attention_f32_tf32",
+                 id="dtype4-128-flash_attention_f32"),
+    (F32, 96, "flash_attention_f32")])
 def test_flash_dispatch(dtype, hd, entry):
     assert fops.flash_entry(dtype, hd) == entry
     assert entry in fops.FLASH_KERNEL.entries
+
+
+@pytest.mark.parametrize("hd,entry", [
+    (64, "paged_prefill_attention_quant_f32_tf32"),
+    (128, "paged_prefill_attention_quant_f32_tf32"),
+    (16, "paged_prefill_attention_quant_f32"),
+    (96, "paged_prefill_attention_quant_f32")])
+def test_quant_prefill_dispatch(hd, entry):
+    """K2q at head_dim 64 or 128 runs the split-TF32 body (int8 tiles,
+    folded row scales), elsewhere the CUDA-core body."""
+    assert fops.quant_prefill_entry(hd) == entry
+    assert entry in fops.QUANT_KERNEL.entries
 
 
 class _FakeLib:
