@@ -17,10 +17,17 @@ result line):
                  paged decode / prefill attention (K1/K2) at smollm-360m
                  heads (15/5, head_dim 64; batch 4 and 8, lengths up to
                  ~600) and at jamba heads (32/8, head_dim 128); the
-                 selective scan (B5) at batch 8, d_inner 8192, d_state 16,
-                 T = 1 and 32, cold and with carried state and t_valid; the
-                 top-k gating (B6) at 8 and 256 tokens x 16 experts, top-2,
-                 and a tie-laden case; the dense engine's contiguous flash
+                 launch floor (a one-thread kernel under the same Timer);
+                 the selective scan (B5) at d_inner 8192, d_state 16, B/C
+                 as split views of one x_proj output: batch 8, T = 1 and
+                 32, cold and with carried state and t_valid, and cold at
+                 T = 512 (batch 8 and 1), then its slab entry in place at
+                 batch 8, T = 1 and 32 (a fresh row, idle rows on a live
+                 row's and an unowned slab, the dump row; unowned slabs
+                 bit-identical); the top-k gating (B6) at 8 and 256
+                 tokens x 16 experts, top-2, a tie-laden case, and 256
+                 tokens x 4 (top-4), 64 and 256 experts (top-8); the
+                 dense engine's contiguous flash
                  prefill (B2) at batch 8, S = 512, causal and with a
                  128-token window, f32 and bf16, smollm and jamba heads
                  (bf16 K2 and B2 must run their tensor-core entries, the
@@ -48,7 +55,9 @@ result line):
                  K2q; K1/K2 must not launch).  Dense (paged=False): the
                  same smollm-shaped model (B2, B4), with a 48-token sliding
                  window whose ring wraps (B2, B4), and the smoke jamba (B2,
-                 B4, B5, B6); the paged kernels must not launch there.
+                 B4, B5, B6); the paged kernels must not launch there.  B5
+                 runs its slab entry in the paged step and the dense
+                 decode, its plain entry only in the dense prefill wave.
   5. main path — ``repro_torch.launch.serve`` serves smollm-360m at full
                  width (random weights from seed 0, bf16 KV) through the
                  stream pipeline; K1 and K2 must have launched, K2 only
@@ -62,8 +71,9 @@ result line):
                  top-2; bf16, random weights from seed 0 made on the
                  card), 16 requests of 512 prompt tokens, 32 new tokens,
                  batch 8; the four paged-path kernels must have launched
-                 and the dense ones must not.
-                 Then a profiler trace of the same engine.
+                 and the dense ones must not, B5 only through its slab
+                 entry.  Then a profiler trace of the same engine (as
+                 every trace: device operations per device step).
   7. dense     — ``repro_torch.launch.serve --paged off`` serves
                  smollm-360m at full width and depth through the stream
                  pipeline on the dense engine (bf16 cache, batch 8,
@@ -97,6 +107,7 @@ whole run takes ~4-6 minutes on one H100, the build included.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import re
 import subprocess
@@ -131,6 +142,9 @@ DENSE_KERNELS = ("flash_attention", "decode_attention")
 QUANT_KERNELS = ("paged_decode_attention_quant",
                  "paged_prefill_attention_quant")
 ATTN_KERNELS = PAGED_KERNELS + DENSE_KERNELS + QUANT_KERNELS
+# a CUDA trace also records the runtime calls that issue the device work
+# (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, ...)
+RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]")
 E4_CHAIN = "typecast:float32,divide:255.0,subtract:0.5,clamp:-0.5:0.5"
 SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
 JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
@@ -427,10 +441,24 @@ def phase_attention(timer: Timer):
     return served
 
 
+JAMBA_DT_RANK = 256      # jamba-v0.1: ceil(4096 / 16)
+
+
+def _split_bc(Bc, Cc, dtr=JAMBA_DT_RANK):
+    """Bc, Cc as the served path hands them to the scan: ``torch.split``
+    views of one (B, T, dt_rank + 2N) x_proj output."""
+    B, T, N = Bc.shape
+    proj = torch.cat([torch.zeros((B, T, dtr), dtype=Bc.dtype,
+                                  device=Bc.device), Bc, Cc], dim=-1)
+    _, b, c = torch.split(proj, [dtr, N, N], dim=-1)
+    return b, c
+
+
 def _scan_case(seed, B, T, di, N, dtype, carried):
     """Selective-scan inputs as a Mamba layer makes them: dt from a
-    softplus, A = -(1..N) per channel (the init's A_log), D = 1; with
-    ``carried``, a random state slab and t_valid spread over [0, T]."""
+    softplus, A = -(1..N) per channel (the init's A_log), D = 1, Bc and
+    Cc split views of one projection; with ``carried``, a random state
+    slab and t_valid spread over [0, T]."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     dt = torch.nn.functional.softplus(torch.randn((B, T, di), generator=g))
     xs = torch.randn((B, T, di), generator=g)
@@ -445,67 +473,148 @@ def _scan_case(seed, B, T, di, N, dtype, carried):
     else:
         h0 = torch.zeros((B, di, N))
         t_valid = torch.full((B,), T, dtype=torch.int32)
-    return tuple(a.to("cuda", dtype) for a in (dt, xs, Bc, Cc)) + tuple(
+    dt, xs, Bc, Cc = (a.to("cuda", dtype) for a in (dt, xs, Bc, Cc))
+    return (dt, xs) + _split_bc(Bc, Cc) + tuple(
         a.contiguous().to("cuda") for a in (A, D, h0, t_valid))
 
 
-def _scan_bound_ms(args, carried: bool):
-    """Bytes: every input read once (h0 only when a state is carried),
-    y and h_last written once; operations: per valid position, channel
-    and state element the exp, the dt*A and dt*x*B products, the state
-    update and the C dot product (~7 f32 operations), plus D*x."""
-    dt, xs, Bc, Cc, A, D, h0, t_valid = args
+def _scan_bound_ms(dt, xs, Bc, Cc, A, D, t_valid, state_in: int,
+                   state_out: int, extra: int = 0):
+    """Bytes: dt, xs, the B and C columns, A, D and t_valid read once,
+    ``state_in`` state slabs read (0 for a cold start) and ``state_out``
+    written, y written, plus ``extra`` (row indices); operations: per
+    valid position, channel and state element the exp, the dt*A and
+    dt*x*B products, the state update and the C dot product (~7 f32
+    operations), plus D*x."""
     B, T, di = dt.shape
     N = Bc.shape[-1]
-    ins = [dt, xs, Bc, Cc, A, D, t_valid] + ([h0] if carried else [])
+    ins = [dt, xs, A, D, t_valid]
     n_bytes = sum(a.numel() * a.element_size() for a in ins) \
-        + (B * T * di + B * di * N) * 4
+        + 2 * B * T * N * Bc.element_size() \
+        + (state_in + state_out) * di * N * 4 + B * T * di * 4 + extra
     positions = int(t_valid.clamp(max=T).sum())
     return _bound(n_bytes, positions * di * (7 * N + 3), torch.float32)
 
 
-def phase_scan(timer: Timer):
+def _slab_case(seed, T, dtype):
+    """The served slab step (B = 8, d_inner 8192, d_state 16): a pool of
+    8 slabs plus the dump row; rows 0-5 live (row 0 fresh: lengths 0,
+    row 2 partly valid), row 6 idle on row 1's slab (a stale slot id),
+    row 7 idle on slab 6, which no live row owns; rows 6 and 7 both
+    write the dump.  Returns (scan operands, pool, read, write, live
+    rows, slabs no row may touch)."""
+    B, di, N = 8, 8192, 16
+    dt, xs, Bc, Cc, A, D, _, _ = _scan_case(seed, B, T, di, N, dtype, False)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    pool = torch.randn((B + 1, di, N), generator=g).to("cuda")
+    slots = torch.tensor([3, 0, 5, 1, 7, 2, 0, 6])
+    lengths = torch.tensor([0, 100, 37, 500, 5, 200, 64, 9])
+    t_valid = torch.tensor([T, T, max(T // 2, 1), T, T, T, 0, 0],
+                           dtype=torch.int32)
+    dump = B
+    read = torch.where(lengths == 0, -1, slots)
+    write = torch.where(t_valid > 0, slots, dump)
+    ops = (dt, xs, Bc, Cc, A, D)
+    return (ops, pool, read.to("cuda"), write.to("cuda"),
+            t_valid.to("cuda"), list(range(6)), [4, 6])
+
+
+def phase_scan(timer: Timer, floor_ms: float):
+    """B5 through both entries.  The plain entry: T = 1 and 32, cold and
+    carried (bf16 timed, f32 checked at T = 32 carried), and cold at
+    T = 512 (the dense engine's prefill wave at B = 8, and B = 1, where
+    the grid is 256 blocks: the case a time-split scan would serve).
+    The slab entry at the served step shapes (T = 1 decode, T = 32
+    chunk) in place, with a fresh row, idle rows on a live row's and on
+    an unowned slab, and the dump row.  Returns the T = 32 slab row: the
+    main path's entry."""
     from repro_torch.kernels.ssm_scan import ops as sops
+    cases = [(8, T, carried, dtype) for T in (1, 32)
+             for carried in (False, True)
+             for dtype in (torch.bfloat16, torch.float32)
+             if dtype == torch.bfloat16 or (carried and T == 32)]
+    cases += [(8, 512, False, torch.bfloat16), (1, 512, False, torch.bfloat16)]
+    for B, T, carried, dtype in cases:
+        args = _scan_case(T + carried + B, B, T, 8192, 16, dtype, carried)
+        n0 = sops.KERNEL.launches
+        y, h = sops.selective_scan(*args)
+        torch.cuda.synchronize()
+        check(sops.KERNEL.launches == n0 + 1, "selective_scan did not launch")
+        wy, wh = sops.selective_scan_plain(*args)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+              "selective_scan: non-finite output")
+        err = max((y - wy).abs().max().item(), (h - wh).abs().max().item())
+        tag = (f"selective_scan B={B} T={T} di=8192 N=16 {str(dtype)[6:]} "
+               + ("carried h0 + t_valid" if carried else "cold")
+               + ", Bc/Cc split views")
+        check(err <= SCAN_TOL, f"{tag}: max_abs_err {err}")
+        line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {SCAN_TOL})"
+        if dtype == torch.bfloat16:
+            dt, xs, Bc, Cc, A, D, h0, t_valid = args
+            row = _time_row(timer, sops.selective_scan,
+                            sops.selective_scan_plain, args, None,
+                            _scan_bound_ms(dt, xs, Bc, Cc, A, D, t_valid,
+                                           B if carried else 0, B))
+            line += _fmt(row)
+        log(line)
     served = None
     for T in (1, 32):
-        for carried in (False, True):
-            for dtype in (torch.bfloat16, torch.float32):
-                if dtype == torch.float32 and not (carried and T == 32):
-                    continue
-                args = _scan_case(T + carried, 8, T, 8192, 16, dtype, carried)
-                n0 = sops.KERNEL.launches
-                y, h = sops.selective_scan(*args)
-                torch.cuda.synchronize()
-                check(sops.KERNEL.launches == n0 + 1,
-                      "selective_scan did not launch")
-                wy, wh = sops.selective_scan_plain(*args)
-                check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
-                      "selective_scan: non-finite output")
-                err = max((y - wy).abs().max().item(),
-                          (h - wh).abs().max().item())
-                tag = (f"selective_scan B=8 T={T} di=8192 N=16 "
-                       f"{str(dtype)[6:]} "
-                       + ("carried h0 + t_valid" if carried else "cold"))
-                check(err <= SCAN_TOL, f"{tag}: max_abs_err {err}")
-                line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {SCAN_TOL})"
-                if dtype == torch.bfloat16:
-                    row = _time_row(timer, sops.selective_scan,
-                                    sops.selective_scan_plain, args, None,
-                                    _scan_bound_ms(args, carried))
-                    line += _fmt(row)
-                    if T == 32 and carried:
-                        served = dict(max_abs_err=err, **row)
-                log(line)
+        ops, pool, read, write, t_valid, live, untouched = _slab_case(
+            T, T, torch.bfloat16)
+        got, want = pool.clone(), pool.clone()
+        entry = "selective_scan_slab_bf16"
+        n0 = sops.KERNEL.entry_launches[entry]
+        y = sops.selective_scan_slab(*ops, got, read, write, t_valid)
+        torch.cuda.synchronize()
+        check(sops.KERNEL.entry_launches[entry] == n0 + 1,
+              f"{entry} did not launch")
+        wy = sops.selective_scan_slab_plain(*ops, want, read, write, t_valid)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(got).all()),
+              "selective_scan_slab: non-finite output")
+        slabs = write[live].tolist()
+        err = max((y[live] - wy[live]).abs().max().item(),
+                  (got[slabs] - want[slabs]).abs().max().item())
+        tag = (f"selective_scan_slab B=8 T={T} di=8192 N=16 bfloat16 in "
+               f"place, read {read.tolist()} write {write.tolist()}")
+        check(err <= SCAN_TOL, f"{tag}: max_abs_err {err}")
+        check(all(torch.equal(got[i], pool[i]) for i in untouched),
+              f"{tag}: a slab no live row owns changed")
+
+        def run(*a, _pool=pool.clone()):
+            return sops.selective_scan_slab(*a[:6], _pool, *a[6:])
+
+        def plain(*a, _pool=pool.clone()):
+            return sops.selective_scan_slab_plain(*a[:6], _pool, *a[6:])
+
+        args = ops + (read, write, t_valid)
+        reads = len({r for r in read.tolist() if r >= 0})
+        row = _time_row(timer, run, plain, args, None, _scan_bound_ms(
+            *ops, t_valid, reads, len(set(write.tolist())), 2 * 8 * 8))
+        log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {SCAN_TOL}); "
+            f"slabs {untouched} bit-identical" + _fmt(row)
+            + (f" launch_floor_ms={floor_ms:.4f}" if T == 1 else ""))
+        if T == 32:
+            served = dict(max_abs_err=err, **row)
     log(f"[kernels] scan tolerance: {SCAN_TOL}; {SCAN_TOL_REASON}")
     return served
 
 
-def phase_gating(timer: Timer):
+def phase_floor(timer: Timer) -> float:
+    """The launch floor: one one-thread kernel (``torch.cuda._sleep(1)``)
+    under the same Timer, the least any launch can read here."""
+    ms = timer.ms(lambda: torch.cuda._sleep(1))
+    log(f"[kernels] launch floor: a one-thread kernel under the same "
+        f"Timer, {ms:.4f} ms")
+    return ms
+
+
+def phase_gating(timer: Timer, floor_ms: float):
     from repro_torch.kernels.moe_gating import ops as gops
     served = None
-    E, k = 16, 2
-    for T, tied in ((8, False), (256, False), (256, True)):
-        g = torch.Generator(device="cpu").manual_seed(T + tied)
+    cases = [(8, 16, 2, False), (256, 16, 2, False), (256, 16, 2, True),
+             (256, 4, 4, False), (256, 64, 8, False), (256, 256, 8, False)]
+    for T, E, k, tied in cases:
+        g = torch.Generator(device="cpu").manual_seed(T + tied + E)
         if tied:   # a 3-level grid: most rows hold exact ties
             scores = torch.randint(0, 3, (T, E), generator=g).float() / 4
         else:
@@ -524,8 +633,9 @@ def phase_gating(timer: Timer):
                         (scores, k), lambda: torch.topk(scores, k),
                         _bound(T * E * 4 + T * k * 8, 2 * T * k * E,
                                torch.float32))
-        log(f"[kernels] {tag}: exact (values and indices)" + _fmt(row))
-        if T == 256 and not tied:
+        log(f"[kernels] {tag}: exact (values and indices)" + _fmt(row)
+            + f" launch_floor_ms={floor_ms:.4f}")
+        if (T, E, tied) == (256, 16, False):
             served = dict(max_abs_err=err, **row)
     log("[kernels] gating tolerance: exact; library call: torch.topk")
     return served
@@ -944,6 +1054,16 @@ def phase_engine(kernels) -> None:
         check(all(launches[n] == 0 for n in other),
               f"{tag}: another path's attention kernels launched: "
               f"{launches}")
+        if "selective_scan" in path:
+            # the paged step and the dense decode run the slab entry; the
+            # dense prefill wave the plain entry's cold start
+            scan = next(k for k in kernels if k.name == "selective_scan")
+            e = scan.entry_launches
+            check(e["selective_scan_slab_f32"] > 0
+                  and (e["selective_scan_f32"] > 0) != paged,
+                  f"{tag}: selective_scan entries {e}")
+            log(f"[engine] {tag}: selective_scan launches by entry "
+                f"{ {n: c for n, c in e.items() if c} }")
         log(f"[engine] {tag}: {len(prompts)} requests, greedy tokens on "
             f"cuda == cpu ({sum(len(r.tokens) for r in got)} tokens); "
             f"launches {launches}")
@@ -986,12 +1106,13 @@ def phase_main_path(kernels):
     return launches, eng
 
 
-def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> float:
+def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512):
     """Where the device time goes: the engine serves ``n`` more requests
     (``prompt_len``-token prompts, its max_new_tokens each, direct) under
     a CUDA-only profiler trace; device busy share = summed kernel time
     over the wall time of the serve (one stream: kernels do not
-    overlap)."""
+    overlap).  Returns (device-to-host copies per device step, {device
+    operation: calls per device step})."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.model.cfg.vocab_size,
@@ -1021,45 +1142,70 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512) -> float:
         log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  {key[:90]}")
     # the hand-written kernels, wherever they rank
     for key, us, cnt in rows:
-        if "kern::" in key:
+        if any(n in key for n in ("kern::", "selective_scan_kernel",
+                                  "gating_topk_kernel")):
             log(f"[{tag}]   kernel {us / 1e3:9.2f} ms {cnt:7d} calls  "
                 f"{key[:90]}")
     d2h = sum(cnt for key, _, cnt in rows if "DtoH" in key)
     log(f"[{tag}] device-to-host copies (host syncs): {d2h} = "
         f"{d2h / steps:.2f} per device step")
-    return d2h / steps
+    ops = {key: cnt for key, _, cnt in rows if not RUNTIME_CALL.match(key)}
+    n_ops = sum(ops.values())
+    log(f"[{tag}] device operations (kernels, copies, fills): {n_ops} = "
+        f"{n_ops / steps:.1f} per device step")
+    return d2h / steps, {key: cnt / steps for key, cnt in ops.items()}
 
 
 # -- phase 6 --------------------------------------------------------------------
+
+JAMBA_PLEN, JAMBA_NEW = 512, 32
+
+
+def jamba_engine(pkg: str = "repro_torch", params=None):
+    """Phase 6's model and engine: jamba-v0.1 at full width, one period
+    of its layer pattern, batch 8, prefill chunk 32, burst 8, one state
+    slab per slot, from the port package importable as ``pkg``
+    (kernel_ab.py builds another checkout's the same way).  ``params``:
+    random bf16 weights made on the card from seed 0 when not given.
+    Returns (engine, params)."""
+    configs, models, serving = (importlib.import_module(f"{pkg}.{m}")
+                                for m in ("configs", "models", "serving"))
+    cfg = configs.get_config("jamba-v0.1-52b").replace(n_layers=8)
+    model = models.build_model(cfg, device="cuda")
+    if params is None:
+        params = model.init(seed=0)
+    eng = serving.ServeEngine(
+        model, params, batch_size=8, capacity=JAMBA_PLEN + JAMBA_NEW,
+        max_new_tokens=JAMBA_NEW, prefill_chunk=32, block_size=16, burst=8,
+        kv_dtype="bf16", num_state_slots=8, device="cuda")
+    return eng, params
+
+
+def jamba_prompts(vocab_size: int):
+    """Phase 6's 16 requests of ``JAMBA_PLEN`` prompt tokens."""
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, vocab_size, JAMBA_PLEN).astype(np.int32)
+            for _ in range(16)]
+
 
 def phase_jamba(kernels):
     """jamba-v0.1 at full width, one period of its layer pattern (the
     whole 32-layer model, ~104 GB in bf16, does not fit one 80 GB card):
     16 requests of 512 prompt tokens, 32 new tokens each, batch 8,
     prefill chunk 32, burst 8, one state slab per slot."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.serving import ServeEngine
-    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8)
-    model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
-    params = model.init(seed=0)
+    eng, params = jamba_engine()
     torch.cuda.synchronize()
+    model, max_new = eng.model, JAMBA_NEW
+    cfg = model.cfg
     n_params = sum(p.numel() for p in _leaves(params))
     log(f"[jamba] {cfg.arch_id} one period: 8 layers "
         f"{[d for d in model.period_descs]}, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.moe.n_experts} experts "
         f"top-{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, vocab "
         f"{cfg.vocab_size}, bf16: {n_params / 1e9:.2f}B parameters made on "
-        f"the card in {time.perf_counter() - t0:.1f}s")
-    max_new, plen = 32, 512
-    eng = ServeEngine(model, params, batch_size=8, capacity=plen + max_new,
-                      max_new_tokens=max_new, prefill_chunk=32, block_size=16,
-                      burst=8, kv_dtype="bf16", num_state_slots=8,
-                      device="cuda")
-    rng = np.random.default_rng(6)
-    prompts = [rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
-               for _ in range(16)]
+        f"the card with the engine in {time.perf_counter() - t0:.1f}s")
+    prompts = jamba_prompts(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     t0 = time.perf_counter()
@@ -1078,6 +1224,8 @@ def phase_jamba(kernels):
           f"the paged path launched a dense kernel: {launches}")
     check_served_by(kernels, "paged_prefill_attention",
                     "paged_prefill_attention_bf16_bf16_mma", "jamba")
+    check_served_by(kernels, "selective_scan", "selective_scan_slab_bf16",
+                    "jamba")
     total = sum(len(r.tokens) for r in res)
     steps, mixed = eng.n_device_steps, eng.n_prefill_chunks
     per_tok = {n: round(c / total, 3) for n, c in launches.items()}
@@ -1332,8 +1480,9 @@ def main() -> None:
     phase_build(kernels)
     timer = Timer()
     served = phase_attention(timer)
-    served["selective_scan"] = phase_scan(timer)
-    served["gating_topk"] = phase_gating(timer)
+    floor_ms = phase_floor(timer)
+    served["selective_scan"] = phase_scan(timer, floor_ms)
+    served["gating_topk"] = phase_gating(timer, floor_ms)
     served.update(phase_dense_kernels(timer))
     served.update(phase_quant_kernels(timer))
     phase_splits()
@@ -1341,7 +1490,7 @@ def main() -> None:
     del timer
     phase_engine(kernels)
     launches5, eng = phase_main_path(kernels)
-    d2h = phase_trace(eng, "main")
+    d2h, _ = phase_trace(eng, "main")
     # the split decode reads no device tensor on the host: 2.22 copies per
     # step before and after it (a read per decode call would add 32)
     check(d2h < 2.5, f"[main] {d2h:.3f} device-to-host copies per step")

@@ -5,11 +5,14 @@ State per sequence: a conv window (B, d_conv-1, d_inner) in the cache
 type and an SSM state (B, d_inner, d_state) in f32 — constant size per
 token.  ``mamba_forward`` runs a whole prompt from zero state (the
 dense engine's prefill) and returns the state it leaves;
-``mamba_paged_step`` advances each row by up to T tokens from its
-carried state.  Both run the recurrence through the selective-scan
-kernel (``kernels/ssm_scan``) on a CUDA device and through its plain
-version on the CPU.  Everything around it (projections, the conv taps,
-softplus, the gate) stays torch ops in the reference's order and types.
+``mamba_slab_step`` advances each row by up to T tokens from its
+carried state, read and written in place in a slab pool (the serving
+engines' state; the reference's ``mamba_paged_step`` and
+``mamba_decode`` are its cases with row b on slab b).  Both run
+the recurrence through the selective-scan kernel (``kernels/ssm_scan``)
+on a CUDA device and through its plain version on the CPU.  Everything
+around it (projections, the conv taps, softplus, the gate) stays torch
+ops in the reference's order and types.
 """
 from __future__ import annotations
 
@@ -117,24 +120,17 @@ def mamba_forward(p, cfg: ModelConfig, x):
     h0 = torch.zeros((B, cfg.d_inner, cfg.ssm.d_state), dtype=torch.float32,
                      device=x.device)
     t_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    y, h_last = scan_ops.selective_scan(
-        dt, xs.contiguous(), Bc.contiguous(), Cc.contiguous(), A, p["D"], h0,
-        t_valid)
+    # Bc/Cc go in as torch.split views of the x_proj output (the kernel
+    # takes their row stride)
+    y, h_last = scan_ops.selective_scan(dt, xs, Bc, Cc, A, p["D"], h0,
+                                        t_valid)
     y = y.to(xs.dtype) * F.silu(z)
     return mm(y, p["out_proj"]), (conv_tail, h_last)
 
 
-def mamba_paged_step(p, cfg: ModelConfig, x, conv_state, ssm_state,
-                     t_valid):
-    """Advance each row by up to T tokens from carried per-row state.
-
-    x: (B,T,d); conv_state: (B,dc-1,di); ssm_state: (B,di,N) f32;
-    t_valid: (B,) int32 — row ``b`` consumes only its first
-    ``t_valid[b]`` tokens: its state stops advancing there and outputs
-    past it are garbage the caller ignores.  Covers block-paged decode
-    (T=1) and chunked prefill (T=chunk).  The recurrence is the
-    selective-scan kernel on a CUDA device.  Returns (y (B,T,d),
-    (new conv state, new ssm state))."""
+def _paged_scan_inputs(p, cfg: ModelConfig, x, conv_state, t_valid):
+    """What a carried-state step feeds the scan: (xs, z, dt, Bc, Cc, A,
+    new conv state) from x (B,T,d) and the conv window (B,dc-1,di)."""
     dc = cfg.ssm.d_conv
     T = x.shape[1]
     xz = mm(x, p["in_proj"])
@@ -148,15 +144,26 @@ def mamba_paged_step(p, cfg: ModelConfig, x, conv_state, ssm_state,
         xp, 1, idx.long()[..., None].expand(-1, -1, xp.shape[-1]))
     xs = F.silu(_conv_taps(xp, p["conv_w"], p["conv_b"], T))
     dt, Bc, Cc = _ssm_inputs(p, cfg, xs)
-    A = -torch.exp(p["A_log"])
-    y, h_last = scan_ops.selective_scan(
-        dt, xs, Bc.contiguous(), Cc.contiguous(), A, p["D"], ssm_state,
-        t_valid)
+    return xs, z, dt, Bc, Cc, -torch.exp(p["A_log"]), new_conv_state
+
+
+def mamba_slab_step(p, cfg: ModelConfig, x, conv_state, ssm_pool,
+                    read_rows, write_rows, t_valid):
+    """Advance each row by up to T tokens from carried per-row state.
+
+    x: (B,T,d); conv_state: (B,dc-1,di); t_valid: (B,) int32 — row ``b``
+    consumes only its first ``t_valid[b]`` tokens: its state stops
+    advancing there and outputs past it are garbage the caller ignores.
+    Covers paged decode (T=1), chunked prefill (T=chunk) and the dense
+    decode.  The SSM state lives in a slab pool ``ssm_pool`` (S,di,N)
+    f32 that the scan kernel reads and writes in place: row ``b`` starts
+    from ``ssm_pool[read_rows[b]]`` (negative: from zero) and leaves its
+    state in ``ssm_pool[write_rows[b]]``; None for both means row b <->
+    slab b (see ``kernels/ssm_scan/ops.py::selective_scan_slab`` for the
+    precondition on the rows).  Returns (y (B,T,d), new conv state)."""
+    xs, z, dt, Bc, Cc, A, new_conv_state = _paged_scan_inputs(
+        p, cfg, x, conv_state, t_valid)
+    y = scan_ops.selective_scan_slab(dt, xs, Bc, Cc, A, p["D"], ssm_pool,
+                                     read_rows, write_rows, t_valid)
     y = y.to(x.dtype) * F.silu(z)
-    return mm(y, p["out_proj"]), (new_conv_state, h_last)
-
-
-def mamba_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
-    """One token.  x: (B,1,d).  The T=1 case of ``mamba_paged_step``."""
-    ones = torch.ones((x.shape[0],), dtype=torch.int32, device=x.device)
-    return mamba_paged_step(p, cfg, x, conv_state, ssm_state, ones)
+    return mm(y, p["out_proj"]), new_conv_state

@@ -137,35 +137,47 @@ def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
                                dtype=torch.float32, device=device)}
 
 
+def _slab_rows(lengths, t_valid, state_slots, dump: int):
+    """A paged step's mamba slab addressing, the same for every mamba
+    layer, so computed once per step: ``rows`` (B,) int64, the slab each
+    row reads (its slot, clamped to the real slabs); ``fresh`` (B,1,1),
+    rows whose sequence starts this step (``lengths == 0``: a slab
+    recycled from an evicted request must never leak state into its
+    successor); ``read`` (B,) int64, ``rows`` with -1 for fresh rows
+    (the scan starts them from zero); ``write`` (B,) int64, the slot for
+    rows that advance and the dump row for idle rows (``t_valid == 0``),
+    so a stale slab id on an evicted slot cannot clobber the slab's new
+    owner."""
+    rows = state_slots.clamp(0, dump - 1).long()
+    fresh = lengths == 0
+    read = torch.where(fresh, -1, rows)
+    write = torch.where(t_valid > 0, state_slots, dump).long()
+    return rows, fresh[:, None, None], read, write
+
+
 def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
-                    lengths, t_valid, state_slots, index):
+                    lengths, t_valid, slabs, index):
     """Multi-token step through the paged serving cache, in place.
 
     Attention blocks read/write the shared block pool through the page
     table at the step's write ``index`` (int8 pools when the state holds
-    scales, as the reference dispatches).  Mamba blocks read/write their rows of the per-slot state
-    slabs: gather by ``state_slots``, zero rows whose sequence starts
-    this step (``lengths == 0`` — a slab recycled from an evicted
-    request must never leak state into its successor), advance by up to
-    ``t_valid`` tokens, scatter back; idle rows (``t_valid == 0``) go to
-    the dump row, so a stale slab id on an evicted slot cannot clobber
-    the slab's new owner.  Same norm/residual order as the reference."""
+    scales, as the reference dispatches).  Mamba blocks read/write their
+    rows of the per-slot state slabs as ``slabs`` (``_slab_rows``)
+    addresses them: the conv window by a gather, a zeroing of fresh
+    rows and an ``index_copy_`` back; the SSM state inside the scan
+    kernel, which reads and writes the slab pool in place
+    (``mamba_slab_step``).  Same norm/residual order as the reference."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
     if desc[0] == "attn":
         y = A.gqa_paged_step(p["attn"], cfg, h, state, page_table, lengths,
                              index)
     else:
-        dump = state["ssm"].shape[0] - 1          # == num_state_slots
-        rows = state_slots.clamp(0, dump - 1).long()
-        fresh = (lengths == 0)[:, None, None]
+        rows, fresh, read, write = slabs
         conv = torch.where(fresh, 0, state["conv"][rows])
-        ssm = torch.where(fresh, 0, state["ssm"][rows])
-        y, (conv, ssm) = M.mamba_paged_step(p["mamba"], cfg, h, conv, ssm,
-                                            t_valid)
-        idx = torch.where(t_valid > 0, state_slots, dump).long()
-        state["conv"].index_copy_(0, idx, conv.to(state["conv"].dtype))
-        state["ssm"].index_copy_(0, idx, ssm.to(state["ssm"].dtype))
+        y, conv = M.mamba_slab_step(p["mamba"], cfg, h, conv, state["ssm"],
+                                    read, write, t_valid)
+        state["conv"].index_copy_(0, write, conv.to(state["conv"].dtype))
     return _mlp_residual(p, cfg, x + y)
 
 
@@ -219,16 +231,17 @@ def _seed_cache(seq_kv, capacity: int, dtype, window: int):
 def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int):
     """One token through one sub-layer; ``state`` is updated in place
     (attention: the slice write at ``pos``; mamba: the new conv window
-    and SSM state copied over the old)."""
+    copied over the old, the SSM state advanced in place by the scan,
+    row b on slab b)."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
     if desc[0] == "attn":
         y, _, _ = A.gqa_decode(p["attn"], cfg, h, state["k"], state["v"], pos)
     else:
-        y, (conv, ssm) = M.mamba_decode(p["mamba"], cfg, h, state["conv"],
-                                        state["ssm"])
+        ones = torch.ones((x.shape[0],), dtype=torch.int32, device=x.device)
+        y, conv = M.mamba_slab_step(p["mamba"], cfg, h, state["conv"],
+                                    state["ssm"], None, None, ones)
         state["conv"].copy_(conv)
-        state["ssm"].copy_(ssm)
     return _mlp_residual(p, cfg, x + y)
 
 
@@ -471,18 +484,23 @@ class TransformerLM:
         # pays its selection's host sync once, not once per layer
         index = (None if block_size is None else A.paged_write_index(
             page_table, lengths, t_valid, tokens.shape[1], block_size))
+        # and every mamba layer addresses its slabs through one set of rows
+        dump = next((st["ssm"].shape[-3] - 1 for st in stores if "ssm" in st),
+                    None)
+        slabs = (None if dump is None else
+                 _slab_rows(lengths, t_valid, state_slots, dump))
         x = self._embed(params, tokens)
         for i, desc in enumerate(self.prefix_descs):
             x = _paged_sublayer(params["prefix"][i], cfg, desc, x,
                                 cache["prefix"][i], page_table, lengths,
-                                t_valid, state_slots, index)
+                                t_valid, slabs, index)
         for i in range(self.n_periods):
             for j, desc in enumerate(self.period_descs):
                 x = _paged_sublayer(_index(params["blocks"][f"s{j}"], i),
                                     cfg, desc, x,
                                     _index(cache["blocks"][f"s{j}"], i),
                                     page_table, lengths, t_valid,
-                                    state_slots, index)
+                                    slabs, index)
         if all_logits:
             return self._head(params, x), cache
         if tokens.shape[1] == 1:

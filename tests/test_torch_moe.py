@@ -185,3 +185,41 @@ def test_gating_kernel_matches_plain_exactly(cuda, T, E, k):
         torch.cuda.synchronize()
         assert gops.KERNEL.launches == n0 + 1
         assert torch.equal(vals, wv) and torch.equal(idx, wi)
+
+
+@pytest.mark.parametrize("E", [2, 4, 16, 17, 32, 40, 256])
+def test_gating_kernel_exact_at_every_group_width(cuda, E):
+    """Every sub-warp group width (E = 2 .. 32: 16 to 1 tokens a warp)
+    and several experts a lane (40, 256), each k up to min(E, 8), against
+    the plain version: softmax scores, a tie-laden grid, rows of +0.0
+    and -0.0 mixed (equal under the tie rule: the lowest index first),
+    with negative values around them, and negative rows holding one
+    -0.0.  Each value carries the bits of the score it came from, sign
+    of zero included; bit for bit the plain version's wherever that is
+    defined (in a tie of -0.0 and +0.0 the sign of ``torch.max`` is its
+    reduction order's)."""
+    T = 67
+    rng = np.random.default_rng(E)
+    soft = torch.softmax(torch.from_numpy(
+        rng.standard_normal((T, E)).astype(np.float32)), -1)
+    signed = np.where(rng.random((T, E)) < 0.5, 0.0, -0.0).astype(np.float32)
+    signed[:, ::3] = -rng.random((T, (E + 2) // 3)).astype(np.float32)
+    lone = -rng.random((T, E)).astype(np.float32) - 0.5
+    lone[np.arange(T), rng.integers(0, E, T)] = -0.0
+    cases = ((soft, True), (torch.from_numpy(_tied_scores(E + 1, T, E)), True),
+             (torch.from_numpy(signed), False), (torch.from_numpy(lone), True))
+    for scores, defined in cases:
+        scores = scores.to(cuda)
+        for k in range(1, min(E, 8) + 1):
+            n0 = gops.KERNEL.launches
+            vals, idx = gops.gating_topk(scores, k)
+            wv, wi = gops.gating_topk_plain(scores, k)
+            torch.cuda.synchronize()
+            assert gops.KERNEL.launches == n0 + 1
+            assert torch.equal(vals, wv) and torch.equal(idx, wi), (E, k)
+            own = scores.gather(1, idx.long())
+            assert torch.equal(vals.view(torch.int32),
+                               own.view(torch.int32)), (E, k)
+            if defined:
+                assert torch.equal(vals.view(torch.int32),
+                                   wv.view(torch.int32)), (E, k)

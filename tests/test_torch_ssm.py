@@ -2,8 +2,9 @@
 reference.
 
 On the CPU the scan wrapper runs its plain PyTorch version, which must
-equal the reference's Pallas kernel (interpret mode), its jnp scan and
-``mamba_paged_step`` within 1e-5 in f32.  The kernel-vs-plain cases need
+equal the reference's Pallas kernel (interpret mode) and its jnp scan,
+and the served step ``mamba_slab_step`` the reference's
+``mamba_paged_step`` and ``mamba_decode``, within 1e-5 in f32.  The kernel-vs-plain cases need
 a CUDA device and skip without one; on a card, run this file with
 ``JAX_PLATFORMS=cpu`` and ``--noconftest`` (the JAX comparisons then
 skip where JAX is missing).
@@ -118,9 +119,12 @@ def test_plain_scan_with_carried_state_matches_oracle(ref):
 
 @pytest.mark.parametrize("T", [1, 5])
 def test_mamba_paged_step_matches_reference(ref, T):
-    """Carried conv and SSM state, t_valid mixing 0, partial and full
-    rows: outputs of the valid positions, the next conv window and the
-    SSM state all within 1e-5."""
+    """The served step (``mamba_slab_step`` over a slab pool, rows
+    addressed as the paged engine addresses them) against the
+    reference's ``mamba_paged_step``: carried conv and SSM state, rows
+    on permuted slabs, t_valid mixing 0, partial and full rows, the idle
+    row writing only the dump slab: outputs of the valid positions, the
+    next conv window and the SSM state all within 1e-5."""
     rng = np.random.default_rng(T)
     B, dc, di, N = 4, 4, CFG.d_inner, CFG.ssm.d_state
     x = rng.standard_normal((B, T, CFG.d_model)).astype(np.float32)
@@ -132,14 +136,21 @@ def test_mamba_paged_step_matches_reference(ref, T):
         {k: jnp.asarray(v) for k, v in ref.params.items()}, ref.cfg,
         jnp.asarray(x), jnp.asarray(conv), jnp.asarray(ssm),
         jnp.asarray(t_valid))
+    slots = torch.tensor([4, 0, 3, 1])
+    dump = B + 1                                   # slab 2 is unowned
+    pool = _t(rng.standard_normal((B + 2, di, N)).astype(np.float32))
+    pool[slots] = _t(ssm)
+    before = pool.clone()
+    write = torch.where(_t(t_valid) > 0, slots, dump)
     tp = {k: _t(v) for k, v in ref.params.items()}
-    ty, (tconv, tssm) = TMB.mamba_paged_step(tp, CFG, _t(x), _t(conv),
-                                             _t(ssm), _t(t_valid))
+    ty, tconv = TMB.mamba_slab_step(tp, CFG, _t(x), _t(conv), pool, slots,
+                                    write, _t(t_valid))
     np.testing.assert_allclose(tconv.numpy(), np.asarray(jconv), atol=ATOL,
                                rtol=0)
-    np.testing.assert_allclose(tssm.numpy(), np.asarray(jssm), atol=ATOL,
-                               rtol=0)
-    np.testing.assert_array_equal(tssm[0].numpy(), ssm[0])   # idle row
+    np.testing.assert_allclose(pool[slots].numpy(), np.asarray(jssm),
+                               atol=ATOL, rtol=0)
+    assert torch.equal(pool[4], before[4])         # the idle row's slab
+    assert torch.equal(pool[2], before[2])         # unowned
     for b in range(B):
         n = t_valid[b]
         np.testing.assert_allclose(ty[b, :n].numpy(), np.asarray(jy)[b, :n],
@@ -147,6 +158,8 @@ def test_mamba_paged_step_matches_reference(ref, T):
 
 
 def test_mamba_decode_and_params_match_reference(ref):
+    """The dense decode's step (``mamba_slab_step``, row b on slab b,
+    one token) against the reference's ``mamba_decode``."""
     rng = np.random.default_rng(9)
     B, di, N = 2, CFG.d_inner, CFG.ssm.d_state
     x = rng.standard_normal((B, 1, CFG.d_model)).astype(np.float32)
@@ -156,8 +169,10 @@ def test_mamba_decode_and_params_match_reference(ref):
     jy, (jc, js) = ref.mamba.mamba_decode(
         {k: jnp.asarray(v) for k, v in ref.params.items()}, ref.cfg,
         jnp.asarray(x), jnp.asarray(conv), jnp.asarray(ssm))
-    ty, (tc, ts) = TMB.mamba_decode({k: _t(v) for k, v in ref.params.items()},
-                                    CFG, _t(x), _t(conv), _t(ssm))
+    ts = _t(ssm)
+    ty, tc = TMB.mamba_slab_step({k: _t(v) for k, v in ref.params.items()},
+                                 CFG, _t(x), _t(conv), ts, None, None,
+                                 torch.ones((B,), dtype=torch.int32))
     for a, b in ((ty, jy), (tc, jc), (ts, js)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=0)
     # the port's init builds the same leaves; A_log and D stay f32 in bf16
@@ -198,6 +213,121 @@ def test_scan_wrapper_rejects_unsupported_operands():
                                  torch.zeros(2, 8, 17), args[7])
 
 
+def _split_bc(Bc, Cc, dtr=5):
+    """Bc, Cc as the served path hands them over: ``torch.split`` views of
+    one (B, T, dtr + 2N) projection output."""
+    B, T, N = Bc.shape
+    proj = torch.cat([torch.zeros((B, T, dtr), dtype=Bc.dtype,
+                                  device=Bc.device), Bc, Cc], dim=-1)
+    _, b, c = torch.split(proj, [dtr, N, N], dim=-1)
+    return b, c
+
+
+def test_scan_operands_take_split_views_by_row_stride():
+    """Bc/Cc need no copy when they are split views of the x_proj output:
+    the check returns their common row stride; a view without one (a
+    strided last axis, a transposed tensor, two strides) is refused."""
+    c = {k: _t(v) for k, v in _scan_case(1, 3, 4, 8, 6).items()}
+    Bv, Cv = _split_bc(c["Bc"], c["Cc"])
+    assert not Bv.is_contiguous()
+    args = [c["dt"], c["xs"], Bv, Cv, c["A"], c["D"], c["h0"], c["t_valid"]]
+    assert sops.check_scan_operands(*args) == 5 + 2 * 6
+    contiguous = [c[k] for k in ("dt", "xs", "Bc", "Cc", "A", "D", "h0",
+                                 "t_valid")]
+    assert sops.check_scan_operands(*contiguous) == 6
+    # T = 1 (decode): the row stride is the batch stride
+    one = {k: (v[:, :1] if k in ("dt", "xs", "Bc", "Cc") else v)
+           for k, v in c.items()}
+    B1, C1 = _split_bc(one["Bc"].contiguous(), one["Cc"].contiguous())
+    assert sops.check_scan_operands(
+        one["dt"].contiguous(), one["xs"].contiguous(), B1, C1, c["A"],
+        c["D"], c["h0"], c["t_valid"]) == 17
+    wide = torch.zeros(3, 4, 12)
+    bad = [wide[..., ::2],                                  # stride 2 in n
+           torch.zeros(4, 3, 6).transpose(0, 1),            # batch inside time
+           torch.zeros(3, 4, 7)[..., :6]]                   # ok alone ...
+    for i, v in enumerate(bad):
+        a = list(args)
+        a[2] = v
+        a[3] = v if i < 2 else Cv                           # ... two strides
+        with pytest.raises(ValueError, match="row stride"):
+            sops.check_scan_operands(*a)
+
+
+def _slab_case(seed, B=5, T=3, di=16, N=8, slots=4):
+    """A serving step's slab operands: ``slots`` slabs plus the dump row,
+    B rows: row 0 fresh (starts this step), rows 1-2 live, row 3 idle
+    with a stale slot equal to row 1's, row 4 idle on an unowned slot
+    (rows 3 and 4 both write the dump)."""
+    c = {k: _t(v) for k, v in _scan_case(seed, B, T, di, N).items()}
+    rng = np.random.default_rng(seed + 1)
+    pool = _t(rng.standard_normal((slots + 1, di, N)).astype(np.float32))
+    state_slots = torch.tensor([0, 2, 1, 2, 3], dtype=torch.int32)
+    lengths = torch.tensor([0, 7, 4, 9, 2], dtype=torch.int32)
+    c["t_valid"] = torch.tensor([T, T, 1, 0, 0], dtype=torch.int32)
+    return c, pool, state_slots, lengths
+
+
+def test_slab_plain_equals_gather_where_scan_scatter_bitwise():
+    """The slab entry's plain version is, bit for bit, the serving step's
+    old sequence: gather the rows' slabs, zero fresh rows, scan, then
+    ``index_copy_`` the last states to the slots of rows that advanced
+    and to the dump row for idle ones."""
+    from repro_torch.models.transformer import _slab_rows
+    c, pool, state_slots, lengths = _slab_case(3)
+    dump = pool.shape[0] - 1
+    ops_in = [c[k] for k in ("dt", "xs", "Bc", "Cc", "A", "D")]
+    # the old sequence
+    old_pool = pool.clone()
+    rows = state_slots.clamp(0, dump - 1).long()
+    fresh = (lengths == 0)[:, None, None]
+    h0 = torch.where(fresh, 0, old_pool[rows])
+    want_y, h_last = sops.selective_scan_plain(*ops_in, h0, c["t_valid"])
+    idx = torch.where(c["t_valid"] > 0, state_slots, dump).long()
+    old_pool.index_copy_(0, idx, h_last)
+    # the slab entry, through the step's row addressing
+    _, fresh2, read, write = _slab_rows(lengths, c["t_valid"], state_slots,
+                                        dump)
+    assert torch.equal(fresh2, fresh)
+    assert read.tolist() == [-1, 2, 1, 2, 3]
+    assert write.tolist() == [0, 2, 1, dump, dump]
+    new_pool = pool.clone()
+    y = sops.selective_scan_slab(*ops_in, new_pool, read, write,
+                                 c["t_valid"])
+    assert torch.equal(y, want_y)
+    assert torch.equal(new_pool, old_pool)
+    assert torch.equal(new_pool[3], pool[3])    # idle row's slab untouched
+    # identity rows (the dense engine's decode): the in-place copy_
+    ident = pool[:5].clone()
+    y = sops.selective_scan_slab(*ops_in, ident, None, None, c["t_valid"])
+    want_y, want_h = sops.selective_scan_plain(*ops_in, pool[:5],
+                                               c["t_valid"])
+    assert torch.equal(y, want_y) and torch.equal(ident, want_h)
+
+
+def test_slab_wrapper_rejects_unsupported_operands():
+    c, pool, state_slots, lengths = _slab_case(4)
+    ops_in = [c[k] for k in ("dt", "xs", "Bc", "Cc", "A", "D")]
+    rows = torch.tensor([0, 1, 2, 3, 4])
+    sops.check_slab_operands(*ops_in, pool, rows, rows, c["t_valid"])
+    sops.check_slab_operands(*ops_in, pool, None, None, c["t_valid"])
+    with pytest.raises(ValueError, match="read_rows"):
+        sops.check_slab_operands(*ops_in, pool, rows.int(), rows,
+                                 c["t_valid"])
+    with pytest.raises(ValueError, match="write_rows"):
+        sops.check_slab_operands(*ops_in, pool, rows, rows[:3],
+                                 c["t_valid"])
+    with pytest.raises(ValueError, match="slabs"):
+        sops.check_slab_operands(*ops_in, pool[:4], None, rows,
+                                 c["t_valid"])
+    with pytest.raises(TypeError, match="pool"):
+        sops.check_slab_operands(*ops_in, pool.double(), rows, rows,
+                                 c["t_valid"])
+    with pytest.raises(ValueError, match="pool"):
+        sops.check_slab_operands(*ops_in, pool[:, :, :4].contiguous(), rows,
+                                 rows, c["t_valid"])
+
+
 # -- on the card: the kernel against its plain version ------------------------
 
 # f32: the kernel's expf and its fused multiply-adds against torch's exp
@@ -206,23 +336,68 @@ def test_scan_wrapper_rejects_unsupported_operands():
 _TOL = 1e-4
 
 
-@pytest.mark.parametrize("B,T,di,N", [(3, 1, 200, 8), (2, 37, 256, 16),
-                                      (8, 32, 8192, 16)])
+@pytest.mark.parametrize("B,T,di,N", [
+    (3, 1, 200, 8), (2, 37, 256, 16), (8, 32, 8192, 16), (1, 512, 8192, 16),
+    (8, 512, 1024, 16), (2, 37, 256, 1), (2, 37, 256, 3), (3, 5, 203, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_kernel_matches_plain(cuda, B, T, di, N, dtype):
+    """Every state-quad layout (N = 1 and 3: one lane a channel with pad
+    values; 8: two; 16: four), 16-byte and element-wise staging (di 203
+    and the 3 + 2N-wide projection rows are not whole 16-byte chunks),
+    one and several staged tiles, Bc/Cc as split views of one projection
+    (the served layout) and, for the first shape, contiguous."""
     c = _scan_case(B + T, B, T, di, N)
     c["t_valid"][0] = 0
     c["t_valid"][-1] = T
-    args = (_t(c["dt"], cuda, dtype), _t(c["xs"], cuda, dtype),
-            _t(c["Bc"], cuda, dtype), _t(c["Cc"], cuda, dtype),
+    Bc, Cc = _split_bc(_t(c["Bc"], cuda, dtype), _t(c["Cc"], cuda, dtype),
+                       dtr=256 if N == 16 else 3)
+    args = (_t(c["dt"], cuda, dtype), _t(c["xs"], cuda, dtype), Bc, Cc,
             _t(c["A"], cuda), _t(c["D"], cuda), _t(c["h0"], cuda),
             _t(c["t_valid"], cuda))
-    n0 = sops.KERNEL.launches
-    y, h = sops.selective_scan(*args)
-    wy, wh = sops.selective_scan_plain(*args)
+    cases = [args]
+    if (B, T, di) == (3, 1, 200):
+        cases.append(args[:2] + (Bc.contiguous(), Cc.contiguous()) + args[4:])
+    for a in cases:
+        n0 = sops.KERNEL.launches
+        y, h = sops.selective_scan(*a)
+        wy, wh = sops.selective_scan_plain(*a)
+        torch.cuda.synchronize()
+        assert sops.KERNEL.launches == n0 + 1
+        assert y.dtype == h.dtype == torch.float32
+        assert (y - wy).abs().max().item() <= _TOL
+        assert (h - wh).abs().max().item() <= _TOL
+        if B > 1:                                   # t_valid = 0: untouched
+            assert torch.equal(h[0], a[6][0])
+
+
+@pytest.mark.parametrize("T,dtype", [(1, torch.bfloat16), (3, torch.float32),
+                                     (32, torch.bfloat16)])
+def test_slab_kernel_matches_plain(cuda, T, dtype):
+    """The slab entry in place on the card against its plain version: a
+    fresh row, live rows, an idle row whose stale slot is a live row's
+    slab and another on an unowned slab, both writing the dump.  Live
+    rows' y and slabs within the tolerance; the unowned and the spare
+    slab bit-identical (the dump and idle rows' y are not defined)."""
+    c, pool, state_slots, lengths = _slab_case(5, T=T, di=512, N=16,
+                                               slots=6)
+    from repro_torch.models.transformer import _slab_rows
+    _, _, read, write = _slab_rows(lengths, c["t_valid"], state_slots,
+                                   pool.shape[0] - 1)
+    Bc, Cc = _split_bc(c["Bc"].to(cuda, dtype), c["Cc"].to(cuda, dtype),
+                       dtr=256)
+    args = (c["dt"].to(cuda, dtype), c["xs"].to(cuda, dtype), Bc, Cc,
+            c["A"].to(cuda), c["D"].to(cuda))
+    rest = (read.to(cuda), write.to(cuda), c["t_valid"].to(cuda))
+    got_pool, want_pool = pool.to(cuda), pool.to(cuda)
+    entry = f"selective_scan_slab_{sops._NAMES[dtype]}"
+    n0 = sops.KERNEL.entry_launches[entry]
+    y = sops.selective_scan_slab(*args, got_pool, *rest)
+    wy = sops.selective_scan_slab_plain(*args, want_pool, *rest)
     torch.cuda.synchronize()
-    assert sops.KERNEL.launches == n0 + 1
-    assert y.dtype == h.dtype == torch.float32
-    assert (y - wy).abs().max().item() <= _TOL
-    assert (h - wh).abs().max().item() <= _TOL
-    assert torch.equal(h[0], args[6][0])            # t_valid = 0: untouched
+    assert sops.KERNEL.entry_launches[entry] == n0 + 1
+    live = [0, 1, 2]
+    assert (y[live] - wy[live]).abs().max().item() <= _TOL
+    written = sorted({int(write[b]) for b in live})
+    assert (got_pool[written] - want_pool[written]).abs().max().item() <= _TOL
+    for untouched in (3, 4, 5):                     # not written by anyone
+        assert torch.equal(got_pool[untouched], pool[untouched].to(cuda))
