@@ -98,11 +98,36 @@ result line):
                  equal the numpy chain within 1e-6 and B7 must have
                  launched; frames per second and the host copies against
                  B7's device time are logged.
+ 10. front door — (a) at phase 4's size (the 2-layer f32 smollm-headed
+                 model, the same over an int8 pool, the smoke jamba): the
+                 requests go on the batch lane under one schedule, a
+                 decoding slot preempted (spilled to host, restored into
+                 other blocks), a mid-prefill slot preempted (restarted)
+                 and one ``engine_step`` fault (every survivor spilled,
+                 the pools rebuilt); the card's tokens must equal the CPU
+                 port's under the same schedule and its own run without
+                 it, and each path's kernels must launch (K1/K2; B3/K2q;
+                 K1/K2, B5's slab entry, B6).  (b) smollm-360m at full
+                 width and depth (bf16, bf16 pool; batch 8, chunk 32,
+                 burst 8) behind a ``TensorQueryServer`` on
+                 127.0.0.1:0: one client sends 8 batch-lane requests
+                 (512-token prompts, 64 new) and, once all 8 stream, 8
+                 interactive ones (128-512 tokens), which preempt batch
+                 slots; all 16 must end ok with 64 tokens, every
+                 preempted request restored, the pool clean after
+                 ``drain``, K1 and K2 (``_mma``) launched.  TTFT by lane
+                 (p50/p99, the client's clock), tok/s and peak memory are
+                 logged, with the share of tokens equal to a direct run
+                 without the server (bf16 need not be batch-invariant).
+                 Then a second engine serves the 8 batch prompts with an
+                 ``engine_step`` fault mid-decode (one restart), and a
+                 full-width gather -> scatter -> gather of 37 blocks of
+                 every layer's pool must be bit-exact.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9); then the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.  The
-whole run takes ~4-6 minutes on one H100, the build included.
+whole run takes ~4-7 minutes on one H100, the build included.
 """
 from __future__ import annotations
 
@@ -1451,6 +1476,241 @@ def phase_preproc(kernels):
     return launches
 
 
+# -- phase 10 -------------------------------------------------------------------
+
+FRONT_PLEN, FRONT_NEW = 512, 64
+FAULT_STEP_A = 6        # phase 10(a): the engine_step fault's arrival
+FAULT_STEP_B = 20       # phase 10(b): 16 mixed steps of prefill, then bursts
+
+
+def serve_scheduled(eng, prompts, decode_rid: int, prefill_rid: int):
+    """Serve ``prompts`` on the batch lane through ``eng.step()``,
+    preempting ``prefill_rid`` while it is still mid-prefill and
+    ``decode_rid`` once it holds two tokens; the schedule depends on the
+    step count alone, so the card and the CPU run the same one.  Returns
+    the results in request order."""
+    rids = [eng.submit(p, lane="batch") for p in prompts]
+    todo = {decode_rid, prefill_rid}
+    for _ in range(10000):
+        if not eng.has_work:
+            break
+        for s in list(eng._slots):
+            if s is None or s.rid not in todo:
+                continue
+            prefilled = s.prefill_off >= len(s.prompt)
+            if (s.rid == prefill_rid and not prefilled) or (
+                    s.rid == decode_rid and prefilled and len(s.tokens) >= 2):
+                check(eng.preempt(s.rid), f"preempt {s.rid} refused")
+                todo.discard(s.rid)
+        eng.step()
+    check(not eng.has_work and not todo,
+          f"scheduled serve: work left {eng.has_work}, not preempted {todo}")
+    return eng.wait(rids, timeout_s=60)
+
+
+def phase_front_door_small(kernels) -> None:
+    """Phase 10(a): preemption, restore and a paged restart at phase 4's
+    size, on the card against the CPU port under the same schedule."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Fault, FaultPlan, ServeEngine
+    smollm2 = get_config("smollm-360m").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    jamba = get_config("jamba-v0.1-52b", smoke=True)
+    scan_gate = ("selective_scan", "gating_topk")
+    cases = [("2-layer f32 smollm heads", smollm2, None, PAGED_KERNELS),
+             ("2-layer f32 smollm heads, int8 KV", smollm2, "int8",
+              QUANT_KERNELS),
+             ("jamba-v0.1 smoke (8 layers, 4 experts, f32)", jamba, None,
+              PAGED_KERNELS + scan_gate)]
+    kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4,
+              prefill_chunk=32, block_size=16)
+    for tag, cfg, kv_dtype, path in cases:
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (37, 5, 70, 18, 33, 50)]
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(seed=0)
+
+        def plan():
+            return FaultPlan([Fault(point="engine_step", nth=FAULT_STEP_A)])
+        want = serve_scheduled(
+            ServeEngine(cpu_model, cpu_params, device="cpu",
+                        kv_dtype=kv_dtype, fault_plan=plan(), **kw),
+            prompts, decode_rid=0, prefill_rid=2)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = bridge.to_torch(cpu_params, "cuda")
+        plain = ServeEngine(gpu_model, gpu_params, device="cuda",
+                            kv_dtype=kv_dtype, **kw).serve(prompts,
+                                                           lane="batch")
+        reset(kernels)
+        eng = ServeEngine(gpu_model, gpu_params, device="cuda",
+                          kv_dtype=kv_dtype, fault_plan=plan(), **kw)
+        got = serve_scheduled(eng, prompts, decode_rid=0, prefill_rid=2)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        for a, b, c in zip(want, got, plain):
+            check(a.status == b.status == c.status == "ok",
+                  f"[front] {tag} request {b.request_id}: {a.status} "
+                  f"{b.status} {c.status}")
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"[front] {tag} request {a.request_id}: cpu {a.tokens} "
+                  f"!= cuda {b.tokens} under the schedule")
+            check(np.array_equal(b.tokens, c.tokens),
+                  f"[front] {tag} request {b.request_id}: preempted "
+                  f"{b.tokens} != plain {c.tokens}")
+        check(eng.n_restarts == 1 and eng.n_preemptions >= 2
+              and eng.n_restores >= 1,
+              f"[front] {tag}: restarts {eng.n_restarts}, preemptions "
+              f"{eng.n_preemptions}, restores {eng.n_restores}")
+        ps = eng.pool_stats()
+        check(ps["n_live"] == ps["n_reserved"] == 0
+              and ps.get("n_state_live", 0) == 0, f"[front] {tag}: {ps}")
+        check(all(launches[n] > 0 for n in path),
+              f"[front] {tag}: the run missed a kernel: {launches}")
+        check(all(launches[n] == 0 for n in ATTN_KERNELS if n not in path),
+              f"[front] {tag}: another path's kernel launched: {launches}")
+        if "selective_scan" in path:
+            e = next(k for k in kernels
+                     if k.name == "selective_scan").entry_launches
+            check(e["selective_scan_slab_f32"] > 0
+                  and e["selective_scan_f32"] == 0,
+                  f"[front] {tag}: selective_scan entries {e}")
+        log(f"[front] {tag}: {len(prompts)} batch-lane requests, "
+            f"{eng.n_preemptions} preemptions ({eng.n_restores} restored), "
+            f"{eng.n_restarts} restart; tokens on cuda == cpu under the "
+            f"schedule == cuda without it; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+
+
+def _percentiles(xs):
+    return (f"p50 {np.percentile(xs, 50) * 1e3:.1f} ms, "
+            f"p99 {np.percentile(xs, 99) * 1e3:.1f} ms")
+
+
+def phase_front_door(kernels, card: str) -> None:
+    """Phase 10(b): smollm-360m at full width behind the tensor-query
+    server, with interactive requests preempting batch-lane slots; then
+    a paged restart mid-decode on a second engine, and a full-width spill
+    round trip."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import (Fault, FaultPlan, ServeEngine,
+                                     TensorQueryClient, TensorQueryServer)
+    cfg = get_config("smollm-360m")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    kw = dict(batch_size=8, capacity=FRONT_PLEN + FRONT_NEW + 8,
+              max_new_tokens=FRONT_NEW, prefill_chunk=32, block_size=16,
+              burst=8, kv_dtype="bf16", device="cuda")
+    rng = np.random.default_rng(10)
+    batch = [rng.integers(0, cfg.vocab_size, FRONT_PLEN).astype(np.int32)
+             for _ in range(8)]
+    inter = [rng.integers(0, cfg.vocab_size,
+                          int(rng.integers(128, FRONT_PLEN + 1)))
+             .astype(np.int32) for _ in range(8)]
+    eng = ServeEngine(model, params, **kw)
+    srv = TensorQueryServer(eng, port=0, max_wait_ms=5.0,
+                            pad_to=FRONT_PLEN).start()
+    # what earlier phases left allocated (reference cycles freed first)
+    # counts in the peak too: log it beside the peak
+    gc.collect()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    try:
+        cli = TensorQueryClient("127.0.0.1", srv.port)
+        try:
+            bq = [cli.submit(p, lane="batch") for p in batch]
+            deadline = time.monotonic() + 300
+            while not all(cli._requests[q].stream for q in bq):
+                check(time.monotonic() < deadline,
+                      "[front] the batch-lane requests never streamed")
+                time.sleep(0.005)
+            iq = [cli.submit(p, lane="interactive") for p in inter]
+            results = [cli.result(q, timeout=600) for q in bq + iq]
+        finally:
+            cli.close()
+        wall = time.perf_counter() - t0
+        drained = srv.drain(timeout=60)
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(r.status == "ok" and len(r.tokens) == FRONT_NEW
+              for r in results),
+          f"[front] {[(r.lane, r.status, len(r.tokens)) for r in results]}")
+    check(eng.n_preemptions >= 1 and eng.n_restores == eng.n_preemptions,
+          f"[front] preemptions {eng.n_preemptions}, restores "
+          f"{eng.n_restores}")
+    ps = eng.pool_stats()
+    check(drained and ps["n_live"] == ps["n_reserved"] == 0,
+          f"[front] drained {drained}, pool {ps}")
+    check(all(launches[n] > 0 for n in PAGED_KERNELS),
+          f"[front] the served path missed a kernel: {launches}")
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_bf16_bf16_mma", "front")
+    total = sum(len(r.tokens) for r in results)
+    ttft = {lane: [r.ttft_s for r in results if r.lane == lane]
+            for lane in ("batch", "interactive")}
+    log(f"[front] smollm-360m full width (32 layers, bf16, bf16 pool) "
+        f"behind TensorQueryServer on 127.0.0.1: 8 batch + 8 interactive "
+        f"requests, {total} tokens in {wall:.2f}s = {total / wall:.1f} "
+        f"tok/s; TTFT batch {_percentiles(ttft['batch'])}, interactive "
+        f"{_percentiles(ttft['interactive'])}; preemptions "
+        f"{eng.n_preemptions}, restores {eng.n_restores}, restarts "
+        f"{eng.n_restarts}; engine requests {eng.n_requests} (bucket "
+        f"padding rows included); peak memory {peak:.2f} GiB "
+        f"({base:.2f} GiB allocated when the phase began); {card}")
+    log(f"[front] launches {launches}")
+    # the same prompts direct, no server, no preemption
+    direct = eng.serve(batch + inter, timeout_s=600)
+    same = sum(int((a.tokens == b.tokens).sum())
+               for a, b in zip(direct, results))
+    log(f"[front] tokens equal to a direct run without the server: "
+        f"{same}/{16 * FRONT_NEW} (logged, not gated: bf16 at full width "
+        f"need not be batch-invariant)")
+    n = eng.allocator.blocks_for(FRONT_PLEN + FRONT_NEW)
+    top = eng.allocator.num_blocks
+    with torch.inference_mode():
+        src = torch.arange(n, device="cuda")
+        dst = torch.arange(top - n, top, device="cuda")
+        first = model.gather_paged_pages(eng._paged_cache, src, 0)
+        model.scatter_paged_pages(eng._paged_cache, first, dst, 0)
+        again = model.gather_paged_pages(eng._paged_cache, dst, 0)
+        check(all(torch.equal(a, b)
+                  for a, b in zip(_leaves(first), _leaves(again))),
+              "[front] full-width gather -> scatter -> gather differs")
+    mb = sum(a.numel() * a.element_size() for a in _leaves(first)) / 1e6
+    log(f"[front] full-width spill round trip: {n} blocks x 32 layers "
+        f"(K and V, {mb:.1f} MB) gathered, scattered to other blocks, "
+        "gathered again: bit-exact")
+    del eng, direct
+    feng = ServeEngine(model, params,
+                       fault_plan=FaultPlan([Fault(point="engine_step",
+                                                   nth=FAULT_STEP_B)]),
+                       **kw)
+    t0 = time.perf_counter()
+    fres = feng.serve(batch, timeout_s=600)
+    wall = time.perf_counter() - t0
+    check(all(r.status == "ok" and len(r.tokens) == FRONT_NEW
+              for r in fres),
+          f"[front] fault run {[(r.status, len(r.tokens)) for r in fres]}")
+    ps = feng.pool_stats()
+    check(feng.n_restarts == 1 and feng.n_step_failures == 1
+          and ps["n_live"] == ps["n_reserved"] == 0,
+          f"[front] fault run: restarts {feng.n_restarts}, pool {ps}")
+    same = sum(int((a.tokens == b.tokens).sum())
+               for a, b in zip(fres, results[:8]))
+    log(f"[front] engine_step fault at step {FAULT_STEP_B} (mid-decode): "
+        f"1 restart, {feng.n_preemptions} slots spilled and "
+        f"{feng.n_restores} restored, 8/8 ok in {wall:.2f}s; tokens equal "
+        f"to the server run's batch lane: {same}/{8 * FRONT_NEW} (logged)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1513,6 +1773,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     launches9 = phase_preproc(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_front_door_small(kernels)
+    phase_front_door(kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],

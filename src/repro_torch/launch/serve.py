@@ -19,10 +19,19 @@ are random, drawn from seed 0.
         --paged off                  # the dense engine (contiguous cache)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --kv-dtype int8              # int8 paged KV (an f32 model)
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --listen 0 --lanes interactive,batch   # over loopback TCP
+
+With ``--listen PORT`` the engine serves over TCP behind the
+tensor-query elements (``serving/net.py``); with ``--smoke`` a loopback
+client drives the requests, cycling through ``--lanes``, and the
+launcher exits; otherwise it serves until SIGTERM/SIGINT, then drains.
 """
 from __future__ import annotations
 
 import argparse
+import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -31,7 +40,8 @@ import numpy as np
 from ..configs import ARCH_IDS, get_config
 from ..models import build_model
 from ..models.config import ModelConfig, SSMConfig
-from ..serving import ServeEngine
+from ..serving import (LANES, ServeEngine, TensorQueryClient,
+                       TensorQueryServer)
 
 # demo-scale config per serving family (mirrors the reference's
 # launcher): attention layers page, mamba layers use state slabs; the
@@ -92,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="map requests' common prompt prefixes onto "
                          "already-resident KV blocks (copy-on-write)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="0 = greedy decode (> 0: not ported yet)")
+                    help="0 = greedy decode (> 0: not ported yet, "
+                         "ROADMAP A8)")
     ap.add_argument("--shared-prompt", type=int, default=0,
                     help="give every request this many identical leading "
                          "prompt tokens (exercises prefix sharing)")
@@ -101,11 +112,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: one per batch slot; fewer gates "
                          "admission like a small block pool)")
     ap.add_argument("--listen", type=int, default=None, metavar="PORT",
-                    help="serve over TCP (not ported yet)")
+                    help="serve over TCP via the tensor_query elements "
+                         "(0 = ephemeral port).  With --smoke, drives the "
+                         "requests through a loopback client and exits; "
+                         "otherwise serves until interrupted")
     ap.add_argument("--lanes", default="interactive",
-                    help="priority lanes (only 'interactive' is ported)")
+                    help="comma list of priority lanes the smoke client "
+                         "cycles through (e.g. 'interactive,batch'; batch "
+                         "lane requests are preemptible)")
+    ap.add_argument("--max-wait-ms-net", type=float, default=5.0,
+                    help="--listen: micro-batch window of the server-side "
+                         "tensor_batcher")
+    ap.add_argument("--drain-timeout-s", type=float, default=30.0,
+                    help="--listen (standing server): on SIGTERM/SIGINT, "
+                         "stop admitting and give in-flight requests this "
+                         "long to finish before cancelling them; every "
+                         "client gets a terminal frame and the process "
+                         "exits 0")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="tensor-parallel over N devices (not ported yet)")
+                    help="tensor-parallel over N devices (not ported yet, "
+                         "ROADMAP A17)")
     ap.add_argument("--retain-cap", type=int, default=None,
                     help="cap on retained (prefix-reusable) free blocks")
     ap.add_argument("--retain-ttl-s", type=float, default=None,
@@ -117,7 +143,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "model needs bf16; int8: paged only, an f32 model "
                          "such as --smoke's)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding (not ported yet)")
+                    help="speculative decoding (not ported yet, ROADMAP A11)")
     ap.add_argument("--burst", type=int, default=8,
                     help="decode burst length K: device steps per host "
                          "drain when no admissions/prefills are pending")
@@ -130,14 +156,10 @@ def validate_args(args) -> None:
         raise SystemExit("--requests must be >= 1")
     if args.shared_prompt >= args.prompt_len - 1:
         raise SystemExit("--shared-prompt must be < --prompt-len - 1")
-    if args.listen is not None:
-        raise NotImplementedError(
-            "--listen: the tensor_query front door is not ported yet "
-            "(ROADMAP A7a)")
-    if args.lanes.replace(" ", "") != "interactive":
-        raise NotImplementedError(
-            "--lanes: the batch lane and preemption are not ported yet "
-            "(ROADMAP A7c)")
+    bad = [l for l in parse_lanes(args.lanes) if l not in LANES]
+    if bad or not parse_lanes(args.lanes):
+        raise SystemExit(f"--lanes: unknown or empty lanes {bad}; have "
+                         f"{', '.join(LANES)}")
     if args.spec_k > 0:
         if args.mesh is not None:
             raise SystemExit(
@@ -173,6 +195,10 @@ def validate_args(args) -> None:
         raise NotImplementedError(
             f"--family {args.family}: the xLSTM blocks are not ported yet "
             "(ROADMAP A10b)")
+
+
+def parse_lanes(text: str) -> List[str]:
+    return [l.strip() for l in text.split(",") if l.strip()]
 
 
 def make_requests(vocab_size: int, n: int, prompt_len: int,
@@ -255,6 +281,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     requests = make_requests(cfg.vocab_size, args.requests, args.prompt_len,
                              args.shared_prompt)
+    if args.listen is not None:
+        return serve_listen(engine, requests, args)
 
     t0 = time.perf_counter()
     if args.direct:
@@ -314,6 +342,67 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                   f"{np.asarray(b.data)[:8]}...")
     return {"engine": engine, "n_results": n_results,
             "total_tokens": total_tokens, "wall_s": wall}
+
+
+def serve_listen(engine: ServeEngine, requests: List[np.ndarray],
+                 args) -> Dict[str, Any]:
+    """``--listen``: serve the engine over TCP.  A standing server (no
+    ``--smoke``) runs until SIGTERM/SIGINT, then drains: it stops
+    admitting, gives in-flight requests ``--drain-timeout-s`` to finish
+    and cancels the rest, so every client holds a terminal frame.  With
+    ``--smoke`` a loopback client submits ``requests``, cycling through
+    ``--lanes``, waits for each result (300 s at most) and prints them."""
+    lanes = parse_lanes(args.lanes)
+    server = TensorQueryServer(engine, port=args.listen,
+                               max_wait_ms=args.max_wait_ms_net,
+                               pad_to=args.prompt_len).start()
+    print(f"tensor_query server listening on 127.0.0.1:{server.port} "
+          f"(lanes: {', '.join(lanes)})", flush=True)
+    out: Dict[str, Any] = {"engine": engine, "port": server.port}
+    try:
+        if not args.smoke:
+            stop = threading.Event()
+
+            def on_signal(signum, frame):
+                del frame
+                print(f"signal {signum}: draining (timeout "
+                      f"{args.drain_timeout_s:.0f}s)", flush=True)
+                stop.set()
+            signal.signal(signal.SIGTERM, on_signal)
+            signal.signal(signal.SIGINT, on_signal)
+            while not stop.wait(timeout=0.2):
+                pass
+            clean = server.drain(timeout=args.drain_timeout_s)
+            print("drain complete" if clean
+                  else "drain timed out: remaining requests cancelled",
+                  flush=True)
+            out["drained"] = clean
+            return out
+        t0 = time.perf_counter()
+        client = TensorQueryClient("127.0.0.1", server.port)
+        try:
+            qids = [client.submit(r, lane=lanes[i % len(lanes)])
+                    for i, r in enumerate(requests)]
+            results = [client.result(q, timeout=300) for q in qids]
+        finally:
+            client.close()
+        wall = time.perf_counter() - t0
+        total = sum(len(r.tokens) for r in results if r.tokens is not None)
+        print(f"served {len(results)} requests / {total} tokens over TCP "
+              f"in {wall:.2f}s ({total / wall:.1f} tok/s) on "
+              f"{engine.device}")
+        for r in results[:3]:
+            print(f"  qid {r.qid} ({r.lane}): status={r.status} "
+                  f"ttft={r.ttft_s:.3f}s tokens={r.tokens[:8].tolist()}...")
+        print(f"scheduler: prefills={engine.n_prefills} "
+              f"joins={engine.n_joins} evictions={engine.n_evictions} "
+              f"preemptions={engine.n_preemptions} "
+              f"restores={engine.n_restores} expired={engine.n_expired}")
+        out.update(n_results=len(results), total_tokens=total, wall_s=wall,
+                   results=results)
+        return out
+    finally:
+        server.stop()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Decoder-only model: dense, MoE and hybrid Mamba+attention families
 (port of the serving subset of ``repro/models/transformer.py``): the
-block-paged step (``paged_step``) and the dense engine's contiguous
-cache (``init_cache``, ``prefill``, ``decode_step``).
+block-paged step (``paged_step``) with its preemption spill
+(``gather_paged_pages``/``scatter_paged_pages``) and the dense engine's
+contiguous cache (``init_cache``, ``prefill``, ``decode_step``).
 
 A config expands to a *layer pattern*: an optional unrolled ``prefix``
 of sub-layer descriptors plus a repeating ``period`` applied
@@ -456,6 +457,49 @@ class TransformerLM:
             if d[0] == "attn":
                 for a in cache["blocks"][f"s{j}"].values():
                     a[:, dst] = a[:, src]
+        return cache
+
+    def gather_paged_pages(self, cache, blocks, slab: int):
+        """Spill read: copy physical blocks ``blocks`` ((n,) int64 on the
+        cache's device) out of every attention layer's pools (K/V, and
+        under int8 the ``k_scale``/``v_scale`` pools) and state slab
+        ``slab`` out of every mamba layer (conv window and SSM state)
+        into a standalone tree the engine parks in host memory while the
+        slot is preempted.  Layout as ``copy_paged_block``: prefix leaves
+        index axis 0, periodic leaves axis 1 (behind the layer axis)."""
+        def take(st, desc, axis):
+            if desc[0] == "attn":
+                return {k: a.index_select(axis, blocks) for k, a in st.items()}
+            return {k: a.select(axis, slab).clone() for k, a in st.items()}
+
+        out: Dict[str, Any] = {}
+        if self.prefix_descs:
+            out["prefix"] = [take(st, d, 0) for d, st
+                             in zip(self.prefix_descs, cache["prefix"])]
+        out["blocks"] = {f"s{j}": take(cache["blocks"][f"s{j}"], d, 1)
+                         for j, d in enumerate(self.period_descs)}
+        return out
+
+    def scatter_paged_pages(self, cache, payload, blocks, slab: int):
+        """Spill write, the inverse of ``gather_paged_pages``, in place:
+        the payload (on any device) lands at physical ``blocks`` and
+        ``slab``, which may differ from where it was gathered.  Attention
+        reads go through the page table and mamba reads through the
+        slot->slab map, so the restored slot decodes as if it had never
+        been preempted."""
+        def put(st, pst, desc, axis):
+            for k, a in st.items():
+                p = pst[k].to(a.device)
+                if desc[0] == "attn":
+                    a.index_copy_(axis, blocks, p)
+                else:
+                    a.select(axis, slab).copy_(p)
+
+        for d, st, pst in zip(self.prefix_descs, cache.get("prefix", []),
+                              payload.get("prefix", [])):
+            put(st, pst, d, 0)
+        for j, d in enumerate(self.period_descs):
+            put(cache["blocks"][f"s{j}"], payload["blocks"][f"s{j}"], d, 1)
         return cache
 
     def paged_step(self, params, cache, tokens, page_table, lengths, t_valid,

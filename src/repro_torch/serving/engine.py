@@ -65,20 +65,44 @@ model must compute in f32 (the dequantized K/V are f32), as in the
 reference, which fails a bf16 model over an int8 pool (this port raises
 ``ValueError`` at construction).
 
+**Lanes, deadlines and preemption** — ``submit(lane=)`` queues on the
+``interactive`` or the ``batch`` lane; admission takes interactive work
+first, FIFO within a lane, and batch work never slips past a blocked
+interactive candidate.  An interactive candidate blocked on a slot, on
+blocks or on a state slab preempts the youngest running batch slot
+(paged mode): a decoding slot's used pages (K/V, and the int8 scale
+pools) and its mamba slab are gathered to host memory and scattered
+back into whatever blocks are free when it is re-admitted
+(``gather_paged_pages``/``scatter_paged_pages``), so it decodes as if
+never preempted; a slot still mid-prefill is simply restarted.  A
+queued request whose ``deadline`` (relative TTFT budget) passes fails
+with ``"expired"``.
+
 Sampling is greedy argmax.  The attention of every step runs through the
 hand-written CUDA kernels on a CUDA device (``models/attention.py``).
 
-**Bounded restart** — a failing dense step fails its in-flight slots
-(``"lost in engine restart"``), keeps queued work and drops the cache;
-``max_restarts`` consecutive failures fail everything and re-raise, as
-in the reference.  A failing paged step raises: the reference's paged
-restart spills survivors through preemption, not ported yet (A7b/A7c).
+**Bounded restart** — a failing step is non-attributable, so the engine
+restarts: in paged mode every live slot is spilled through the
+preemption path and re-queued at its lane's front, then the pool, the
+allocator and the state store are rebuilt (a slot whose spill itself
+fails — its mamba slab may have advanced in place past the host mirror
+— fails alone with ``"lost in engine restart"``); in dense mode the
+in-flight slots fail and queued work survives.  ``max_restarts``
+consecutive failures fail everything and re-raise, as in the reference.
+``fault_plan=`` (``faults.FaultPlan``) injects faults at the seams
+``engine_step``, ``admit``, ``submit`` and ``worker``.
+
+**Front-door hooks** — ``stream_cb(rid, new_tokens)`` fires whenever
+generated tokens reach the host; ``as_pipeline_filter(use_meta=True)``
+reads per-row ``prompt_len``/``lane``/``deadline``/``tag`` metadata and
+writes ``status``/``ttft_s``/``n_tokens`` back (``net.py`` serves the
+engine over TCP through them).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: seeded sampling (``temperature > 0``), speculative decoding,
-``mesh=``, the batch lane and preemption, fault plans.  In dense mode
-``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
-reference's ``ValueError``: they need the block pool.
+item: seeded sampling (``temperature > 0``, A8), speculative decoding
+(A11), ``mesh=`` (A17).  In dense mode ``share_prefix``, ``spec_k``,
+int8 KV and ``mesh=`` raise the reference's ``ValueError``: they need
+the block pool.
 """
 from __future__ import annotations
 
@@ -90,6 +114,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import bridge
 from ..models.common import dtype_of, resolve_device
 from .kv_cache import (ROOT_DIGEST, BlockAllocator, CacheFullError,
                        DeviceSlotState, StateStore, chain_digest)
@@ -104,8 +129,9 @@ class GenerationResult:
     prompt: np.ndarray
     tokens: np.ndarray
     latency_s: float
-    # "ok" | "timeout" | "error" | "oom" — non-ok results carry whatever
-    # tokens were generated before the request was failed
+    # "ok" | "timeout" | "expired" | "cancelled" | "overrun" | "error" |
+    # "oom" — non-ok results carry whatever tokens were generated before
+    # the request was failed
     status: str = "ok"
     ttft_s: Optional[float] = None    # submit -> first generated token
     error: Optional[str] = None       # failure message (status "error")
@@ -114,8 +140,8 @@ class GenerationResult:
 class _Slot:
     """Per-slot decode state in dense mode: the position is the engine's
     shared ``_pos``; admission samples the first token."""
-    __slots__ = ("rid", "prompt", "tokens", "t_submit", "done", "status",
-                 "t_first")
+    __slots__ = ("rid", "prompt", "tokens", "t_submit", "done", "lane",
+                 "deadline", "tag", "status", "t_first", "adm_seq")
 
     def __init__(self, req: SchedRequest, first_token: int,
                  eos_id: Optional[int], max_new: int):
@@ -125,16 +151,20 @@ class _Slot:
         self.t_submit = req.t_submit
         self.done = (eos_id is not None and int(first_token) == eos_id) \
             or max_new <= 1
+        self.lane = req.lane
+        self.deadline = req.deadline
+        self.tag = req.tag
         self.status = "ok"
         self.t_first: Optional[float] = None
+        self.adm_seq = 0
 
 
 class _PagedSlot:
     """Per-slot decode state in paged mode: the true position counter
     lives in the engine's ``_lengths`` array; this tracks ownership."""
     __slots__ = ("rid", "prompt", "tokens", "t_submit", "done", "blocks",
-                 "reserve_left", "prefill_off", "digests", "status",
-                 "t_first")
+                 "reserve_left", "prefill_off", "digests", "lane",
+                 "deadline", "tag", "status", "t_first", "adm_seq")
 
     def __init__(self, req: SchedRequest, blocks: List[int],
                  reserve_left: int, prefill_off: int = 0,
@@ -148,8 +178,13 @@ class _PagedSlot:
         self.reserve_left = reserve_left  # blocks still claimable lazily
         self.prefill_off = prefill_off    # prompt tokens already cached
         self.digests = digests if digests is not None else []  # per full page
+        self.lane = req.lane
+        self.deadline = req.deadline
+        self.tag = req.tag
         self.status = "ok"
         self.t_first: Optional[float] = None
+        self.adm_seq = 0              # admission order (preemption picks
+        #                               the youngest batch-lane slot)
 
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -164,7 +199,8 @@ class ServeEngine:
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
                  share_prefix: Optional[bool] = None,
                  num_state_slots: Optional[int] = None, burst: int = 1,
-                 mesh=None, retain_cap: Optional[int] = None,
+                 trace_logits: bool = False, mesh=None,
+                 retain_cap: Optional[int] = None,
                  retain_ttl_s: Optional[float] = None, spec_k: int = 0,
                  kv_dtype: Optional[str] = None, fault_plan=None,
                  max_restarts: int = 3, device=None):
@@ -225,10 +261,6 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: multi-device serving is not ported yet (ROADMAP A17)")
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "fault_plan=: fault injection comes with the front door "
-                "(ROADMAP A7a)")
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.device = resolve_device(device)
@@ -317,12 +349,26 @@ class ServeEngine:
                 capacity=capacity)
             self._burst_fn = make_paged_burst(
                 model, eos_id=eos_id, max_new=max_new_tokens,
-                capacity=capacity, k_static=self.max_burst)
+                capacity=capacity, k_static=self.max_burst,
+                trace=trace_logits)
         else:
             self._mixed_fn = None
             self._burst_fn = make_dense_burst(
                 model, eos_id=eos_id, max_new=max_new_tokens,
-                k_static=self.max_burst)
+                k_static=self.max_burst, trace=trace_logits)
+        # True while a paged step runs: its mamba slabs are updated in
+        # place, so after a failed step they may be ahead of the host
+        # mirror and a decoding slot's spill would not restore it
+        self._slabs_ahead = False
+        self._adm_seq = 0             # admission order counter
+        # token-streaming hook: stream_cb(rid, new_tokens) fires whenever
+        # generated tokens for a request reach the host (once per slot per
+        # drain); the network front door streams them back per request
+        self.stream_cb = None
+        # optional per-request logit recording (conformance tests): the
+        # f32 logits of every generated token, in order
+        self.trace_logits = trace_logits
+        self.logit_trace: Dict[int, List[np.ndarray]] = {}
         # slot state on the device: uploaded (copied) only after
         # structural host mutations, otherwise replaced by each megastep
         self._dev = DeviceSlotState(
@@ -339,13 +385,19 @@ class ServeEngine:
         self.n_prefix_hits = 0        # admissions that mapped blocks
         self.n_shared_tokens = 0      # prompt tokens served from shared blocks
         self.n_cow_forks = 0          # shared blocks forked before a write
+        self.n_preemptions = 0        # slots spilled to host (or restarted)
+        self.n_restores = 0           # preempted requests re-admitted
+        self.n_expired = 0            # queued requests past their deadline
         # decode-loop counters (see loop_stats())
         self.n_bursts = 0             # burst launches (>= 1 device step each)
         self.n_device_steps = 0       # megasteps executed
         self.n_host_syncs = 0         # decode-loop device->host drains
         self.n_flag_reads = 0         # burst early-out reads of `active`
         self.n_burst_early_exits = 0  # bursts cut short by all-done
-        # bounded-restart accounting for non-attributable step failures
+        # fault injection (``faults.FaultPlan``, duck-typed: None costs
+        # one check per seam) + bounded-restart accounting for
+        # non-attributable step failures
+        self.fault_plan = fault_plan
         self.max_restarts = int(max_restarts)
         self.n_step_failures = 0      # step() exceptions caught
         self.n_restarts = 0           # engine pool rebuilds performed
@@ -388,13 +440,15 @@ class ServeEngine:
         return gen
 
     # -- continuous batching ------------------------------------------------
-    def submit(self, prompt: np.ndarray, *, lane: str = "interactive") -> int:
+    def submit(self, prompt: np.ndarray, *, lane: str = "interactive",
+               deadline: Optional[float] = None, tag: Any = None) -> int:
         """Enqueue a request; returns its request id (thread-safe).
-        Deadlines and caller tags come with the front door (A7a)."""
-        if lane != "interactive":
-            raise NotImplementedError(
-                f"lane={lane!r}: the batch lane and preemption are not "
-                "ported yet (ROADMAP A7c)")
+
+        ``lane`` picks the priority lane (``"interactive"`` admits ahead
+        of any queued ``"batch"`` work and may preempt running batch
+        slots); ``deadline`` is a relative TTFT budget in seconds — a
+        request still queued when it elapses fails with status
+        ``"expired"``; ``tag`` is an opaque caller handle."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ValueError(f"prompt must be non-empty 1-D, got {prompt.shape}")
@@ -412,8 +466,10 @@ class ServeEngine:
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
-            self.scheduler.push(SchedRequest(rid, prompt, lane=lane,
-                                             t_submit=now))
+            self.scheduler.push(SchedRequest(
+                rid, prompt, lane=lane,
+                deadline=None if deadline is None else now + deadline,
+                tag=tag, t_submit=now))
             self.n_requests += 1
         return rid
 
@@ -501,29 +557,30 @@ class ServeEngine:
         finished.  Returns results for requests that completed during
         this step.
 
-        Dense mode: a step exception is *non-attributable* (no way to
-        know which resident request poisoned the burst), so the engine
-        restarts: in-flight slots are failed with ``"lost in engine
-        restart"``, queued work survives, the cache is dropped, and
-        serving continues.  Restarts are bounded by ``max_restarts``
-        *consecutive* failures; past that every in-flight and queued
-        request is failed and the exception propagates.  Paged mode
-        raises at once: its restart spills survivors through the
-        preemption path, which is not ported yet (ROADMAP A7b/A7c)."""
-        if self.paged:
-            with torch.inference_mode():
-                return self._step_paged()
-        try:
-            with torch.inference_mode():
-                out = self._step_dense()
-        except Exception as exc:
-            return self._handle_step_failure(exc)
+        A step exception is *non-attributable* (no way to know which
+        resident request poisoned the step), so the engine restarts:
+        paged mode spills the live slots through the preemption path and
+        re-queues them, dense mode fails them with ``"lost in engine
+        restart"``; queued work survives and the pools are rebuilt.
+        Restarts are bounded by ``max_restarts`` *consecutive* failures;
+        past that every in-flight and queued request is failed and the
+        exception propagates."""
+        fault = self.fault_plan.fire("engine_step") if self.fault_plan \
+            else None
+        with torch.inference_mode():
+            try:
+                if fault is not None and fault.action == "raise":
+                    raise fault.make_exc()
+                out = self._step_paged() if self.paged \
+                    else self._step_dense()
+            except Exception as exc:
+                return self._handle_step_failure(exc)
         self._consec_failures = 0
         return out
 
     def _handle_step_failure(self, exc: Exception) -> List[GenerationResult]:
-        """Recover from a dense step exception: bounded restart (fail
-        the in-flight slots, drop the cache) or, past the budget, fail
+        """Recover from a step exception: bounded restart (spill or fail
+        the survivors, rebuild the pools) or, past the budget, fail
         everything and re-raise."""
         self.n_step_failures += 1
         self._consec_failures += 1
@@ -540,7 +597,7 @@ class ServeEngine:
                     tokens=np.asarray(req.tokens, np.int32),
                     latency_s=now - req.t_submit, status="error", error=msg))
             self._fail_slots(msg, now)
-            self._reset_pools()
+            self._reset_pools()        # nothing leaks even in death
             raise exc
         self.n_restarts += 1
         self._restart()
@@ -557,17 +614,52 @@ class ServeEngine:
             self._slots[i] = None
 
     def _restart(self) -> None:
-        """Dense restart: there is no spill path, so every live slot is
-        failed with ``"lost in engine restart"``; queued work survives
-        untouched and the next step admits it as a fresh wave."""
-        self._fail_slots("lost in engine restart", time.monotonic())
+        """Rebuild the serving pools after a step failure.  Paged mode:
+        every live slot is spilled through the preemption path (decoding
+        slots gather their pages and slab to host memory, mid-prefill
+        slots simply restart) and re-queued at its lane's front; a slot
+        whose spill itself fails is failed alone with ``"lost in engine
+        restart"``.  Dense mode has no spill path: every live slot is
+        failed.  Queued work survives untouched."""
+        now = time.monotonic()
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            spilled = False
+            if self.paged and not slot.done:
+                try:
+                    self._preempt_slot(i)
+                    spilled = True
+                except Exception:
+                    pass               # unsalvageable: fail it below
+            if not spilled:
+                self._finish(GenerationResult(
+                    request_id=slot.rid, prompt=slot.prompt,
+                    tokens=np.asarray(slot.tokens, np.int32),
+                    latency_s=now - slot.t_submit, status="error",
+                    error="lost in engine restart"))
+            self._slots[i] = None
         self._reset_pools()
 
     def _reset_pools(self) -> None:
-        """Drop the dense cache and the host accounting (all slots must
-        already be empty); the device slot state is rebuilt on next use."""
-        self._cache = None
-        self._pos = 0
+        """Rebuild the caches and the host accounting from scratch (all
+        slots must already be empty); the device slot state is rebuilt
+        on next use.  Paged mode: a fresh allocator (the old one's
+        content table is cleared: it advertises KV of a dropped pool)
+        and state store, the pool dropped."""
+        if self.paged:
+            old = self.allocator
+            old.clear_registry()
+            self.allocator = BlockAllocator(
+                old.num_blocks, old.block_size,
+                retain_cap=old.retain_cap, retain_ttl_s=old.retain_ttl_s)
+            if self.state_store is not None:
+                self.state_store = StateStore(self.num_state_slots)
+            self._paged_cache = None
+        else:
+            self._cache = None
+            self._pos = 0
+        self._slabs_ahead = False
         self._reserved = 0
         self._page_table[:, :] = 0
         self._lengths[:] = 0
@@ -596,14 +688,14 @@ class ServeEngine:
             queued = [req.rid for req in self.scheduler.candidates()]
         return queued + [s.rid for s in self._slots if s is not None]
 
-    def serve(self, requests: List[np.ndarray],
-              timeout_s: float = 120.0) -> List[GenerationResult]:
+    def serve(self, requests: List[np.ndarray], timeout_s: float = 120.0,
+              lane: str = "interactive") -> List[GenerationResult]:
         """Serve via continuous batching; results in request order.
 
         On timeout the results completed before the deadline are
         returned as-is and every unfinished request is failed with
         status ``"timeout"`` (its tokens so far attached)."""
-        rids = [self.submit(r) for r in requests]
+        rids = [self.submit(r, lane=lane) for r in requests]
         return self.wait(rids, timeout_s=timeout_s)
 
     def wait(self, rids: List[int],
@@ -673,39 +765,91 @@ class ServeEngine:
                 for b in dead_blocks:
                     self.allocator.retire(b)
 
-    def as_pipeline_filter(self, *, timeout_s: Optional[float] = None):
+    def as_pipeline_filter(self, *, use_meta: bool = False,
+                           on_submit=None, timeout_s: Optional[float] = None):
         """Adapter: (n, S) prompt batch -> (n, max_new_tokens) generations,
         numpy in and out.
 
         Row order in == row order out, so TensorUnbatcher downstream can
         restore per-request pts/meta.  Rows shorter than max_new (early
-        eos) are right-padded with eos_id (or 0), as are rows whose prompt
-        was rejected at submit (per-row isolation: a bad prompt fails only
-        its own row).  Per-row metadata (lanes, deadlines, transport
-        padding) comes with the front door (ROADMAP A7a)."""
+        eos) are right-padded with eos_id (or 0), as are rows that failed
+        at submit (per-row isolation: a bad prompt fails only its own
+        row).
+
+        With ``use_meta`` the returned callable accepts the per-row meta
+        dicts a ``pass_meta`` TensorFilter forwards: each row's
+        ``meta["query"]`` may carry ``prompt_len`` (strip transport
+        left-padding), ``lane``, ``deadline`` (relative seconds) and
+        ``tag``; after serving, ``status`` / ``ttft_s`` / ``n_tokens``
+        (and ``error``) are written back into the meta.
+        ``on_submit(rid, meta)`` fires right after each row is submitted,
+        before any token is generated, so a streaming front door can
+        route ``stream_cb`` tokens by request id."""
         pad = self.eos_id if self.eos_id is not None else 0
 
-        def fn(prompts):
+        def fn(prompts, metas=None):
             prompts = np.asarray(prompts, np.int32)
+            ms = list(metas) if (use_meta and metas is not None) \
+                else [None] * len(prompts)
             rids: List[Optional[int]] = []
-            for row in prompts:
+            for row, m in zip(prompts, ms):
+                q = m.get("query", {}) if isinstance(m, dict) else {}
+                plen = int(q.get("prompt_len", 0)) or row.shape[0]
+                # per-row isolation: a poison prompt (bad shape, vocab
+                # overflow, injected "submit" fault) fails only its row
                 try:
-                    rids.append(self.submit(row))
-                except ValueError:
+                    f = self.fault_plan.fire("submit") if self.fault_plan \
+                        else None
+                    if f is not None and f.action == "raise":
+                        raise f.make_exc()
+                    rid = self.submit(row[row.shape[0] - plen:],
+                                      lane=q.get("lane", "interactive"),
+                                      deadline=q.get("deadline"),
+                                      tag=q.get("tag"))
+                except Exception as exc:
                     rids.append(None)
+                    if isinstance(m, dict):
+                        m.update(status="error", error=str(exc), n_tokens=0)
+                    continue
+                rids.append(rid)
+                if isinstance(m, dict):
+                    m["rid"] = rid
+                if on_submit is not None:
+                    on_submit(rid, m)
             live = [r for r in rids if r is not None]
+            err = None
             try:
+                f = self.fault_plan.fire("worker") if self.fault_plan \
+                    else None
+                if f is not None and f.action == "raise":
+                    raise f.make_exc()
                 results = self.wait(live, timeout_s=timeout_s)
-            except Exception:
-                # fail exactly this batch's requests, leave the pool
-                # clean, and let the pipeline report the error
+            except Exception as exc:
+                # worker-level failure after submission: fail exactly
+                # this batch's requests (with a clean pool) and surface
+                # the message; other workers' requests keep going
+                err = str(exc)
                 self._cancel(live, "error")
-                raise
+                with self._results_cv:
+                    results = [self._results.pop(r) for r in live
+                               if r in self._results]
             by_id = {r.request_id: r for r in results}
             out = np.full((len(rids), self.max_new_tokens), pad, np.int32)
             for i, rid in enumerate(rids):
-                if rid in by_id:
-                    out[i, : len(by_id[rid].tokens)] = by_id[rid].tokens
+                if rid is None:
+                    continue          # failed at submit; meta already set
+                r = by_id.get(rid)
+                if r is None:
+                    if isinstance(ms[i], dict):
+                        ms[i].update(status="error", n_tokens=0,
+                                     error=err or "request lost")
+                    continue
+                out[i, : len(r.tokens)] = r.tokens
+                if isinstance(ms[i], dict):
+                    ms[i].update(status=r.status, ttft_s=r.ttft_s,
+                                 n_tokens=int(len(r.tokens)))
+                    if r.status == "error":
+                        ms[i]["error"] = r.error or err or "request failed"
             return out
         return fn
 
@@ -752,13 +896,15 @@ class ServeEngine:
                 "active": active, "page_table": self._page_table,
                 "lengths": self._lengths, "state_slots": self._state_slots}
 
-    def _drain_burst(self, tok_buf, val_buf, *, k: int) -> None:
+    def _drain_burst(self, tok_buf, val_buf, logit_buf, *, k: int) -> None:
         """One host sync per burst: fetch the token ring buffer, append
         tokens to their slots, and replay the device-side done rule (eos
         / max_new / paged: cache exhausted) so the host mirror stays
-        coherent with the device's ``active`` flags.  Dense mode advances
-        the shared position by the steps the burst ran."""
+        coherent with the device's ``active`` flags; then hand each
+        slot's new tokens to ``stream_cb``.  Dense mode advances the
+        shared position by the steps the burst ran."""
         toks, valid = tok_buf.cpu().numpy(), val_buf.cpu().numpy()
+        logits = None if logit_buf is None else logit_buf.cpu().numpy()
         self.n_host_syncs += 1
         paged = self.paged
         n_steps = int(valid.any(axis=1).sum())
@@ -766,13 +912,16 @@ class ServeEngine:
         self.n_device_steps += n_steps
         if n_steps < k:
             self.n_burst_early_exits += 1
-        fresh = set()
+        fresh: Dict[int, List[int]] = {}
         for kstep in range(n_steps):
             for i, slot in enumerate(self._slots):
                 if slot is None or not valid[kstep, i]:
                     continue
+                if logits is not None:
+                    self.logit_trace.setdefault(slot.rid, []).append(
+                        logits[kstep, i].copy())
                 slot.tokens.append(int(toks[kstep, i]))
-                fresh.add(i)
+                fresh.setdefault(i, []).append(slot.tokens[-1])
                 if paged:
                     self._lengths[i] += 1
                 if ((self.eos_id is not None
@@ -784,9 +933,12 @@ class ServeEngine:
         if not paged:
             self._pos += n_steps
         now = time.monotonic()
-        for i in fresh:
-            if self._slots[i].t_first is None:
-                self._slots[i].t_first = now
+        for i, new_toks in fresh.items():
+            slot = self._slots[i]
+            if slot.t_first is None:
+                slot.t_first = now
+            if self.stream_cb is not None:
+                self.stream_cb(slot.rid, new_toks)
 
     # -- dense scheduler ----------------------------------------------------
     def _step_dense(self) -> List[GenerationResult]:
@@ -809,11 +961,11 @@ class ServeEngine:
         k = 1 if pending else min(self.burst, self.max_burst)
         k = max(1, min(k, self.capacity - self._pos))
         st = self._dev.device(self._dense_state)
-        self._cache, st, tok_buf, val_buf, n_reads = self._burst_fn(
-            self.params, self._cache, st, self._pos, k)
+        self._cache, st, tok_buf, val_buf, n_reads, logit_buf = \
+            self._burst_fn(self.params, self._cache, st, self._pos, k)
         self._dev.adopt(st)
         self.n_flag_reads += n_reads
-        self._drain_burst(tok_buf, val_buf, k=k)
+        self._drain_burst(tok_buf, val_buf, logit_buf, k=k)
         return finished + self._evict()
 
     def _admit(self) -> None:
@@ -824,7 +976,10 @@ class ServeEngine:
         queue is scanned: a long prompt never blocks a short one behind
         it); they are left-padded to ``_pos``, the whole (B, _pos) batch
         is prefilled once, and the joiners' rows are spliced into the
-        live cache.  The first token is sampled from the prefill."""
+        live cache.  The first token is sampled from the prefill.
+        Candidates come in lane-priority order; queued requests past
+        their deadline expire first."""
+        self._expire_queued()
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free:
             return
@@ -869,12 +1024,21 @@ class ServeEngine:
             self._splice_cache(self._cache, cache,
                                [slot_i for slot_i, _ in joins])
             self.n_joins += len(joins)
+        logits_np = logits.float().cpu().numpy() if self.trace_logits \
+            else None
         now = time.monotonic()
         for slot_i, req in joins:
+            if logits_np is not None:
+                self.logit_trace.setdefault(req.rid, []).append(
+                    logits_np[slot_i].copy())
             slot = _Slot(req, first_np[slot_i], self.eos_id,
                          self.max_new_tokens)
             slot.t_first = now
+            slot.adm_seq = self._adm_seq
+            self._adm_seq += 1
             self._slots[slot_i] = slot
+            if self.stream_cb is not None:
+                self.stream_cb(slot.rid, [slot.tokens[-1]])
         self._dev.mark_dirty()
 
     def _evict(self) -> List[GenerationResult]:
@@ -970,13 +1134,16 @@ class ServeEngine:
                                     int(self._lengths[i]) + int(t_valid[i]))
         st = self._dev.device(self._paged_state)
         put = self._dev.put
-        self._paged_cache, st, sampled, _ = self._mixed_fn(
+        self._slabs_ahead = True
+        self._paged_cache, st, sampled, logits = self._mixed_fn(
             self.params, self._paged_cache, st, put(tokens), put(t_valid),
             put(emit))
         self._dev.adopt(st)
         self.n_prefill_chunks += 1
         self.n_device_steps += 1
         sampled_np = sampled.cpu().numpy()
+        logits_np = logits.float().cpu().numpy() if self.trace_logits \
+            else None
         self.n_host_syncs += 1
         for i, slot in busy:
             if not t_valid[i]:
@@ -988,14 +1155,20 @@ class ServeEngine:
                 if slot.prefill_off < len(slot.prompt):
                     continue          # more chunks to go; no token yet
                 self.n_prefills += 1
+            if logits_np is not None:
+                self.logit_trace.setdefault(slot.rid, []).append(
+                    logits_np[i].copy())
             slot.tokens.append(int(sampled_np[i]))
             if slot.t_first is None:
                 slot.t_first = time.monotonic()
+            if self.stream_cb is not None:
+                self.stream_cb(slot.rid, [slot.tokens[-1]])
             # replay of the megastep's device-side done rule
             if ((self.eos_id is not None and slot.tokens[-1] == self.eos_id)
                     or len(slot.tokens) >= self.max_new_tokens
                     or int(self._lengths[i]) >= self.capacity):
                 slot.done = True
+        self._slabs_ahead = False
 
     def _step_paged_burst(self, busy) -> None:
         """Up to ``burst`` pure-decode megasteps per host drain.
@@ -1028,11 +1201,13 @@ class ServeEngine:
         if not any_active:
             return
         st = self._dev.device(self._paged_state)
-        self._paged_cache, st, tok_buf, val_buf, n_reads = self._burst_fn(
-            self.params, self._paged_cache, st, k)
+        self._slabs_ahead = True
+        self._paged_cache, st, tok_buf, val_buf, n_reads, logit_buf = \
+            self._burst_fn(self.params, self._paged_cache, st, k)
         self._dev.adopt(st)
         self.n_flag_reads += n_reads
-        self._drain_burst(tok_buf, val_buf, k=k)
+        self._drain_burst(tok_buf, val_buf, logit_buf, k=k)
+        self._slabs_ahead = False
 
     def _match_prefix(self, prompt: np.ndarray) \
             -> Tuple[List[int], List[bytes], int]:
@@ -1085,28 +1260,76 @@ class ServeEngine:
             req.match_epoch = self.allocator.epoch
         return req.match
 
+    def _expire_queued(self) -> None:
+        """Fail queued requests whose TTFT deadline has passed."""
+        now = time.monotonic()
+        with self._lock:
+            dead = self.scheduler.expire(now)
+        for req in dead:
+            self.n_expired += 1
+            self._finish(GenerationResult(
+                request_id=req.rid, prompt=req.prompt,
+                tokens=np.asarray(req.tokens, np.int32),
+                latency_s=now - req.t_submit, status="expired"))
+
     def _admit_paged(self) -> None:
-        """Admit queued requests into free slots, FIFO.
+        """Admit queued requests into free slots, in lane-priority order
+        (interactive first, FIFO within a lane).
 
         A request needs a slot plus a worst-case *private*-block
         reservation: the pages its matched prefix shares forever are
         discounted, everything else (fresh prompt pages, decode
         extensions, possible COW forks in the write range) is budgeted
-        up front, so mid-decode allocation never fails.  The scan is
-        *size-aware*: a candidate that does not fit stays queued and
-        the scan moves on, so a too-large request can never
-        head-of-line-block a smaller one behind it."""
+        up front, so mid-decode allocation never fails.  Recurrent
+        families also need a free state slab.  The scan is *size-aware*:
+        a candidate that does not fit stays queued and the scan moves
+        on, so a too-large request can never head-of-line-block a
+        smaller one behind it.  If an interactive candidate is blocked
+        on resources while batch-lane slots are running, the youngest
+        batch slot is preempted and the scan retries."""
+        self._expire_queued()
+        while True:
+            blocked_interactive = self._admit_paged_scan()
+            if blocked_interactive and self._preempt_for_interactive():
+                continue
+            return
+
+    def _admit_paged_scan(self) -> bool:
+        """One admission pass; returns True if an interactive candidate
+        was left queued for lack of resources."""
         free = [i for i, s in enumerate(self._slots) if s is None]
         mid_decode = self.n_active > 0
         joins = []
+        blocked_interactive = False
         with self._lock:
             for req in self.scheduler.candidates():
+                if blocked_interactive and req.lane == "batch":
+                    # strict priority: batch work must not slip past a
+                    # resource-blocked interactive candidate (it would
+                    # be preempted right back — livelock)
+                    continue
                 if not free:
+                    if req.lane == "interactive":
+                        blocked_interactive = True
                     break
                 try:
-                    fit = self._fresh_fit(req, free)
+                    fit = self._restore_fit(req, free) if req.preempted \
+                        else self._fresh_fit(req, free)
                 except CacheFullError:
-                    continue           # the candidate stays queued
+                    # transient allocator storm (real or injected): the
+                    # candidate stays queued, never oom-failed
+                    continue
+                except Exception as exc:
+                    # attributable to this candidate alone: fail it and
+                    # keep scanning — one bad request must not block the
+                    # queue or fail the engine
+                    self.scheduler.remove(req)
+                    self._finish(GenerationResult(
+                        request_id=req.rid, prompt=req.prompt,
+                        tokens=np.asarray(req.tokens, np.int32),
+                        latency_s=time.monotonic() - req.t_submit,
+                        status="error", error=f"admission failed: {exc}"))
+                    continue
                 if fit is None:
                     if self.allocator.n_live == 0 and self._reserved == 0 \
                             and (self.state_store is None
@@ -1119,28 +1342,29 @@ class ServeEngine:
                             tokens=np.asarray(req.tokens, np.int32),
                             latency_s=time.monotonic() - req.t_submit,
                             status="oom"))
+                        continue
+                    if req.lane == "interactive":
+                        blocked_interactive = True
                     continue           # size-aware: scan past this one
                 self.scheduler.remove(req)
                 joins.append(fit)
-        for slot_i, req, blocks, reserve, matched, digests, slab in joins:
-            if mid_decode:
-                self.n_joins += 1
-            if matched:
-                self.n_prefix_hits += 1
-                self.n_shared_tokens += matched
-            self._slots[slot_i] = _PagedSlot(req, blocks, reserve,
-                                             prefill_off=matched,
-                                             digests=list(digests))
-            self._page_table[slot_i, :] = 0
-            self._page_table[slot_i, :len(blocks)] = blocks
-            self._lengths[slot_i] = matched
-            self._state_slots[slot_i] = slab
+        for join in joins:
+            slot_i = join[1]
+            slot = self._build_restore_slot(join) if join[0] == "restore" \
+                else self._build_fresh_slot(join, mid_decode)
+            slot.adm_seq = self._adm_seq
+            self._adm_seq += 1
+            self._slots[slot_i] = slot
         if joins:
             self._dev.mark_dirty()
+        return blocked_interactive
 
     def _fresh_fit(self, req: SchedRequest, free: List[int]):
-        """Try to take resources for an admission (all-or-nothing);
+        """Try to take resources for a fresh admission (all-or-nothing);
         None if the request does not fit right now."""
+        f = self.fault_plan.fire("admit") if self.fault_plan else None
+        if f is not None and f.action == "raise":
+            raise f.make_exc()         # before anything is taken
         plen = req.prompt.shape[0]
         mapped, digests, matched = self._match_prefix_cached(req)
         total = self.allocator.blocks_for(
@@ -1173,8 +1397,70 @@ class ServeEngine:
             # the slab's previous state is zeroed by the model's first
             # step for this slot (lengths == 0 blanking)
             self.state_store.mark_reset(slab)
-        return (free.pop(0), req, mapped + fresh, needed - n_fresh,
+        return ("fresh", free.pop(0), req, mapped + fresh, needed - n_fresh,
                 matched, digests, slab)
+
+    def _build_fresh_slot(self, join, mid_decode: bool) -> _PagedSlot:
+        _, slot_i, req, blocks, reserve, matched, digests, slab = join
+        if mid_decode:
+            self.n_joins += 1
+        if matched:
+            self.n_prefix_hits += 1
+            self.n_shared_tokens += matched
+        slot = _PagedSlot(req, blocks, reserve, prefill_off=matched,
+                          digests=list(digests))
+        self._page_table[slot_i, :] = 0
+        self._page_table[slot_i, :len(blocks)] = blocks
+        self._lengths[slot_i] = matched
+        self._state_slots[slot_i] = slab
+        return slot
+
+    def _restore_fit(self, req: SchedRequest, free: List[int]):
+        """Try to take resources to re-admit a preempted request.  No
+        prefix-share discount: every page is acquired private and the
+        spilled pages and slab are scattered back, so the restored slot
+        decodes as if it had never been preempted."""
+        plen = req.prompt.shape[0]
+        total = self.allocator.blocks_for(
+            min(plen + self.max_new_tokens, self.capacity))
+        if total > self.allocator.n_free - self._reserved:
+            return None
+        if self.state_store is not None and self.state_store.n_free == 0:
+            return None
+        n_now = self.allocator.blocks_for(max(req.length, 1))
+        blocks = self.allocator.acquire(n_now)
+        self._reserved += total - n_now
+        slab = 0
+        if self.state_store is not None:
+            slab = self.state_store.admit(req.rid)
+            self.state_store.mark_reset(slab)   # the scatter overwrites it
+        return ("restore", free.pop(0), req, blocks, total - n_now, slab)
+
+    def _build_restore_slot(self, join) -> _PagedSlot:
+        """Scatter a preempted request's spilled pages and slab into their
+        new physical homes and rebuild the slot mid-sequence.  Attention
+        reads go through the page table and the slab through the slot's
+        state slot, so decode resumes where it stopped."""
+        _, slot_i, req, blocks, reserve, slab = join
+        self._ensure_paged_cache()
+        if req.spill is not None:
+            self._paged_cache = self.model.scatter_paged_pages(
+                self._paged_cache, req.spill, self._block_ids(blocks), slab)
+        slot = _PagedSlot(req, blocks, reserve,
+                          prefill_off=len(req.prompt),
+                          digests=list(req.digests))
+        slot.tokens = list(req.tokens)
+        self._page_table[slot_i, :] = 0
+        self._page_table[slot_i, :len(blocks)] = blocks
+        self._lengths[slot_i] = req.length
+        self._state_slots[slot_i] = slab
+        self.n_restores += 1
+        if self.n_active > 0:
+            self.n_joins += 1
+        return slot
+
+    def _block_ids(self, blocks: List[int]) -> torch.Tensor:
+        return torch.as_tensor(blocks, dtype=torch.long, device=self.device)
 
     def _paged_cache_kwargs(self) -> Dict[str, Any]:
         """Keyword args for ``model.init_paged_cache`` beyond the block
@@ -1189,6 +1475,70 @@ class ServeEngine:
             self._paged_cache = self.model.init_paged_cache(
                 self.allocator.num_blocks, self.block_size,
                 dtype=self.cache_dtype, **self._paged_cache_kwargs())
+
+    # -- preemption ---------------------------------------------------------
+    def preempt(self, rid: int) -> bool:
+        """Spill the slot serving ``rid`` to host memory and re-queue it
+        at the front of its lane (an operator and test hook; admission
+        calls the same path for blocked interactive work).  Returns
+        False if ``rid`` is not in a slot."""
+        if not self.paged:
+            raise ValueError("preemption requires paged mode")
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.rid == rid and not slot.done:
+                with torch.inference_mode():
+                    self._preempt_slot(i)
+                return True
+        return False
+
+    def _preempt_for_interactive(self) -> bool:
+        """Spill the youngest running batch-lane slot (least cached work
+        lost) to make room for a blocked interactive candidate."""
+        victims = [(slot.adm_seq, i) for i, slot in enumerate(self._slots)
+                   if slot is not None and slot.lane == "batch"
+                   and not slot.done]
+        if not victims:
+            return False
+        self._preempt_slot(max(victims)[1])
+        return True
+
+    def _preempt_slot(self, slot_i: int) -> None:
+        """Evict slot ``slot_i`` mid-flight, keeping its work: a decoding
+        slot's used pages (and mamba state slab) are gathered to host
+        memory for the restore; a slot still mid-prefill (no token
+        emitted yet) is simply restarted — re-prefilling is
+        deterministic, so nothing observable is lost.  The request
+        re-enters the *front* of its lane."""
+        slot = self._slots[slot_i]
+        req = SchedRequest(rid=slot.rid, prompt=slot.prompt, lane=slot.lane,
+                           deadline=slot.deadline, tag=slot.tag,
+                           t_submit=slot.t_submit)
+        if slot.tokens and slot.prefill_off >= len(slot.prompt):
+            if self._slabs_ahead and self.state_store is not None:
+                raise RuntimeError(
+                    f"request {slot.rid}: a failed step may have advanced "
+                    "its state slab past the host mirror in place; its "
+                    "spill would not restore it")
+            L = int(self._lengths[slot_i])
+            n_pages = self.allocator.blocks_for(L)
+            payload = self.model.gather_paged_pages(
+                self._paged_cache, self._block_ids(slot.blocks[:n_pages]),
+                int(self._state_slots[slot_i]))
+            req.spill = bridge.to_torch(payload, "cpu")
+            req.length = L
+            req.tokens = list(slot.tokens)
+            req.digests = list(slot.digests)
+        self.allocator.release(slot.blocks)
+        if self.state_store is not None:
+            self.state_store.evict(slot.rid)
+        self._reserved -= slot.reserve_left
+        self._page_table[slot_i, :] = 0
+        self._lengths[slot_i] = 0
+        self._slots[slot_i] = None
+        self._dev.mark_dirty()
+        self.n_preemptions += 1
+        with self._lock:
+            self.scheduler.push(req, front=True)
 
     def _extend_blocks(self, slot_i: int, slot: _PagedSlot,
                        n_tokens: int) -> None:

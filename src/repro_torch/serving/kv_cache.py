@@ -300,6 +300,14 @@ class BlockAllocator:
         KV the table still advertises."""
         return block in self._key_of
 
+    def registered_blocks(self) -> Set[int]:
+        """Blocks currently addressable through the content table."""
+        return set(self._key_of)
+
+    def retained_blocks(self) -> Set[int]:
+        """Registered blocks at refcount 0 (on the LRU retained list)."""
+        return set(self._retained)
+
     def stats(self) -> Dict[str, int]:
         shared = self.n_shared
         return {"num_blocks": self.num_blocks, "n_free": self.n_free,
@@ -391,6 +399,15 @@ class BlockAllocator:
         self._free.append(block)
         self.n_retain_evictions += 1
         return True
+
+    def clear_registry(self) -> None:
+        """Forget every content-table entry and retire all retained
+        blocks to the plain free list (the device pool was rebuilt, so
+        every registered block advertises KV that no longer exists)."""
+        while self._retained:
+            self._retire_oldest_retained()
+        for b in list(self._key_of):
+            self._unregister(b)
 
     def _retire_oldest_retained(self) -> None:
         b = next(iter(self._retained))

@@ -83,7 +83,8 @@ def make_paged_mixed_step(model, *, eos_id, max_new, capacity):
     return mixed_step
 
 
-def make_paged_burst(model, *, eos_id, max_new, capacity, k_static: int):
+def make_paged_burst(model, *, eos_id, max_new, capacity, k_static: int,
+                     trace: bool = False):
     """Decode burst through the paged cache: up to ``k_max`` (paged_step
     + sample + state update) iterations per host round-trip, stopping
     early once no slot is active.  The host must have pre-extended every
@@ -102,13 +103,14 @@ def make_paged_burst(model, *, eos_id, max_new, capacity, k_static: int):
             nxt = greedy_sample(logits)
             st = _advance(st, nxt, emit, t_valid, eos=eos, max_new=max_new,
                           capacity=capacity)
-            return st, cache, nxt
+            return st, cache, nxt, logits
 
-        return _run_burst(cache, st, k_max, k_static, body_step)
+        return _run_burst(cache, st, k_max, k_static, body_step, trace)
     return burst
 
 
-def make_dense_burst(model, *, eos_id, max_new, k_static: int):
+def make_dense_burst(model, *, eos_id, max_new, k_static: int,
+                     trace: bool = False):
     """Dense-cache decode burst: all slots share one position ``pos``, a
     host int; step ``i`` decodes at ``pos + i``, so each layer's cache
     update is a slice write at a host index — no index tensor, no
@@ -126,36 +128,44 @@ def make_dense_burst(model, *, eos_id, max_new, k_static: int):
             nxt = greedy_sample(logits)
             st = _advance(st, nxt, emit, emit.to(torch.int32), eos=eos,
                           max_new=max_new)
-            return st, cache, nxt
+            return st, cache, nxt, logits
 
-        return _run_burst(cache, st, k_max, k_static, body_step)
+        return _run_burst(cache, st, k_max, k_static, body_step, trace)
     return burst
 
 
-def _run_burst(cache, st, k_max: int, k_static: int, body_step):
+def _run_burst(cache, st, k_max: int, k_static: int, body_step,
+               trace: bool = False):
     """Shared burst loop: run ``body_step(st, cache, i, emit) -> (st,
-    cache, nxt)`` up to ``k_max`` times, stopping early once no slot is
-    active, ring-buffering (token, valid) per step.  The early-out reads
-    the ``active`` flags back to the host before every step, and each
-    read blocks until the previous step has run (the reference's
+    cache, nxt, logits)`` up to ``k_max`` times, stopping early once no
+    slot is active, ring-buffering (token, valid) per step.  The early-out
+    reads the ``active`` flags back to the host before every step, and
+    each read blocks until the previous step has run (the reference's
     ``lax.while_loop`` tests them on the device).
 
-    Returns ``(cache, st, tok_buf, val_buf, n_flag_reads)``:
+    Returns ``(cache, st, tok_buf, val_buf, n_flag_reads, logit_buf)``:
     ``tok_buf[k, b]`` is slot ``b``'s token from burst step ``k`` (-1 and
     ``val_buf`` False where the slot emitted nothing); ``n_flag_reads``
-    counts those blocking reads."""
+    counts those blocking reads; ``logit_buf`` (``trace`` only, else
+    None) is the ``(k_static, B, V)`` f32 ring of each step's logits."""
     B = st["tokens"].shape[0]
     dev = st["tokens"].device
     tok_buf = torch.full((k_static, B), -1, dtype=torch.int32, device=dev)
     val_buf = torch.zeros((k_static, B), dtype=torch.bool, device=dev)
+    logit_buf = None
     i = n_flag_reads = 0
     while i < k_max:
         n_flag_reads += 1
         if not bool(st["active"].any()):
             break
         emit = st["active"]
-        st, cache, nxt = body_step(st, cache, i, emit)
+        st, cache, nxt, logits = body_step(st, cache, i, emit)
         tok_buf[i] = torch.where(emit, nxt, -1)
         val_buf[i] = emit
+        if trace:
+            if logit_buf is None:
+                logit_buf = torch.zeros((k_static,) + tuple(logits.shape),
+                                        dtype=torch.float32, device=dev)
+            logit_buf[i] = logits
         i += 1
-    return cache, st, tok_buf, val_buf, n_flag_reads
+    return cache, st, tok_buf, val_buf, n_flag_reads, logit_buf

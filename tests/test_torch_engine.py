@@ -106,7 +106,8 @@ def test_bf16_model_with_f32_pool_raises(pair):
     ({"paged": False, "share_prefix": True}, ValueError,
      "share_prefix=True requires paged mode"),
     ({"mesh": object()}, NotImplementedError, "A17"),
-    ({"fault_plan": object()}, NotImplementedError, "A7a")])
+    ({"paged": False, "kv_dtype": "int8"}, ValueError,
+     "int8' requires paged mode")])
 def test_unsupported_options_raise(pair, kw, exc, item):
     _, _, tm, tp = pair
     with pytest.raises(exc, match=item):
@@ -116,8 +117,8 @@ def test_unsupported_options_raise(pair, kw, exc, item):
 def test_unsupported_lane_family_and_listen_raise(pair):
     _, _, tm, tp = pair
     eng = ServeEngine(tm, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7c"):
-        eng.submit(np.arange(4, dtype=np.int32), lane="batch")
+    with pytest.raises(ValueError, match="unknown lane 'bulk'"):
+        eng.submit(np.arange(4, dtype=np.int32), lane="bulk")
     from repro_torch.models.config import MLAConfig, MoEConfig
     mla = TINY_SERVE.replace(family="moe", mla=MLAConfig(),
                              moe=MoEConfig(n_experts=4, d_expert=32))
@@ -127,8 +128,9 @@ def test_unsupported_lane_family_and_listen_raise(pair):
                        "A13")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7a"):
-        tserve.main(["--smoke", "--device", "cpu", "--listen", "0"])
+    with pytest.raises(SystemExit, match="unknown or empty lanes"):
+        tserve.main(["--smoke", "--device", "cpu", "--listen", "0",
+                     "--lanes", "interactive,bulk"])
     with pytest.raises(NotImplementedError, match="A10b"):
         tserve.main(["--device", "cpu", "--family", "xlstm"])
 

@@ -8,7 +8,8 @@ The reference's engine restarts (the wave's requests end with "lost in
 engine restart", queued work is served) and, past ``max_restarts``
 consecutive failures, fails everything with "engine wedged" and
 re-raises; the port must end every request the same way.  Paged mode
-keeps raising in the port (its restart needs the preemption path).
+restarts by spilling its survivors (``tests/test_torch_faults.py``) and,
+past ``max_restarts``, raises as the dense mode does.
 Weights come from the reference's ``init`` through the bridge; prompts
 from a seeded numpy generator.
 """
@@ -100,21 +101,34 @@ def test_past_the_restart_budget_everything_fails_and_raises(pair):
 
 
 def test_paged_step_failure_still_raises(pair, monkeypatch):
-    """Paged mode has no restart in the port (the reference's spills its
-    survivors through preemption, not ported): a failing step raises
-    and counts no failure."""
-    _, _, tm, tp = pair
-    eng = ServeEngine(tm, tp, device="cpu", batch_size=2, capacity=40,
-                      max_new_tokens=5, paged=True)
-
-    def fail(*a, **k):
-        raise RuntimeError("injected step failure")
-    monkeypatch.setattr(eng, "_mixed_fn", fail)
-    rids = [eng.submit(p) for p in _prompts((6, 9))]
-    with pytest.raises(RuntimeError, match="injected step failure"):
-        eng.step()
-    assert eng.n_step_failures == 0 and eng.n_restarts == 0
-    assert sorted(eng.inflight_rids()) == rids
+    """Paged mode restarts a failing step (tests/test_torch_faults.py);
+    past ``max_restarts`` it still raises, in both packages: max_restarts
+    =0, a failing mixed step fails both in-flight requests with "engine
+    wedged after 0 restarts: <exception>", re-raises, and leaves the
+    pool clean."""
+    jm, jp, tm, tp = pair
+    kw = dict(batch_size=2, capacity=40, max_new_tokens=5, paged=True,
+              max_restarts=0)
+    out = []
+    for eng in (JaxEngine(jm, jp, **kw),
+                ServeEngine(tm, tp, device="cpu", **kw)):
+        def fail(*a, **k):
+            raise RuntimeError("injected step failure")
+        monkeypatch.setattr(eng, "_mixed_fn", fail)
+        rids = [eng.submit(p) for p in _prompts((6, 9))]
+        with pytest.raises(RuntimeError, match="injected step failure"):
+            eng.step()
+        assert eng.n_step_failures == 1 and eng.n_restarts == 0
+        assert eng.inflight_rids() == []
+        stats = eng.pool_stats()
+        assert stats["n_live"] == stats["n_reserved"] == 0
+        assert stats["n_state_live"] == 0
+        out.append([eng._results[r] for r in rids])
+    for a, b in zip(*out):
+        assert a.status == b.status == "error"
+        assert (a.error == b.error
+                == WEDGED + "injected step failure")
+        np.testing.assert_array_equal(b.tokens, a.tokens)
 
 
 def test_cancel_and_inflight_rids_match_the_reference(pair):
