@@ -45,7 +45,9 @@ result line):
                  one split, one more, the whole cache), each decode entry
                  twice (the same bits), and the split-TF32 body's edges
                  (lengths 0, page straddles, T = 5 and 17; windows 16 and
-                 128 at S = 77).
+                 128 at S = 77).  K2 also at the speculative verify shape
+                 (smollm heads, B = 8, T = 5, bf16, ``_mma``) and the
+                 draft's T = 2 catch-up, timed.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -123,11 +125,34 @@ result line):
                  ``engine_step`` fault mid-decode (one restart), and a
                  full-width gather -> scatter -> gather of 37 blocks of
                  every layer's pool must be bit-exact.
+ 11. sampling and speculation — (a) at phase 4's size (the 2-layer f32
+                 smollm-headed model; the draft is its first layer, the
+                 same embedding and head): seeded sampling (temperature
+                 0.8, top_k 16, seed 11) paged and dense, the card's
+                 tokens equal to the CPU port's and paged == dense on the
+                 card (B2/B4 in the dense run, K1/K2 in the paged); greedy
+                 speculation (spec_k 4) equal to the CPU port's and to the
+                 card's own non-speculative run, sampled speculation equal
+                 to the CPU port's, K1 and K2 launched.  (b) smollm-360m at
+                 full width (bf16, bf16 pool; batch 8, chunk 32; 16
+                 requests of up to 512 prompt tokens, 64 new): the
+                 launcher's pipeline at ``--temperature 0.8 --top-k 50
+                 --seed 0`` (tok/s beside phase 5's greedy tok/s; the
+                 sampler's device operations and ms per call at (8,
+                 49152), the greedy argmax's beside them; a profiler trace
+                 of the sampled engine); the engine directly with a
+                 self-draft at spec_k 4, greedy (accept rate, tokens per
+                 round, tok/s against the same prompts without
+                 speculation, the share of equal tokens logged; K2 must
+                 run at T = 5, through ``_mma``); the launcher at
+                 ``--spec-k 4 --draft-config smollm-360m --temperature
+                 0.8`` (all 16 ok, accept rate logged).
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
-phase 7, B3/K2q from phase 8, B7 from phase 9); then the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.  The
-whole run takes ~4-7 minutes on one H100, the build included.
+phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
+phase 11's gated card runs); then the card's name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.  The whole run takes
+~4-7 minutes on one H100, the build included.
 """
 from __future__ import annotations
 
@@ -174,6 +199,7 @@ E4_CHAIN = "typecast:float32,divide:255.0,subtract:0.5,clamp:-0.5:0.5"
 SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
 JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
 BS, P, MAX_LEN = 16, 40, 600       # block size, pages per slot, lengths
+SPEC_K = 4                         # phase 11's draft tokens per round
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention/kernel.py:195",
     "paged_prefill_attention": "src/repro/kernels/flash_attention/kernel.py:67",
@@ -422,46 +448,60 @@ def phase_attention(timer: Timer):
     geometries = [("smollm", SMOLLM_HEADS, (4, 8),
                    [(f32, f32), (f32, bf16), (bf16, bf16)]),
                   ("jamba", JAMBA_HEADS, (8,), [(f32, f32), (bf16, bf16)])]
+    def case(name, kern, plain, T, decode, handle, geo, heads, B, qdt,
+             kvdt):
+        """Check one shape against the plain version (and that it ran its
+        entry); time it where q and K/V share a type.  Returns (max abs
+        error, timing row or None)."""
+        q, k, v, pt, lengths = _attn_case(B * 7 + T, B, T, qdt, kvdt, heads)
+        if decode:
+            q = q[:, 0].contiguous()
+        args = (q, k, v, pt, lengths)
+        n0 = handle.launches
+        entry = None if decode else \
+            fops.paged_prefill_entry(qdt, kvdt, heads["hd"])
+        e0 = handle.entry_launches.get(entry, 0)
+        out = kern(*args)
+        torch.cuda.synchronize()
+        check(handle.launches == n0 + 1, f"{name} did not launch")
+        check(entry is None or handle.entry_launches[entry] == e0 + 1,
+              f"{name} did not launch {entry}")
+        want = plain(*args)
+        check(torch.isfinite(out.float()).all().item(),
+              f"{name}: non-finite output")
+        err = (out.float() - want.float()).abs().max().item()
+        tol = TOL[kvdt]
+        tag = (f"{name} {geo} heads {heads['H']}/{heads['KV']} "
+               f"hd {heads['hd']} B={B} T={T} q={str(qdt)[6:]} "
+               f"kv={str(kvdt)[6:]}"
+               + ("" if entry is None else f" [{entry}]"))
+        check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+        line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
+        row = None
+        if qdt == kvdt:
+            row = _time_row(timer, kern, plain, args,
+                            _attn_library_call(*args, T, decode, heads),
+                            _attn_bound_ms(q, k, lengths, T, decode, heads))
+            line += _fmt(row)
+        log(line)
+        return err, row
+
     served = {}
     for name, kern, plain, T, decode, handle in specs:
         for geo, heads, batches, combos in geometries:
             for B in batches:
                 for qdt, kvdt in combos:
-                    q, k, v, pt, lengths = _attn_case(B * 7 + T, B, T, qdt,
-                                                      kvdt, heads)
-                    if decode:
-                        q = q[:, 0].contiguous()
-                    args = (q, k, v, pt, lengths)
-                    n0 = handle.launches
-                    entry = None if decode else \
-                        fops.paged_prefill_entry(qdt, kvdt, heads["hd"])
-                    e0 = handle.entry_launches.get(entry, 0)
-                    out = kern(*args)
-                    torch.cuda.synchronize()
-                    check(handle.launches == n0 + 1, f"{name} did not launch")
-                    check(entry is None
-                          or handle.entry_launches[entry] == e0 + 1,
-                          f"{name} did not launch {entry}")
-                    want = plain(*args)
-                    check(torch.isfinite(out.float()).all().item(),
-                          f"{name}: non-finite output")
-                    err = (out.float() - want.float()).abs().max().item()
-                    tol = TOL[kvdt]
-                    tag = (f"{name} {geo} heads {heads['H']}/{heads['KV']} "
-                           f"hd {heads['hd']} B={B} T={T} q={str(qdt)[6:]} "
-                           f"kv={str(kvdt)[6:]}"
-                           + ("" if entry is None else f" [{entry}]"))
-                    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-                    line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
-                    if qdt == kvdt:
-                        row = _time_row(
-                            timer, kern, plain, args,
-                            _attn_library_call(*args, T, decode, heads),
-                            _attn_bound_ms(q, k, lengths, T, decode, heads))
-                        line += _fmt(row)
-                        if geo == "smollm" and B == 8 and kvdt == bf16:
-                            served[name] = dict(max_abs_err=err, **row)
-                    log(line)
+                    err, row = case(name, kern, plain, T, decode, handle,
+                                    geo, heads, B, qdt, kvdt)
+                    if row is not None and geo == "smollm" and B == 8 \
+                            and kvdt == bf16:
+                        served[name] = dict(max_abs_err=err, **row)
+    # the speculative verify step: T = spec_k + 1 = 5 tokens per row
+    # (phase 11's shape), and the draft's T = 2 catch-up
+    for T in (SPEC_K + 1, 2):
+        case("paged_prefill_attention", fops.paged_prefill_attention,
+             fops.paged_prefill_attention_plain, T, False, fops.KERNEL,
+             "smollm", SMOLLM_HEADS, 8, bf16, bf16)
     log(f"[kernels] attention tolerance: f32 1e-5; {TOL_REASON}")
     return served
 
@@ -1128,7 +1168,7 @@ def phase_main_path(kernels):
         f"({eng.n_prefill_chunks} mixed, {decoded - eng.n_prefill_chunks} "
         f"decode) x 32 layers; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, eng
+    return launches, eng, out["total_tokens"] / out["wall_s"]
 
 
 def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512):
@@ -1711,6 +1751,257 @@ def phase_front_door(kernels, card: str) -> None:
         f"to the server run's batch lane: {same}/{8 * FRONT_NEW} (logged)")
 
 
+# -- phase 11 -------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=16, seed=11)   # phase 11(a)
+
+
+def _tally(kernels, acc) -> dict:
+    """This run's launches (added to ``acc``, phase 11's total); the
+    counts are reset for the next run."""
+    launches = {k.name: k.launches for k in kernels}
+    for n, c in launches.items():
+        acc[n] = acc.get(n, 0) + c
+    reset(kernels)
+    return launches
+
+
+def _first_layers(params, n: int):
+    """The params of the stack's first ``n`` layers (periodic leaves carry
+    a leading layer axis): the draft of phase 11(a) is the target cut to
+    one layer, sharing its embedding, norms and head."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n].contiguous()
+    return dict(params, blocks=cut(params["blocks"]))
+
+
+def phase_sampling_spec_small(kernels, acc) -> None:
+    """Phase 11(a): seeded sampling and speculative decoding at phase 4's
+    size, the card against the CPU port."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("smollm-360m").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    dcfg = cfg.replace(arch_id="smollm-360m-1layer", n_layers=1)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        m, d = build_model(cfg, device=dev), build_model(dcfg, device=dev)
+        models[dev] = (m, d)
+    params = {"cpu": models["cpu"][0].init(seed=0)}
+    params["cuda"] = bridge.to_torch(params["cpu"], "cuda")
+    dparams = {dev: _first_layers(p, 1) for dev, p in params.items()}
+    rng = np.random.default_rng(11)
+    # equal lengths and one per slot: the dense engine prefills one
+    # un-padded wave, so both modes decode at the same positions
+    wave = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+            for _ in range(4)]
+    rng = np.random.default_rng(4)
+    mixed = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in (37, 5, 70, 18, 33, 50)]
+
+    def serve(dev, prompts, spec=False, **kw):
+        model, draft = models[dev]
+        kw = dict(dict(batch_size=4, capacity=128, max_new_tokens=8,
+                       burst=4, prefill_chunk=32, block_size=16), **kw)
+        if spec:
+            kw.update(draft_model=draft, draft_params=dparams[dev],
+                      spec_k=SPEC_K)
+        eng = ServeEngine(model, params[dev], device=dev, **kw)
+        res = eng.serve(prompts)
+        check(all(r.status == "ok" for r in res) and eng.n_step_failures == 0,
+              f"[sample] {dev} {kw.get('paged')} spec={spec}: "
+              f"{[r.status for r in res]}")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return eng, [r.tokens.tolist() for r in res]
+
+    toks = {}
+    for paged, path in ((True, PAGED_KERNELS), (False, DENSE_KERNELS)):
+        _, want = serve("cpu", wave, paged=paged, **SAMPLED)
+        reset(kernels)
+        _, got = serve("cuda", wave, paged=paged, **SAMPLED)
+        launches = _tally(kernels, acc)
+        check(got == want, f"[sample] paged={paged}: cuda {got} != cpu {want}")
+        check(all(launches[n] > 0 for n in path)
+              and all(launches[n] == 0 for n in ATTN_KERNELS
+                      if n not in path),
+              f"[sample] paged={paged}: launches {launches}")
+        toks[paged] = got
+        log(f"[sample] 2-layer f32 smollm heads, paged={paged}, temperature "
+            f"0.8, top_k 16, seed 11: 4 x 40-token prompts, sampled tokens "
+            f"on cuda == cpu; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+    check(toks[True] == toks[False],
+          f"[sample] paged {toks[True]} != dense {toks[False]} on cuda")
+    _, greedy = serve("cuda", wave)
+    reset(kernels)
+    check(greedy != toks[True], "[sample] the sampled run drew the greedy "
+          "tokens")
+    log("[sample] paged == dense on cuda; sampled != greedy")
+    for tag, kw in (("greedy", {}), ("sampled", SAMPLED)):
+        _, want = serve("cpu", mixed, spec=True, **kw)
+        _, plain = serve("cuda", mixed, **kw)
+        reset(kernels)
+        eng, got = serve("cuda", mixed, spec=True, **kw)
+        launches = _tally(kernels, acc)
+        check(got == want, f"[spec] {tag}: cuda {got} != cpu {want}")
+        check(tag != "greedy" or got == plain,
+              f"[spec] greedy spec {got} != non-spec {plain} on cuda")
+        check(all(launches[n] > 0 for n in PAGED_KERNELS),
+              f"[spec] {tag}: launches {launches}")
+        ls = eng.loop_stats()
+        log(f"[spec] 2-layer f32 smollm heads, 1-layer draft (the target's "
+            f"first layer), spec_k {SPEC_K}, {tag}: {len(mixed)} requests, "
+            f"tokens on cuda == cpu"
+            + (" == cuda non-spec" if tag == "greedy" else "")
+            + f"; {ls['n_spec_rounds']} rounds -> {ls['n_spec_tokens']} "
+            f"tokens, accept rate {ls['spec_accept_rate']:.3f}, hist "
+            f"{ls['spec_accept_hist']}; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+
+
+def _sampler_cost(sample, B: int, V: int, tag: str) -> None:
+    """The device operations and the time of one sampler call at the
+    served shape (the sampled engine calls it once per device step):
+    operations from a profiler trace, ms per call from CUDA events around
+    20 calls back to back (host-bound: it holds the launch gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cpu").manual_seed(0)
+    logits = (torch.randn((B, V), generator=g) * 3).to("cuda")
+    rids = torch.arange(B, dtype=torch.int32, device="cuda")
+    steps = torch.full((B,), 17, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        sample(logits, rids, steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sample(logits, rids, steps)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if not RUNTIME_CALL.match(e.key)]
+    n_ops = sum(r[2] for r in rows)
+    busy = sum(r[1] for r in rows) / 1e3
+    s, e = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(20):
+        sample(logits, rids, steps)
+    e.record()
+    torch.cuda.synchronize()
+    log(f"[{tag}] sampler at ({B}, {V}): {n_ops} device operations per "
+        f"call (= per device step), {busy:.4f} ms of device time, "
+        f"{s.elapsed_time(e) / 20:.4f} ms per call back to back")
+
+
+def phase_sampling_spec(kernels, acc, card: str, greedy_tok_s: float):
+    """Phase 11(b): smollm-360m at full width: seeded sampling through the
+    launcher's pipeline, then greedy speculation with a self-draft on the
+    engine directly, then sampled speculation through the launcher with
+    a second smollm-360m (seed 1) as the draft."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeEngine
+    argv = ["--arch", "smollm-360m", "--kv-dtype", "bf16", "--requests",
+            "16", "--batch", "8", "--prompt-len", str(FRONT_PLEN),
+            "--max-new", str(FRONT_NEW), "--device", "cuda"]
+    reset(kernels)
+    out = serve.main(argv + ["--temperature", "0.8", "--top-k", "50",
+                             "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = _tally(kernels, acc)
+    check(out["n_results"] == 16 and out["total_tokens"] == 16 * FRONT_NEW,
+          f"[sample] served {out['n_results']} / {out['total_tokens']}")
+    check(all(launches[n] > 0 for n in PAGED_KERNELS),
+          f"[sample] launches {launches}")
+    tok_s = out["total_tokens"] / out["wall_s"]
+    log(f"[sample] smollm-360m full width through the pipeline, "
+        f"temperature 0.8, top_k 50, seed 0: {tok_s:.1f} tok/s against "
+        f"phase 5's greedy {greedy_tok_s:.1f} (this call); {card}")
+    eng = out["engine"]
+    # the launcher's model (seed 0) serves the self-draft run below too
+    model, params = eng.model, eng.params
+    _sampler_cost(eng._sample, 8, eng.model.cfg.vocab_size, "sample")
+    greedy_sample = importlib.import_module(
+        "repro_torch.serving.steps").greedy_sample
+    _sampler_cost(lambda l, r, t: greedy_sample(l), 8,
+                  eng.model.cfg.vocab_size, "greedy")
+    reset(kernels)
+    phase_trace(eng, "sample")
+    reset(kernels)
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = serve.make_requests(model.cfg.vocab_size, 16, FRONT_PLEN)
+    kw = dict(batch_size=8, capacity=FRONT_PLEN + FRONT_NEW + 8,
+              max_new_tokens=FRONT_NEW, prefill_chunk=32, block_size=16,
+              burst=8, kv_dtype="bf16", device="cuda")
+    t0 = time.perf_counter()
+    plain = ServeEngine(model, params, **kw).serve(prompts, timeout_s=600)
+    plain_s = time.perf_counter() - t0
+    reset(kernels)
+    real, shapes = fops.paged_prefill_attention, {}
+
+    def spy(q, *args, **kwargs):
+        shapes[q.shape[1]] = shapes.get(q.shape[1], 0) + 1
+        return real(q, *args, **kwargs)
+    fops.paged_prefill_attention = spy
+    try:
+        eng = ServeEngine(model, params, draft_model=model,
+                          draft_params=params, spec_k=SPEC_K, **kw)
+        t0 = time.perf_counter()
+        res = eng.serve(prompts, timeout_s=600)
+        torch.cuda.synchronize()
+        spec_s = time.perf_counter() - t0
+    finally:
+        fops.paged_prefill_attention = real
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_bf16_bf16_mma", "spec")
+    launches = _tally(kernels, acc)
+    check(all(r.status == "ok" and len(r.tokens) == FRONT_NEW
+              for r in res + plain), "[spec] self-draft run failed")
+    check(shapes.get(SPEC_K + 1, 0) > 0
+          and launches["paged_decode_attention"] > 0,
+          f"[spec] K2 calls by T {shapes}, launches {launches}")
+    ls = eng.loop_stats()
+    total = sum(len(r.tokens) for r in res)
+    same = sum(int((a.tokens == b.tokens).sum()) for a, b in zip(res, plain))
+    log(f"[spec] smollm-360m full width, self-draft, spec_k {SPEC_K}, "
+        f"greedy, engine direct: {ls['n_spec_rounds']} rounds -> "
+        f"{ls['n_spec_tokens']} tokens "
+        f"({ls['n_spec_tokens'] / max(1, ls['n_spec_rounds']):.2f} per "
+        f"round), accept rate {ls['spec_accept_rate']:.3f}, hist "
+        f"{ls['spec_accept_hist']}; {total / spec_s:.1f} tok/s against "
+        f"{16 * FRONT_NEW / plain_s:.1f} without speculation (direct, same "
+        f"call); tokens equal to the non-spec run {same}/{16 * FRONT_NEW} "
+        f"(logged, not gated: bf16 need not be batch-invariant); K2 calls "
+        f"by T {dict(sorted(shapes.items()))}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; {card}")
+    del eng, res, plain, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = serve.main(argv + ["--spec-k", str(SPEC_K), "--draft-config",
+                             "smollm-360m", "--temperature", "0.8"])
+    torch.cuda.synchronize()
+    launches = _tally(kernels, acc)
+    check(out["n_results"] == 16 and out["total_tokens"] == 16 * FRONT_NEW,
+          f"[spec] launcher served {out['n_results']} / "
+          f"{out['total_tokens']}")
+    check(all(launches[n] > 0 for n in PAGED_KERNELS),
+          f"[spec] launcher launches {launches}")
+    ls = out["engine"].loop_stats()
+    log(f"[spec] launcher, --spec-k {SPEC_K} --draft-config smollm-360m "
+        f"(random, seed 1) --temperature 0.8: 16 requests ok, "
+        f"{out['total_tokens'] / out['wall_s']:.1f} tok/s, accept rate "
+        f"{ls['spec_accept_rate']:.3f}, "
+        f"{ls['n_spec_tokens'] / max(1, ls['n_spec_rounds']):.2f} tokens "
+        f"per round; launches { {n: c for n, c in launches.items() if c} }")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1749,7 +2040,7 @@ def main() -> None:
     served["fused_transform"] = phase_transform(timer)
     del timer
     phase_engine(kernels)
-    launches5, eng = phase_main_path(kernels)
+    launches5, eng, tok_s5 = phase_main_path(kernels)
     d2h, _ = phase_trace(eng, "main")
     # the split decode reads no device tensor on the host: 2.22 copies per
     # step before and after it (a read per decode call would add 32)
@@ -1779,6 +2070,11 @@ def main() -> None:
     phase_front_door(kernels, card)
     gc.collect()
     torch.cuda.empty_cache()
+    launches11: dict = {}
+    phase_sampling_spec_small(kernels, launches11)
+    phase_sampling_spec(kernels, launches11, card, tok_s5)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],
@@ -1791,6 +2087,7 @@ def main() -> None:
     rows = [dict(name=k.name, route="cuda",
                  source=str(k.source.relative_to(ROOT)),
                  replaces=REPLACES[k.name], launches=launches[k.name],
+                 launches_phase11=launches11.get(k.name, 0),
                  **served[k.name]) for k in kernels]
     print(json.dumps({"kernels": rows}))
     print(card)

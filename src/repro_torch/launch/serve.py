@@ -21,6 +21,10 @@ are random, drawn from seed 0.
         --kv-dtype int8              # int8 paged KV (an f32 model)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --listen 0 --lanes interactive,batch   # over loopback TCP
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --temperature 0.8 --top-k 50 --seed 0  # seeded sampling
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --spec-k 4                   # speculative decoding, tiny draft
 
 With ``--listen PORT`` the engine serves over TCP behind the
 tensor-query elements (``serving/net.py``); with ``--smoke`` a loopback
@@ -65,6 +69,42 @@ _UNPORTED_FAMILIES = ("xlstm",)
 _RECURRENT_FAMILIES = ("mamba", "hybrid", "xlstm")
 
 
+def _print_spec_stats(engine) -> None:
+    ls = engine.loop_stats()
+    if "n_spec_rounds" not in ls:
+        return
+    rounds = max(1, ls["n_spec_rounds"])
+    print(f"speculative: K={ls['spec_k']}, {ls['n_spec_rounds']} rounds -> "
+          f"{ls['n_spec_tokens']} tokens "
+          f"({ls['n_spec_tokens'] / rounds:.2f}/round), accept rate "
+          f"{ls['spec_accept_rate']:.2f}, hist {ls['spec_accept_hist']}")
+
+
+def draft_config(cfg: ModelConfig, name: str, smoke: bool) -> ModelConfig:
+    """``--draft-config``: an ``--arch`` id sharing the target's
+    vocabulary, or ``tiny``, a shrunken copy of the target (half the
+    layers, width and heads; the same head_dim and vocabulary).  Raises
+    ``ValueError`` where the tiny copy's query heads do not group over
+    its KV heads (smollm-360m's 15/5 heads give 7/5), a draft on which
+    the reference fails its first step."""
+    if name != "tiny":
+        return get_config(name, smoke=smoke)
+    dcfg = cfg.replace(
+        arch_id=f"{cfg.arch_id}-draft",
+        n_layers=max(1, cfg.n_layers // 2),
+        d_model=max(2 * cfg.n_heads, cfg.d_model // 2),
+        n_heads=max(1, cfg.n_heads // 2),
+        n_kv_heads=max(1, min(cfg.n_kv_heads, cfg.n_heads // 2)),
+        d_ff=max(4, cfg.d_ff // 2) if cfg.d_ff else cfg.d_ff)
+    if dcfg.n_heads % dcfg.n_kv_heads:
+        raise ValueError(
+            f"--draft-config tiny: the shrunken copy of {cfg.arch_id} has "
+            f"{dcfg.n_heads} query heads over {dcfg.n_kv_heads} KV heads, "
+            "which do not group; pass --draft-config ARCH (an --arch id "
+            "sharing the target's vocabulary, e.g. the target's own)")
+    return dcfg
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-360m")
@@ -102,8 +142,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="map requests' common prompt prefixes onto "
                          "already-resident KV blocks (copy-on-write)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="0 = greedy decode (> 0: not ported yet, "
-                         "ROADMAP A8)")
+                    help="0 = greedy decode; > 0 samples from "
+                         "softmax(logits / temperature)")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="restrict sampling to the k highest logits")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling PRNG seed (per-request, per-step keys "
+                         "are derived from it, the same in either mode)")
     ap.add_argument("--shared-prompt", type=int, default=0,
                     help="give every request this many identical leading "
                          "prompt tokens (exercises prefix sharing)")
@@ -143,7 +188,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "model needs bf16; int8: paged only, an f32 model "
                          "such as --smoke's)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative decoding (not ported yet, ROADMAP A11)")
+                    help="speculative decoding: draft tokens proposed and "
+                         "verified per burst round (0 = off; paged "
+                         "transformer-family targets only: recurrent "
+                         "state cannot roll back rejected tokens)")
+    ap.add_argument("--draft-config", default=None, metavar="ARCH",
+                    help="--spec-k: the draft model, an --arch id sharing "
+                         "the target's vocabulary, or 'tiny' for a "
+                         "shrunken copy of the target config (the default "
+                         "when --spec-k > 0); random weights from seed 1")
     ap.add_argument("--burst", type=int, default=8,
                     help="decode burst length K: device steps per host "
                          "drain when no admissions/prefills are pending")
@@ -261,8 +314,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         cfg = get_config(args.arch, smoke=args.smoke)
     if args.smoke:
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    dcfg = None
+    if args.spec_k > 0:
+        # before any weights are made: the tiny draft may be refused
+        dcfg = draft_config(cfg, args.draft_config or "tiny", args.smoke)
+        if args.smoke:
+            dcfg = dcfg.replace(param_dtype="float32",
+                                compute_dtype="float32")
     model = build_model(cfg, device=args.device)
     params = model.init(seed=0)
+    draft_model = draft_params = None
+    if dcfg is not None:
+        draft_model = build_model(dcfg, device=args.device)
+        draft_params = draft_model.init(seed=1)
+        print(f"speculative decoding: K={args.spec_k}, draft "
+              f"{dcfg.arch_id} ({dcfg.n_layers}L d{dcfg.d_model})")
     tri = {"auto": None, "on": True, "off": False}
     engine = ServeEngine(model, params, batch_size=args.batch,
                          capacity=args.prompt_len + args.max_new + 8,
@@ -274,8 +340,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          share_prefix=tri[args.share_prefix],
                          num_state_slots=args.num_state_slots,
                          burst=args.burst, temperature=args.temperature,
+                         top_k=args.top_k, seed=args.seed,
                          mesh=args.mesh, retain_cap=args.retain_cap,
                          retain_ttl_s=args.retain_ttl_s,
+                         draft_model=draft_model, draft_params=draft_params,
                          spec_k=args.spec_k, kv_dtype=args.kv_dtype,
                          device=model.device)
 
@@ -311,6 +379,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{ls['n_flag_reads']} reads of the active flags, "
           f"{ls['n_state_uploads']} state uploads, "
           f"{ls['n_burst_early_exits']} early exits")
+    _print_spec_stats(engine)
     if engine.paged:
         a = engine.allocator
         s = engine.pool_stats()
@@ -398,6 +467,7 @@ def serve_listen(engine: ServeEngine, requests: List[np.ndarray],
               f"joins={engine.n_joins} evictions={engine.n_evictions} "
               f"preemptions={engine.n_preemptions} "
               f"restores={engine.n_restores} expired={engine.n_expired}")
+        _print_spec_stats(engine)
         out.update(n_results=len(results), total_tokens=total, wall_s=wall,
                    results=results)
         return out

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine, greedy, in its paged and dense
-modes (port of the greedy subset of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine, in its paged and dense modes
+(port of ``repro/serving/engine.py``).
 
 Requests enter a thread-safe queue (``submit``) and are scheduled into a
 fixed array of ``batch_size`` *slots*; the decode loop never waits for a
@@ -78,8 +78,25 @@ never preempted; a slot still mid-prefill is simply restarted.  A
 queued request whose ``deadline`` (relative TTFT budget) passes fails
 with ``"expired"``.
 
-Sampling is greedy argmax.  The attention of every step runs through the
-hand-written CUDA kernels on a CUDA device (``models/attention.py``).
+**Sampling** — ``temperature == 0`` (the default) is greedy argmax;
+``temperature > 0`` draws from ``softmax(logits / temperature)``, cut to
+the ``top_k`` highest logits, with the per-row key ``fold_in(fold_in(
+PRNGKey(seed), rid), step)`` (threefry, ``prng.py``).  One sampler core
+serves both modes, so a request draws the same tokens paged or dense,
+alone or in any batch.  ``generate_batch`` stays greedy.
+
+**Speculative decoding** — with ``spec_k > 0`` (paged mode) a small
+``draft_model`` runs ``spec_k`` tokens ahead inside each decode burst
+round, the target verifies every drafted position in one
+T = ``spec_k`` + 1 paged step, and the rejection-sampling rule keeps the
+output distribution the target's (greedy output equals non-speculative
+greedy output token for token).  The draft's KV pool shadows the target
+pool block for block, through the same page tables; it spills and
+restores beside the target pool on preemption.  Recurrent targets and
+drafts, int8 pools and prefix sharing are refused, as in the reference.
+
+The attention of every step runs through the hand-written CUDA kernels
+on a CUDA device (``models/attention.py``).
 
 **Bounded restart** — a failing step is non-attributable, so the engine
 restarts: in paged mode every live slot is spilled through the
@@ -98,11 +115,9 @@ reads per-row ``prompt_len``/``lane``/``deadline``/``tag`` metadata and
 writes ``status``/``ttft_s``/``n_tokens`` back (``net.py`` serves the
 engine over TCP through them).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: seeded sampling (``temperature > 0``, A8), speculative decoding
-(A11), ``mesh=`` (A17).  In dense mode ``share_prefix``, ``spec_k``,
-int8 KV and ``mesh=`` raise the reference's ``ValueError``: they need
-the block pool.
+Not ported yet: ``mesh=`` (A17) raises ``NotImplementedError``.  In
+dense mode ``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
+reference's ``ValueError``: they need the block pool.
 """
 from __future__ import annotations
 
@@ -116,11 +131,14 @@ import torch
 
 from .. import bridge
 from ..models.common import dtype_of, resolve_device
-from .kv_cache import (ROOT_DIGEST, BlockAllocator, CacheFullError,
-                       DeviceSlotState, StateStore, chain_digest)
+from .kv_cache import (ROOT_DIGEST, SPEC_STATE_KEYS, BlockAllocator,
+                       CacheFullError, DeviceSlotState, StateStore,
+                       chain_digest)
 from .scheduler import SchedRequest, Scheduler
 from .steps import (greedy_sample, make_dense_burst, make_paged_burst,
-                    make_paged_mixed_step, make_prefill_step)
+                    make_paged_mixed_step, make_paged_spec_burst,
+                    make_paged_spec_mixed_step, make_prefill_step,
+                    make_sampler_core)
 
 
 @dataclasses.dataclass
@@ -164,7 +182,8 @@ class _PagedSlot:
     lives in the engine's ``_lengths`` array; this tracks ownership."""
     __slots__ = ("rid", "prompt", "tokens", "t_submit", "done", "blocks",
                  "reserve_left", "prefill_off", "digests", "lane",
-                 "deadline", "tag", "status", "t_first", "adm_seq")
+                 "deadline", "tag", "status", "t_first", "adm_seq",
+                 "spec_rounds", "spec_deficit", "spec_prev")
 
     def __init__(self, req: SchedRequest, blocks: List[int],
                  reserve_left: int, prefill_off: int = 0,
@@ -185,34 +204,90 @@ class _PagedSlot:
         self.t_first: Optional[float] = None
         self.adm_seq = 0              # admission order (preemption picks
         #                               the youngest batch-lane slot)
+        # host mirrors of the speculative slot-state keys (spec engines
+        # only): rounds run (PRNG stream position), draft-cache deficit
+        # (0/1 positions the draft KV trails the target), and the token
+        # at cache position lengths-1 (the deficit catch-up input)
+        self.spec_rounds = 0
+        self.spec_deficit = 0
+        self.spec_prev = 0
 
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+def _check_speculative(model, draft_model, draft_params, mesh,
+                       prefill_chunk: int, share_prefix) -> None:
+    """The reference's refusals of a speculative (``spec_k > 0``) paged
+    engine, in its order and with its messages."""
+    if draft_model is None or draft_params is None:
+        raise ValueError(
+            "spec_k > 0 requires draft_model= and draft_params= "
+            "(a small model sharing the target's vocabulary)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "speculative decoding under mesh= is not implemented "
+            "yet: the draft pool needs its own sharding specs and "
+            "the accept rule a replicated gather per drafted "
+            "position")
+    if prefill_chunk < 2:
+        raise ValueError(
+            "spec_k > 0 requires prefill_chunk >= 2: the draft's "
+            "deficit catch-up feeds two tokens through the mixed "
+            f"megastep, got prefill_chunk={prefill_chunk}")
+    for role, m in (("target", model), ("draft", draft_model)):
+        if not m.supports_speculative():
+            raise ValueError(
+                f"spec_k > 0 but the {role} model "
+                f"{type(m).__name__} (family={m.cfg.family!r}) "
+                "has recurrent layers: rejected tokens roll back by "
+                "arithmetic on per-slot lengths, and a recurrent "
+                "state slab advanced through rejected tokens cannot "
+                "be rolled back.  Serve this family with spec_k=0.")
+    tv, dv = model.cfg.vocab_size, draft_model.cfg.vocab_size
+    if tv != dv:
+        raise ValueError(
+            f"draft/target vocab mismatch: target {tv} vs draft {dv} — "
+            "speculative decoding requires a shared tokenizer/vocabulary")
+    if share_prefix:
+        raise ValueError(
+            "share_prefix=True is incompatible with spec_k > 0: the "
+            "draft KV rides the same page tables as the target, but "
+            "COW forks and content registration only cover the "
+            "target pool.  Leave share_prefix on auto (speculative "
+            "mode disables it) or set it False.")
+
+
 class ServeEngine:
     def __init__(self, model, params, *, batch_size: int = 4,
                  capacity: int = 256, max_new_tokens: int = 16,
-                 cache_dtype=torch.float32, temperature: float = 0.0,
-                 eos_id: Optional[int] = None,
+                 cache_dtype=torch.float32, greedy: Optional[bool] = None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 seed: int = 0, eos_id: Optional[int] = None,
                  paged: Optional[bool] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
                  share_prefix: Optional[bool] = None,
                  num_state_slots: Optional[int] = None, burst: int = 1,
                  trace_logits: bool = False, mesh=None,
                  retain_cap: Optional[int] = None,
-                 retain_ttl_s: Optional[float] = None, spec_k: int = 0,
+                 retain_ttl_s: Optional[float] = None, draft_model=None,
+                 draft_params=None, spec_k: int = 0,
                  kv_dtype: Optional[str] = None, fault_plan=None,
                  max_restarts: int = 3, device=None):
-        if temperature < 0:
-            raise ValueError(f"temperature must be >= 0, got {temperature}")
-        if temperature > 0:
-            raise NotImplementedError(
-                "temperature > 0: seeded sampling is not ported yet "
-                "(ROADMAP A8); serve greedily (temperature=0)")
         if kv_dtype not in (None, "f32", "bf16", "int8"):
             raise ValueError(
                 f"kv_dtype must be 'f32', 'bf16' or 'int8', got {kv_dtype!r}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k is not None and top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        # temperature drives the mode: 0 (the default) is exactly the
+        # greedy path, > 0 samples; an explicit greedy=True still wins
+        self._greedy = (temperature == 0) if greedy is None \
+            else bool(greedy) or temperature == 0
+        self.temperature = temperature
+        self.top_k = top_k
+        self.seed = seed
         # paged mode: auto-on when the model supports it
         has_paged = model.supports_paged()
         if paged and not has_paged:
@@ -231,7 +306,7 @@ class ServeEngine:
                 raise ValueError(
                     "share_prefix=True requires paged mode (the dense cache "
                     "has no block pool to share)")
-            if spec_k:
+            if spec_k > 0:
                 raise ValueError(
                     "spec_k > 0 requires paged mode: speculative rollback "
                     "is arithmetic on per-slot lengths, which only the "
@@ -243,7 +318,7 @@ class ServeEngine:
                     "cache stays full precision)")
         if kv_dtype == "int8":
             # the reference's int8 gates
-            if spec_k:
+            if spec_k > 0:
                 raise ValueError(
                     "kv_dtype='int8' is incompatible with spec_k > 0: the "
                     "draft pool and the greedy verify-identity guarantee "
@@ -254,19 +329,25 @@ class ServeEngine:
                     "kv_dtype='int8' under mesh= is not implemented yet: "
                     "the f32 scale pools need audited sharding specs "
                     "before the quantized pool can be distributed")
-        if spec_k:
-            raise NotImplementedError(
-                "spec_k > 0: speculative decoding is not ported yet "
-                "(ROADMAP A11)")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.spec_k = int(spec_k)
+        self.draft_model = draft_model
+        self.draft_params = draft_params
+        self._spec = self.spec_k > 0
+        if self._spec:
+            _check_speculative(model, draft_model, draft_params, mesh,
+                               prefill_chunk, share_prefix)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: multi-device serving is not ported yet (ROADMAP A17)")
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, engine on "
-                             f"{self.device}: build both on one device")
+        for role, m in (("model", model), ("draft model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(f"{role} lives on {m.device}, engine on "
+                                 f"{self.device}: build both on one device")
         if kv_dtype in _KV_DTYPES:
             cache_dtype = _KV_DTYPES[kv_dtype]
         compute = dtype_of(model.cfg.compute_dtype)
@@ -323,6 +404,10 @@ class ServeEngine:
                 "it.  Run with share_prefix=False (or leave it on auto).")
         self.share_prefix = (self.paged and sharable) \
             if share_prefix is None else bool(share_prefix)
+        if self._spec:
+            # the draft KV rides the target's page tables, but COW forks
+            # and content registration only cover the target pool
+            self.share_prefix = False
         self._pages_per_slot = -(-capacity // block_size)
         if num_blocks is None:
             num_blocks = batch_size * self._pages_per_slot
@@ -342,19 +427,36 @@ class ServeEngine:
         self._state_slots = np.zeros((batch_size,), np.int32)
         self._reserved = 0            # lazily-claimable blocks promised out
         self._paged_cache = None
+        self._draft_cache = None      # spec: the draft's shadow pool
         self._prefill = make_prefill_step(model, capacity, cache_dtype)
-        if self.paged:
+        # both modes draw tokens through one sampler core, so a given
+        # (seed, request, step) yields the same token either way; the
+        # megasteps call it, and the dense admission wave calls it alone
+        self._sample = make_sampler_core(seed, greedy=self._greedy,
+                                         temperature=temperature or 1.0,
+                                         top_k=top_k)
+        if self.paged and self._spec:
+            self._mixed_fn = make_paged_spec_mixed_step(
+                model, draft_model, self._sample, eos_id=eos_id,
+                max_new=max_new_tokens, capacity=capacity)
+            self._burst_fn = make_paged_spec_burst(
+                model, draft_model, eos_id=eos_id, max_new=max_new_tokens,
+                capacity=capacity, spec_k=self.spec_k,
+                k_static=self.max_burst, seed=seed, greedy=self._greedy,
+                temperature=temperature or 1.0, top_k=top_k,
+                trace=trace_logits)
+        elif self.paged:
             self._mixed_fn = make_paged_mixed_step(
-                model, eos_id=eos_id, max_new=max_new_tokens,
+                model, self._sample, eos_id=eos_id, max_new=max_new_tokens,
                 capacity=capacity)
             self._burst_fn = make_paged_burst(
-                model, eos_id=eos_id, max_new=max_new_tokens,
+                model, self._sample, eos_id=eos_id, max_new=max_new_tokens,
                 capacity=capacity, k_static=self.max_burst,
                 trace=trace_logits)
         else:
             self._mixed_fn = None
             self._burst_fn = make_dense_burst(
-                model, eos_id=eos_id, max_new=max_new_tokens,
+                model, self._sample, eos_id=eos_id, max_new=max_new_tokens,
                 k_static=self.max_burst, trace=trace_logits)
         # True while a paged step runs: its mamba slabs are updated in
         # place, so after a failed step they may be ahead of the host
@@ -394,6 +496,14 @@ class ServeEngine:
         self.n_host_syncs = 0         # decode-loop device->host drains
         self.n_flag_reads = 0         # burst early-out reads of `active`
         self.n_burst_early_exits = 0  # bursts cut short by all-done
+        # speculative-decode counters (see loop_stats())
+        self.n_spec_rounds = 0        # draft+verify rounds executed
+        self.n_spec_tokens = 0        # tokens emitted by those rounds
+        self.n_draft_proposed = 0     # draft tokens offered to the verifier
+        self.n_draft_accepted = 0     # draft tokens the verifier accepted
+        # per-round accepted-length histogram: bin a counts rounds that
+        # accepted exactly a draft tokens (a in [0, spec_k])
+        self.spec_accept_hist = [0] * (self.spec_k + 1) if self._spec else []
         # fault injection (``faults.FaultPlan``, duck-typed: None costs
         # one check per seam) + bounded-restart accounting for
         # non-attributable step failures
@@ -542,14 +652,27 @@ class ServeEngine:
         reference's syncs (one token drain per burst or mixed step);
         ``n_flag_reads``, which the reference does not have, counts the
         burst loop's blocking reads of the ``active`` flags (one per
-        step, plus one at an early exit)."""
-        return {"burst": self.burst, "max_burst": self.max_burst,
-                "n_bursts": self.n_bursts,
-                "n_device_steps": self.n_device_steps,
-                "n_host_syncs": self.n_host_syncs,
-                "n_flag_reads": self.n_flag_reads,
-                "n_burst_early_exits": self.n_burst_early_exits,
-                "n_state_uploads": self._dev.n_uploads}
+        step, plus one at an early exit).  A speculative engine adds its
+        round counters, the accepted-length histogram and the accept
+        rate."""
+        out = {"burst": self.burst, "max_burst": self.max_burst,
+               "n_bursts": self.n_bursts,
+               "n_device_steps": self.n_device_steps,
+               "n_host_syncs": self.n_host_syncs,
+               "n_flag_reads": self.n_flag_reads,
+               "n_burst_early_exits": self.n_burst_early_exits,
+               "n_state_uploads": self._dev.n_uploads}
+        if self._spec:
+            out.update(
+                spec_k=self.spec_k,
+                n_spec_rounds=self.n_spec_rounds,
+                n_spec_tokens=self.n_spec_tokens,
+                n_draft_proposed=self.n_draft_proposed,
+                n_draft_accepted=self.n_draft_accepted,
+                spec_accept_hist=list(self.spec_accept_hist),
+                spec_accept_rate=self.n_draft_accepted
+                / max(1, self.n_draft_proposed))
+        return out
 
     def step(self) -> List[GenerationResult]:
         """Admit what fits, run one decode burst (or a mixed
@@ -656,6 +779,7 @@ class ServeEngine:
             if self.state_store is not None:
                 self.state_store = StateStore(self.num_state_slots)
             self._paged_cache = None
+            self._draft_cache = None
         else:
             self._cache = None
             self._pos = 0
@@ -892,9 +1016,18 @@ class ServeEngine:
             active[i] = (not s.done and s.prefill_off >= len(s.prompt)
                          and len(s.tokens) > 0
                          and int(self._lengths[i]) < self.capacity)
-        return {"tokens": tokens, "rids": rids, "steps": steps,
-                "active": active, "page_table": self._page_table,
-                "lengths": self._lengths, "state_slots": self._state_slots}
+        out = {"tokens": tokens, "rids": rids, "steps": steps,
+               "active": active, "page_table": self._page_table,
+               "lengths": self._lengths, "state_slots": self._state_slots}
+        if self._spec:
+            slots = [(i, s) for i, s in enumerate(self._slots)
+                     if s is not None]
+            for key in SPEC_STATE_KEYS:
+                arr = np.zeros((B,), np.int32)
+                for i, s in slots:
+                    arr[i] = getattr(s, key)
+                out[key] = arr
+        return out
 
     def _drain_burst(self, tok_buf, val_buf, logit_buf, *, k: int) -> None:
         """One host sync per burst: fetch the token ring buffer, append
@@ -939,6 +1072,79 @@ class ServeEngine:
                 slot.t_first = now
             if self.stream_cb is not None:
                 self.stream_cb(slot.rid, new_toks)
+
+    def _drain_spec_burst(self, tok_buf, val_buf, logit_buf, *,
+                          k: int) -> None:
+        """Speculative-burst drain: the rings are ``(k, B, spec_k+1)``;
+        round ``r`` emitted slot ``b``'s tokens at the valid positions,
+        always a contiguous prefix (accepted drafts, then one replacement
+        or bonus token, cut at eos).  Replays the device-side done rule
+        per token and the spec-field update (``spec_rounds`` /
+        ``spec_deficit`` / ``spec_prev``) per round, so the host mirror
+        can rebuild the device state after any structural event, and
+        accumulates the acceptance statistics."""
+        toks, valid = tok_buf.cpu().numpy(), val_buf.cpu().numpy()
+        logits = None if logit_buf is None else logit_buf.cpu().numpy()
+        self.n_host_syncs += 1
+        n_rounds = int(valid.any(axis=(1, 2)).sum())
+        self.n_bursts += 1
+        self.n_device_steps += n_rounds
+        if n_rounds < k:
+            self.n_burst_early_exits += 1
+        fresh: Dict[int, List[int]] = {}
+        for r in range(n_rounds):
+            for i, slot in enumerate(self._slots):
+                if slot is None or not valid[r, i].any():
+                    continue
+                # the round's draft budget, from the pre-round host
+                # mirrors (the device's formula)
+                gb = max(0, min(self.max_new_tokens - len(slot.tokens) - 1,
+                                self.capacity - int(self._lengths[i]) - 1,
+                                self.spec_k))
+                m = int(valid[r, i].sum())
+                for j in range(m):
+                    if logits is not None:
+                        self.logit_trace.setdefault(slot.rid, []).append(
+                            logits[r, i, j].copy())
+                    slot.tokens.append(int(toks[r, i, j]))
+                    fresh.setdefault(i, []).append(slot.tokens[-1])
+                    self._lengths[i] += 1
+                    if ((self.eos_id is not None
+                         and slot.tokens[-1] == self.eos_id)
+                            or len(slot.tokens) >= self.max_new_tokens
+                            or int(self._lengths[i]) >= self.capacity):
+                        slot.done = True
+                slot.spec_rounds += 1
+                slot.spec_deficit = 1 if m == gb + 1 else 0
+                L = int(self._lengths[i])
+                slot.spec_prev = self._seq_tokens(slot, L - 1, L)[0]
+                self.n_spec_rounds += 1
+                self.n_spec_tokens += m
+                self.n_draft_proposed += gb
+                # the round's last emitted token is the replacement or
+                # bonus draw, everything before it an accepted draft (a
+                # round cut short by an eos inside the drafted prefix
+                # under-counts by one; the slot finishes then)
+                self.n_draft_accepted += m - 1
+                self.spec_accept_hist[min(m - 1, self.spec_k)] += 1
+        now = time.monotonic()
+        for i, new_toks in fresh.items():
+            slot = self._slots[i]
+            if slot.t_first is None:
+                slot.t_first = now
+            if self.stream_cb is not None:
+                self.stream_cb(slot.rid, new_toks)
+
+    def _sample_rows(self, logits, rids: np.ndarray,
+                     steps: np.ndarray) -> np.ndarray:
+        """Draw one token per batch row through the shared sampler (the
+        dense admission wave; the decode loop samples inside the
+        megastep).  The per-row key comes from ``rids``/``steps`` alone,
+        so a slot's draw is a function of (seed, request, step) in either
+        mode.  Idle rows carry (0, 0); callers read only the rows they
+        filled."""
+        put = self._dev.put
+        return self._sample(logits, put(rids), put(steps)).cpu().numpy()
 
     # -- dense scheduler ----------------------------------------------------
     def _step_dense(self) -> List[GenerationResult]:
@@ -1015,7 +1221,14 @@ class ServeEngine:
             batch[slot_i, self._pos - req.prompt.shape[0]:] = req.prompt
         logits, cache = self._prefill(
             self.params, torch.as_tensor(batch, device=self.device))
-        first_np = greedy_sample(logits).cpu().numpy()
+        if self._greedy:
+            first_np = greedy_sample(logits).cpu().numpy()
+        else:
+            rids = np.zeros((B,), np.int32)
+            for slot_i, req in joins:
+                rids[slot_i] = req.rid
+            first_np = self._sample_rows(logits, rids,
+                                         np.zeros((B,), np.int32))
         self.n_prefills += 1
         self.n_batches += 1
         if fresh:
@@ -1135,9 +1348,15 @@ class ServeEngine:
         st = self._dev.device(self._paged_state)
         put = self._dev.put
         self._slabs_ahead = True
-        self._paged_cache, st, sampled, logits = self._mixed_fn(
-            self.params, self._paged_cache, st, put(tokens), put(t_valid),
-            put(emit))
+        if self._spec:
+            self._paged_cache, self._draft_cache, st, sampled, logits = \
+                self._mixed_fn(self.params, self.draft_params,
+                               self._paged_cache, self._draft_cache, st,
+                               put(tokens), put(t_valid), put(emit))
+        else:
+            self._paged_cache, st, sampled, logits = self._mixed_fn(
+                self.params, self._paged_cache, st, put(tokens),
+                put(t_valid), put(emit))
         self._dev.adopt(st)
         self.n_prefill_chunks += 1
         self.n_device_steps += 1
@@ -1150,6 +1369,12 @@ class ServeEngine:
                 continue
             was_prefilling = slot.prefill_off < len(slot.prompt)
             self._lengths[i] += t_valid[i]
+            if self._spec:
+                # replay of the device-side spec-field update: consuming
+                # any chunk catches the draft cache up (deficit 0) and the
+                # chunk's last token sits at position lengths-1
+                slot.spec_deficit = 0
+                slot.spec_prev = int(tokens[i, int(t_valid[i]) - 1])
             if was_prefilling:
                 slot.prefill_off += int(t_valid[i])
                 if slot.prefill_off < len(slot.prompt):
@@ -1190,9 +1415,15 @@ class ServeEngine:
             if L >= self.capacity:
                 slot.done = True      # cache strip exhausted: truncate
                 continue
-            # a burst writes at most k tokens and stops at max_new (final
-            # length = prompt + max_new - 1) and at capacity
-            target = min(L + k, len(slot.prompt) + self.max_new_tokens - 1,
+            # a plain burst writes at most k tokens; a speculative one
+            # writes up to spec_k+1 positions per round (even rejected
+            # drafts are written, then rolled back by arithmetic).  Both
+            # stop at max_new (final length = prompt + max_new - 1, and
+            # the per-round draft budget keeps every write under that
+            # too) and at capacity
+            span = (self.spec_k + 1) if self._spec else 1
+            target = min(L + k * span,
+                         len(slot.prompt) + self.max_new_tokens - 1,
                          self.capacity)
             if target > L:
                 self._cow_write_range(i, slot, L, target - L)
@@ -1202,11 +1433,20 @@ class ServeEngine:
             return
         st = self._dev.device(self._paged_state)
         self._slabs_ahead = True
-        self._paged_cache, st, tok_buf, val_buf, n_reads, logit_buf = \
-            self._burst_fn(self.params, self._paged_cache, st, k)
-        self._dev.adopt(st)
-        self.n_flag_reads += n_reads
-        self._drain_burst(tok_buf, val_buf, logit_buf, k=k)
+        if self._spec:
+            (self._paged_cache, self._draft_cache, st, tok_buf, val_buf,
+             n_reads, logit_buf) = self._burst_fn(
+                self.params, self.draft_params, self._paged_cache,
+                self._draft_cache, st, k)
+            self._dev.adopt(st)
+            self.n_flag_reads += n_reads
+            self._drain_spec_burst(tok_buf, val_buf, logit_buf, k=k)
+        else:
+            self._paged_cache, st, tok_buf, val_buf, n_reads, logit_buf = \
+                self._burst_fn(self.params, self._paged_cache, st, k)
+            self._dev.adopt(st)
+            self.n_flag_reads += n_reads
+            self._drain_burst(tok_buf, val_buf, logit_buf, k=k)
         self._slabs_ahead = False
 
     def _match_prefix(self, prompt: np.ndarray) \
@@ -1444,12 +1684,21 @@ class ServeEngine:
         _, slot_i, req, blocks, reserve, slab = join
         self._ensure_paged_cache()
         if req.spill is not None:
+            spill = req.spill["target"] if self._spec else req.spill
+            ids = self._block_ids(blocks)
             self._paged_cache = self.model.scatter_paged_pages(
-                self._paged_cache, req.spill, self._block_ids(blocks), slab)
+                self._paged_cache, spill, ids, slab)
+            if self._spec:
+                self._draft_cache = self.draft_model.scatter_paged_pages(
+                    self._draft_cache, req.spill["draft"], ids, 0)
         slot = _PagedSlot(req, blocks, reserve,
                           prefill_off=len(req.prompt),
                           digests=list(req.digests))
         slot.tokens = list(req.tokens)
+        if self._spec and req.spec is not None:
+            slot.spec_rounds = int(req.spec["rounds"])
+            slot.spec_deficit = int(req.spec["deficit"])
+            slot.spec_prev = int(req.spec["prev"])
         self._page_table[slot_i, :] = 0
         self._page_table[slot_i, :len(blocks)] = blocks
         self._lengths[slot_i] = req.length
@@ -1475,6 +1724,12 @@ class ServeEngine:
             self._paged_cache = self.model.init_paged_cache(
                 self.allocator.num_blocks, self.block_size,
                 dtype=self.cache_dtype, **self._paged_cache_kwargs())
+        if self._spec and self._draft_cache is None:
+            # the draft pool shadows the target pool one to one: the same
+            # block count, block size and page tables, draft-model dims
+            self._draft_cache = self.draft_model.init_paged_cache(
+                self.allocator.num_blocks, self.block_size,
+                dtype=self.cache_dtype)
 
     # -- preemption ---------------------------------------------------------
     def preempt(self, rid: int) -> bool:
@@ -1521,10 +1776,21 @@ class ServeEngine:
                     "spill would not restore it")
             L = int(self._lengths[slot_i])
             n_pages = self.allocator.blocks_for(L)
+            ids = self._block_ids(slot.blocks[:n_pages])
             payload = self.model.gather_paged_pages(
-                self._paged_cache, self._block_ids(slot.blocks[:n_pages]),
-                int(self._state_slots[slot_i]))
+                self._paged_cache, ids, int(self._state_slots[slot_i]))
             req.spill = bridge.to_torch(payload, "cpu")
+            if self._spec:
+                # spill the draft pool's view of the same pages and the
+                # spec mirrors, so the restore resumes the same draft
+                # state and PRNG stream
+                dpayload = self.draft_model.gather_paged_pages(
+                    self._draft_cache, ids, 0)
+                req.spill = {"target": req.spill,
+                             "draft": bridge.to_torch(dpayload, "cpu")}
+                req.spec = {"rounds": slot.spec_rounds,
+                            "deficit": slot.spec_deficit,
+                            "prev": slot.spec_prev}
             req.length = L
             req.tokens = list(slot.tokens)
             req.digests = list(slot.digests)

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 __all__ = ["BlockAllocator", "CacheFullError", "DeviceSlotState",
-           "ROOT_DIGEST", "StateStore", "chain_digest"]
+           "ROOT_DIGEST", "SPEC_STATE_KEYS", "StateStore", "chain_digest"]
 
 # Chain root: the digest "before" a sequence's first page.
 ROOT_DIGEST = hashlib.sha256(b"repro.kv_cache.root").digest()
@@ -76,6 +76,17 @@ class CacheFullError(RuntimeError):
     the request.  The allocator state is unchanged (all-or-nothing)."""
 
 
+# Slot-state keys that exist only when speculative decoding is enabled
+# (see ``steps.make_paged_spec_burst``).  They ride the same
+# ``DeviceSlotState`` protocol as the core keys: rebuilt from the host
+# mirror on structural events, updated on the device otherwise.  The
+# draft model's KV pool needs no bookkeeping here: it is indexed by the
+# same page tables, lengths and block allocator as the target pool (one
+# logical position maps to one physical block id in both), so
+# reservation, extension and eviction apply to the pair at once.
+SPEC_STATE_KEYS = ("spec_rounds", "spec_deficit", "spec_prev")
+
+
 class DeviceSlotState:
     """Device-resident mirror of the engine's per-slot decode state.
 
@@ -87,6 +98,9 @@ class DeviceSlotState:
         COW fork);
       * **device view** — a dict of tensors replaced by the megastep and
         burst functions after every call.
+
+    Speculative serving adds the ``SPEC_STATE_KEYS`` entries to the same
+    dict, under the same protocol.
 
     ``mark_dirty`` records a structural host mutation; the next
     ``device(build)`` rebuilds the view from the host (one upload) and

@@ -99,8 +99,10 @@ def test_bf16_model_with_f32_pool_raises(pair):
 
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"temperature": 0.7}, NotImplementedError, "A8"),
-    ({"spec_k": 2}, NotImplementedError, "A11"),
+    # sampling and speculation are ported: what they refuse is what the
+    # reference refuses
+    ({"top_k": 0}, ValueError, "top_k must be >= 1"),
+    ({"spec_k": 2}, ValueError, "requires draft_model="),
     # the dense mode is ported: what it refuses is what the reference's
     # dense mode refuses
     ({"paged": False, "share_prefix": True}, ValueError,
