@@ -47,7 +47,11 @@ result line):
                  (lengths 0, page straddles, T = 5 and 17; windows 16 and
                  128 at S = 77).  K2 also at the speculative verify shape
                  (smollm heads, B = 8, T = 5, bf16, ``_mma``) and the
-                 draft's T = 2 catch-up, timed.
+                 draft's T = 2 catch-up, timed.  B2 contiguous and B4 at
+                 DeepSeek-V3's MLA heads (H = KV = 128, q/k head 192, V
+                 zero-padded from 128; B = 8, S = 512 causal; C = 640, 576
+                 valid; bf16, the CUDA-core prefill body), the padded
+                 output columns exactly 0, SDPA on the unpadded V beside.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -147,12 +151,45 @@ result line):
                  run at T = 5, through ``_mma``); the launcher at
                  ``--spec-k 4 --draft-config smollm-360m --temperature
                  0.8`` (all 16 ok, accept rate logged).
+ 12. xLSTM     — (a) the 2-layer f32 xlstm-350m smoke stack (one mLSTM,
+                 one sLSTM) paged and dense: the card's greedy tokens equal
+                 the CPU port's; no kernel launches (the blocks are plain
+                 torch, as the reference's).  (b) xlstm-350m at full width
+                 and depth (24 layers, d 1024, 4 heads of 512, 21 mLSTM +
+                 3 sLSTM; bf16 over the default f32 cache_dtype, random
+                 weights from seed 0): 8 requests of 128 prompt tokens, 16
+                 new, through the launcher's pipeline, paged (batch 8,
+                 chunk 32, burst 8, 8 slabs); tok/s, the slab bytes per
+                 slot, then a profiler trace (device operations per step,
+                 busy share); then request 0 preempted after two tokens
+                 and restored through the batch lane, its tokens equal to
+                 an unpreempted run's; then ``--arch xlstm-350m`` through
+                 the launcher (paged, 8 requests).
+ 13. MLA       — (a) the deepseek-v3 smoke model (2 layers, f32, q/k head
+                 48, v head 32, 4 experts) on the dense engine in both
+                 decode forms: the card's tokens equal the CPU port's (B2,
+                 B6, and B4 in the expanded form); the two forms' decode
+                 logits on the card within 2e-3 (the reference's bound).
+                 (b) deepseek-v3-671b at full width (d 7168, 128 heads,
+                 q rank 1536, kv rank 512, vocab 129280) cut to 4 of its
+                 61 layers: the 3 dense-prefix layers (d_ff 18432) and 1
+                 MoE layer (256 experts top-8, 1 shared), plus the MTP
+                 leaves (~16B bf16 parameters, ~32 GB): 8 requests of 128
+                 prompt tokens, 16 new, batch 8, bf16 latent cache, in the
+                 expanded form (B2 through ``flash_attention_bf16``, B4,
+                 B6) with a profiler trace, then the absorbed form (B2,
+                 B6); then layer 0's served operands through B2 (S = 128)
+                 and B4 (129 and 144 valid slots) against their plain
+                 versions with phase 3's MLA tolerances, and timed.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
-phase 11's gated card runs); then the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``.  The whole run takes
-~4-7 minutes on one H100, the build included.
+phase 11's gated card runs; ``launches_phase13``: phase 13(b)'s two
+runs; ``mla_heads``: B2's and B4's phase-3 rows at the MLA heads;
+``mla_served``: the same at phase 13(b)'s shapes); then
+the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.  The whole run takes ~5-9 minutes on one H100, the
+build included.
 """
 from __future__ import annotations
 
@@ -822,6 +859,98 @@ def phase_dense_kernels(timer: Timer):
         f"where the plain version does, but the unnormalized probabilities "
         f"of an online softmax; outputs are bf16)")
     return served
+
+
+MLA_HEADS = dict(H=128, KV=128, hd=192, v_hd=128)  # deepseek-v3: 128 + 64
+
+
+def _bf16_ulp(want) -> float:
+    """One bf16 ulp at the largest magnitude of ``want`` (8 significant
+    bits): the MLA rows' tolerance unit, since their outputs reach
+    |out| > 4 (one ulp 3.1e-2), past the smollm rows' |out| ~ 3."""
+    amax = want.float().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(amax)) - 7) if amax > 0 else 0.0
+
+
+def _mla_bound(H, n_scores, qk, vd, q_rows, kv_rows):
+    """Bytes (q and the visible K rows at the q/k head, V rows and the
+    output at v_head_dim, bf16, each once: the unpadded function) and
+    operations (QK at qk, PV at v_head_dim, multiply and add)."""
+    n_bytes = 2 * (q_rows * H * (qk + vd) + kv_rows * H * (qk + vd))
+    return _bound(n_bytes, 2 * H * (qk + vd) * n_scores, torch.bfloat16)
+
+
+def phase_mla_kernels(timer: Timer):
+    """B2 contiguous and B4 at DeepSeek-V3's MLA heads (phase 13's path):
+    H = KV = 128, q/k head 192, V zero-padded from 128 to 192 as
+    ``mla_prefill``/``mla_decode`` pad it, bf16.  Head_dim 192 runs the
+    CUDA-core prefill body (``flash_attention_bf16``) and the split decode
+    body; the padded output columns must be exactly 0.  SDPA, the
+    yardstick, takes the unpadded 128-wide V."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    H, hd, vd = MLA_HEADS["H"], MLA_HEADS["hd"], MLA_HEADS["v_hd"]
+    g = torch.Generator(device="cpu").manual_seed(192)
+    B, S = 8, 512
+    q, k = (torch.randn((B, S, H, hd), generator=g).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    v0 = torch.randn((B, S, H, vd), generator=g).to("cuda", torch.bfloat16)
+    v = F.pad(v0, (0, hd - vd)).contiguous()
+    entry = fops.flash_entry(torch.bfloat16, hd)
+    e0 = fops.FLASH_KERNEL.entry_launches[entry]
+    out = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(fops.FLASH_KERNEL.entry_launches[entry] == e0 + 1,
+          f"flash_attention did not launch {entry} at head_dim {hd}")
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    check(torch.isfinite(out.float()).all().item()
+          and not out[..., vd:].any().item(),
+          "flash_attention (MLA): non-finite output or padded columns != 0")
+    diff = (out[..., :vd].float() - want[..., :vd].float()).abs()
+    err = diff.max().item()
+    at = want[..., :vd].flatten()[diff.flatten().argmax()].float().item()
+    # one ulp, as the smollm rows (the kernel rounds the unnormalized
+    # probabilities, the plain version the normalized ones)
+    tol = max(DENSE_BF16_TOL["flash_attention"], _bf16_ulp(want))
+    tag = (f"flash_attention (contiguous) MLA heads {H}/{H} hd {hd} (V "
+           f"{vd} padded) B={B} S=T={S} causal bfloat16 [{entry}]; the "
+           f"largest error at |out| = {abs(at):.3f}")
+    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
+                    lambda *a: fops.flash_attention_plain(*a, causal=True),
+                    (q, k, v), _sdpa(q, k, v0, 1, causal=True),
+                    _mla_bound(H, B * S * (S + 1) // 2, hd, vd, B * S,
+                               B * S))
+    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    rows = {"flash_attention": dict(max_abs_err=err, **row)}
+    del q, k, v, v0, out, want
+    C, n_valid = 640, 576
+    q = torch.randn((B, H, hd), generator=g).to("cuda", torch.bfloat16)
+    k = torch.randn((B, C, H, hd), generator=g).to("cuda", torch.bfloat16)
+    v0 = torch.randn((B, C, H, vd), generator=g).to("cuda", torch.bfloat16)
+    v = F.pad(v0, (0, hd - vd)).contiguous()
+    n0 = dops.DENSE_KERNEL.launches
+    out = dops.decode_attention(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    check(dops.DENSE_KERNEL.launches == n0 + 1,
+          "decode_attention did not launch at head_dim 192")
+    want = dops.decode_attention_plain(q, k, v, n_valid)
+    check(torch.isfinite(out.float()).all().item()
+          and not out[..., vd:].any().item(),
+          "decode_attention (MLA): non-finite output or padded columns != 0")
+    err = (out[..., :vd].float() - want[..., :vd].float()).abs().max().item()
+    tol = max(DENSE_BF16_TOL["decode_attention"], 2 * _bf16_ulp(want))
+    tag = (f"decode_attention (dense) MLA heads {H}/{H} hd {hd} (V {vd} "
+           f"padded) B={B} C={C} n_valid={n_valid} bfloat16")
+    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+    mask = (torch.arange(C, device="cuda") < n_valid)[None, None, None, :]
+    row = _time_row(timer, dops.decode_attention, dops.decode_attention_plain,
+                    (q, k, v, n_valid), _sdpa(q[:, None], k, v0, 1, mask=mask),
+                    _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid))
+    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    rows["decode_attention"] = dict(max_abs_err=err, **row)
+    return rows
 
 
 def _quant_pools(k, v):
@@ -1526,11 +1655,11 @@ FAULT_STEP_B = 20       # phase 10(b): 16 mixed steps of prefill, then bursts
 def serve_scheduled(eng, prompts, decode_rid: int, prefill_rid: int):
     """Serve ``prompts`` on the batch lane through ``eng.step()``,
     preempting ``prefill_rid`` while it is still mid-prefill and
-    ``decode_rid`` once it holds two tokens; the schedule depends on the
-    step count alone, so the card and the CPU run the same one.  Returns
-    the results in request order."""
+    ``decode_rid`` once it holds two tokens (either may be None); the
+    schedule depends on the step count alone, so the card and the CPU run
+    the same one.  Returns the results in request order."""
     rids = [eng.submit(p, lane="batch") for p in prompts]
-    todo = {decode_rid, prefill_rid}
+    todo = {decode_rid, prefill_rid} - {None}
     for _ in range(10000):
         if not eng.has_work:
             break
@@ -2002,6 +2131,393 @@ def phase_sampling_spec(kernels, acc, card: str, greedy_tok_s: float):
         f"per round; launches { {n: c for n, c in launches.items() if c} }")
 
 
+# -- phase 12 -------------------------------------------------------------------
+
+XLSTM_PLEN, XLSTM_NEW = 128, 16
+
+
+def _small_prompts(vocab_size: int):
+    """Phase 4's six prompt lengths, from its seed."""
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, vocab_size, n).astype(np.int32)
+            for n in (37, 5, 70, 18, 33, 50)]
+
+
+def phase_xlstm_small(kernels) -> None:
+    """Phase 12(a): the 2-layer f32 xLSTM smoke stack (one mLSTM, one
+    sLSTM; TF32 off) paged and dense: the card's greedy tokens equal the
+    CPU port's.  The blocks are plain torch (the reference has no xLSTM
+    kernel), so no attention kernel may launch."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("xlstm-350m", smoke=True)
+    prompts = _small_prompts(cfg.vocab_size)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    gpu_model = build_model(cfg, device="cuda")
+    gpu_params = bridge.to_torch(cpu_params, "cuda")
+    for paged in (True, False):
+        kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4,
+                  paged=paged)
+        if paged:
+            kw.update(prefill_chunk=32, block_size=16)
+        want = ServeEngine(cpu_model, cpu_params, device="cpu",
+                           **kw).serve(prompts)
+        reset(kernels)
+        eng = ServeEngine(gpu_model, gpu_params, device="cuda", **kw)
+        got = eng.serve(prompts)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        tag = f"xlstm-350m smoke (2 layers, d 256, f32), paged={paged}"
+        check(eng.paged == paged, f"[xlstm] {tag}: ran paged={eng.paged}")
+        for a, b in zip(want, got):
+            check(a.status == b.status == "ok",
+                  f"[xlstm] {tag} request {b.request_id}: {b.status}")
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"[xlstm] {tag} request {a.request_id}: cpu {a.tokens} "
+                  f"!= cuda {b.tokens}")
+        check(not any(launches.values()),
+              f"[xlstm] {tag}: a kernel launched on an xLSTM stack: "
+              f"{launches}")
+        log(f"[xlstm] {tag}: {len(prompts)} requests, greedy tokens on "
+            f"cuda == cpu ({sum(len(r.tokens) for r in got)} tokens)")
+
+
+def xlstm_engine(params=None):
+    """Phase 12(b)'s model and engine: xlstm-350m at full width and depth
+    (24 layers, 21 mLSTM + 3 sLSTM, bf16; random weights made on the card
+    from the generator of seed 0 when ``params`` is None) on the paged
+    engine over the default f32 ``cache_dtype`` (the xLSTM carries are
+    f32 whatever it is): batch 8, chunk 32, burst 8, one slab per slot.
+    Returns (engine, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    model = build_model(get_config("xlstm-350m"), device="cuda")
+    if params is None:
+        params = model.init(seed=0)
+    eng = ServeEngine(model, params, batch_size=8,
+                      capacity=XLSTM_PLEN + XLSTM_NEW,
+                      max_new_tokens=XLSTM_NEW, prefill_chunk=32,
+                      block_size=16, burst=8, num_state_slots=8,
+                      device="cuda")
+    return eng, params
+
+
+def phase_xlstm(kernels, card: str) -> None:
+    """Phase 12(b): xlstm-350m at full width served paged through the
+    launcher's pipeline (8 requests of 128 prompt tokens, 16 new), then a
+    profiler trace, then the same prompts with request 0 preempted after
+    two tokens (its slabs spilled to host) and restored through the batch
+    lane: its tokens must equal the unpreempted run's."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    eng, params = xlstm_engine()
+    torch.cuda.synchronize()
+    cfg, model = eng.model.cfg, eng.model
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[xlstm] {cfg.arch_id} full width: {cfg.n_layers} layers "
+        f"{model.period_descs} x {model.n_periods}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {2 * cfg.d_model // cfg.n_heads}, vocab "
+        f"{cfg.vocab_size}, bf16 over an f32 cache_dtype: "
+        f"{n_params / 1e9:.3f}B parameters made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, XLSTM_PLEN).astype(np.int32)
+               for _ in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    bufs = serve.serve_pipeline(eng, prompts, batch=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    piped = {int(b.meta["request"]): np.asarray(b.data) for b in bufs}
+    check(sorted(piped) == list(range(8))
+          and all(len(t) == XLSTM_NEW for t in piped.values()),
+          f"[xlstm] pipeline: {[(i, len(t)) for i, t in piped.items()]}")
+    check(all(int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+              for t in piped.values()), "[xlstm] token outside the vocab")
+    check(not any(launches.values()),
+          f"[xlstm] a kernel launched on an xLSTM stack: {launches}")
+    total = 8 * XLSTM_NEW
+    slabs = [a for st in eng._paged_cache["blocks"].values()
+             for a in st.values()]         # (layers, slots + 1, ...) each
+    slab_bytes = sum(a[:, 0].numel() * a.element_size() for a in slabs)
+    check(all(a.dtype == torch.float32 for a in slabs),
+          "[xlstm] a slab is not f32")
+    log(f"[xlstm] served 8 requests / {total} tokens through the pipeline "
+        f"in {wall:.2f}s = {total / wall:.1f} tok/s; {eng.n_device_steps} "
+        f"device steps ({eng.n_prefill_chunks} mixed); slabs "
+        f"{slab_bytes / 1e6:.1f} MB per slot x "
+        f"{eng.pool_stats()['num_state_slots']} + the dump row; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    phase_trace(eng, "xlstm", n=8, prompt_len=XLSTM_PLEN)
+    plain = eng.serve(prompts, lane="batch")
+    pre, _ = xlstm_engine(params)
+    got = serve_scheduled(pre, prompts, decode_rid=0, prefill_rid=None)
+    torch.cuda.synchronize()
+    check(pre.n_preemptions == pre.n_restores == 1,
+          f"[xlstm] preemptions {pre.n_preemptions}, restores "
+          f"{pre.n_restores}")
+    check(all(r.status == "ok" for r in got), "[xlstm] preempted run failed")
+    check(np.array_equal(got[0].tokens, plain[0].tokens),
+          f"[xlstm] restored request 0: {got[0].tokens} != unpreempted "
+          f"{plain[0].tokens}")
+    same = sum(np.array_equal(a.tokens, b.tokens) for a, b in zip(got, plain))
+    ps = pre.pool_stats()
+    check(ps["n_state_live"] == 0 and ps["n_live"] == 0, f"[xlstm] {ps}")
+    log(f"[xlstm] request 0 preempted after 2 tokens (its slabs spilled to "
+        f"host), restored through the batch lane: its tokens equal the "
+        f"unpreempted run's; {same}/8 requests "
+        f"equal; the direct run's tokens equal the pipeline's for "
+        f"{sum(np.array_equal(piped[i], plain[i].tokens) for i in range(8))}"
+        f"/8")
+    del eng, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's own path: --arch xlstm-350m, default (f32) kv dtype
+    out = serve.main(["--arch", "xlstm-350m", "--requests", "8", "--batch",
+                      "8", "--prompt-len", str(XLSTM_PLEN), "--max-new",
+                      str(XLSTM_NEW), "--device", "cuda"])
+    check(out["engine"].paged and out["n_results"] == 8
+          and out["total_tokens"] == 8 * XLSTM_NEW,
+          f"[xlstm] launcher: paged={out['engine'].paged}, "
+          f"{out['n_results']} results / {out['total_tokens']} tokens")
+    log(f"[xlstm] launcher --arch xlstm-350m: 8 requests served paged "
+        f"through the pipeline, "
+        f"{out['total_tokens'] / out['wall_s']:.1f} tok/s")
+
+
+# -- phase 13 -------------------------------------------------------------------
+
+MLA_PLEN, MLA_NEW = 128, 16
+MLA_KERNELS = ("flash_attention", "decode_attention", "gating_topk")
+
+
+def phase_mla_small(kernels, acc) -> None:
+    """Phase 13(a): the deepseek-v3 smoke model (2 layers, f32, q/k head
+    48, v head 32, 4 experts; TF32 off) on the dense engine in both MLA
+    decode forms: the card's greedy tokens equal the CPU port's (B2, B6,
+    and B4 in the expanded form, launched); then the model's decode logits
+    in the two forms after one prefill on the card, within the reference's
+    own bound (2e-3)."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("deepseek-v3-671b", smoke=True)
+    prompts = _small_prompts(cfg.vocab_size)
+    cpu_params = build_model(cfg, device="cpu").init(seed=0)
+    gpu_params = bridge.to_torch(cpu_params, "cuda")
+    kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4)
+    for absorb in (False, True):
+        want = ServeEngine(build_model(cfg, device="cpu", mla_absorb=absorb),
+                           cpu_params, device="cpu", **kw).serve(prompts)
+        reset(kernels)
+        eng = ServeEngine(build_model(cfg, device="cuda", mla_absorb=absorb),
+                          gpu_params, device="cuda", **kw)
+        got = eng.serve(prompts)
+        torch.cuda.synchronize()
+        launches = _tally(kernels, acc)
+        tag = f"deepseek-v3 smoke (2 layers, f32), mla_absorb={absorb}"
+        check(not eng.paged, f"[mla] {tag}: ran paged")
+        for a, b in zip(want, got):
+            check(a.status == b.status == "ok",
+                  f"[mla] {tag} request {b.request_id}: {b.status}")
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"[mla] {tag} request {a.request_id}: cpu {a.tokens} != "
+                  f"cuda {b.tokens}")
+        path = ("flash_attention", "gating_topk") + \
+            (() if absorb else ("decode_attention",))
+        check(all(launches[n] > 0 for n in path)
+              and all(launches[n] == 0 for n in ATTN_KERNELS
+                      if n not in path),
+              f"[mla] {tag}: launches {launches}")
+        log(f"[mla] {tag}: {len(prompts)} requests on the dense engine, "
+            f"greedy tokens on cuda == cpu; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+    mcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (4, 40)).astype(np.int32)).to("cuda")
+    logits = []
+    for absorb in (False, True):
+        model = build_model(mcfg, device="cuda", mla_absorb=absorb)
+        _, cache = model.prefill(gpu_params, tokens[:, :39], capacity=48,
+                                 cache_dtype=torch.float32)
+        logits.append(model.decode_step(gpu_params, cache, tokens[:, 39:],
+                                        39)[0])
+    err = (logits[0] - logits[1]).abs().max().item()
+    _tally(kernels, acc)
+    check(err < 2e-3, f"[mla] absorbed vs expanded decode logits {err}")
+    log(f"[mla] absorbed vs expanded decode logits on the card: max abs "
+        f"diff {err:.3e} (the reference's bound 2e-3)")
+
+
+def mla_engine(absorb: bool, params=None):
+    """Phase 13(b)'s model and engine: deepseek-v3-671b at full width, cut
+    to its 3 dense-prefix layers and 1 MoE layer (plus the MTP leaves;
+    bf16, random weights made on the card from seed 0 when ``params`` is
+    None), on the dense engine (MLA serves dense only), bf16 latent cache,
+    batch 8, burst 8.  Returns (engine, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=4)
+    model = build_model(cfg, device="cuda", mla_absorb=absorb)
+    if params is None:
+        params = model.init(seed=0)
+    eng = ServeEngine(model, params, batch_size=8,
+                      capacity=MLA_PLEN + MLA_NEW, max_new_tokens=MLA_NEW,
+                      burst=8, kv_dtype="bf16", device="cuda")
+    return eng, params
+
+
+def phase_mla(kernels, card: str):
+    """Phase 13(b): deepseek-v3-671b at full width, 4 of its 61 layers, on
+    the dense engine: 8 requests of 128 prompt tokens, 16 new, in the
+    expanded decode form (B2, B4, B6) and the absorbed one (B2, B6), then
+    a profiler trace of the expanded engine, and B2/B4 on layer 0's
+    served operands (``phase_mla_served_kernels``).  Returns the launches
+    of both runs and the served-operand rows."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    t0 = time.perf_counter()
+    eng, params = mla_engine(False)
+    torch.cuda.synchronize()
+    cfg, model = eng.model.cfg, eng.model
+    n_params = sum(p.numel() for p in _leaves(params))
+    m = cfg.mla
+    log(f"[mla] {cfg.arch_id} full width, 4 of 61 layers: "
+        f"{model.prefix_descs + model.period_descs}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads (q/k {m.qk_nope_head_dim}+"
+        f"{m.qk_rope_head_dim}, v {m.v_head_dim}), q rank {m.q_lora_rank}, "
+        f"kv rank {m.kv_lora_rank}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, vocab "
+        f"{cfg.vocab_size}, MTP leaves {'mtp' in params}, bf16: "
+        f"{n_params / 1e9:.2f}B parameters made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, MLA_PLEN).astype(np.int32)
+               for _ in range(8)]
+    total, runs = {}, {}
+    for absorb in (False, True):
+        if absorb:
+            eng, _ = mla_engine(True, params)
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        t0 = time.perf_counter()
+        res = eng.serve(prompts, timeout_s=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        tag = f"mla_absorb={absorb}"
+        check(not eng.paged, f"[mla] {tag}: ran paged")
+        check(all(r.status == "ok" and len(r.tokens) == MLA_NEW
+                  and 0 <= int(r.tokens.min())
+                  and int(r.tokens.max()) < cfg.vocab_size for r in res),
+              f"[mla] {tag}: {[(r.status, len(r.tokens)) for r in res]}")
+        path = ("flash_attention", "gating_topk") + \
+            (() if absorb else ("decode_attention",))
+        check(all(launches[n] > 0 for n in path)
+              and all(launches[n] == 0 for n in ATTN_KERNELS
+                      if n not in path),
+              f"[mla] {tag}: launches {launches}")
+        check_served_by(kernels, "flash_attention",
+                        fops.flash_entry(torch.bfloat16, 192), "mla")
+        runs[absorb] = res
+        n_tok = sum(len(r.tokens) for r in res)
+        log(f"[mla] {tag}: served 8 requests / {n_tok} tokens on the dense "
+            f"engine in {wall:.2f}s = {n_tok / wall:.1f} tok/s (direct; "
+            f"{eng.n_device_steps} decode steps, {eng.n_batches} prefill "
+            f"waves); launches { {n: c for n, c in launches.items() if c} }; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; {card}")
+        if not absorb:
+            phase_trace(eng, "mla", n=8, prompt_len=MLA_PLEN)
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(runs[False], runs[True]))
+    log(f"[mla] absorbed vs expanded: {same}/8 requests with equal tokens "
+        f"(bf16: the two forms round differently)")
+    return total, phase_mla_served_kernels(eng.model, params, prompts)
+
+
+def phase_mla_served_kernels(model, params, prompts) -> dict:
+    """B2 and B4 on the operands phase 13(b) gives them, against their
+    plain versions with phase 3's MLA tolerances, then timed: layer 0's
+    q, K and V (V padded to 192) of the 8 served prompts (S = MLA_PLEN,
+    causal), and its expanded decode at the first and the last decode
+    step's valid slots (MLA_PLEN + 1 and MLA_PLEN + MLA_NEW), the latents
+    of 16 more random tokens after each prompt standing in for the
+    generated ones.  These launches are not the main path's (its counts
+    were read).  Returns {kernel: row} (the last decode shape's row)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import make_norm
+    cfg, m = model.cfg, model.cfg.mla
+    vd, hd = m.v_head_dim, m.qk_nope_head_dim + m.qk_rope_head_dim
+    H, S, C = cfg.n_heads, MLA_PLEN, MLA_PLEN + MLA_NEW
+    rng = np.random.default_rng(14)
+    tokens = torch.from_numpy(np.concatenate(
+        [np.stack(prompts), rng.integers(0, cfg.vocab_size, (8, MLA_NEW))],
+        1).astype(np.int32)).to("cuda")
+    p = params["prefix"][0]
+    h = make_norm(cfg.norm)[1](p["norm1"], model._embed(params, tokens))
+    pos = torch.arange(C, dtype=torch.int32, device="cuda").expand(8, C)
+    q_nope, q_rope, c_kv, k_rope = A._mla_qkv(p["attn"], cfg, h, pos)
+    timer = Timer()
+    k_nope, v0 = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :S])
+    q, k, v = A._mla_heads(cfg, q_nope[:, :S], q_rope[:, :S], k_nope,
+                           k_rope[:, :S], v0)
+    out = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    check(torch.isfinite(out.float()).all().item()
+          and not out[..., vd:].any().item(),
+          "[mla] served B2: non-finite output or padded columns != 0")
+    err = (out[..., :vd].float() - want[..., :vd].float()).abs().max().item()
+    tol = max(DENSE_BF16_TOL["flash_attention"], _bf16_ulp(want))
+    tag = (f"[mla] served B2 operands: layer 0, B=8 S={S} causal, heads "
+           f"{H}/{H} hd {hd} (V {vd} padded) {str(q.dtype)[6:]} (|out| <= "
+           f"{want.float().abs().max().item():.3f})")
+    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
+                    lambda *a: fops.flash_attention_plain(*a, causal=True),
+                    (q, k, v), _sdpa(q, k, v0.contiguous(), 1, causal=True),
+                    _mla_bound(H, 8 * S * (S + 1) // 2, hd, vd, 8 * S, 8 * S))
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    rows = {"flash_attention": dict(max_abs_err=err, **row)}
+    del q, k, v, v0, out, want
+    for n in (S + 1, C):
+        k_nope, v0 = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :n])
+        q, k, v = A._mla_heads(cfg, q_nope[:, n - 1:n], q_rope[:, n - 1:n],
+                               k_nope, k_rope[:, :n], v0)
+        q = q[:, 0].contiguous()
+        out = dops.decode_attention(q, k, v, n)
+        want = dops.decode_attention_plain(q, k, v, n)
+        check(torch.isfinite(out.float()).all().item()
+              and not out[..., vd:].any().item(),
+              "[mla] served B4: non-finite output or padded columns != 0")
+        err = (out[..., :vd].float() -
+               want[..., :vd].float()).abs().max().item()
+        tol = max(DENSE_BF16_TOL["decode_attention"], 2 * _bf16_ulp(want))
+        tag = (f"[mla] served B4 operands: layer 0, B=8, {n} valid of "
+               f"capacity {C}, heads {H}/{H} hd {hd} (V {vd} padded) "
+               f"{str(q.dtype)[6:]}")
+        check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
+        row = _time_row(timer, dops.decode_attention,
+                        dops.decode_attention_plain, (q, k, v, n),
+                        _sdpa(q[:, None], k, v0.contiguous(), 1),
+                        _mla_bound(H, 8 * n, hd, vd, 8, 8 * n))
+        log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+        rows["decode_attention"] = dict(max_abs_err=err, n_valid=n, **row)
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2035,6 +2551,7 @@ def main() -> None:
     served["selective_scan"] = phase_scan(timer, floor_ms)
     served["gating_topk"] = phase_gating(timer, floor_ms)
     served.update(phase_dense_kernels(timer))
+    mla_rows = phase_mla_kernels(timer)
     served.update(phase_quant_kernels(timer))
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
@@ -2075,6 +2592,14 @@ def main() -> None:
     phase_sampling_spec(kernels, launches11, card, tok_s5)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_xlstm_small(kernels)
+    phase_xlstm(kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mla_small(kernels, {})
+    launches13, mla_served = phase_mla(kernels, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],
@@ -2088,7 +2613,12 @@ def main() -> None:
                  source=str(k.source.relative_to(ROOT)),
                  replaces=REPLACES[k.name], launches=launches[k.name],
                  launches_phase11=launches11.get(k.name, 0),
+                 launches_phase13=launches13.get(k.name, 0),
                  **served[k.name]) for k in kernels]
+    for row in rows:
+        if row["name"] in mla_rows:
+            row["mla_heads"] = mla_rows[row["name"]]
+            row["mla_served"] = mla_served[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

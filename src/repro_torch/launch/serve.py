@@ -15,6 +15,10 @@ are random, drawn from seed 0.
         --device cpu                  # attention + mamba, state slabs
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --smoke --device cpu   # one jamba period
+    PYTHONPATH=src python -m repro_torch.launch.serve --family xlstm \
+        --device cpu                  # mLSTM/sLSTM blocks, state slabs
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --device cpu  # MLA: dense engine
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --paged off                  # the dense engine (contiguous cache)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
@@ -48,8 +52,7 @@ from ..serving import (LANES, ServeEngine, TensorQueryClient,
                        TensorQueryServer)
 
 # demo-scale config per serving family (mirrors the reference's
-# launcher): attention layers page, mamba layers use state slabs; the
-# xLSTM family is not ported yet
+# launcher): attention layers page, recurrent layers use state slabs
 _FAM_BASE = ModelConfig(
     arch_id="fam-demo", family="dense", n_layers=4, d_model=64,
     n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
@@ -61,11 +64,14 @@ FAMILY_CONFIGS = {
     "mamba": _FAM_BASE.replace(arch_id="fam-mamba", family="hybrid",
                                ssm=_FAM_SSM, attn_layer_period=1,
                                attn_layer_offset=1),
+    "xlstm": _FAM_BASE.replace(arch_id="fam-xlstm", family="ssm", d_ff=0,
+                               n_kv_heads=4, rope="none",
+                               ssm=SSMConfig(d_state=16, d_conv=4, expand=2,
+                                             slstm_every=2)),
     "hybrid": _FAM_BASE.replace(arch_id="fam-hybrid", family="hybrid",
                                 ssm=_FAM_SSM, attn_layer_period=2,
                                 attn_layer_offset=0),
 }
-_UNPORTED_FAMILIES = ("xlstm",)
 _RECURRENT_FAMILIES = ("mamba", "hybrid", "xlstm")
 
 
@@ -109,12 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-360m")
     ap.add_argument("--family",
-                    choices=["arch"] + sorted(FAMILY_CONFIGS)
-                    + list(_UNPORTED_FAMILIES),
+                    choices=["arch"] + sorted(FAMILY_CONFIGS),
                     default="arch",
-                    help="serve a demo model of this family instead of "
-                         "--arch; recurrent families run paged via per-slot "
-                         "state slabs (xlstm: not ported yet)")
+                    help="serve a demo model of this family (transformer/"
+                         "mamba/xlstm/hybrid) instead of --arch; recurrent "
+                         "families run paged via per-slot state slabs")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -185,8 +190,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-dtype", choices=["f32", "bf16", "int8"],
                     default=None,
                     help="KV cache storage precision (default f32; a bf16 "
-                         "model needs bf16; int8: paged only, an f32 model "
-                         "such as --smoke's)")
+                         "model with attention or mamba layers needs bf16, "
+                         "a bf16 xLSTM serves over f32; int8: paged only, "
+                         "an f32 model such as --smoke's)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: draft tokens proposed and "
                          "verified per burst round (0 = off; paged "
@@ -244,10 +250,6 @@ def validate_args(args) -> None:
             raise SystemExit(
                 "--kv-dtype int8 and --mesh are incompatible: the scale "
                 "pools have no sharding specs yet")
-    if args.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"--family {args.family}: the xLSTM blocks are not ported yet "
-            "(ROADMAP A10b)")
 
 
 def parse_lanes(text: str) -> List[str]:

@@ -1,6 +1,7 @@
-"""GQA attention (port of the GQA part of ``repro/models/attention.py``):
-through the block-paged KV cache, and over the dense engine's
-contiguous per-row cache.
+"""Attention (port of the serving part of ``repro/models/attention.py``):
+GQA through the block-paged KV cache and over the dense engine's
+contiguous per-row cache, and DeepSeek-V3's MLA (multi-head latent
+attention) over the dense engine's latent cache.
 
 Shapes: hidden (B, T, D); q (B, T, H, hd); the shared pools
 (num_blocks, block_size, KV, hd); the dense cache (B, C, KV, hd).  GQA
@@ -19,6 +20,14 @@ contiguous ``flash_attention`` kernel and ``gqa_decode`` the
 plain version.  The reference's ``chunked_attention`` computes the same
 function as ``naive_attention`` and serves only training (ROADMAP A15):
 on the card the flash kernel covers every length.
+
+MLA: ``mla_prefill`` runs the contiguous ``flash_attention`` kernel and
+the expanded ``mla_decode`` the ``decode_attention`` kernel, both with
+H = KV query/key heads of ``qk_nope + qk_rope`` dims and V zero-padded
+to that width (its scale ``1/sqrt(qk_nope + qk_rope)`` is the kernels'
+``1/sqrt(head_dim)``); the absorbed decode runs the reference's latent
+einsums in plain torch (no TPU kernel computes it; ROADMAP Queue B).
+``mla_forward`` waits for A14 with ``gqa_forward``.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import torch
 
 from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
-from .common import apply_rope, dense_init, mm
+import torch.nn.functional as F
+
+from .common import apply_rope, dense_init, mm, rmsnorm
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -47,6 +58,28 @@ def gqa_params(gen: torch.Generator, cfg: ModelConfig, dtype):
         for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=gen.device)
     return p
+
+
+def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "wdq": dense_init(gen, (d, m.q_lora_rank), dtype=dtype),
+        "q_norm": {"scale": torch.ones((m.q_lora_rank,), dtype=dtype,
+                                       device=dev)},
+        "wuq": dense_init(gen, (m.q_lora_rank, h * qk_head), dtype=dtype),
+        "wdkv": dense_init(gen, (d, m.kv_lora_rank), dtype=dtype),
+        "kv_norm": {"scale": torch.ones((m.kv_lora_rank,), dtype=dtype,
+                                        device=dev)},
+        "wkr": dense_init(gen, (d, m.qk_rope_head_dim), dtype=dtype),
+        "wuk": dense_init(gen, (m.kv_lora_rank, h * m.qk_nope_head_dim),
+                          dtype=dtype),
+        "wuv": dense_init(gen, (m.kv_lora_rank, h * m.v_head_dim),
+                          dtype=dtype),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), dtype=dtype),
+    }
 
 
 def _grouped_scores(q, k):
@@ -93,7 +126,7 @@ def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 
 def _dynamic_token_update(cache, new, idx: int):
     """Write one token at slot ``idx`` of every row, in place.  cache:
-    (B, C, KV, hd); new: (B, 1, KV, hd); ``idx`` a host int, clamped to
+    (B, C, ...); new: (B, 1, ...); ``idx`` a host int, clamped to
     [0, C-1] as ``lax.dynamic_update_slice`` clamps its start.  A slice
     write: no index tensor, no host sync."""
     idx = min(max(int(idx), 0), cache.shape[1] - 1)
@@ -337,3 +370,104 @@ def gqa_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
     out = decode_ops.decode_attention(q[:, 0].contiguous(), k_cache,
                                       v_cache, min(int(pos) + 1, C))
     return mm(out.reshape(B, 1, -1), p["wo"]), k_cache, v_cache
+
+
+# -- MLA (DeepSeek-V3): the cache holds (c_kv, k_rope), the latent compression
+
+def _mla_qkv(p, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    h = cfg.n_heads
+    B, S, _ = x.shape
+    cq = rmsnorm(p["q_norm"], mm(x, p["wdq"]))
+    q = mm(cq, p["wuq"]).reshape(B, S, h,
+                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = rmsnorm(p["kv_norm"], mm(x, p["wdkv"]))      # (B,S,rank)
+    k_rope = apply_rope(mm(x, p["wkr"]).reshape(B, S, 1, m.qk_rope_head_dim),
+                        positions, cfg.rope_theta)      # shared single head
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(p, cfg: ModelConfig, c_kv):
+    m = cfg.mla
+    B, T = c_kv.shape[:2]
+    h = cfg.n_heads
+    k_nope = mm(c_kv, p["wuk"]).reshape(B, T, h, m.qk_nope_head_dim)
+    v = mm(c_kv, p["wuv"]).reshape(B, T, h, m.v_head_dim)
+    return k_nope, v
+
+
+def _mla_heads(cfg: ModelConfig, q_nope, q_rope, k_nope, k_rope, v):
+    """The kernels' operands: q = [q_nope, q_rope] and k = [k_nope, the
+    shared rope key broadcast to every head] (B,T,H,qk_head), one type;
+    V zero-padded from v_head_dim to qk_head (the padded output columns
+    are 0 and are cut off), contiguous."""
+    m = cfg.mla
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.v_head_dim > qk_head:
+        raise ValueError(f"MLA v_head_dim {m.v_head_dim} > q/k head "
+                         f"{qk_head}: the kernels take one head_dim")
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
+    k = torch.cat([k_nope.to(dt), k_rope.to(dt).expand(
+        k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
+    v = F.pad(v, (0, qk_head - m.v_head_dim))
+    return q.contiguous(), k.contiguous(), v.to(k.dtype).contiguous()
+
+
+def mla_prefill(p, cfg: ModelConfig, x, positions):
+    """Causal MLA over the whole prompt through the contiguous flash
+    kernel.  x: (B,S,D); positions: (B,S).  Returns (out (B,S,D), (c_kv
+    (B,S,rank), k_rope (B,S,rope))) — the latent cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    k_nope, v = _mla_expand_kv(p, cfg, c_kv)
+    q, k, v = _mla_heads(cfg, q_nope, q_rope, k_nope, k_rope, v)
+    out = flash_ops.flash_attention(q, k, v, causal=True)[..., :m.v_head_dim]
+    return (mm(out.reshape(B, S, -1), p["wo"]),
+            (c_kv, k_rope.reshape(B, S, m.qk_rope_head_dim)))
+
+
+def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,
+               absorb: bool = False):
+    """Decode one token over the latent cache.  x: (B,1,D); c_cache:
+    (B,C,rank); kr_cache: (B,C,rope); ``pos``: host int shared by every
+    row.  The token's latents land at slot ``pos`` (clamped to C-1, as
+    ``lax.dynamic_update_slice``) in place; slots ``< min(pos+1, C)`` are
+    attended to.  ``absorb=False`` expands K/V of those slots from the
+    cache and runs the ``decode_attention`` kernel; ``absorb=True`` folds
+    W_uk into the query and W_uv into the output and attends in the
+    latent space (the reference's einsums, plain torch).  Returns (out,
+    c_cache, kr_cache)."""
+    m = cfg.mla
+    h = cfg.n_heads
+    B = x.shape[0]
+    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
+                           device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    _dynamic_token_update(c_cache, c_kv, pos)
+    _dynamic_token_update(kr_cache, k_rope[:, :, 0], pos)
+    n = min(int(pos) + 1, c_cache.shape[1])
+    c, kr = c_cache[:, :n], kr_cache[:, :n]
+    scale = 1.0 / np.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if absorb:
+        def ein(eq, a, b):
+            dt = torch.promote_types(a.dtype, b.dtype)
+            return torch.einsum(eq, a.to(dt), b.to(dt))
+        wuk = p["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+        q_lat = ein("bshd,rhd->bshr", q_nope, wuk)
+        s_lat = ein("bshr,btr->bhst", q_lat, c)
+        s_rope = ein("bshd,btd->bhst", q_rope, kr)
+        scores = ((s_lat + s_rope) * scale).float()
+        probs = torch.softmax(scores, dim=-1).to(c.dtype)
+        o_lat = ein("bhst,btr->bshr", probs, c)          # (B,1,h,rank)
+        wuv = p["wuv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+        out = ein("bshr,rhd->bshd", o_lat, wuv)
+    else:
+        k_nope, v = _mla_expand_kv(p, cfg, c)
+        q, k, v = _mla_heads(cfg, q_nope, q_rope, k_nope, kr[:, :, None], v)
+        out = decode_ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                          n)[..., :m.v_head_dim]
+    return mm(out.reshape(B, 1, -1), p["wo"]), c_cache, kr_cache

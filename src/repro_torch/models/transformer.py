@@ -1,5 +1,6 @@
-"""Decoder-only model: dense, MoE and hybrid Mamba+attention families
-(port of the serving subset of ``repro/models/transformer.py``): the
+"""Decoder-only model: dense, MoE (GQA or MLA attention), hybrid
+Mamba+attention and xLSTM families (port of the serving subset of
+``repro/models/transformer.py``): the
 block-paged step (``paged_step``) with its preemption spill
 (``gather_paged_pages``/``scatter_paged_pages``) and the dense engine's
 contiguous cache (``init_cache``, ``prefill``, ``decode_step``).
@@ -13,11 +14,11 @@ period descriptor ``s{j}`` with its own stacked leaves — so the weight
 bridge maps leaf to leaf, and a layer reads its weights as views of the
 stacked tensors.
 
-Sub-layer descriptor: (block, mlp) with block in {attn, mamba} and mlp
-in {dense, moe}.  The layer stack runs as a Python loop over the
-periods; the caches are updated in place.  Not ported yet, each raising
-with its ROADMAP item: MLA attention (A12), the xLSTM blocks (A10b),
-encoder-decoder and the vision-language family (A13).
+Sub-layer descriptor: (block, mlp) with block in {attn, mla, mamba,
+mlstm, slstm} and mlp in {dense, moe, none}.  The layer stack runs as a
+Python loop over the periods; the caches are updated in place.  Not
+ported yet, raising with its ROADMAP item: encoder-decoder and the
+vision-language family (A13).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from . import attention as A
 from . import mamba as M
+from . import xlstm as X
 from .common import (dense_init, dtype_of, embed_init, make_norm,
                      resolve_device)
 from .config import ModelConfig
@@ -35,7 +37,7 @@ from .moe import moe_forward, moe_params
 
 Desc = Tuple[str, str]
 
-RECURRENT_BLOCKS = ("mamba",)
+RECURRENT_BLOCKS = ("mamba", "mlstm", "slstm")
 
 
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
@@ -47,11 +49,9 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
     if cfg.family == "dense":
         return [], [("attn", "dense")], cfg.n_layers
     if cfg.family == "moe":
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                "MLA attention is not ported yet (ROADMAP A12)")
+        attn = "mla" if cfg.mla is not None else "attn"
         nd = cfg.moe.first_dense_layers
-        return [("attn", "dense")] * nd, [("attn", "moe")], cfg.n_layers - nd
+        return [(attn, "dense")] * nd, [(attn, "moe")], cfg.n_layers - nd
     if cfg.family == "hybrid":
         period = [("attn" if cfg.is_attn_layer(i) else "mamba",
                    "moe" if cfg.is_moe_layer(i) else "dense")
@@ -59,9 +59,10 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
         assert cfg.n_layers % cfg.attn_layer_period == 0
         return [], period, cfg.n_layers // cfg.attn_layer_period
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            "family 'ssm': the xLSTM blocks (mlstm/slstm) are not ported yet "
-            "(ROADMAP A10b)")
+        every = cfg.ssm.slstm_every or 4
+        period = [("mlstm", "none")] * (every - 1) + [("slstm", "none")]
+        assert cfg.n_layers % every == 0
+        return [], period, cfg.n_layers // every
     if cfg.family == "vlm":
         raise NotImplementedError(
             "family 'vlm': mrope and the vision stub are not ported yet "
@@ -76,14 +77,21 @@ def _sublayer_params(gen, cfg: ModelConfig, desc: Desc, dtype,
     p: Dict[str, Any] = {"norm1": norm_params(cfg.d_model, dtype, gen.device)}
     if block == "attn":
         p["attn"] = A.gqa_params(gen, cfg, dtype)
+    elif block == "mla":
+        p["attn"] = A.mla_params(gen, cfg, dtype)
     elif block == "mamba":
         p["mamba"] = M.mamba_params(gen, cfg, dtype)
+    elif block == "mlstm":
+        p["mlstm"] = X.mlstm_params(gen, cfg, dtype)
+    elif block == "slstm":
+        p["slstm"] = X.slstm_params(gen, cfg, dtype)
     else:
         raise ValueError(block)
-    p["norm2"] = norm_params(cfg.d_model, dtype, gen.device)
+    if mlp != "none":
+        p["norm2"] = norm_params(cfg.d_model, dtype, gen.device)
     if mlp == "dense":
         p["mlp"] = mlp_params(gen, cfg.d_model, dense_ff, cfg.mlp_act, dtype)
-    else:
+    elif mlp == "moe":
         p["moe"] = moe_params(gen, cfg, dtype)
     return p
 
@@ -92,9 +100,21 @@ def _sublayer_state(cfg: ModelConfig, desc: Desc, batch: int, capacity: int,
                     dtype, device) -> Dict[str, torch.Tensor]:
     """Dense decode-time state of one sub-layer.  Attention: (batch, cap,
     KV, hd) K/V, ``cap = min(capacity, sliding_window)`` with a window (a
-    ring).  Mamba: the conv window in the cache type, the SSM state in
-    f32."""
-    if desc[0] == "attn":
+    ring).  MLA: the latent cache ``c`` (batch, capacity, kv_lora_rank)
+    and the shared rope key ``kr`` (batch, capacity, qk_rope_head_dim),
+    in the cache type.  Mamba: the conv window in the cache type, the SSM
+    state in f32.  mLSTM/sLSTM: their carries, f32 whatever the cache
+    type (``capacity`` unused)."""
+    block = desc[0]
+    if block == "mla":
+        m = cfg.mla
+        return {"c": torch.zeros((batch, capacity, m.kv_lora_rank),
+                                 dtype=dtype, device=device),
+                "kr": torch.zeros((batch, capacity, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+    if block in X.STATE_LEAVES:
+        return X.init_state(cfg, block, batch, device)
+    if block == "attn":
         kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
             else capacity
@@ -114,12 +134,13 @@ def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
     """Paged serving state of one sub-layer.  Attention: the shared (nb, bs,
     KV, hd) K/V pools — under ``kv_dtype="int8"`` int8 pools plus f32
     ``k_scale``/``v_scale`` pools (nb, bs, KV), one scale per row and
-    head, as the reference lays them out.  Mamba (never quantized): one
-    state slab per slot — conv window in
-    the cache type, SSM state in f32 — plus one spare *dump row* at index
-    ``num_state_slots`` that no slot owns: idle rows of a step scatter
-    their state there, which drops it without a boolean filter (and so
-    without a host sync).  The ``StateStore`` never hands it out."""
+    head, as the reference lays them out.  Recurrent blocks (never
+    quantized): one state slab per slot — mamba's conv window in the
+    cache type and SSM state in f32, the xLSTM carries in f32 — plus one
+    spare *dump row* at index ``num_state_slots`` that no slot owns: idle
+    rows of a step scatter their state there, which drops it without a
+    boolean filter (and so without a host sync).  The ``StateStore``
+    never hands it out."""
     if desc[0] == "attn":
         shape = (num_blocks, block_size, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
@@ -131,15 +152,11 @@ def _paged_sublayer_state(cfg: ModelConfig, desc: Desc, num_blocks: int,
                     for name, (shp, dt) in pools.items()}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    ns = num_state_slots + 1
-    return {"conv": torch.zeros((ns, cfg.ssm.d_conv - 1, cfg.d_inner),
-                                dtype=dtype, device=device),
-            "ssm": torch.zeros((ns, cfg.d_inner, cfg.ssm.d_state),
-                               dtype=torch.float32, device=device)}
+    return _sublayer_state(cfg, desc, num_state_slots + 1, 0, dtype, device)
 
 
 def _slab_rows(lengths, t_valid, state_slots, dump: int):
-    """A paged step's mamba slab addressing, the same for every mamba
+    """A paged step's state slab addressing, the same for every recurrent
     layer, so computed once per step: ``rows`` (B,) int64, the slab each
     row reads (its slot, clamped to the real slabs); ``fresh`` (B,1,1),
     rows whose sequence starts this step (``lengths == 0``: a slab
@@ -162,30 +179,47 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
 
     Attention blocks read/write the shared block pool through the page
     table at the step's write ``index`` (int8 pools when the state holds
-    scales, as the reference dispatches).  Mamba blocks read/write their
-    rows of the per-slot state slabs as ``slabs`` (``_slab_rows``)
-    addresses them: the conv window by a gather, a zeroing of fresh
-    rows and an ``index_copy_`` back; the SSM state inside the scan
+    scales, as the reference dispatches).  Recurrent blocks read/write
+    their rows of the per-slot state slabs as ``slabs`` (``_slab_rows``)
+    addresses them.  Mamba: the conv window by a gather, a zeroing of
+    fresh rows and an ``index_copy_`` back; the SSM state inside the scan
     kernel, which reads and writes the slab pool in place
-    (``mamba_slab_step``).  Same norm/residual order as the reference."""
+    (``mamba_slab_step``).  xLSTM: every leaf by the same gather, zeroing
+    and ``index_copy_`` (the reference's gather/blank/scatter, idle rows
+    to the dump row).  Same norm/residual order as the reference."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
-    if desc[0] == "attn":
+    block = desc[0]
+    if block == "attn":
         y = A.gqa_paged_step(p["attn"], cfg, h, state, page_table, lengths,
                              index)
-    else:
+    elif block == "mamba":
         rows, fresh, read, write = slabs
         conv = torch.where(fresh, 0, state["conv"][rows])
         y, conv = M.mamba_slab_step(p["mamba"], cfg, h, conv, state["ssm"],
                                     read, write, t_valid)
         state["conv"].index_copy_(0, write, conv.to(state["conv"].dtype))
-    return _mlp_residual(p, cfg, x + y)
+    else:
+        rows, fresh, _, write = slabs
+        keys = X.STATE_LEAVES[block]
+        carry = tuple(torch.where(
+            fresh.reshape((-1,) + (1,) * (state[k].dim() - 1)), 0,
+            state[k][rows]) for k in keys)
+        step = X.mlstm_paged_step if block == "mlstm" else X.slstm_paged_step
+        y, new = step(p[block], cfg, h, carry, t_valid)
+        for k, a in zip(keys, new):
+            state[k].index_copy_(0, write, a.to(state[k].dtype))
+    return _mlp_residual(p, cfg, desc, x + y)
 
 
-def _mlp_residual(p, cfg: ModelConfig, x):
+def _mlp_residual(p, cfg: ModelConfig, desc: Desc, x):
+    """The sub-layer's second half: norm2 and its MLP or MoE, added to
+    the residual; nothing for ``mlp == "none"`` (the xLSTM blocks)."""
+    if desc[1] == "none":
+        return x
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm2"], x)
-    if "mlp" in p:
+    if desc[1] == "dense":
         return x + mlp_forward(p["mlp"], cfg.mlp_act, h)
     y, _ = moe_forward(p["moe"], cfg, h)
     return x + y
@@ -194,20 +228,30 @@ def _mlp_residual(p, cfg: ModelConfig, x):
 def _prefill_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions, *,
                       capacity: int, cache_dtype):
     """Full-sequence forward that also emits the sub-layer's dense
-    decode state.  Attention runs the contiguous flash kernel; mamba
-    the cold-start scan."""
+    decode state.  Attention and MLA run the contiguous flash kernel;
+    mamba the cold-start scan; the xLSTM blocks their recurrence from
+    zero state."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
-    if desc[0] == "attn":
+    block = desc[0]
+    if block == "attn":
         y, (k, v) = A.gqa_prefill(p["attn"], cfg, h, positions)
         w = cfg.sliding_window
         cap = min(capacity, w) if w else capacity
         state = {"k": _seed_cache(k, cap, cache_dtype, w),
                  "v": _seed_cache(v, cap, cache_dtype, w)}
-    else:
+    elif block == "mla":
+        y, (c, kr) = A.mla_prefill(p["attn"], cfg, h, positions)
+        state = {"c": _seed_cache(c, capacity, cache_dtype, 0),
+                 "kr": _seed_cache(kr, capacity, cache_dtype, 0)}
+    elif block == "mamba":
         y, (conv, ssm) = M.mamba_forward(p["mamba"], cfg, h)
         state = {"conv": conv.to(cache_dtype), "ssm": ssm}
-    return _mlp_residual(p, cfg, x + y), state
+    else:
+        forward = X.mlstm_forward if block == "mlstm" else X.slstm_forward
+        y, carry = forward(p[block], cfg, h)
+        state = dict(zip(X.STATE_LEAVES[block], carry))
+    return _mlp_residual(p, cfg, desc, x + y), state
 
 
 def _seed_cache(seq_kv, capacity: int, dtype, window: int):
@@ -229,21 +273,32 @@ def _seed_cache(seq_kv, capacity: int, dtype, window: int):
     return buf
 
 
-def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int):
+def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int,
+                     mla_absorb: bool = False):
     """One token through one sub-layer; ``state`` is updated in place
-    (attention: the slice write at ``pos``; mamba: the new conv window
-    copied over the old, the SSM state advanced in place by the scan,
-    row b on slab b)."""
+    (attention and MLA: the slice write at ``pos``; mamba: the new conv
+    window copied over the old, the SSM state advanced in place by the
+    scan, row b on slab b; xLSTM: the new carry copied over the old)."""
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm1"], x)
-    if desc[0] == "attn":
+    block = desc[0]
+    if block == "attn":
         y, _, _ = A.gqa_decode(p["attn"], cfg, h, state["k"], state["v"], pos)
-    else:
+    elif block == "mla":
+        y, _, _ = A.mla_decode(p["attn"], cfg, h, state["c"], state["kr"],
+                               pos, absorb=mla_absorb)
+    elif block == "mamba":
         ones = torch.ones((x.shape[0],), dtype=torch.int32, device=x.device)
         y, conv = M.mamba_slab_step(p["mamba"], cfg, h, state["conv"],
                                     state["ssm"], None, None, ones)
         state["conv"].copy_(conv)
-    return _mlp_residual(p, cfg, x + y)
+    else:
+        keys = X.STATE_LEAVES[block]
+        decode = X.mlstm_decode if block == "mlstm" else X.slstm_decode
+        y, new = decode(p[block], cfg, h, tuple(state[k] for k in keys))
+        for k, a in zip(keys, new):
+            state[k].copy_(a)
+    return _mlp_residual(p, cfg, desc, x + y)
 
 
 def _index(tree, i: int):
@@ -254,10 +309,14 @@ def _index(tree, i: int):
 
 
 class TransformerLM:
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 mla_absorb: bool = False):
+        """``mla_absorb``: MLA decode folds W_uk into the query and
+        attends in the latent space (``attention.mla_decode``)."""
         self.cfg = cfg
         self.prefix_descs, self.period_descs, self.n_periods = layer_pattern(cfg)
         self.device = resolve_device(device)
+        self.mla_absorb = mla_absorb
 
     def _descs(self) -> List[Desc]:
         return list(self.prefix_descs) + list(self.period_descs)
@@ -288,6 +347,17 @@ class TransformerLM:
                       for _ in range(self.n_periods)]
             blocks[f"s{j}"] = _stack(layers)
         params["blocks"] = blocks
+        if cfg.mtp_depth:
+            # the multi-token-prediction head's leaves (its forward,
+            # ``mtp_logits``, serves training: ROADMAP A15)
+            params["mtp"] = {
+                "norm_h": norm_params(cfg.d_model, dtype, self.device),
+                "norm_e": norm_params(cfg.d_model, dtype, self.device),
+                "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                   dtype=dtype),
+                "layer": _sublayer_params(
+                    gen, cfg, (self.period_descs[0][0], "dense"), dtype,
+                    cfg.prefix_d_ff or cfg.d_ff)}
         return params
 
     # -- embedding / head ------------------------------------------------------
@@ -361,20 +431,21 @@ class TransformerLM:
         x = self._embed(params, token)
         for i, desc in enumerate(self.prefix_descs):
             x = _decode_sublayer(params["prefix"][i], cfg, desc, x,
-                                 cache["prefix"][i], pos)
+                                 cache["prefix"][i], pos, self.mla_absorb)
         for i in range(self.n_periods):
             for j, desc in enumerate(self.period_descs):
                 x = _decode_sublayer(_index(params["blocks"][f"s{j}"], i),
                                      cfg, desc, x,
                                      _index(cache["blocks"][f"s{j}"], i),
-                                     pos)
+                                     pos, self.mla_absorb)
         return self._head(params, x)[:, 0], cache
 
     # -- paged serving ------------------------------------------------------
     def supports_paged(self) -> bool:
-        """Block-paged serving covers GQA attention and mamba blocks
-        (per-slot state slabs) without sliding window or mrope (the
-        reference's rule); the rest serves dense."""
+        """Block-paged serving covers GQA attention and the recurrent
+        blocks (mamba/mlstm/slstm: per-slot state slabs) without sliding
+        window or mrope (the reference's rule); the rest — MLA latent
+        caches among them — serves dense."""
         cfg = self.cfg
         return (all(d[0] == "attn" or d[0] in RECURRENT_BLOCKS
                     for d in self._descs())
@@ -384,6 +455,13 @@ class TransformerLM:
         """True if any layer carries per-sequence recurrent state (the
         serving engine must then provision a ``StateStore``)."""
         return any(d[0] in RECURRENT_BLOCKS for d in self._descs())
+
+    def has_cache_typed_state(self) -> bool:
+        """True if any layer stores state in the cache type: attention
+        K/V, an MLA latent cache, a mamba conv window.  The xLSTM
+        carries are f32 whatever the cache type, so a pure xLSTM stack
+        has none (a bf16 one serves over an f32 ``cache_dtype``)."""
+        return any(d[0] not in X.STATE_LEAVES for d in self._descs())
 
     def supports_prefix_sharing(self) -> bool:
         """KV pages are position-indexed and sharable; recurrent state
@@ -410,7 +488,7 @@ class TransformerLM:
 
         Every attention layer gets (nb, bs, KV, hd) K/V stores with no
         batch axis — slots share the pool through page tables.  Every
-        mamba layer gets slabs with a leading ``num_state_slots + 1``
+        recurrent layer gets slabs with a leading ``num_state_slots + 1``
         axis (the last row is the dump row, see ``_paged_sublayer_state``);
         the engine's ``StateStore`` hands out rows
         ``0..num_state_slots-1``.  ``kv_dtype="int8"`` makes the
@@ -419,8 +497,8 @@ class TransformerLM:
         cfg = self.cfg
         if not self.supports_paged():
             raise NotImplementedError(
-                "paged cache needs an attn/mamba stack without sliding "
-                f"window/mrope (family={cfg.family!r})")
+                "paged cache needs an attn/mamba/mlstm/slstm stack without "
+                f"sliding window/mrope (family={cfg.family!r})")
         if self.has_recurrent_state() and num_state_slots < 1:
             raise ValueError(
                 f"family {cfg.family!r} has recurrent layers: "
@@ -463,9 +541,9 @@ class TransformerLM:
         """Spill read: copy physical blocks ``blocks`` ((n,) int64 on the
         cache's device) out of every attention layer's pools (K/V, and
         under int8 the ``k_scale``/``v_scale`` pools) and state slab
-        ``slab`` out of every mamba layer (conv window and SSM state)
-        into a standalone tree the engine parks in host memory while the
-        slot is preempted.  Layout as ``copy_paged_block``: prefix leaves
+        ``slab`` out of every recurrent layer (every leaf: mamba's conv
+        window and SSM state, the xLSTM carries) into a standalone tree
+        the engine parks in host memory while the slot is preempted.  Layout as ``copy_paged_block``: prefix leaves
         index axis 0, periodic leaves axis 1 (behind the layer axis)."""
         def take(st, desc, axis):
             if desc[0] == "attn":
@@ -484,7 +562,7 @@ class TransformerLM:
         """Spill write, the inverse of ``gather_paged_pages``, in place:
         the payload (on any device) lands at physical ``blocks`` and
         ``slab``, which may differ from where it was gathered.  Attention
-        reads go through the page table and mamba reads through the
+        reads go through the page table and recurrent reads through the
         slot->slab map, so the restored slot decodes as if it had never
         been preempted."""
         def put(st, pst, desc, axis):
@@ -528,11 +606,14 @@ class TransformerLM:
         # pays its selection's host sync once, not once per layer
         index = (None if block_size is None else A.paged_write_index(
             page_table, lengths, t_valid, tokens.shape[1], block_size))
-        # and every mamba layer addresses its slabs through one set of rows
-        dump = next((st["ssm"].shape[-3] - 1 for st in stores if "ssm" in st),
-                    None)
-        slabs = (None if dump is None else
-                 _slab_rows(lengths, t_valid, state_slots, dump))
+        # and every recurrent layer addresses its slabs through one set of
+        # rows; the dump row is the last of the slab axis, axis 1 behind
+        # the layer axis (recurrent blocks are periodic: ``layer_pattern``)
+        n_rows = next((next(iter(st.values())).shape[1] for d, st in
+                       zip(self.period_descs, cache["blocks"].values())
+                       if d[0] in RECURRENT_BLOCKS), None)
+        slabs = (None if n_rows is None else
+                 _slab_rows(lengths, t_valid, state_slots, n_rows - 1))
         x = self._embed(params, tokens)
         for i, desc in enumerate(self.prefix_descs):
             x = _paged_sublayer(params["prefix"][i], cfg, desc, x,

@@ -359,11 +359,14 @@ class ServeEngine:
                 "a bf16 model with kv_dtype='int8' is not supported: the "
                 "dequantized K/V are f32; serve an f32 model, or a bf16 "
                 "model with kv_dtype='bf16'")
-        if compute == torch.bfloat16 and cache_dtype == torch.float32:
-            # the reference cannot serve this either: f32 K/V promote the
-            # attention output and the residual stream out of bf16, which
-            # fails its paged mode's first step and its dense mode's first
-            # decode step
+        if compute == torch.bfloat16 and cache_dtype == torch.float32 \
+                and model.has_cache_typed_state():
+            # the reference cannot serve this either: f32 K/V (or an f32
+            # latent cache or mamba conv window) promote the residual
+            # stream out of bf16, which fails its paged mode's first step
+            # and its dense mode's first decode step.  A pure xLSTM stack
+            # keeps only f32 carries, which the cache type does not touch:
+            # it serves, as in the reference
             raise ValueError(
                 "a bf16 model with an f32 KV pool is not supported: pass "
                 "kv_dtype='bf16'")
@@ -477,7 +480,7 @@ class ServeEngine:
             put=lambda v: torch.tensor(v, device=self.device))
         # scheduler counters
         self.n_batches = 0            # prefill launches (generate_batch,
-        #                               dense admission waves)
+        #                     dense admission waves, completed paged prefills)
         self.last_batch_latency_s = 0.0
         self.n_requests = 0
         self.n_prefills = 0
@@ -1380,6 +1383,7 @@ class ServeEngine:
                 if slot.prefill_off < len(slot.prompt):
                     continue          # more chunks to go; no token yet
                 self.n_prefills += 1
+                self.n_batches += 1   # the reference's alias, paged too
             if logits_np is not None:
                 self.logit_trace.setdefault(slot.rid, []).append(
                     logits_np[i].copy())

@@ -121,20 +121,26 @@ def test_unsupported_lane_family_and_listen_raise(pair):
     eng = ServeEngine(tm, tp, device="cpu")
     with pytest.raises(ValueError, match="unknown lane 'bulk'"):
         eng.submit(np.arange(4, dtype=np.int32), lane="bulk")
-    from repro_torch.models.config import MLAConfig, MoEConfig
+    from repro_torch.models.config import MLAConfig, MoEConfig, SSMConfig
+    for cfg in (TINY_SERVE.replace(family="vlm"),
+                TINY_SERVE.replace(family="encdec", n_enc_layers=2)):
+        with pytest.raises(NotImplementedError, match="A13"):
+            build_model(cfg, device="cpu")
+    # the xLSTM (A10b) and MLA (A12) families are ported: they build
+    ssm = TINY_SERVE.replace(family="ssm", d_ff=0,
+                             ssm=SSMConfig(slstm_every=2))
     mla = TINY_SERVE.replace(family="moe", mla=MLAConfig(),
                              moe=MoEConfig(n_experts=4, d_expert=32))
-    for cfg, item in ((TINY_SERVE.replace(family="ssm"), "A10b"),
-                      (mla, "A12"), (TINY_SERVE.replace(family="vlm"), "A13"),
-                      (TINY_SERVE.replace(family="encdec", n_enc_layers=2),
-                       "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(cfg, device="cpu")
+    assert build_model(ssm, device="cpu").period_descs == [
+        ("mlstm", "none"), ("slstm", "none")]
+    assert build_model(mla, device="cpu").period_descs == [("mla", "moe")]
     with pytest.raises(SystemExit, match="unknown or empty lanes"):
         tserve.main(["--smoke", "--device", "cpu", "--listen", "0",
                      "--lanes", "interactive,bulk"])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tserve.main(["--device", "cpu", "--family", "xlstm"])
+    # and the launcher's --family xlstm serves
+    out = tserve.main(["--device", "cpu", "--family", "xlstm", "--requests",
+                       "2", "--max-new", "3", "--prompt-len", "12"])
+    assert out["n_results"] == 2 and out["total_tokens"] == 6
 
 
 @pytest.mark.parametrize("mode", [[], ["--direct"]])

@@ -237,9 +237,17 @@ def test_share_prefix_gating_and_unported_families():
     assert not tm.supports_speculative() and tm.has_recurrent_state()
     with pytest.raises(ValueError, match="num_state_slots"):
         tm.init_paged_cache(8, 4, dtype=torch.float32)
-    xl = _port_cfg(FAMILY_CFGS["xlstm"])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        build_model(xl, device="cpu")
+    # the xLSTM family (ported) builds, and refuses prefix sharing and
+    # speculation as mamba does
+    xm = build_model(_port_cfg(FAMILY_CFGS["xlstm"]), device="cpu")
+    xp = xm.init(seed=0)
+    assert not xm.supports_speculative() and xm.has_recurrent_state()
+    with pytest.raises(ValueError, match="share_prefix=True"):
+        ServeEngine(xm, xp, device="cpu", share_prefix=True)
+    assert not ServeEngine(xm, xp, device="cpu").share_prefix
+    with pytest.raises(ValueError, match="has recurrent layers"):
+        ServeEngine(xm, xp, device="cpu", spec_k=2, draft_model=xm,
+                    draft_params=xp)
 
 
 @pytest.mark.parametrize("argv,n_tok", [
@@ -258,6 +266,7 @@ def test_launcher_serves_recurrent_families_on_cpu(argv, n_tok):
 
 
 def test_launcher_xlstm_family_raises():
-    from repro_torch.launch import serve as tserve
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tserve.main(["--device", "cpu", "--family", "xlstm"])
+    """``--family xlstm`` was refused until the xLSTM blocks were ported;
+    it now serves on the CPU through state slabs, as the other recurrent
+    families do."""
+    test_launcher_serves_recurrent_families_on_cpu(["--family", "xlstm"], 30)

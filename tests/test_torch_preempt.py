@@ -4,8 +4,8 @@ JAX reference, on the CPU.
 A slot preempted mid-decode has its used KV pages (under int8 also the
 scale pools) and its mamba state slab gathered to host memory, and is
 re-admitted later into whatever blocks are free; a slot preempted
-mid-prefill is restarted.  For transformer, mamba, hybrid and an int8
-pool the port must give the tokens, counters and pool accounting of the
+mid-prefill is restarted.  For transformer, mamba, hybrid, xLSTM (its
+mLSTM and sLSTM slabs) and an int8 pool the port must give the tokens, counters and pool accounting of the
 JAX engine under the same schedule; its preempted run must equal its
 own never-preempted run, logits bit for bit (as the reference's does),
 and its per-step logits must stay within f32 tolerance of the
@@ -31,7 +31,8 @@ ATOL_F32 = 1e-4      # per-step logits, port against reference (f32 CPU)
 # row's absmax): logit differences up to 9.7e-4 seen on these inputs
 ATOL_INT8 = 5e-3
 CASES = {"transformer": ("transformer", None), "mamba": ("mamba", None),
-         "hybrid": ("hybrid", None), "int8": ("transformer", "int8")}
+         "hybrid": ("hybrid", None), "int8": ("transformer", "int8"),
+         "xlstm": ("xlstm", None)}
 COUNTERS = ("n_preemptions", "n_restores", "n_joins", "n_prefills",
             "n_evictions", "n_prefill_chunks")
 _PAIRS = {}
@@ -180,8 +181,8 @@ def test_interactive_admission_preempts_the_youngest_batch_slot(case):
 def test_gather_scatter_round_trip(case):
     """gather -> scatter to other blocks and another slab -> gather
     returns equal tensors (every attention pool, the int8 scale pools,
-    the mamba conv and SSM slabs); blocks and slabs outside the write
-    are untouched."""
+    the mamba conv and SSM slabs, the xLSTM carries); blocks and slabs
+    outside the write are untouched."""
     family, kv_dtype = CASES[case]
     _, _, tm, _ = _pair(family)
     kw = {"kv_dtype": kv_dtype} if kv_dtype else {}
@@ -200,7 +201,9 @@ def test_gather_scatter_round_trip(case):
     names = {k for st in first["blocks"].values() for k in st}
     if kv_dtype:
         assert {"k_scale", "v_scale"} <= names
-    if tm.has_recurrent_state():
+    if family == "xlstm":
+        assert names == {"C", "n", "m", "h", "cs", "ns", "ms"}
+    elif tm.has_recurrent_state():
         assert {"conv", "ssm"} <= names
     tm.scatter_paged_pages(cache, first, dst, 3)
     again = tm.gather_paged_pages(cache, dst, 3)
