@@ -42,16 +42,22 @@ result line):
                  uint8 -> uint8, bit-exact.  Then the split decode body at
                  its split boundaries (K1, B3: rows of 0, 1, one split, one
                  split + 1 and all P * bs keys in one batch; B4: n_valid 1,
-                 one split, one more, the whole cache), each decode entry
+                 one split, one more, the whole cache, and its MLA entry
+                 at B = 2, where 128 heads split), each decode entry
                  twice (the same bits), and the split-TF32 body's edges
                  (lengths 0, page straddles, T = 5 and 17; windows 16 and
                  128 at S = 77).  K2 also at the speculative verify shape
                  (smollm heads, B = 8, T = 5, bf16, ``_mma``) and the
                  draft's T = 2 catch-up, timed.  B2 contiguous and B4 at
-                 DeepSeek-V3's MLA heads (H = KV = 128, q/k head 192, V
-                 zero-padded from 128; B = 8, S = 512 causal; C = 640, 576
-                 valid; bf16, the CUDA-core prefill body), the padded
-                 output columns exactly 0, SDPA on the unpadded V beside.
+                 DeepSeek-V3's MLA heads on MLA's own operands (128 heads,
+                 q 192 = 128 + 64, k_nope and V 128 per head, one rope key
+                 of 64 per token shared by every head; B = 8, S = 512
+                 causal; a 640-slot latent cache, 576 valid, its rope keys
+                 read in place; bf16) through their MLA entries
+                 (``flash_attention_mla_bf16_mma``, the tensor-core body
+                 at q/k 192 and V 128; ``decode_attention_mla_bf16``),
+                 SDPA on the broadcast rope key and V beside, and the
+                 numbers of the padded-operand form logged beside.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -176,11 +182,14 @@ result line):
                  MoE layer (256 experts top-8, 1 shared), plus the MTP
                  leaves (~16B bf16 parameters, ~32 GB): 8 requests of 128
                  prompt tokens, 16 new, batch 8, bf16 latent cache, in the
-                 expanded form (B2 through ``flash_attention_bf16``, B4,
-                 B6) with a profiler trace, then the absorbed form (B2,
-                 B6); then layer 0's served operands through B2 (S = 128)
-                 and B4 (129 and 144 valid slots) against their plain
-                 versions with phase 3's MLA tolerances, and timed.
+                 expanded form (B2 through ``flash_attention_mla_bf16_mma``,
+                 B4 through ``decode_attention_mla_bf16``, B6) with a
+                 profiler trace (and the operand-building copies), then
+                 the absorbed form (B2, B6); then layer 0's served
+                 operands through B2 (S = 128) and B4 (129 and 144 valid
+                 slots) against their plain versions with phase 3's MLA
+                 tolerances, and timed.  (a) runs the GQA entries over
+                 the concatenated operands (f32, other dims).
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
@@ -312,22 +321,28 @@ def phase_build(kernels) -> None:
 def _log_body_build(name: str, text: str) -> None:
     """The redesigned bodies' instantiations in a ptxas report, registers
     and spills each: the tensor-core bodies (prefill_mma.cuh, bf16;
-    prefill_tf32.cuh, split TF32) with head_dim and ring stages from the
-    mangled template arguments and the dynamic shared memory the launch
-    asks for (K and V tiles x stages x keys x padded rows, plus the int8
-    row scales, and q at head_dim 128 in the TF32 body), and the split
-    decode body (decode_body.cuh) by its types."""
+    prefill_tf32.cuh, split TF32) with head_dim (q/k and V: they differ
+    for MLA), ring stages and warps a block from the mangled template
+    arguments and the
+    dynamic shared memory the launch asks for (K and V tiles x stages x
+    keys x padded rows, plus the int8 row scales, and q at head_dim 128
+    in the TF32 body), and the split decode body (decode_body.cuh) by its
+    types and row policy."""
     elt = {"f": 4, "13__nv_bfloat16": 2, "a": 1}
     fn, props = None, []
     for ln in text.splitlines() + ["Compiling entry function 'end'"]:
         if "Compiling entry function" in ln:
             if fn and "prefill_mma_kernel" in fn:
                 targs = fn.split("prefill_mma_kernel", 1)[1]
-                hd, stages = map(int, re.findall(r"Li(\d+)E", targs))
-                smem = 2 * stages * 64 * (hd + 8) * 2
-                log(f"[build] {name} tensor-core body hd {hd}: {stages} ring "
-                    f"stages, {smem} bytes of dynamic shared memory; "
-                    + " | ".join(props))
+                hd, vd, stages, warps = map(int, re.findall(r"Li(\d+)E",
+                                                            targs))
+                # the ring, and q after it where it does not fit a stage
+                stage, q = 64 * ((hd + 8) + (vd + 8)), warps * 16 * (hd + 8)
+                smem = 2 * (stages * stage + (q if q > stage else 0))
+                form = "MLA " if "MlaRows" in targs else ""
+                log(f"[build] {name} tensor-core body {form}hd {hd} v {vd}: "
+                    f"{warps} warps, {stages} ring stages, {smem} bytes of "
+                    f"dynamic shared memory; " + " | ".join(props))
             elif fn and "prefill_tf32_kernel" in fn:
                 targs = fn.split("prefill_tf32_kernel", 1)[1]
                 hd, stages = map(int, re.findall(r"Li(\d+)E", targs)[-2:])
@@ -347,7 +362,8 @@ def _log_body_build(name: str, text: str) -> None:
                 names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
                 qt, kvt = re.match(r"I(13__nv_bfloat16|f)(S2_|13__nv_bfloat16"
                                    r"|f|a)", targs).groups()
-                rows = "paged" if "PagedRows" in targs else "contiguous"
+                rows = ("paged" if "PagedRows" in targs else "MLA"
+                        if "MlaRows" in targs else "contiguous")
                 log(f"[build] {name} split decode body q {names[qt]} kv "
                     f"{names.get(kvt, names[qt])} {rows}: "
                     + " | ".join(props))
@@ -872,84 +888,151 @@ def _bf16_ulp(want) -> float:
     return 2.0 ** (np.floor(np.log2(amax)) - 7) if amax > 0 else 0.0
 
 
-def _mla_bound(H, n_scores, qk, vd, q_rows, kv_rows):
-    """Bytes (q and the visible K rows at the q/k head, V rows and the
-    output at v_head_dim, bf16, each once: the unpadded function) and
-    operations (QK at qk, PV at v_head_dim, multiply and add)."""
-    n_bytes = 2 * (q_rows * H * (qk + vd) + kv_rows * H * (qk + vd))
+def _mla_bound(H, n_scores, qk, vd, q_rows, kv_rows, rope=0):
+    """Bytes (q at the q/k head and the output at v_head_dim; per visible
+    key its K rows and V rows, bf16, each once) and operations (QK at qk,
+    PV at v_head_dim, multiply and add).  ``rope``: the width of the rope
+    key that every head of a token shares, counted once per token as the
+    MLA entries read it; 0 counts it per head, as the padded operands
+    (the key broadcast to every head) held it."""
+    k_row = H * qk if not rope else H * (qk - rope) + rope
+    n_bytes = 2 * (q_rows * H * (qk + vd) + kv_rows * (k_row + H * vd))
     return _bound(n_bytes, 2 * H * (qk + vd) * n_scores, torch.bfloat16)
 
 
-def phase_mla_kernels(timer: Timer):
-    """B2 contiguous and B4 at DeepSeek-V3's MLA heads (phase 13's path):
-    H = KV = 128, q/k head 192, V zero-padded from 128 to 192 as
-    ``mla_prefill``/``mla_decode`` pad it, bf16.  Head_dim 192 runs the
-    CUDA-core prefill body (``flash_attention_bf16``) and the split decode
-    body; the padded output columns must be exactly 0.  SDPA, the
-    yardstick, takes the unpadded 128-wide V."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as dops
+# The MLA rows of the padded-operand form (the rope key broadcast to every
+# head, V zero-padded to 192, the CUDA-core prefill body), measured on an
+# "NVIDIA H100 80GB HBM3, 700.00 W" card (PERF.md §6): logged beside this
+# run's
+PADDED_MLA = {"phase 3 B2": "16.1882 ms, plain 4.8346, SDPA 0.2755",
+            "phase 3 B4": "0.2156 ms, plain 1.5519, SDPA 0.1638",
+            "served B2": "1.2561 ms, plain 0.6327, SDPA 0.0708",
+            "served B4": "0.0791 ms (144 valid), plain 0.3329, SDPA 0.0625"}
+
+
+def _mla_flash_row(timer, q, k_nope, k_rope, v, tag, padded):
+    """B2's MLA entry on these operands (q (B, S, H, 192), k_nope and V
+    (B, S, H, 128), the shared rope key (B, S, 64); causal, S = T): one
+    launch of ``flash_attention_mla_bf16_mma``, the output within one bf16
+    ulp of the plain version's largest, then timed beside the plain
+    version and SDPA (on K with the rope key broadcast beforehand, V
+    unpadded: the padded form's yardstick call).  The bound counts the
+    rope key once per token; the padded form's, per head, is logged beside
+    it, and so are ``padded``, that form's numbers."""
     from repro_torch.kernels.flash_attention import ops as fops
-    H, hd, vd = MLA_HEADS["H"], MLA_HEADS["hd"], MLA_HEADS["v_hd"]
-    g = torch.Generator(device="cpu").manual_seed(192)
-    B, S = 8, 512
-    q, k = (torch.randn((B, S, H, hd), generator=g).to("cuda", torch.bfloat16)
-            for _ in range(2))
-    v0 = torch.randn((B, S, H, vd), generator=g).to("cuda", torch.bfloat16)
-    v = F.pad(v0, (0, hd - vd)).contiguous()
-    entry = fops.flash_entry(torch.bfloat16, hd)
+    B, S, H, hd = q.shape
+    rope, vd = k_rope.shape[-1], v.shape[-1]
+    entry = "flash_attention_mla_bf16_mma"
+    check(fops.mla_flash_entry((q.dtype, k_nope.dtype, k_rope.dtype,
+                                v.dtype), (hd - rope, rope, vd)) == entry,
+          f"{tag}: the MLA operands do not go to {entry}")
     e0 = fops.FLASH_KERNEL.entry_launches[entry]
-    out = fops.flash_attention(q, k, v, causal=True)
+    out = fops.mla_flash_attention(q, k_nope, k_rope, v)
     torch.cuda.synchronize()
     check(fops.FLASH_KERNEL.entry_launches[entry] == e0 + 1,
-          f"flash_attention did not launch {entry} at head_dim {hd}")
-    want = fops.flash_attention_plain(q, k, v, causal=True)
-    check(torch.isfinite(out.float()).all().item()
-          and not out[..., vd:].any().item(),
-          "flash_attention (MLA): non-finite output or padded columns != 0")
-    diff = (out[..., :vd].float() - want[..., :vd].float()).abs()
+          f"{tag}: flash_attention did not launch {entry}")
+    want = fops.mla_flash_attention_plain(q, k_nope, k_rope, v)
+    check(out.shape == want.shape == (B, S, H, vd)
+          and torch.isfinite(out.float()).all().item(),
+          f"{tag}: non-finite output or shape {tuple(out.shape)}")
+    diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    at = want[..., :vd].flatten()[diff.flatten().argmax()].float().item()
+    at = want.flatten()[diff.flatten().argmax()].float().item()
     # one ulp, as the smollm rows (the kernel rounds the unnormalized
     # probabilities, the plain version the normalized ones)
     tol = max(DENSE_BF16_TOL["flash_attention"], _bf16_ulp(want))
-    tag = (f"flash_attention (contiguous) MLA heads {H}/{H} hd {hd} (V "
-           f"{vd} padded) B={B} S=T={S} causal bfloat16 [{entry}]; the "
-           f"largest error at |out| = {abs(at):.3f}")
+    tag = (f"{tag} [{entry}]; the largest error at |out| = {abs(at):.3f} "
+           f"(|out| <= {want.float().abs().max().item():.3f})")
     check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
-                    lambda *a: fops.flash_attention_plain(*a, causal=True),
-                    (q, k, v), _sdpa(q, k, v0, 1, causal=True),
-                    _mla_bound(H, B * S * (S + 1) // 2, hd, vd, B * S,
-                               B * S))
-    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
-    rows = {"flash_attention": dict(max_abs_err=err, **row)}
-    del q, k, v, v0, out, want
-    C, n_valid = 640, 576
-    q = torch.randn((B, H, hd), generator=g).to("cuda", torch.bfloat16)
-    k = torch.randn((B, C, H, hd), generator=g).to("cuda", torch.bfloat16)
-    v0 = torch.randn((B, C, H, vd), generator=g).to("cuda", torch.bfloat16)
-    v = F.pad(v0, (0, hd - vd)).contiguous()
-    n0 = dops.DENSE_KERNEL.launches
-    out = dops.decode_attention(q, k, v, n_valid)
+    del out, want, diff
+    k_full = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, rope)],
+                       dim=-1)
+    n_scores = B * S * (S + 1) // 2
+    row = _time_row(timer, fops.mla_flash_attention,
+                    fops.mla_flash_attention_plain, (q, k_nope, k_rope, v),
+                    _sdpa(q, k_full, v, 1, causal=True),
+                    _mla_bound(H, n_scores, hd, vd, B * S, B * S, rope))
+    old = _mla_bound(H, n_scores, hd, vd, B * S, B * S)[0]
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row)
+        + f"; bound with the rope key per head {old:.5f}; padded operands: {padded}")
+    return dict(max_abs_err=err, bound_ms_padded=old, **row)
+
+
+def _mla_decode_row(timer, q, k_nope, kr_cache, v, n_valid, tag, padded):
+    """B4's MLA entry on these operands (q (B, H, 192), k_nope and V
+    (B, T, H, 128), the latent cache's rope keys (B, C, 64), C >= T):
+    one launch of ``decode_attention_mla_bf16``, the output within two
+    bf16 ulps of the plain version's largest, then timed beside the plain
+    version and SDPA (K with the rope key broadcast beforehand, V
+    unpadded, a mask only where slots past ``n_valid`` exist: the padded
+    form's yardstick calls).  Bounds and ``padded`` as
+    ``_mla_flash_row``'s."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    B, H, hd = q.shape
+    T, rope, vd = k_nope.shape[1], kr_cache.shape[-1], v.shape[-1]
+    entry = "decode_attention_mla_bf16"
+    check(dops.mla_entry((q.dtype, k_nope.dtype, kr_cache.dtype, v.dtype),
+                         (hd - rope, rope, vd)) == entry,
+          f"{tag}: the MLA operands do not go to {entry}")
+    e0 = dops.DENSE_KERNEL.entry_launches[entry]
+    out = dops.mla_decode_attention(q, k_nope, kr_cache, v, n_valid)
     torch.cuda.synchronize()
-    check(dops.DENSE_KERNEL.launches == n0 + 1,
-          "decode_attention did not launch at head_dim 192")
-    want = dops.decode_attention_plain(q, k, v, n_valid)
-    check(torch.isfinite(out.float()).all().item()
-          and not out[..., vd:].any().item(),
-          "decode_attention (MLA): non-finite output or padded columns != 0")
-    err = (out[..., :vd].float() - want[..., :vd].float()).abs().max().item()
+    check(dops.DENSE_KERNEL.entry_launches[entry] == e0 + 1,
+          f"{tag}: decode_attention did not launch {entry}")
+    want = dops.mla_decode_attention_plain(q, k_nope, kr_cache, v, n_valid)
+    check(out.shape == want.shape == (B, H, vd)
+          and torch.isfinite(out.float()).all().item(),
+          f"{tag}: non-finite output or shape {tuple(out.shape)}")
+    err = (out.float() - want.float()).abs().max().item()
     tol = max(DENSE_BF16_TOL["decode_attention"], 2 * _bf16_ulp(want))
-    tag = (f"decode_attention (dense) MLA heads {H}/{H} hd {hd} (V {vd} "
-           f"padded) B={B} C={C} n_valid={n_valid} bfloat16")
+    tag = f"{tag} [{entry}]"
     check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-    mask = (torch.arange(C, device="cuda") < n_valid)[None, None, None, :]
-    row = _time_row(timer, dops.decode_attention, dops.decode_attention_plain,
-                    (q, k, v, n_valid), _sdpa(q[:, None], k, v0, 1, mask=mask),
-                    _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid))
-    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
-    rows["decode_attention"] = dict(max_abs_err=err, **row)
+    k_full = torch.cat([k_nope, kr_cache[:, :T, None].expand(B, T, H, rope)],
+                       dim=-1)
+    mask = None if n_valid == T else \
+        (torch.arange(T, device="cuda") < n_valid)[None, None, None, :]
+    row = _time_row(timer, dops.mla_decode_attention,
+                    dops.mla_decode_attention_plain,
+                    (q, k_nope, kr_cache, v, n_valid),
+                    _sdpa(q[:, None], k_full, v, 1, mask=mask),
+                    _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid, rope))
+    old = _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid)[0]
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row)
+        + f"; bound with the rope key per head {old:.5f}; padded operands: {padded}")
+    return dict(max_abs_err=err, bound_ms_padded=old, **row)
+
+
+def phase_mla_kernels(timer: Timer):
+    """B2 contiguous and B4 at DeepSeek-V3's MLA heads (phase 13's path)
+    on MLA's own operands, bf16: H = 128 heads, q (192 = 128 + 64), k_nope
+    and V (128) per head, one rope key (64) per token shared by every
+    head.  B2 at B = 8, S = T = 512, causal, through
+    ``flash_attention_mla_bf16_mma`` (the tensor-core body at q/k 192, V
+    128); B4 at B = 8 over a 640-slot latent cache, 576 valid, through
+    ``decode_attention_mla_bf16`` (the split decode body, the rope key read
+    in place).  SDPA, the yardstick, takes K with the rope key broadcast
+    and the unpadded V, as for the padded operands."""
+    H, hd, vd = MLA_HEADS["H"], MLA_HEADS["hd"], MLA_HEADS["v_hd"]
+    rope = hd - vd
+    g = torch.Generator(device="cpu").manual_seed(192)
+    B, S = 8, 512
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+
+    rows = {"flash_attention": _mla_flash_row(
+        timer, rand(B, S, H, hd), rand(B, S, H, vd), rand(B, S, rope),
+        rand(B, S, H, vd),
+        f"[kernels] flash_attention (contiguous) MLA heads {H}/{H} q/k {hd} "
+        f"(rope {rope} shared) V {vd} B={B} S=T={S} causal bfloat16",
+        PADDED_MLA["phase 3 B2"])}
+    C, n_valid = 640, 576
+    rows["decode_attention"] = _mla_decode_row(
+        timer, rand(B, H, hd), rand(B, C, H, vd), rand(B, C, rope),
+        rand(B, C, H, vd), n_valid,
+        f"[kernels] decode_attention (dense) MLA heads {H}/{H} q/k {hd} "
+        f"(rope {rope} in place) V {vd} B={B} C={C} n_valid={n_valid} "
+        f"bfloat16", PADDED_MLA["phase 3 B4"])
     return rows
 
 
@@ -1040,8 +1123,8 @@ def phase_splits() -> None:
     prefill body at its edges, each against its plain version: K1 and B3
     with rows of 0, 1, one split's keys, one more and all P * bs keys in
     one batch (a row with no keys outputs 0), B4 at n_valid 1, one split,
-    one more and the whole cache; two launches of each decode entry must
-    give the same bits.  f32 K2 and K2q with a slot that has nothing
+    one more and the whole cache (its MLA entry at B = 2, 128 heads, too);
+    two launches of each decode entry must give the same bits.  f32 K2 and K2q with a slot that has nothing
     cached, a chunk straddling a page and T = 5 and 17; f32 B2 with 16-
     and 128-token windows and S = 77."""
     from repro_torch.kernels.decode_attention import ops as dops
@@ -1102,6 +1185,31 @@ def phase_splits() -> None:
                 f"n_valid 1/{split_keys}/{split_keys + 1}/{C} ({n_split} "
                 f"splits of {split_keys} at C): max_abs_err "
                 f"{max(errs):.3e} (tol {tol}); bitwise repeatable")
+    # B4's MLA entry where its 128 heads leave splits (B = 2: 256 pairs):
+    # partials V-wide (128) beside a 192-wide q, the rope key in place
+    B, H, C = 2, MLA_HEADS["H"], 640
+    n_split, split_keys = dops.split_plan(C, B * H)
+    g = torch.Generator(device="cpu").manual_seed(21)
+    errs, tols = [], []
+    for n_valid in (1, split_keys, split_keys + 1, C):
+        q, kn, kr, v = (torch.randn(shape, generator=g).to("cuda", bf16)
+                        for shape in ((B, H, 192), (B, C, H, 128), (B, C, 64),
+                                      (B, C, H, 128)))
+        out = dops.mla_decode_attention(q, kn, kr, v, n_valid)
+        again = dops.mla_decode_attention(q, kn, kr, v, n_valid)
+        want = dops.mla_decode_attention_plain(q, kn, kr, v, n_valid)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"mla_decode_attention n_valid {n_valid}: launches differ")
+        errs.append((out.float() - want.float()).abs().max().item())
+        tols.append(max(DENSE_BF16_TOL["decode_attention"],
+                        2 * _bf16_ulp(want)))
+        check(errs[-1] <= tols[-1], f"decode_attention (B4, MLA) n_valid "
+              f"{n_valid}: max_abs_err {errs[-1]} > {tols[-1]}")
+    log(f"[splits] decode_attention (B4, MLA entry) B={B} heads {H} "
+        f"n_valid 1/{split_keys}/{split_keys + 1}/{C} ({n_split} splits of "
+        f"{split_keys} at C): max_abs_err {max(errs):.3e} (tol "
+        f"{min(tols):.3e} and up); bitwise repeatable")
     # the split-TF32 prefill body at its edges
     for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
         for T in (5, 17):
@@ -1334,6 +1442,19 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512):
         f"(idle {100 - busy_us / 1e4 / wall:.1f}%)")
     for key, us, cnt in rows[:10]:
         log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  {key[:90]}")
+    # the copies that build operands around the kernels, each
+    # concatenation kernel (template) on its own
+    for what, pat in (("concatenations", "CatArrayBatchedCopy"),
+                      ("elementwise copies", "direct_copy_kernel"),
+                      ("fills", "FillFunctor")):
+        sel = [(key, us, cnt) for key, us, cnt in rows if pat in key]
+        log(f"[{tag}] {what} ({pat}): "
+            f"{sum(us for _, us, _ in sel) / 1e3:.2f} ms over "
+            f"{sum(cnt for *_, cnt in sel)} calls")
+        if what == "concatenations":
+            for key, us, cnt in sel:
+                log(f"[{tag}]   {us / 1e3:9.2f} ms {cnt:7d} calls  "
+                    f"{key[key.index(pat):][:140]}")
     # the hand-written kernels, wherever they rank
     for key, us, cnt in rows:
         if any(n in key for n in ("kern::", "selective_scan_kernel",
@@ -2322,8 +2443,9 @@ def phase_mla_small(kernels, acc) -> None:
                           gpu_params, device="cuda", **kw)
         got = eng.serve(prompts)
         torch.cuda.synchronize()
-        launches = _tally(kernels, acc)
         tag = f"deepseek-v3 smoke (2 layers, f32), mla_absorb={absorb}"
+        _check_mla_entries(kernels, cfg, torch.float32, absorb, f"mla {tag}")
+        launches = _tally(kernels, acc)
         check(not eng.paged, f"[mla] {tag}: ran paged")
         for a, b in zip(want, got):
             check(a.status == b.status == "ok",
@@ -2357,23 +2479,47 @@ def phase_mla_small(kernels, acc) -> None:
         f"diff {err:.3e} (the reference's bound 2e-3)")
 
 
-def mla_engine(absorb: bool, params=None):
+def _check_mla_entries(kernels, cfg, dtype, absorb: bool, tag: str) -> None:
+    """Every B2 (and, expanded, B4) launch since the last reset was of the
+    entry the MLA dispatch picks for ``dtype`` operands at ``cfg``'s dims:
+    the MLA entries for bf16 at DeepSeek-V3's, the GQA entries over the
+    concatenated operands otherwise (the f32 smoke model)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    m = cfg.mla
+    dims = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim)
+    check_served_by(kernels, "flash_attention",
+                    fops.mla_flash_entry((dtype,) * 4, dims), tag)
+    if not absorb:
+        check_served_by(kernels, "decode_attention",
+                        dops.mla_entry((dtype,) * 4, dims), tag)
+
+
+def mla_engine(absorb: bool, params=None, pkg: str = "repro_torch"):
     """Phase 13(b)'s model and engine: deepseek-v3-671b at full width, cut
     to its 3 dense-prefix layers and 1 MoE layer (plus the MTP leaves;
     bf16, random weights made on the card from seed 0 when ``params`` is
     None), on the dense engine (MLA serves dense only), bf16 latent cache,
-    batch 8, burst 8.  Returns (engine, params)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.serving import ServeEngine
-    cfg = get_config("deepseek-v3-671b").replace(n_layers=4)
-    model = build_model(cfg, device="cuda", mla_absorb=absorb)
+    batch 8, burst 8, from the port package importable as ``pkg``
+    (kernel_ab.py builds another checkout's the same way).  Returns
+    (engine, params)."""
+    configs, models, serving = (importlib.import_module(f"{pkg}.{m}")
+                                for m in ("configs", "models", "serving"))
+    cfg = configs.get_config("deepseek-v3-671b").replace(n_layers=4)
+    model = models.build_model(cfg, device="cuda", mla_absorb=absorb)
     if params is None:
         params = model.init(seed=0)
-    eng = ServeEngine(model, params, batch_size=8,
+    eng = serving.ServeEngine(model, params, batch_size=8,
                       capacity=MLA_PLEN + MLA_NEW, max_new_tokens=MLA_NEW,
                       burst=8, kv_dtype="bf16", device="cuda")
     return eng, params
+
+
+def mla_prompts(vocab_size: int):
+    """Phase 13(b)'s 8 requests of ``MLA_PLEN`` prompt tokens."""
+    rng = np.random.default_rng(13)
+    return [rng.integers(0, vocab_size, MLA_PLEN).astype(np.int32)
+            for _ in range(8)]
 
 
 def phase_mla(kernels, card: str):
@@ -2383,7 +2529,6 @@ def phase_mla(kernels, card: str):
     a profiler trace of the expanded engine, and B2/B4 on layer 0's
     served operands (``phase_mla_served_kernels``).  Returns the launches
     of both runs and the served-operand rows."""
-    from repro_torch.kernels.flash_attention import ops as fops
     t0 = time.perf_counter()
     eng, params = mla_engine(False)
     torch.cuda.synchronize()
@@ -2399,9 +2544,7 @@ def phase_mla(kernels, card: str):
         f"{cfg.vocab_size}, MTP leaves {'mtp' in params}, bf16: "
         f"{n_params / 1e9:.2f}B parameters made on the card in "
         f"{time.perf_counter() - t0:.1f}s")
-    rng = np.random.default_rng(13)
-    prompts = [rng.integers(0, cfg.vocab_size, MLA_PLEN).astype(np.int32)
-               for _ in range(8)]
+    prompts = mla_prompts(cfg.vocab_size)
     total, runs = {}, {}
     for absorb in (False, True):
         if absorb:
@@ -2427,8 +2570,7 @@ def phase_mla(kernels, card: str):
               and all(launches[n] == 0 for n in ATTN_KERNELS
                       if n not in path),
               f"[mla] {tag}: launches {launches}")
-        check_served_by(kernels, "flash_attention",
-                        fops.flash_entry(torch.bfloat16, 192), "mla")
+        _check_mla_entries(kernels, cfg, torch.bfloat16, absorb, "mla")
         runs[absorb] = res
         n_tok = sum(len(r.tokens) for r in res)
         log(f"[mla] {tag}: served 8 requests / {n_tok} tokens on the dense "
@@ -2449,14 +2591,13 @@ def phase_mla(kernels, card: str):
 def phase_mla_served_kernels(model, params, prompts) -> dict:
     """B2 and B4 on the operands phase 13(b) gives them, against their
     plain versions with phase 3's MLA tolerances, then timed: layer 0's
-    q, K and V (V padded to 192) of the 8 served prompts (S = MLA_PLEN,
+    q, k_nope, rope key and V of the 8 served prompts (S = MLA_PLEN,
     causal), and its expanded decode at the first and the last decode
-    step's valid slots (MLA_PLEN + 1 and MLA_PLEN + MLA_NEW), the latents
-    of 16 more random tokens after each prompt standing in for the
-    generated ones.  These launches are not the main path's (its counts
-    were read).  Returns {kernel: row} (the last decode shape's row)."""
-    from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
+    step's valid slots (MLA_PLEN + 1 and MLA_PLEN + MLA_NEW) over the
+    latent cache's rope keys in place, the latents of 16 more random
+    tokens after each prompt standing in for the generated ones.  These
+    launches are not the main path's (its counts were read).  Returns
+    {kernel: row} (the last decode shape's row)."""
     from repro_torch.models import attention as A
     from repro_torch.models.common import make_norm
     cfg, m = model.cfg, model.cfg.mla
@@ -2469,52 +2610,22 @@ def phase_mla_served_kernels(model, params, prompts) -> dict:
     p = params["prefix"][0]
     h = make_norm(cfg.norm)[1](p["norm1"], model._embed(params, tokens))
     pos = torch.arange(C, dtype=torch.int32, device="cuda").expand(8, C)
-    q_nope, q_rope, c_kv, k_rope = A._mla_qkv(p["attn"], cfg, h, pos)
+    q, _, c_kv, k_rope = A._mla_qkv(p["attn"], cfg, h, pos)
+    kr_cache = k_rope.reshape(8, C, m.qk_rope_head_dim).contiguous()
     timer = Timer()
-    k_nope, v0 = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :S])
-    q, k, v = A._mla_heads(cfg, q_nope[:, :S], q_rope[:, :S], k_nope,
-                           k_rope[:, :S], v0)
-    out = fops.flash_attention(q, k, v, causal=True)
-    want = fops.flash_attention_plain(q, k, v, causal=True)
-    check(torch.isfinite(out.float()).all().item()
-          and not out[..., vd:].any().item(),
-          "[mla] served B2: non-finite output or padded columns != 0")
-    err = (out[..., :vd].float() - want[..., :vd].float()).abs().max().item()
-    tol = max(DENSE_BF16_TOL["flash_attention"], _bf16_ulp(want))
-    tag = (f"[mla] served B2 operands: layer 0, B=8 S={S} causal, heads "
-           f"{H}/{H} hd {hd} (V {vd} padded) {str(q.dtype)[6:]} (|out| <= "
-           f"{want.float().abs().max().item():.3f})")
-    check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
-                    lambda *a: fops.flash_attention_plain(*a, causal=True),
-                    (q, k, v), _sdpa(q, k, v0.contiguous(), 1, causal=True),
-                    _mla_bound(H, 8 * S * (S + 1) // 2, hd, vd, 8 * S, 8 * S))
-    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
-    rows = {"flash_attention": dict(max_abs_err=err, **row)}
-    del q, k, v, v0, out, want
+    k_nope, v = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :S])
+    rows = {"flash_attention": _mla_flash_row(
+        timer, q[:, :S].contiguous(), k_nope, kr_cache[:, :S].contiguous(),
+        v, f"[mla] served B2 operands: layer 0, B=8 S={S} causal, heads "
+        f"{H}/{H} q/k {hd} V {vd} {str(q.dtype)[6:]}",
+        PADDED_MLA["served B2"])}
     for n in (S + 1, C):
-        k_nope, v0 = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :n])
-        q, k, v = A._mla_heads(cfg, q_nope[:, n - 1:n], q_rope[:, n - 1:n],
-                               k_nope, k_rope[:, :n], v0)
-        q = q[:, 0].contiguous()
-        out = dops.decode_attention(q, k, v, n)
-        want = dops.decode_attention_plain(q, k, v, n)
-        check(torch.isfinite(out.float()).all().item()
-              and not out[..., vd:].any().item(),
-              "[mla] served B4: non-finite output or padded columns != 0")
-        err = (out[..., :vd].float() -
-               want[..., :vd].float()).abs().max().item()
-        tol = max(DENSE_BF16_TOL["decode_attention"], 2 * _bf16_ulp(want))
-        tag = (f"[mla] served B4 operands: layer 0, B=8, {n} valid of "
-               f"capacity {C}, heads {H}/{H} hd {hd} (V {vd} padded) "
-               f"{str(q.dtype)[6:]}")
-        check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
-        row = _time_row(timer, dops.decode_attention,
-                        dops.decode_attention_plain, (q, k, v, n),
-                        _sdpa(q[:, None], k, v0.contiguous(), 1),
-                        _mla_bound(H, 8 * n, hd, vd, 8, 8 * n))
-        log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
-        rows["decode_attention"] = dict(max_abs_err=err, n_valid=n, **row)
+        k_nope, v = A._mla_expand_kv(p["attn"], cfg, c_kv[:, :n])
+        rows["decode_attention"] = dict(n_valid=n, **_mla_decode_row(
+            timer, q[:, n - 1].contiguous(), k_nope, kr_cache, v, n,
+            f"[mla] served B4 operands: layer 0, B=8, {n} valid of "
+            f"capacity {C}, heads {H}/{H} q/k {hd} V {vd} "
+            f"{str(q.dtype)[6:]}", PADDED_MLA["served B4"]))
     return rows
 
 

@@ -1,7 +1,8 @@
-"""This checkout's selective scan (B5) and top-k gating (B6) against
-another checkout's, on one GPU.
+"""This checkout's selective scan (B5) and top-k gating (B6), or its
+B2/B4 rows at DeepSeek-V3's MLA heads, against another checkout's, on
+one GPU.
 
-    python3 kernel_ab.py OTHER [--jamba]
+    python3 kernel_ab.py OTHER [--jamba | --mla]
 
 OTHER is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -19,8 +20,27 @@ With --jamba, each tree's engine runs chip_smoke.py phase 6 in turn
 for both), then phase 6's traced serve (``phase_trace``: device busy
 share, the scan's and gating's device time and calls, device operations
 per device step); last, the operations whose count per device step
-differs most between the two trees.  Needs one CUDA device
-and nvcc, as chip_smoke.py does; the jamba part ~30 GB of device memory.
+differs most between the two trees.
+
+With --mla, the rows are B2 and B4 at the MLA heads instead (128 heads,
+q/k 128 + 64, V 128, bf16; random operands from seed 192): B2 causal at
+B = 8, S = T = 512 (phase 3's) and 128 (phase 13(b)'s served prompts),
+B4 at B = 8 over 576 of 640 slots (phase 3's) and 129 and 144 of 144
+(the served decode's first and last step).  A tree whose ops have the
+MLA wrappers (``mla_flash_attention``, ``mla_decode_attention``) gets
+MLA's own operands: the rope key (B, T, 64) shared by every head, V
+unpadded.  An older tree gets what its model built for its kernels,
+made before the timing: K with the rope key broadcast to every head and
+V zero-padded to 192.  Only the kernel calls are timed; the two trees'
+outputs (cut to V's head dim) are compared and the largest difference
+logged.  Then each tree's engine, built as chip_smoke.py phase 13(b)
+builds its expanded form (``mla_engine``, one set of random bf16 weights
+for both), serves phase 13(b)'s traced requests (``phase_trace``: device
+time by kernel, the operand-building copies, device operations per
+step), in turns other, this, this, other, and the operations whose
+count per device step differs most are listed.  --jamba's traces run in
+the same turns.  Needs one CUDA device and nvcc, as chip_smoke.py does; the
+jamba and the MLA parts ~30 GB of device memory.
 """
 from __future__ import annotations
 
@@ -73,12 +93,65 @@ def kernel_rows(cs, trees):
     return rows
 
 
-def time_kernels(cs, trees) -> None:
+def _mla_call(flash, decode, q, k_nope, k_rope, v, n_valid=None):
+    """One tree's B2 (``n_valid`` None) or B4 call on MLA's operands,
+    through its MLA wrapper or, in an older tree, its GQA wrapper over the
+    operands its model built (made here, before any timing)."""
+    if n_valid is None and hasattr(flash, "mla_flash_attention"):
+        return lambda: flash.mla_flash_attention(q, k_nope, k_rope, v)
+    if n_valid is not None and hasattr(decode, "mla_decode_attention"):
+        return lambda: decode.mla_decode_attention(q, k_nope, k_rope, v,
+                                                   n_valid)
+    B, T, H, nope = k_nope.shape
+    rope, vd = k_rope.shape[-1], v.shape[-1]
+    k = torch.cat([k_nope, k_rope[:, :T, None].expand(B, T, H, rope)],
+                  dim=-1).contiguous()
+    vp = torch.nn.functional.pad(v, (0, nope + rope - vd)).contiguous()
+    if n_valid is None:
+        return lambda: flash.flash_attention(q, k, vp, causal=True)
+    return lambda: decode.decode_attention(q, k, vp, n_valid)
+
+
+def mla_rows(trees):
+    """(tag, {tree: callable}) of B2 and B4 at the MLA heads."""
+    gen = torch.Generator(device="cpu").manual_seed(192)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    H, nope, rope, vd = 128, 128, 64, 128
+    rows = []
+    for B, S in ((8, 512), (8, 128)):
+        args = (rand(B, S, H, nope + rope), rand(B, S, H, nope),
+                rand(B, S, rope), rand(B, S, H, vd))
+        rows.append((f"B2 MLA B={B} S=T={S} causal",
+                     {n: _mla_call(f, d, *args) for n, (f, d) in
+                      trees.items()}))
+    for B, T, C, n_valid in ((8, 640, 640, 576), (8, 129, 144, 129),
+                             (8, 144, 144, 144)):
+        args = (rand(B, H, nope + rope), rand(B, T, H, nope),
+                rand(B, C, rope), rand(B, T, H, vd))
+        rows.append((f"B4 MLA B={B} {n_valid} of {T} slots (latent cache "
+                     f"{C})", {n: _mla_call(f, d, *args, n_valid)
+                               for n, (f, d) in trees.items()}))
+    return rows
+
+
+def time_kernels(cs, trees, rows, compare: bool = False) -> None:
+    """Each row timed other, this, this, other; with ``compare`` the two
+    trees' outputs, cut to the narrower last dim, compared first."""
     timer = cs.Timer()
     floor = [timer.ms(lambda: torch.cuda._sleep(1)) for _ in range(2)]
     print(f"[ab] launch floor (one-thread kernel): "
           f"{sum(floor) / 2:.4f} ms", flush=True)
-    for tag, fns in kernel_rows(cs, trees):
+    for tag, fns in rows:
+        if compare:
+            outs = [fns[n]() for n in ("this", "other")]
+            vd = min(o.shape[-1] for o in outs)
+            diff = outs[0][..., :vd].float() - outs[1][..., :vd].float()
+            print(f"[ab] {tag}: largest |this - other| "
+                  f"{diff.abs().max().item():.3e}", flush=True)
+            del outs, diff
         got = {n: [] for n in fns}
         for n in ("other", "this", "this", "other"):
             got[n].append(timer.ms(fns[n]))
@@ -89,18 +162,21 @@ def time_kernels(cs, trees) -> None:
               f"this/other {this / other:.3f}", flush=True)
 
 
-def trace_jamba(cs, pkgs) -> None:
-    """Each tree's engine, built as chip_smoke.py phase 6 builds it
-    (``cs.jamba_engine``, the same weights for both), serves phase 6's
-    16 requests, then phase 6's traced serve (``cs.phase_trace``)."""
+def trace_engines(cs, pkgs, make, prompts, tag: str, **trace) -> None:
+    """Each tree's engine (``make(pkg, params)`` -> (engine, params), the
+    same weights for both) serves ``prompts(vocab)``, then a traced serve
+    (``cs.phase_trace``), in turns other, this, this, other (wall time per
+    step is the host's and drifts within a call); last, the operations
+    whose count per device step differs most between the two trees (their
+    first traces)."""
     params, counts = None, {}
-    for name in ("other", "this"):
-        eng, params = cs.jamba_engine(pkgs[name], params)
-        res = eng.serve(cs.jamba_prompts(eng.model.cfg.vocab_size),
-                        timeout_s=900)
+    for name in ("other", "this", "this", "other"):
+        eng, params = make(pkgs[name], params)
+        res = eng.serve(prompts(eng.model.cfg.vocab_size), timeout_s=900)
         cs.check(all(r.status == "ok" for r in res),
-                 f"[ab] {name}: jamba serve failed")
-        _, counts[name] = cs.phase_trace(eng, f"ab jamba {name}")
+                 f"[ab] {name}: {tag} serve failed")
+        _, ops = cs.phase_trace(eng, f"ab {tag} {name}", **trace)
+        counts.setdefault(name, ops)
         del eng, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -108,15 +184,19 @@ def trace_jamba(cs, pkgs) -> None:
             for k in set(counts["this"]) | set(counts["other"])}
     for key, d in sorted(diff.items(), key=lambda kv: kv[1])[:12]:
         if d:
-            print(f"[ab] jamba per device step this - other {d:+.1f}  "
+            print(f"[ab] {tag} per device step this - other {d:+.1f}  "
                   f"{key[:100]}", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
-    ap.add_argument("--jamba", action="store_true",
-                    help="also trace phase 6's jamba period on each tree")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--jamba", action="store_true",
+                      help="also trace phase 6's jamba period on each tree")
+    mode.add_argument("--mla", action="store_true",
+                      help="time B2/B4 at the MLA heads instead of B5/B6, "
+                      "then trace phase 13(b)'s engine on each tree")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -133,14 +213,25 @@ def main() -> None:
     pkgs = {"this": "repro_torch", "other": "other_repro_torch"}
     import repro_torch  # noqa: F401  (this tree, from ROOT/src)
     load_tree(a.other.resolve(), pkgs["other"])
+    from repro_torch.kernels.build import load_all
+    if a.mla:
+        trees = {n: tuple(importlib.import_module(f"{p}.kernels.{k}.ops")
+                          for k in ("flash_attention", "decode_attention"))
+                 for n, p in pkgs.items()}
+        load_all([k for f, d in trees.values()
+                  for k in (f.FLASH_KERNEL, d.DENSE_KERNEL)])
+        time_kernels(cs, trees, mla_rows(trees), compare=True)
+        trace_engines(cs, pkgs, lambda pkg, params: cs.mla_engine(
+                          False, params, pkg), cs.mla_prompts, "mla",
+                      n=8, prompt_len=cs.MLA_PLEN)
+        return
     trees = {n: tuple(importlib.import_module(f"{p}.kernels.{k}.ops")
                       for k in ("ssm_scan", "moe_gating"))
              for n, p in pkgs.items()}
-    from repro_torch.kernels.build import load_all
     load_all([m.KERNEL for mods in trees.values() for m in mods])
-    time_kernels(cs, trees)
+    time_kernels(cs, trees, kernel_rows(cs, trees))
     if a.jamba:
-        trace_jamba(cs, pkgs)
+        trace_engines(cs, pkgs, cs.jamba_engine, cs.jamba_prompts, "jamba")
 
 
 if __name__ == "__main__":

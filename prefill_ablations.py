@@ -6,8 +6,11 @@ Builds the prefill entries of a body from the sources in this checkout
 and from copies of it with one part cut out, under ``build/ablations/``,
 and times each with ``chip_smoke.py``'s Timer (cold L2, device time) at
 its phase-3 shapes.  The bodies: ``mma`` (``csrc/prefill_mma.cuh``,
-bf16: B2 contiguous and K2 paged) and ``tf32`` (``csrc/prefill_tf32.cuh``,
-split TF32: f32 B2 contiguous, f32 K2 and K2q over int8 pools).
+bf16: B2 contiguous and K2 paged, and B2's MLA instantiation at
+DeepSeek-V3's heads, q/k 192 with a shared rope key and V 128, at
+phase 3's S = 512 and phase 13(b)'s S = 128) and ``tf32``
+(``csrc/prefill_tf32.cuh``, split TF32: f32 B2 contiguous, f32 K2 and
+K2q over int8 pools).
 
   body       the body as it is (its output checked against the plain
              version, within chip_smoke's tolerance)
@@ -16,7 +19,10 @@ split TF32: f32 B2 contiguous, f32 K2 and K2q over int8 pools).
   math       the math runs over the first tiles again and again, no
              loads after them
   no_mask    (mma) the masking branch cut out (diagonal, window edges)
-  deep_ring  (mma) 5 ring stages at head_dim 64, 3 at 128 (from 3 and 2)
+  deep_ring  (mma) 5 ring stages at head_dim 64, 3 at 128 and at MLA's
+             192 / 128 (from 3 and 2)
+  mla_warps4 (mma) MLA's blocks of 4 warps (64 rows, 2 blocks a SM, q
+             in the last ring stage) instead of 8 (128 rows, 1 a SM)
   min1       (tf32) no register cap at head_dim 128 either (the body
              asks for three blocks a SM there: at most 168 registers)
   min3       (tf32) the 168-register cap at head_dim 64 too (~220
@@ -44,19 +50,27 @@ ROOT = Path(__file__).resolve().parent
 _CUTS = {
     "null": [("  const int n_tiles = k_hi >= k_lo ? (k_hi - k_lo) / kKeyTile "
               "+ 1 : 0;", "  const int n_tiles = 0;")],
-    "loads": [("    if (!warp_active) continue;", "    continue;")],
     "math": [("      load_tile(it + kStages - 1, (it + kStages - 1) % kStages);",
               "      ;")],
 }
 BODIES = {
     "mma": ("flash_attention/csrc/prefill_mma.cuh", dict(
         body=[], **_CUTS,
+        loads=[("    if (!warp_active || (kWarpSkip && k0 > warp_top)) continue;",
+                "    continue;")],
         no_mask=[("    if (k0 < warp_lo || k0 + kKeyTile - 1 > warp_hi) {",
                   "    if (false) {")],
-        deep_ring=[("launch_hd<Rows, 64, 3>", "launch_hd<Rows, 64, 5>"),
-                   ("launch_hd<Rows, 128, 2>", "launch_hd<Rows, 128, 3>")])),
+        deep_ring=[("launch_hd<Rows, 64, 64, 3, 4>",
+                    "launch_hd<Rows, 64, 64, 5, 4>"),
+                   ("launch_hd<Rows, 128, 128, 2, 4>",
+                    "launch_hd<Rows, 128, 128, 3, 4>"),
+                   ("kMlaWarps = 8, kMlaStages = 2;",
+                    "kMlaWarps = 8, kMlaStages = 3;")],
+        mla_warps4=[("kMlaWarps = 8, kMlaStages = 2;",
+                     "kMlaWarps = 4, kMlaStages = 2;")])),
     "tf32": ("flash_attention/csrc/prefill_tf32.cuh", dict(
         body=[], **_CUTS,
+        loads=[("    if (!warp_active) continue;", "    continue;")],
         min1=[("kMinBlocks = kHd > 64 ? 3 : 1;", "kMinBlocks = 1;")],
         min3=[("kMinBlocks = kHd > 64 ? 3 : 1;", "kMinBlocks = 3;")],
         q_regs=[("  return kHd > 64;", "  return false;")])),
@@ -107,6 +121,16 @@ def flash_call(kernel, entry, q, k, v, window):
     return out
 
 
+def mla_call(kernel, entry, q, k_nope, k_rope, v):
+    B, S, H, hd = q.shape
+    out = torch.empty(q.shape[:3] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
+    kernel.launch(entry, q.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), B, S, k_nope.shape[1], H,
+                  ctypes.c_float(1 / np.sqrt(hd)), _stream())
+    return out
+
+
 def paged_call(kernel, entry, q, k, v, pt, lengths):
     B, T, H, hd = q.shape
     out = torch.empty(q.shape, dtype=k.dtype, device=q.device)
@@ -131,7 +155,9 @@ def quant_call(kernel, entry, q, kq, vq, ks, vs, pt, lengths):
 def cases(body: str, cs, fops):
     """(tag, which, entry, args, plain output, library call) at phase 3's
     shapes and seeds: B2 contiguous causal (and windowed, for mma) and K2
-    at smollm and jamba heads; K2q at smollm heads for tf32."""
+    at smollm and jamba heads; for mma B2's MLA entry at S = 512 and 128
+    (random operands; ``which`` "mla", the flash library); K2q at smollm
+    heads for tf32."""
     from repro_torch.models.attention import dequantize_kv
     dtype = torch.bfloat16 if body == "mma" else torch.float32
     out = []
@@ -155,6 +181,19 @@ def cases(body: str, cs, fops):
                     fops.paged_prefill_entry(dtype, dtype, hd), args,
                     fops.paged_prefill_attention_plain(*args),
                     cs._attn_library_call(*args, 32, False, heads)))
+    if body == "mma":
+        gen = torch.Generator(device="cpu").manual_seed(192)
+        H, nope, rope, vd = 128, 128, 64, 128
+        for S in (512, 128):
+            q, kn, kr, v = (torch.randn(shape, generator=gen).to("cuda", dtype)
+                            for shape in ((8, S, H, nope + rope),
+                                          (8, S, H, nope), (8, S, rope),
+                                          (8, S, H, vd)))
+            k = torch.cat([kn, kr[:, :, None].expand(8, S, H, rope)], dim=-1)
+            out.append((f"B2 MLA B=8 S={S} causal", "mla",
+                        "flash_attention_mla_bf16_mma", (q, kn, kr, v),
+                        fops.mla_flash_attention_plain(q, kn, kr, v),
+                        cs._sdpa(q, k, v, 1, causal=True)))
     if body == "tf32":
         heads = cs.SMOLLM_HEADS
         q, k, v, pt, lengths = cs._attn_case(8 * 7 + 32 + 1, 8, 32, dtype,
@@ -185,7 +224,10 @@ def main() -> None:
     libs = {b: build_variants(b, fops, CudaKernel) for b in bodies}
     load_all([k for body in libs.values() for v in body.values()
               for k in v.values()])
-    calls = {"flash": flash_call, "paged": paged_call, "quant": quant_call}
+    calls = {"flash": flash_call, "paged": paged_call, "quant": quant_call,
+             "mla": mla_call}
+    libraries = {"flash": "flash", "paged": "paged", "quant": "quant",
+                 "mla": "flash"}
     timer = cs.Timer()
     for body in bodies:
         variants = libs[body]
@@ -193,14 +235,18 @@ def main() -> None:
         times = {}
         for name in list(variants) + list(variants)[::-1]:
             for tag, which, entry, args, want, _ in rows:
-                fn = (lambda c=calls[which], kk=variants[name][which],
-                      e=entry, a=args: c(kk, e, *a))
+                fn = (lambda c=calls[which],
+                      kk=variants[name][libraries[which]], e=entry,
+                      a=args: c(kk, e, *a))
                 got = fn()
                 torch.cuda.synchronize()
                 if name == "body":
                     err = (got.float() - want.float()).abs().max().item()
-                    cs.check(err <= cs.TOL[want.dtype],
-                             f"{body} {tag}: max_abs_err {err}")
+                    # the MLA rows: one bf16 ulp of the largest output
+                    tol = cs.TOL[want.dtype] if which != "mla" else \
+                        max(cs.DENSE_BF16_TOL["flash_attention"],
+                            cs._bf16_ulp(want))
+                    cs.check(err <= tol, f"{body} {tag}: max_abs_err {err}")
                 times.setdefault((tag, name), []).append(timer.ms(fn))
         print(f"{body}: ms (two readings each; H100 card line above)"
               .ljust(36) + "".join(n.rjust(16) for n in variants)

@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace kern {
 
 constexpr float kNeg = -1e30f;  // the reference's masked score
@@ -137,6 +139,30 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ size_t paged_row(const int* pt, int bs, int pos) {
   return (size_t)pt[pos / bs] * bs + pos % bs;
 }
+
+// The operand form a row policy gives the attention bodies.  GQA (every
+// policy without kRope): one K source of hd columns per (key, KV head),
+// V rows as wide.  MLA (DeepSeek-V3; a policy with kNope, kRope, kVd and
+// a rope(b, pos) pointer): a K row is kNope columns of the caller's K
+// slab for the head and kRope columns of a rope key that every head of
+// the token shares (one row per token, read in place, never broadcast),
+// and V rows and the output are kVd wide.
+// DeepSeek-V3's MLA head dims, stated once for the MLA row policies of
+// flash_prefill.cu and dense_decode.cu (decode_attention/ops.py::MLA_DIMS
+// mirrors them)
+struct MlaDims {
+  static constexpr int kNope = 128, kRope = 64, kVd = 128;
+};
+
+template <typename Rows, typename = void>
+struct SplitK {
+  static constexpr int kNope = 0, kRope = 0, kVd = 0;
+};
+template <typename Rows>
+struct SplitK<Rows, std::void_t<decltype(Rows::kRope)>> {
+  static constexpr int kNope = Rows::kNope, kRope = Rows::kRope,
+                       kVd = Rows::kVd;
+};
 
 }  // namespace kern
 

@@ -18,6 +18,17 @@
 // Design: K1's (decode_body.cuh) with contiguous rows; the key range is
 // split by the host-known n_valid.  Rounding as the
 // reference's decode_attention: scores in the promoted q/K type.
+//
+// decode_attention_mla_bf16 takes DeepSeek-V3's expanded MLA decode
+// (models/attention.py::mla_decode, absorb=False) as the model makes it:
+// q (B, H, 192) = [q_nope | q_rope], k_nope and V (B, T, H, 128)
+// expanded for the T = n_valid visible slots, and the rope key read in
+// place from the latent cache kr_cache (B, C, 64), one row per token
+// shared by every head -> (B, H, 128).  The same body, whose MLA row
+// policy assembles each K row from k_nope and the rope key in shared
+// memory: no broadcast rope key, no zero-padded V, no cut output (a
+// third fewer bytes than the padded operands).  The plain version is
+// decode_attention/ops.py::mla_decode_attention_plain.
 
 #include "decode_body.cuh"
 
@@ -30,6 +41,16 @@ struct ContiguousRows {
   __device__ int n_keys(int) const { return n_valid; }
   __device__ size_t row(int b, int pos) const {
     return (size_t)b * C + pos;
+  }
+};
+
+// MLA's operands: k_nope/V rows as ContiguousRows (C = T, their rows per
+// batch row), the rope key in place in the latent cache
+struct MlaRows : ContiguousRows, kern::MlaDims {
+  const __nv_bfloat16* kr_cache;  // (B, C_kr, kRope)
+  int C_kr;                       // latent cache slots per batch row
+  __device__ const __nv_bfloat16* rope(int b, int pos) const {
+    return kr_cache + ((size_t)b * C_kr + pos) * kRope;
   }
 };
 
@@ -49,3 +70,18 @@ struct ContiguousRows {
 DENSE_DECODE_ENTRY(decode_attention_f32_f32, float, float)
 DENSE_DECODE_ENTRY(decode_attention_f32_bf16, float, __nv_bfloat16)
 DENSE_DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+
+extern "C" int decode_attention_mla_bf16(const void* q, const void* k_nope,
+                                         const void* kr_cache, const void* v,
+                                         void* out, int B, int T, int C_kr,
+                                         int H, int n_valid, float scale,
+                                         int split_keys, int n_split,
+                                         void* ws, void* counters,
+                                         void* stream) {
+  using bf16 = __nv_bfloat16;
+  const MlaRows rows{
+      {T, n_valid}, {}, static_cast<const bf16*>(kr_cache), C_kr};
+  return kern::decode::launch<bf16, bf16>(
+      q, k_nope, v, out, rows, B, H, H, MlaRows::kNope + MlaRows::kRope,
+      scale, split_keys, n_split, ws, counters, stream);
+}

@@ -8,7 +8,10 @@ takes the serving engine's pool layout ``(nb, bs, KV, hd)`` directly.
 file, the dense engine's one-token step over a contiguous cache (see
 ``csrc/dense_decode.cu``).  ``paged_decode_attention_quant`` is the port
 of ``paged_decode_attention_quant`` there, the paged step over int8
-pools with per-row f32 scales (see ``csrc/paged_decode_quant.cu``).  On
+pools with per-row f32 scales (see ``csrc/paged_decode_quant.cu``).
+``mla_decode_attention`` is ``decode_attention`` on DeepSeek-V3's MLA
+operands as the expanded decode makes them: the rope key shared by every
+head, read in place from the latent cache, and V at its own head dim.  On
 a CPU tensor each runs its plain version; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -48,8 +51,12 @@ QUANT_KERNEL = CudaKernel(
 DENSE_KERNEL = CudaKernel(
     "decode_attention",
     Path(__file__).parent / "csrc" / "dense_decode.cu",
-    {f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + _SPLIT
-     for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+    {**{f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + _SPLIT
+        for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))},
+     "decode_attention_mla_bf16": [_P] * 5 + [_I] * 5 + _SPLIT})
+# (qk_nope_head_dim, qk_rope_head_dim, v_head_dim) the MLA entries are
+# built for: DeepSeek-V3's, as csrc/common.cuh's MlaDims states them
+MLA_DIMS = (128, 64, 128)
 
 KEY_TILE = 32          # keys per tile of the kernels: splits are multiples
 MIN_SPLIT_KEYS = 64    # no split takes fewer keys
@@ -95,13 +102,15 @@ def workspace(device, n_floats: int, n_pairs: int):
     return ws, cnt
 
 
-def _split_args(q, max_keys: int, KV: int):
+def _split_args(q, max_keys: int, KV: int, vd: int = 0):
     """The kernels' trailing split arguments for q (B, H, hd) over rows of
-    at most ``max_keys`` keys: split_keys, n_split and the workspace."""
+    at most ``max_keys`` keys, output rows ``vd`` wide (default hd):
+    split_keys, n_split and the workspace."""
     B, H, hd = q.shape
     n_split, split_keys = split_plan(max_keys, B * KV)
     G = H // KV
-    ws, cnt = workspace(q.device, B * KV * n_split * G * (hd + 2), B * KV)
+    ws, cnt = workspace(q.device, B * KV * n_split * G * ((vd or hd) + 2),
+                        B * KV)
     return (split_keys, n_split, ws.data_ptr(), cnt.data_ptr())
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -294,4 +303,109 @@ def decode_attention(q, k_cache, v_cache, n_valid: int):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         B, C, H, KV, hd, n_valid, ctypes.c_float(1.0 / np.sqrt(hd)),
         *_split_args(q, n_valid, KV), stream)
+    return out
+
+
+# -- MLA (DeepSeek-V3): K = [k_nope | one rope key shared by every head] ----
+
+def mla_entry(dtypes, dims) -> str:
+    """The C entry of ``DENSE_KERNEL`` that serves MLA's operands of these
+    types (q, k_nope, rope key, V) and ``dims`` (nope, rope, v head dims):
+    ``decode_attention_mla_bf16`` for bf16 throughout at ``MLA_DIMS``,
+    else the GQA entry that ``mla_gqa_operands``' concatenation goes
+    to.  From dtypes and dims alone, never from a failed build or launch."""
+    if tuple(dims) == MLA_DIMS and all(d == torch.bfloat16 for d in dtypes):
+        return "decode_attention_mla_bf16"
+    kv = torch.promote_types(dtypes[1], dtypes[2])
+    return f"decode_attention_{_NAMES[dtypes[0]]}_{_NAMES[kv]}"
+
+
+def mla_gqa_operands(k_nope, k_rope, v):
+    """MLA's K/V as one-head_dim GQA operands: k = [k_nope | the shared rope
+    key broadcast to every head] (B, T, H, nope + rope) in the promoted
+    type of the two, V zero-padded from its head dim to that one (the
+    padded output columns are 0 and are cut off), both contiguous.
+    k_nope, v: (B, T, H, .); k_rope: (B, T, rope)."""
+    nope, rope, vd = k_nope.shape[-1], k_rope.shape[-1], v.shape[-1]
+    if vd > nope + rope:
+        raise ValueError(f"MLA v_head_dim {vd} > q/k head {nope + rope}: the "
+                         "GQA kernels take one head_dim")
+    dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
+    k = torch.cat([k_nope.to(dt), k_rope[:, :, None].to(dt).expand(
+        k_nope.shape[:3] + (rope,))], dim=-1)
+    v = torch.nn.functional.pad(v, (0, nope + rope - vd))
+    return k.contiguous(), v.to(dt).contiguous()
+
+
+def check_mla_operands(q, k_nope, k_rope, v, n_q_dims: int):
+    """Raise unless the operands are what the MLA entries take: one CUDA
+    device, bf16, contiguous, 16-byte aligned; q (B, [S,] H, nope + rope),
+    k_nope (B, T, H, nope), V (B, T, H, v) and a rope key (B, C, rope)
+    with C >= T, at ``MLA_DIMS``."""
+    ts = (q, k_nope, k_rope, v)
+    if any(t.device != q.device for t in ts):
+        raise ValueError("MLA attention operands must share one device")
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise TypeError(f"the MLA entries take bf16, got "
+                        f"{[t.dtype for t in ts]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
+        raise ValueError("MLA attention operands must be contiguous and "
+                         "16-byte aligned")
+    if q.dim() != n_q_dims or k_nope.dim() != 4 or k_rope.dim() != 3 \
+            or v.dim() != 4:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} "
+                         f"k_nope={tuple(k_nope.shape)} "
+                         f"k_rope={tuple(k_rope.shape)} v={tuple(v.shape)}")
+    B, T, H, nope = k_nope.shape
+    dims = (nope, k_rope.shape[-1], v.shape[-1])
+    if dims != MLA_DIMS:
+        raise ValueError(f"MLA dims {dims}: the entries are built for "
+                         f"{MLA_DIMS}")
+    if q.shape[0] != B or q.shape[-2:] != (H, nope + dims[1]) \
+            or v.shape[:3] != (B, T, H) or k_rope.shape[0] != B \
+            or k_rope.shape[1] < T:
+        raise ValueError(f"q {tuple(q.shape)}, v {tuple(v.shape)} and rope "
+                         f"key {tuple(k_rope.shape)} do not fit k_nope "
+                         f"{tuple(k_nope.shape)}")
+
+
+def mla_decode_attention_plain(q, k_nope, kr_cache, v, n_valid: int):
+    """The same function in plain PyTorch: ``decode_attention_plain`` over
+    ``mla_gqa_operands`` of the first ``n_valid`` rope slots, cut to V's
+    head dim."""
+    k, vp = mla_gqa_operands(k_nope, kr_cache[:, :k_nope.shape[1]], v)
+    return decode_attention_plain(q, k, vp, n_valid)[..., :v.shape[-1]]
+
+
+def mla_decode_attention(q, k_nope, kr_cache, v, n_valid: int):
+    """q: (B, H, nope + rope) = [q_nope | q_rope]; k_nope (B, T, H, nope)
+    and v (B, T, H, vd): the keys and values of the T >= n_valid first
+    slots; kr_cache: (B, C, rope), C >= T, the rope key of each slot,
+    shared by every head and read in place; n_valid: host int, the slots
+    the new token attends to -> (B, H, vd) in K/V's type.  Scale
+    1/sqrt(nope + rope).  bf16 at ``MLA_DIMS`` launches
+    ``decode_attention_mla_bf16``; other types or dims launch the GQA
+    entry over ``mla_gqa_operands``."""
+    n_valid = int(n_valid)
+    if q.device.type == "cpu":
+        return mla_decode_attention_plain(q, k_nope, kr_cache, v, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_decode_attention: no kernel for {q.device}")
+    dims = (k_nope.shape[-1], kr_cache.shape[-1], v.shape[-1])
+    entry = mla_entry((q.dtype, k_nope.dtype, kr_cache.dtype, v.dtype), dims)
+    if entry != "decode_attention_mla_bf16":
+        k, vp = mla_gqa_operands(k_nope, kr_cache[:, :k_nope.shape[1]], v)
+        return decode_attention(q, k, vp, n_valid)[..., :v.shape[-1]]
+    check_mla_operands(q, k_nope, kr_cache, v, 3)
+    B, T, H, _ = k_nope.shape
+    if not 1 <= n_valid <= T:
+        raise ValueError(f"n_valid {n_valid} outside [1, {T}]")
+    vd = v.shape[-1]
+    out = torch.empty((B, H, vd), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    DENSE_KERNEL.launch(
+        entry, q.data_ptr(), k_nope.data_ptr(), kr_cache.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, T, kr_cache.shape[1], H, n_valid,
+        ctypes.c_float(1.0 / np.sqrt(q.shape[-1])),
+        *_split_args(q, n_valid, H, vd), stream)
     return out

@@ -23,6 +23,15 @@
 // the same walk); at any other head_dim flash_attention_f32 and
 // flash_attention_bf16 run prefill_body.cuh on CUDA cores (16 query
 // tokens a block).
+// flash_attention_mla_bf16_mma takes DeepSeek-V3's MLA operands as the
+// model makes them (models/attention.py::mla_prefill): q (B, S, H, 192)
+// = [q_nope | q_rope], k_nope (B, T, H, 128), the rope key (B, T, 64)
+// that every head of a token shares, V (B, T, H, 128) -> (B, S, H, 128),
+// causal with no window (MLA's prefill is causal only), on
+// prefill_mma.cuh's tensor-core walk with the K tile assembled in
+// shared memory from k_nope and the rope key (no broadcast, no padded V;
+// the plain version is flash_attention/ops.py::mla_flash_attention_plain,
+// which builds those operands and calls naive_attention).
 // Rounding: K2's, and scores rounded to the input type, as
 // naive_attention does.
 
@@ -38,6 +47,14 @@ struct ContiguousRows {
   __device__ int q_pos0(int) const { return 0; }
   __device__ int n_keys(int) const { return T; }
   __device__ size_t row(int b, int pos) const { return (size_t)b * T + pos; }
+};
+
+// MLA's operands: the rope key row of key pos of batch row b
+struct MlaRows : ContiguousRows, kern::MlaDims {
+  const __nv_bfloat16* k_rope;  // (B, T, kRope)
+  __device__ const __nv_bfloat16* rope(int b, int pos) const {
+    return k_rope + row(b, pos) * kRope;
+  }
 };
 
 constexpr int kQTile = 16;  // query tokens per block
@@ -74,4 +91,15 @@ extern "C" int flash_attention_f32_tf32(const void* q, const void* k,
   return kern::prefill_tf32::launch<float>(q, k, v, out, ContiguousRows{T_len},
                                            B, S, H, KV, hd, causal, window,
                                            scale, stream);
+}
+
+extern "C" int flash_attention_mla_bf16_mma(const void* q, const void* k_nope,
+                                            const void* k_rope, const void* v,
+                                            void* out, int B, int S,
+                                            int T_len, int H, float scale,
+                                            void* stream) {
+  return kern::prefill_mma::launch_mla(
+      q, k_nope, v, out,
+      MlaRows{{T_len}, {}, static_cast<const __nv_bfloat16*>(k_rope)}, B, S,
+      H, scale, stream);
 }

@@ -1,6 +1,7 @@
 // Blockwise attention of a chunk of query tokens over a row's K/V on
 // Hopper's tensor cores (sm_90a): the bf16 body of paged_prefill.cu (K2)
-// and flash_prefill.cu (B2's contiguous entry) at head_dim 64 and 128.
+// and flash_prefill.cu (B2's contiguous entry) at head_dim 64 and 128,
+// and of B2's MLA entry (DeepSeek-V3: q/k 192 = 128 + 64, V 128).
 // It takes the same row policy as prefill_body.cuh (q_pos0, n_keys, row,
 // kRoundScores), so the paged and contiguous entries plug in unchanged,
 // and computes the same function: query t of row b sits at position
@@ -70,6 +71,33 @@
 // 2^(x log2 e - m log2 e) with each product rounded on its own and
 // ex2.approx.ftz (about 2 ulp of f32, far below a bf16 ulp).
 //
+// MLA's operands (a row policy with common.cuh's SplitK: kNope, kRope,
+// kVd, rope(b, pos); launch_mla).  q (B, S, H, 192) is [q_nope | q_rope];
+// K comes from two sources, k_nope (B, T, H, 128) read per head and the
+// rope key (B, T, 64) that every head of a token shares: each 64-key K
+// tile is assembled in shared memory from 16 chunks of the head's k_nope
+// row and 8 of the token's rope row, so the rope key is never broadcast
+// in device memory (each head's block reads its 128 bytes a key from L2).
+// V (B, T, H, 128) and the output (B, S, H, 128) keep their own head
+// dim: the template takes kHd (q/k, 192) and kVd (V, 128) apart, and the
+// P.V product, the accumulators (64 registers) and the epilogue are kVd
+// wide.  One query head per K/V head (G = 1).  Resources: q fragments 48
+// registers, accumulators 64, scores and P 48; ptxas reports 239
+// registers and no spills (chip_smoke.py phase 2).  Blocks of 8 warps
+// (128 rows: every K/V tile filled from L2 serves twice the rows of a
+// 4-warp block; prefill_ablations.py measured the 4-warp fill bound by L2,
+// ~1.5 GB at ~6.4 TB/s at S = 512) run one a SM by registers, so q is
+// staged in a region after the 2-stage ring (134 KB in all), and a warp
+// skips the tiles past its own rows' positions.  Grid (B, H, row blocks)
+// as for GQA (launching each (row, head)'s row blocks together measured
+// slower).  What bounds it: the math between the two products, as at
+// head_dim 128 (prefill_ablations.py: at B = 8, S = 512 the math alone
+// takes 0.53 of the body's 0.62 ms, the loads alone 0.40, q and the
+// output alone 0.14).  q's fragments read from shared memory at each
+// head-dim step (48 registers freed), a 3-stage ring and the Q.K^T loop
+// with the head-dim steps outside measured no faster.  mma.sync meets the
+// criteria this body was built for (<= 2.5x SDPA), so it stays on it.
+//
 // Later work: wgmma and TMA.  wgmma needs 64-row warpgroup tiles and a
 // swizzled shared-memory B operand; TMA needs a tensor map per pool and a
 // box per page.  Both are the next step for this body, now that its
@@ -130,34 +158,60 @@ __device__ __forceinline__ void round_pair(float& a, float& b) {
   b = __uint_as_float(p & 0xffff0000u);
 }
 
-template <int kHd, int kStages>
+// a ring stage holds a K tile of kHd columns and a V tile of kVd, each
+// row with a 16-byte pad
+template <int kHd, int kVd>
+__host__ __device__ constexpr int stage_elems() {
+  return kKeyTile * ((kHd + 8) + (kVd + 8));
+}
+// q (kWarps * 16 rows of kHd + 8) is staged in the ring's last stage
+// until the first tile lands there, or after the ring where it does not
+// fit a stage
+template <int kHd, int kVd, int kWarps>
+__host__ __device__ constexpr bool q_after_ring() {
+  return kWarps * 16 * (kHd + 8) > stage_elems<kHd, kVd>();
+}
+template <int kHd, int kVd, int kStages, int kWarps>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * 2 * kStages * kKeyTile * (kHd + 8);
+  return sizeof(bf16) *
+         (kStages * stage_elems<kHd, kVd>() +
+          (q_after_ring<kHd, kVd, kWarps>() ? kWarps * 16 * (kHd + 8) : 0));
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 4;              // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;     // score rows per block, 16 a warp
 
-template <typename Rows, int kHd, int kStages>
-__global__ void __launch_bounds__(kThreads)
-prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
-                   const bf16* __restrict__ k,  // slabs of (KV, hd), see Rows
-                   const bf16* __restrict__ v,
-                   bf16* __restrict__ out,      // (B, S, H, hd)
+template <typename Rows, int kHd, int kVd, int kStages, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
+prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
+                   // slabs of (KV, kHd), or (H, kNope) for MLA; see Rows
+                   const bf16* __restrict__ k,
+                   const bf16* __restrict__ v,  // slabs of (KV, kVd)
+                   bf16* __restrict__ out,      // (B, S, H, kVd)
                    Rows rows, int S, int H, int KV, int causal, int window,
                    float scale) {
-  constexpr int kLd = kHd + 8;        // shared row stride: 16-byte pad
-  constexpr int kChunks = kHd / 8;    // 16-byte chunks per row
+  constexpr int kRope = SplitK<Rows>::kRope;  // K columns from rows.rope
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kRows = kWarps * 16;  // score rows per block, 16 a warp
+  // a block whose rows span more than a key tile: each warp skips the
+  // tiles past its own rows (all masked under the causal mask)
+  constexpr bool kWarpSkip = kRows > kKeyTile;
+  constexpr int kLd = kHd + 8;        // K (and q) shared row stride: 16-byte pad
+  constexpr int kLdV = kVd + 8;       // V (and output) shared row stride
+  constexpr int kChunks = kHd / 8;    // 16-byte chunks per K row
+  constexpr int kVChunks = kVd / 8;   // and per V row
   constexpr int kTile = kKeyTile * kLd;
+  constexpr int kStage = kTile + kKeyTile * kLdV;
   constexpr int kLoads = kKeyTile * kChunks / kThreads;
+  constexpr int kVLoads = kKeyTile * kVChunks / kThreads;
   constexpr int kQLoads = kRows * kChunks / kThreads;
-  static_assert(kHd % 16 == 0 && kStages >= 2, "bad tile");
+  static_assert(kHd % 16 == 0 && kVd % 16 == 0 && kStages >= 2, "bad tile");
   static_assert(kLoads * kThreads == kKeyTile * kChunks &&
+                    kVLoads * kThreads == kKeyTile * kVChunks &&
                     kQLoads * kThreads == kRows * kChunks,
                 "uneven loads");
-  static_assert(kRows <= 2 * kKeyTile, "q must fit one ring stage");
+  static_assert(kRope == 0 || (kRope + SplitK<Rows>::kNope == kHd &&
+                               SplitK<Rows>::kVd == kVd),
+                "MLA rows must match the instantiation");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage s: K, then V
 
@@ -168,7 +222,8 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = H / KV;
   const int pos0 = rows.q_pos0(b), n_keys = rows.n_keys(b);
-  const size_t q_row = (size_t)H * kHd;  // elements per token of q / out
+  const size_t q_row = (size_t)H * kHd;  // elements per token of q
+  const size_t o_row = (size_t)H * kVd;  // and of out
 
   // the keys any row of this block sees: from the first row's window
   // start to the last row's position
@@ -180,17 +235,44 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
 
   auto load_tile = [&](int tile, int stage) {
     const int k0 = k_lo + tile * kKeyTile;
-    bf16* ks = ring + 2 * stage * kTile;
+    bf16* ks = ring + stage * kStage;
     bf16* vs = ks + kTile;
+    if constexpr (kRope == 0 && kVd == kHd) {
 #pragma unroll
-    for (int it = 0; it < kLoads; ++it) {
-      const int i = tid + it * kThreads;
-      const int j = i / kChunks, c = i - j * kChunks;
-      const bool in = k0 + j <= k_hi;
-      const size_t off =
-          in ? (rows.row(b, k0 + j) * KV + kvh) * kHd + c * 8 : 0;
-      cp_async16(smem_addr(ks + j * kLd + c * 8), k + off, in);
-      cp_async16(smem_addr(vs + j * kLd + c * 8), v + off, in);
+      for (int it = 0; it < kLoads; ++it) {
+        const int i = tid + it * kThreads;
+        const int j = i / kChunks, c = i - j * kChunks;
+        const bool in = k0 + j <= k_hi;
+        const size_t off =
+            in ? (rows.row(b, k0 + j) * KV + kvh) * kHd + c * 8 : 0;
+        cp_async16(smem_addr(ks + j * kLd + c * 8), k + off, in);
+        cp_async16(smem_addr(vs + j * kLd + c * 8), v + off, in);
+      }
+    } else {
+      // the K row assembled from two sources: kNope columns of the head's
+      // slab, then the token's shared rope key; V rows kVd wide
+      constexpr int kNopeChunks = (kHd - kRope) / 8;
+#pragma unroll
+      for (int it = 0; it < kLoads; ++it) {
+        const int i = tid + it * kThreads;
+        const int j = i / kChunks, c = i - j * kChunks;
+        const bool in = k0 + j <= k_hi;
+        const int pos = in ? k0 + j : 0;
+        const bf16* src =
+            c < kNopeChunks
+                ? k + (rows.row(b, pos) * KV + kvh) * (kHd - kRope) + c * 8
+                : rows.rope(b, pos) + (c - kNopeChunks) * 8;
+        cp_async16(smem_addr(ks + j * kLd + c * 8), src, in);
+      }
+#pragma unroll
+      for (int it = 0; it < kVLoads; ++it) {
+        const int i = tid + it * kThreads;
+        const int j = i / kVChunks, c = i - j * kVChunks;
+        const bool in = k0 + j <= k_hi;
+        const size_t off =
+            in ? (rows.row(b, k0 + j) * KV + kvh) * kVd + c * 8 : 0;
+        cp_async16(smem_addr(vs + j * kLdV + c * 8), v + off, in);
+      }
     }
   };
 
@@ -209,6 +291,15 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
   const int warp_lo = __reduce_max_sync(0xffffffffu, max(lo[0], lo[1]));
   const int warp_hi = __reduce_min_sync(0xffffffffu, min(hi[0], hi[1]));
   const bool warp_active = (r0 + warp * 16) / G < S;
+  // the last key any row of this warp sees (kWarpSkip)
+  int warp_top = INT_MAX;
+  if constexpr (kWarpSkip) {
+    int top = -1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if ((r0 + warp * 16 + lane / 4 + 8 * h) / G < S) top = max(top, hi[h]);
+    warp_top = __reduce_max_sync(0xffffffffu, top);
+  }
 
   // the first tiles load while q is staged
   for (int st = 0; st < kStages - 1; ++st) {
@@ -218,7 +309,9 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
 
   // q * scale, rounded to bf16, in the last stage until the first tile
   // lands there (rows past S * G are zero); all loads in flight at once
-  bf16* q_s = ring + 2 * (kStages - 1) * kTile;
+  bf16* q_s = ring + (q_after_ring<kHd, kVd, kWarps>() ? kStages
+                                                          : kStages - 1) *
+                         kStage;
   uint4 raw[kQLoads];
 #pragma unroll
   for (int it = 0; it < kQLoads; ++it) {
@@ -253,9 +346,9 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
                           (lane / 16) * 8),
                 qf[kk]);
 
-  float o[kHd / 8][4];  // output accumulators: hd columns in 8-wide tiles
+  float o[kVd / 8][4];  // output accumulators: kVd columns in 8-wide tiles
 #pragma unroll
-  for (int n = 0; n < kHd / 8; ++n)
+  for (int n = 0; n < kVd / 8; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   // per row: running max m, m * log2 e, running sum l
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
@@ -267,10 +360,10 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
     if (it + kStages - 1 < n_tiles)
       load_tile(it + kStages - 1, (it + kStages - 1) % kStages);
     cp_async_commit();
-    if (!warp_active) continue;
-    const bf16* ks = ring + 2 * (it % kStages) * kTile;
-    const bf16* vs = ks + kTile;
     const int k0 = k_lo + it * kKeyTile;
+    if (!warp_active || (kWarpSkip && k0 > warp_top)) continue;
+    const bf16* ks = ring + (it % kStages) * kStage;
+    const bf16* vs = ks + kTile;
 
     // S = Q K^T: 16 rows x 64 keys in 8 accumulator tiles of 8 keys
     float s[kKeyTile / 8][4];
@@ -360,7 +453,7 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
     // (once the running max settles, most tiles change no row's max)
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < kHd / 8; ++n) {
+      for (int n = 0; n < kVd / 8; ++n) {
         o[n][0] *= corr[0];
         o[n][1] *= corr[0];
         o[n][2] *= corr[1];
@@ -372,10 +465,10 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
 #pragma unroll
     for (int kk = 0; kk < kKeyTile / 16; ++kk) {
 #pragma unroll
-      for (int np = 0; np < kHd / 16; ++np) {
-        uint32_t vb[4];  // keys kk*16 + 0..15, hd np*16 + 0..7 and + 8..15
+      for (int np = 0; np < kVd / 16; ++np) {
+        uint32_t vb[4];  // keys kk*16 + 0..15, vd np*16 + 0..7 and + 8..15
         ldmatrix_x4_trans(
-            smem_addr(vs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * kLd +
+            smem_addr(vs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * kLdV +
                       np * 16 + (lane / 16) * 8),
             vb);
         mma_bf16(o[2 * np], pf[kk], vb[0], vb[1]);
@@ -389,40 +482,41 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, hd)
   cp_async_wait<0>();
   __syncthreads();
   if (!warp_active) return;
-  bf16* o_s = ring + warp * 16 * kLd;
+  bf16* o_s = ring + warp * 16 * kLdV;
   const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
 #pragma unroll
-  for (int n = 0; n < kHd / 8; ++n) {
-    bf16* p = o_s + (lane / 4) * kLd + n * 8 + 2 * (lane % 4);
+  for (int n = 0; n < kVd / 8; ++n) {
+    bf16* p = o_s + (lane / 4) * kLdV + n * 8 + 2 * (lane % 4);
     *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[n][0] / den0, o[n][1] / den0);
-    *reinterpret_cast<uint32_t*>(p + 8 * kLd) =
+    *reinterpret_cast<uint32_t*>(p + 8 * kLdV) =
         pack_bf16(o[n][2] / den1, o[n][3] / den1);
   }
   __syncwarp();
 #pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = i - r * kChunks;
+  for (int i = lane; i < 16 * kVChunks; i += 32) {
+    const int r = i / kVChunks, c = i - r * kVChunks;
     const int rg = r0 + warp * 16 + r, t = rg / G, g = rg - t * G;
     if (t < S)
-      *reinterpret_cast<uint4*>(out + ((size_t)b * S + t) * q_row +
-                                ((size_t)kvh * G + g) * kHd + c * 8) =
-          *reinterpret_cast<const uint4*>(o_s + r * kLd + c * 8);
+      *reinterpret_cast<uint4*>(out + ((size_t)b * S + t) * o_row +
+                                ((size_t)kvh * G + g) * kVd + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * kLdV + c * 8);
   }
 }
 
-template <typename Rows, int kHd, int kStages>
+template <typename Rows, int kHd, int kVd, int kStages, int kWarps>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               Rows rows, int B, int S, int H, int KV, int causal, int window,
               float scale, void* stream) {
-  constexpr size_t smem = smem_bytes<kHd, kStages>();
-  auto kernel = prefill_mma_kernel<Rows, kHd, kStages>;
+  constexpr int kRows = kWarps * 16;
+  constexpr size_t smem = smem_bytes<kHd, kVd, kStages, kWarps>();
+  auto kernel = prefill_mma_kernel<Rows, kHd, kVd, kStages, kWarps>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(B, KV, (S * (H / KV) + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, rows, S, H,
       KV, causal, window, scale);
   return (int)cudaGetLastError();
@@ -438,12 +532,29 @@ int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
            int B, int S, int H, int KV, int hd, int causal, int window,
            float scale, void* stream) {
   if (hd == 64)
-    return launch_hd<Rows, 64, 3>(q, k, v, out, rows, B, S, H, KV, causal,
-                                  window, scale, stream);
+    return launch_hd<Rows, 64, 64, 3, 4>(q, k, v, out, rows, B, S, H, KV,
+                                         causal, window, scale, stream);
   if (hd == 128)
-    return launch_hd<Rows, 128, 2>(q, k, v, out, rows, B, S, H, KV, causal,
-                                   window, scale, stream);
+    return launch_hd<Rows, 128, 128, 2, 4>(q, k, v, out, rows, B, S, H, KV,
+                                           causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// MLA's operands (Rows with kNope, kRope, kVd; DeepSeek-V3's 128 + 64 and
+// 128): q (B, S, H, kNope + kRope), k the (H, kNope) slabs, the rope key
+// through rows.rope, V the (H, kVd) slabs, out (B, S, H, kVd); one K/V
+// head per query head; causal, no window (MLA's prefill is causal
+// only).  Blocks of kMlaWarps warps (128 rows: each K/V tile filled from
+// L2 serves twice the rows of a 4-warp block), one a SM by registers, a
+// ring of kMlaStages stages and q staged after it.
+constexpr int kMlaWarps = 8, kMlaStages = 2;
+template <typename Rows>
+int launch_mla(const void* q, const void* k, const void* v, void* out,
+               Rows rows, int B, int S, int H, float scale, void* stream) {
+  using D = SplitK<Rows>;
+  static_assert(D::kRope > 0, "launch_mla takes MLA rows");
+  return launch_hd<Rows, D::kNope + D::kRope, D::kVd, kMlaStages, kMlaWarps>(
+      q, k, v, out, rows, B, S, H, H, 1, 0, scale, stream);
 }
 
 }  // namespace prefill_mma

@@ -10,14 +10,19 @@ plain version; on a CUDA tensor it launches its kernel or raises.
 ``paged_prefill_attention_quant`` is the paged form over int8 pools with
 per-row f32 scales (see ``csrc/paged_prefill_quant.cu``): the int8
 engine's mixed steps, which the reference serves without a kernel.
+``mla_flash_attention`` is the contiguous form on DeepSeek-V3's MLA
+operands as ``mla_prefill`` makes them: a rope key shared by every head
+and V at its own head dim.
 
 The libraries hold three bodies.  At head_dim 64 or 128 everything
 runs on the tensor cores: bf16 (``csrc/prefill_mma.cuh``, the ``*_mma``
 entries) and f32 q over f32, bf16 or int8 K/V in split TF32
 (``csrc/prefill_tf32.cuh``, the ``*_tf32`` entries); at any other
-head_dim on CUDA cores (``csrc/prefill_body.cuh``).
-``paged_prefill_entry``, ``quant_prefill_entry`` and ``flash_entry``
-pick the entry from dtypes and head_dim alone.
+head_dim on CUDA cores (``csrc/prefill_body.cuh``).  bf16 MLA operands
+at ``MLA_DIMS`` run the bf16 tensor-core body with a q/k head of 192
+and a V head of 128 (``flash_attention_mla_bf16_mma``).
+``paged_prefill_entry``, ``quant_prefill_entry``, ``flash_entry`` and
+``mla_flash_entry`` pick the entry from dtypes and dims alone.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from ..build import CudaKernel
-from ..decode_attention.ops import _NAMES, check_paged_operands
+from ..decode_attention.ops import (MLA_DIMS, _NAMES, check_mla_operands,
+                                    check_paged_operands, mla_gqa_operands)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -47,10 +53,14 @@ QUANT_KERNEL = CudaKernel(
 FLASH_KERNEL = CudaKernel(
     "flash_attention",
     Path(__file__).parent / "csrc" / "flash_prefill.cu",
-    {f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
-     for t in ("f32", "bf16", "bf16_mma", "f32_tf32")})
-# head_dims the tensor-core bodies are instantiated for: smollm-360m's and
-# jamba-v0.1's (and most configs'; 56 and 192 take the CUDA-core body)
+    {**{f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+        for t in ("f32", "bf16", "bf16_mma", "f32_tf32")},
+     "flash_attention_mla_bf16_mma": [_P] * 5 + [_I] * 4
+     + [ctypes.c_float, _P]})
+# head_dims the GQA tensor-core bodies are instantiated for: smollm-360m's
+# and jamba-v0.1's (and most configs'; 56 takes the CUDA-core body).
+# DeepSeek-V3's MLA (q/k 192, V 128) has its own tensor-core entry
+# (mla_flash_entry); 192 with V as wide takes the CUDA-core body.
 MMA_HEAD_DIMS = (64, 128)
 
 
@@ -223,5 +233,58 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
         flash_entry(q.dtype, hd),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, T, H, KV, hd, int(causal), int(sliding_window),
+        ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return out
+
+
+def mla_flash_entry(dtypes, dims) -> str:
+    """The C entry of ``FLASH_KERNEL`` that serves MLA's operands of these
+    types (q, k_nope, rope key, V) and ``dims`` (nope, rope, v head dims):
+    ``flash_attention_mla_bf16_mma`` for bf16 throughout at ``MLA_DIMS``,
+    else the entry ``flash_entry`` picks for ``mla_gqa_operands``'
+    concatenation.  From dtypes and dims alone, never from a failed build
+    or launch."""
+    if tuple(dims) == MLA_DIMS and all(d == torch.bfloat16 for d in dtypes):
+        return "flash_attention_mla_bf16_mma"
+    return flash_entry(dtypes[0], dims[0] + dims[1])
+
+
+def mla_flash_attention_plain(q, k_nope, k_rope, v):
+    """The same function in plain PyTorch: causal ``naive_attention`` over
+    ``mla_gqa_operands``, cut to V's head dim."""
+    k, vp = mla_gqa_operands(k_nope, k_rope, v)
+    return flash_attention_plain(q, k, vp, causal=True)[..., :v.shape[-1]]
+
+
+def mla_flash_attention(q, k_nope, k_rope, v):
+    """q: (B, S, H, nope + rope) = [q_nope | q_rope]; k_nope (B, T, H,
+    nope); k_rope (B, T, rope), one rope key per token shared by every
+    head; v (B, T, H, vd); query s at position s sees keys kpos <= s
+    (causal, as MLA's prefill) -> (B, S, H, vd) in q's type.  Scale
+    1/sqrt(nope + rope).  bf16 at ``MLA_DIMS`` launches
+    ``flash_attention_mla_bf16_mma``; other types or dims launch the GQA
+    entry over ``mla_gqa_operands``."""
+    if q.device.type == "cpu":
+        return mla_flash_attention_plain(q, k_nope, k_rope, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_flash_attention: no kernel for {q.device}")
+    dims = (k_nope.shape[-1], k_rope.shape[-1], v.shape[-1])
+    entry = mla_flash_entry((q.dtype, k_nope.dtype, k_rope.dtype, v.dtype),
+                            dims)
+    if entry != "flash_attention_mla_bf16_mma":
+        k, vp = mla_gqa_operands(k_nope, k_rope, v)
+        return flash_attention(q, k, vp, causal=True)[..., :v.shape[-1]]
+    check_mla_operands(q, k_nope, k_rope, v, 4)
+    B, S, H, hd = q.shape
+    T = k_nope.shape[1]
+    if k_rope.shape[1] != T or not 1 <= S <= T:
+        raise ValueError(f"{S} queries over {T} keys and "
+                         f"{k_rope.shape[1]} rope keys: the kernel takes "
+                         "1 <= S <= T rope keys")
+    out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    FLASH_KERNEL.launch(
+        entry, q.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, S, T, H,
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out

@@ -21,12 +21,14 @@ plain version.  The reference's ``chunked_attention`` computes the same
 function as ``naive_attention`` and serves only training (ROADMAP A15):
 on the card the flash kernel covers every length.
 
-MLA: ``mla_prefill`` runs the contiguous ``flash_attention`` kernel and
-the expanded ``mla_decode`` the ``decode_attention`` kernel, both with
-H = KV query/key heads of ``qk_nope + qk_rope`` dims and V zero-padded
-to that width (its scale ``1/sqrt(qk_nope + qk_rope)`` is the kernels'
-``1/sqrt(head_dim)``); the absorbed decode runs the reference's latent
-einsums in plain torch (no TPU kernel computes it; ROADMAP Queue B).
+MLA: ``mla_prefill`` runs the contiguous flash kernel's MLA form
+(``mla_flash_attention``) and the expanded ``mla_decode`` the dense
+decode kernel's (``mla_decode_attention``), on MLA's own operands: q =
+[q_nope, q_rope], k_nope and V per head, and the rope key that every
+head shares, one row per token (the decode reads it in place from the
+latent cache); scale ``1/sqrt(qk_nope + qk_rope)``.  The absorbed
+decode runs the reference's latent einsums in plain torch (no TPU
+kernel computes it; ROADMAP Queue B).
 ``mla_forward`` waits for A14 with ``gqa_forward``.
 """
 from __future__ import annotations
@@ -38,7 +40,6 @@ import torch
 
 from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
-import torch.nn.functional as F
 
 from .common import apply_rope, dense_init, mm, rmsnorm
 from .config import ModelConfig
@@ -375,18 +376,22 @@ def gqa_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
 # -- MLA (DeepSeek-V3): the cache holds (c_kv, k_rope), the latent compression
 
 def _mla_qkv(p, cfg: ModelConfig, x, positions):
+    """(q, q_rope, c_kv, k_rope): q (B,S,H,nope+rope) = [q_nope, q_rope]
+    with the rope columns rotated in place (the kernels' q operand, no
+    concatenation), q_rope those columns as a tensor of their own, the
+    latent c_kv (B,S,rank) and the single shared rope key (B,S,1,rope)."""
     m = cfg.mla
     h = cfg.n_heads
     B, S, _ = x.shape
+    nope = m.qk_nope_head_dim
     cq = rmsnorm(p["q_norm"], mm(x, p["wdq"]))
-    q = mm(cq, p["wuq"]).reshape(B, S, h,
-                                 m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q = mm(cq, p["wuq"]).reshape(B, S, h, nope + m.qk_rope_head_dim)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    q[..., nope:] = q_rope
     c_kv = rmsnorm(p["kv_norm"], mm(x, p["wdkv"]))      # (B,S,rank)
     k_rope = apply_rope(mm(x, p["wkr"]).reshape(B, S, 1, m.qk_rope_head_dim),
                         positions, cfg.rope_theta)      # shared single head
-    return q_nope, q_rope, c_kv, k_rope
+    return q, q_rope, c_kv, k_rope
 
 
 def _mla_expand_kv(p, cfg: ModelConfig, c_kv):
@@ -398,36 +403,20 @@ def _mla_expand_kv(p, cfg: ModelConfig, c_kv):
     return k_nope, v
 
 
-def _mla_heads(cfg: ModelConfig, q_nope, q_rope, k_nope, k_rope, v):
-    """The kernels' operands: q = [q_nope, q_rope] and k = [k_nope, the
-    shared rope key broadcast to every head] (B,T,H,qk_head), one type;
-    V zero-padded from v_head_dim to qk_head (the padded output columns
-    are 0 and are cut off), contiguous."""
-    m = cfg.mla
-    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
-    if m.v_head_dim > qk_head:
-        raise ValueError(f"MLA v_head_dim {m.v_head_dim} > q/k head "
-                         f"{qk_head}: the kernels take one head_dim")
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    dt = torch.promote_types(k_nope.dtype, k_rope.dtype)
-    k = torch.cat([k_nope.to(dt), k_rope.to(dt).expand(
-        k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
-    v = F.pad(v, (0, qk_head - m.v_head_dim))
-    return q.contiguous(), k.contiguous(), v.to(k.dtype).contiguous()
-
-
 def mla_prefill(p, cfg: ModelConfig, x, positions):
     """Causal MLA over the whole prompt through the contiguous flash
-    kernel.  x: (B,S,D); positions: (B,S).  Returns (out (B,S,D), (c_kv
-    (B,S,rank), k_rope (B,S,rope))) — the latent cache."""
+    kernel, on MLA's own operands (``mla_flash_attention``: q = [q_nope,
+    q_rope], the rope key shared by every head, V at v_head_dim).  x:
+    (B,S,D); positions: (B,S).  Returns (out (B,S,D), (c_kv (B,S,rank),
+    k_rope (B,S,rope))) — the latent cache."""
     m = cfg.mla
     B, S, _ = x.shape
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    q, _, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
     k_nope, v = _mla_expand_kv(p, cfg, c_kv)
-    q, k, v = _mla_heads(cfg, q_nope, q_rope, k_nope, k_rope, v)
-    out = flash_ops.flash_attention(q, k, v, causal=True)[..., :m.v_head_dim]
-    return (mm(out.reshape(B, S, -1), p["wo"]),
-            (c_kv, k_rope.reshape(B, S, m.qk_rope_head_dim)))
+    k_rope = k_rope.reshape(B, S, m.qk_rope_head_dim).contiguous()
+    out = flash_ops.mla_flash_attention(q, k_nope.contiguous(), k_rope,
+                                        v.contiguous())
+    return mm(out.reshape(B, S, -1), p["wo"]), (c_kv, k_rope)
 
 
 def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,
@@ -439,14 +428,15 @@ def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,
     attended to.  ``absorb=False`` expands K/V of those slots from the
     cache and runs the ``decode_attention`` kernel; ``absorb=True`` folds
     W_uk into the query and W_uv into the output and attends in the
-    latent space (the reference's einsums, plain torch).  Returns (out,
-    c_cache, kr_cache)."""
+    latent space (the reference's einsums, plain torch).  The expanded
+    form's kernel (``mla_decode_attention``) reads the rope keys in place
+    from ``kr_cache``.  Returns (out, c_cache, kr_cache)."""
     m = cfg.mla
     h = cfg.n_heads
     B = x.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    q, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
     _dynamic_token_update(c_cache, c_kv, pos)
     _dynamic_token_update(kr_cache, k_rope[:, :, 0], pos)
     n = min(int(pos) + 1, c_cache.shape[1])
@@ -457,7 +447,7 @@ def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,
             dt = torch.promote_types(a.dtype, b.dtype)
             return torch.einsum(eq, a.to(dt), b.to(dt))
         wuk = p["wuk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
-        q_lat = ein("bshd,rhd->bshr", q_nope, wuk)
+        q_lat = ein("bshd,rhd->bshr", q[..., :m.qk_nope_head_dim], wuk)
         s_lat = ein("bshr,btr->bhst", q_lat, c)
         s_rope = ein("bshd,btd->bhst", q_rope, kr)
         scores = ((s_lat + s_rope) * scale).float()
@@ -467,7 +457,6 @@ def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,
         out = ein("bshr,rhd->bshd", o_lat, wuv)
     else:
         k_nope, v = _mla_expand_kv(p, cfg, c)
-        q, k, v = _mla_heads(cfg, q_nope, q_rope, k_nope, kr[:, :, None], v)
-        out = decode_ops.decode_attention(q[:, 0].contiguous(), k, v,
-                                          n)[..., :m.v_head_dim]
+        out = decode_ops.mla_decode_attention(q[:, 0], k_nope.contiguous(),
+                                              kr_cache, v.contiguous(), n)
     return mm(out.reshape(B, 1, -1), p["wo"]), c_cache, kr_cache

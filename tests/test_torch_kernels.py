@@ -442,6 +442,115 @@ def test_bf16_head_dim_32_stays_on_the_cuda_core_body(cuda):
         _TOL[torch.bfloat16]
 
 
+# -- MLA's operands (DeepSeek-V3: q/k 128 + 64 with the rope key shared by
+#    every head, V 128): B2's and B4's MLA entries ------------------------------
+
+_MLA = (128, 64, 128)
+
+
+def _bf16_ulp(want):
+    """One bf16 ulp at the largest |want| (chip_smoke's MLA unit)."""
+    amax = want.float().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(amax)) - 7)
+
+
+def _mla_operands(seed, B, S, T, C, H, device, dims=_MLA,
+                  dtype=torch.bfloat16):
+    """q (B, S, H, nope + rope), k_nope (B, T, H, nope), the rope keys
+    (B, C, rope) and V (B, T, H, vd) from a seeded numpy generator."""
+    nope, rope, vd = dims
+    rng = np.random.default_rng(seed)
+    return tuple(_t(rng.standard_normal(shape).astype(np.float32), device,
+                    dtype)
+                 for shape in ((B, S, H, nope + rope), (B, T, H, nope),
+                               (B, C, rope), (B, T, H, vd)))
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 77, 128), (1, 128, 128), (2, 512, 16),
+                                   (1, 1, 128)])
+def test_mla_flash_kernel_matches_plain(cuda, B, S, H):
+    """B2's MLA entry (the tensor-core body at q/k 192, V 128, the K tile
+    assembled from k_nope and the shared rope key): S no multiple of the
+    64-row block, the served S = 128, S = 512, one token; within phase
+    3's tolerance (one bf16 ulp of the largest output, at least 2e-2)."""
+    q, kn, kr, v = _mla_operands(S + H, B, S, S, S, H, cuda)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.mla_flash_attention(q, kn, kr, v)
+    want = fops.mla_flash_attention_plain(q, kn, kr, v)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before,
+                          "flash_attention_mla_bf16_mma")
+    assert got.shape == want.shape == (B, S, H, 128)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= max(_TOL[torch.bfloat16], _bf16_ulp(want)), err
+
+
+@pytest.mark.parametrize("B,H", [(8, 128), (2, 8)], ids=["one_split",
+                                                          "splits"])
+@pytest.mark.parametrize("n_valid", [1, 129, 576])
+def test_mla_decode_kernel_matches_plain(cuda, B, H, n_valid):
+    """B4's MLA entry: k_nope/V for 576 slots, the rope keys read in place
+    from a 640-slot latent cache; one split per pair at 128 heads, the
+    split-and-combine path at 8 (its partials V-wide); within phase 3's
+    tolerance (two bf16 ulps of the largest output, at least 6e-3)."""
+    q, kn, kr, v = _mla_operands(n_valid + H, B, 1, 576, 640, H, cuda)
+    q = q[:, 0].contiguous()
+    before = _entry_counts(dops.DENSE_KERNEL)
+    got = dops.mla_decode_attention(q, kn, kr, v, n_valid)
+    want = dops.mla_decode_attention_plain(q, kn, kr, v, n_valid)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.DENSE_KERNEL, before,
+                          "decode_attention_mla_bf16")
+    assert got.shape == want.shape == (B, H, 128)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= max(6e-3, 2 * _bf16_ulp(want)), err
+
+
+def test_mla_f32_smoke_dims_run_the_gqa_entries(cuda):
+    """f32 at the smoke config's dims (32 + 16, V 32): the GQA entries over
+    the concatenated, padded operands, equal to the plain versions within
+    the f32 tolerance."""
+    dims = (32, 16, 32)
+    q, kn, kr, v = _mla_operands(5, 2, 40, 40, 48, 4, cuda, dims,
+                                 torch.float32)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.mla_flash_attention(q, kn, kr[:, :40].contiguous(), v)
+    want = fops.mla_flash_attention_plain(q, kn, kr[:, :40].contiguous(), v)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before, "flash_attention_f32")
+    assert (got - want).abs().max().item() <= _TOL[torch.float32]
+    qd = q[:, 0].contiguous()
+    before = _entry_counts(dops.DENSE_KERNEL)
+    got = dops.mla_decode_attention(qd, kn, kr, v, 33)
+    want = dops.mla_decode_attention_plain(qd, kn, kr, v, 33)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.DENSE_KERNEL, before,
+                          "decode_attention_f32_f32")
+    assert (got - want).abs().max().item() <= _TOL[torch.float32]
+
+
+def test_mla_wrappers_reject_unsupported_operands():
+    """The MLA entries' checks: bf16 throughout, MLA's dims, contiguous
+    16-byte aligned operands that fit one another, and rope keys for
+    every key row."""
+    q, kn, kr, v = _mla_operands(0, 2, 1, 8, 10, 2, "cpu")
+    q = q[:, 0].contiguous()
+    dops.check_mla_operands(q, kn, kr, v, 3)           # the valid call
+    with pytest.raises(TypeError):
+        dops.check_mla_operands(q.float(), kn, kr, v, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        dops.check_mla_operands(q, kn.transpose(1, 2), kr, v, 3)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.empty(kr.numel() + 1, dtype=kr.dtype)[1:]
+        dops.check_mla_operands(q, kn, shifted.view(kr.shape), v, 3)
+    with pytest.raises(ValueError, match="MLA dims"):
+        dops.check_mla_operands(q, kn, kr, v[..., :64].contiguous(), 3)
+    with pytest.raises(ValueError, match="do not fit"):
+        dops.check_mla_operands(q, kn, kr[:, :7].contiguous(), v, 3)
+    with pytest.raises(ValueError, match="bad shapes"):
+        dops.check_mla_operands(q, kn, kr, v, 4)
+
+
 # -- the split-TF32 prefill body (prefill_tf32.cuh): f32 q at hd 64 / 128 ---
 
 def _paged_straddle_lengths(c, T, heads):
