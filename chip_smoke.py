@@ -57,7 +57,15 @@ result line):
                  (``flash_attention_mla_bf16_mma``, the tensor-core body
                  at q/k 192 and V 128; ``decode_attention_mla_bf16``),
                  SDPA on the broadcast rope key and V beside, and the
-                 numbers of the padded-operand form logged beside.
+                 numbers of the padded-operand form logged beside.  Then
+                 B2 and B4 at the shapes phases 15 and 16 serve: B2
+                 without the causal mask at whisper-tiny's encoder (6/6
+                 heads of 64, B = 8, S = T = 1500, timed), with more
+                 queries than keys (S = 100, T = 64) and at hd 128 (S =
+                 T = 300), bf16 on ``_mma`` and f32 on ``_tf32``; B2
+                 causal at qwen2-vl-72b's heads (64/8, hd 128, S = 1152,
+                 timed); B4 over whisper's 1500-slot cross cache and at
+                 qwen2-vl's heads (1183 of 1184 slots), timed in bf16.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -190,12 +198,40 @@ result line):
                  slots) against their plain versions with phase 3's MLA
                  tolerances, and timed.  (a) runs the GQA entries over
                  the concatenated operands (f32, other dims).
+ 14. forward   — (a) ``apply`` (the full-sequence forward) of phase 4's
+                 f32 models (the 2-layer smollm-headed stack; the jamba,
+                 deepseek and xLSTM smoke stacks) on the card against the
+                 CPU port, logits and aux within 1e-3 of the largest
+                 logit, each path's kernels launched (B2; B5, B6; none
+                 for xLSTM); ``SingleShot(model="smollm-360m:smoke",
+                 framework="torch")`` on the card against the CPU.  (b)
+                 smollm-360m at full width and depth (bf16): ``apply``
+                 on (8, 512) tokens through ``SingleShot(fn=...,
+                 framework="torch")``, B2 once a layer through ``_mma``;
+                 its last row's argmax against ``prefill``'s.
+ 15. whisper   — whisper-tiny at full width and depth (4 + 4 layers, d
+                 384, 6 heads, 1500 frames, vocab 51865, bf16; no cut) on
+                 the dense engine: ``generate_batch`` of 8 x 4-token
+                 prompts with (8, 1500, 384) frames from numpy seed 0, 64
+                 new tokens; B2 through ``_mma`` 3 times a layer (the
+                 encoder's and the cross-attention without the causal
+                 mask), B4 twice a layer and step (self, and cross over
+                 all 1500 slots).  The smoke config in f32: card tokens
+                 equal the CPU port's.  Then a trace.
+ 16. VLM       — qwen2-vl-72b at full width (d 8192, 64/8 heads of 128,
+                 M-RoPE, d_ff 29568, vocab 152064, bf16) cut to 8 of 80
+                 layers (~9.5B random parameters made on the card):
+                 ``generate_batch`` of 8 requests of 1024 patch rows and
+                 128 text tokens, 32 new; B2 (``_mma``) once a layer, B4
+                 once a layer and step.  Then a trace.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
 phase 11's gated card runs; ``launches_phase13``: phase 13(b)'s two
 runs; ``mla_heads``: B2's and B4's phase-3 rows at the MLA heads;
-``mla_served``: the same at phase 13(b)'s shapes); then
+``mla_served``: the same at phase 13(b)'s shapes; ``launches_phase14``
+to ``launches_phase16``: those phases' runs; ``slice_shapes``: B2's and
+B4's phase-3 rows at phases 15 and 16's shapes); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~5-9 minutes on one H100, the
 build included.
@@ -1036,6 +1072,114 @@ def phase_mla_kernels(timer: Timer):
     return rows
 
 
+WHISPER_HEADS = dict(H=6, KV=6, hd=64)       # whisper-tiny: 6 heads of 64
+QWEN2VL_HEADS = dict(H=64, KV=8, hd=128)     # qwen2-vl-72b: 64 query, 8 KV
+
+
+def phase_slice_kernels(timer: Timer):
+    """B2 and B4 at the shapes phases 15 and 16 serve, against their plain
+    versions, each on the entry the dispatch picks: B2 without the causal
+    mask at whisper-tiny's encoder (B = 8, S = T = 1500, no multiple of a
+    64-key tile: the tensor-core bodies mask kpos >= T alone), its
+    decoder's cross-attention with more queries than keys (S = 100 over
+    T = 64, the smoke encoder) and at jamba's hd 128 (S = T = 300), bf16
+    on ``_mma`` and f32 on ``_tf32``; B2 causal at qwen2-vl-72b's heads
+    (64/8, hd 128, S = 1152: 1024 patch rows and 128 text tokens); B4
+    over whisper's whole cross cache (1500 of 1500 slots, one query, no
+    mask) and at qwen2-vl's heads (1183 of 1184 slots, the last decode
+    step).  The bf16 rows at the served shapes are timed beside the plain
+    version, SDPA and the bound.  Returns {kernel: {shape: row}}."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {"flash_attention": {}, "decode_attention": {}}
+    B = 8
+    flash_cases = [  # (tag, heads, S, T, causal, dtype, timed)
+        ("whisper encoder", WHISPER_HEADS, 1500, 1500, False, bf16, True),
+        ("whisper encoder", WHISPER_HEADS, 1500, 1500, False, f32, False),
+        ("cross S > T", WHISPER_HEADS, 100, 64, False, bf16, False),
+        ("cross S > T", WHISPER_HEADS, 100, 64, False, f32, False),
+        ("jamba heads bidirectional", JAMBA_HEADS, 300, 300, False, bf16,
+         False),
+        ("jamba heads bidirectional", JAMBA_HEADS, 300, 300, False, f32,
+         False),
+        ("qwen2-vl causal", QWEN2VL_HEADS, 1152, 1152, True, bf16, True)]
+    for tag, heads, S, T, causal, dtype, timed in flash_cases:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        q, k, v = _dense_qkv(S + T + hd, B, S, T, heads, dtype)
+        entry = fops.flash_entry(dtype, hd)
+        e0 = dict(fops.FLASH_KERNEL.entry_launches)
+        out = fops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e1 = fops.FLASH_KERNEL.entry_launches
+        check({e: e1[e] - e0[e] for e in e1} == {e: int(e == entry)
+                                                 for e in e1},
+              f"flash_attention {tag}: launched {e1}, not one {entry}")
+        want = fops.flash_attention_plain(q, k, v, causal=causal)
+        check(torch.isfinite(out.float()).all().item(),
+              f"flash_attention {tag}: non-finite output")
+        err = (out.float() - want.float()).abs().max().item()
+        tol = TOL[f32] if dtype == f32 else DENSE_BF16_TOL["flash_attention"]
+        line = (f"flash_attention (contiguous) {tag}: heads {H}/{KV} hd {hd} "
+                f"B={B} S={S} T={T} {'causal' if causal else 'no mask'} "
+                f"{str(dtype)[6:]} [{entry}]")
+        check(err <= tol, f"{line}: max_abs_err {err} > {tol}")
+        line = f"[kernels] {line}: max_abs_err={err:.3e} (tol {tol})"
+        if timed:
+            n_scores = B * H * (S * (S + 1) // 2 if causal else S * T)
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            row = _time_row(
+                timer, lambda *a: fops.flash_attention(*a, causal=causal),
+                lambda *a: fops.flash_attention_plain(*a, causal=causal),
+                (q, k, v), _sdpa(q, k, v, H // KV, causal=causal),
+                _bound(n_bytes, 4 * hd * n_scores, dtype))
+            line += _fmt(row)
+            rows["flash_attention"][f"{tag} B={B} S={S} T={T}"] = dict(
+                max_abs_err=err, **row)
+        log(line)
+    for tag, heads, C, n_valid in (("whisper cross", WHISPER_HEADS, 1500,
+                                    1500),
+                                   ("qwen2-vl", QWEN2VL_HEADS, 1184, 1183)):
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        for dtype in (f32, bf16):
+            q, k, v = _dense_qkv(C + n_valid, B, 1, C, heads, dtype)
+            q = q[:, 0].contiguous()
+            n0 = dops.DENSE_KERNEL.launches
+            out = dops.decode_attention(q, k, v, n_valid)
+            torch.cuda.synchronize()
+            check(dops.DENSE_KERNEL.launches == n0 + 1,
+                  "decode_attention did not launch")
+            want = dops.decode_attention_plain(q, k, v, n_valid)
+            check(torch.isfinite(out.float()).all().item(),
+                  f"decode_attention {tag}: non-finite output")
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL[f32] if dtype == f32 \
+                else DENSE_BF16_TOL["decode_attention"]
+            line = (f"decode_attention (dense) {tag}: heads {H}/{KV} hd {hd} "
+                    f"B={B} C={C} n_valid={n_valid} {str(dtype)[6:]}")
+            check(err <= tol, f"{line}: max_abs_err {err} > {tol}")
+            line = f"[kernels] {line}: max_abs_err={err:.3e} (tol {tol})"
+            if dtype == bf16:
+                es = k.element_size()
+                n_bytes = (q.numel() * (q.element_size() + es)
+                           + 2 * B * n_valid * KV * hd * es)
+                mask = (torch.arange(C, device="cuda") < n_valid)
+                row = _time_row(timer, dops.decode_attention,
+                                dops.decode_attention_plain,
+                                (q, k, v, n_valid),
+                                _sdpa(q[:, None], k, v, H // KV,
+                                      mask=mask[None, None, None, :]),
+                                _bound(n_bytes, 4 * B * H * hd * n_valid,
+                                       dtype))
+                line += _fmt(row)
+                rows["decode_attention"][f"{tag} B={B} C={C} "
+                                         f"n_valid={n_valid}"] = dict(
+                    max_abs_err=err, **row)
+            log(line)
+    return rows
+
+
 def _quant_pools(k, v):
     """int8 pools and their f32 per-row scales from f32 pools, by the
     port's quantizer (the reference's arithmetic)."""
@@ -1427,15 +1571,26 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512):
         wall = time.perf_counter() - t0
     check(all(r.status == "ok" and len(r.tokens) == eng.max_new_tokens
               for r in res), f"[{tag}] traced serve failed")
+    steps = eng.n_device_steps - steps0
+    waves = "" if eng.paged else \
+        f" + {eng.n_prefills - waves0} prefill waves"
+    return _report_trace(prof, wall, steps, tag,
+                         f"{n} x {prompt_len}-token prompts, "
+                         f"{eng.max_new_tokens} new tokens, direct", waves)
+
+
+def _report_trace(prof, wall: float, steps: int, tag: str, what: str,
+                  waves: str = ""):
+    """Log a CUDA trace of ``steps`` device steps over ``wall`` seconds:
+    busy share, the kernels that take the device time, the operand
+    copies, the hand-written kernels, device-to-host copies and device
+    operations per step.  Returns (device-to-host copies per step,
+    {device operation: calls per step})."""
     rows = sorted(((e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     check(busy_us > 0, "the profiler recorded no device time")
-    steps = eng.n_device_steps - steps0
-    waves = "" if eng.paged else \
-        f" + {eng.n_prefills - waves0} prefill waves"
-    log(f"[{tag}] trace: {n} x {prompt_len}-token prompts, "
-        f"{eng.max_new_tokens} new tokens, direct: wall "
+    log(f"[{tag}] trace: {what}: wall "
         f"{wall * 1e3:.1f} ms over {steps} device steps{waves} "
         f"({wall * 1e3 / steps:.2f} ms/step), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e4 / wall:.1f}% "
@@ -2629,6 +2784,308 @@ def phase_mla_served_kernels(model, params, prompts) -> dict:
     return rows
 
 
+# -- phase 14 -------------------------------------------------------------------
+
+FWD_TOL = 1e-3          # x max(1, max|logits|): f32 card vs CPU, TF32 off
+
+
+def phase_forward_small(kernels, acc) -> None:
+    """Phase 14(a): ``apply`` (the full-sequence forward) of phase 4's
+    f32 models (the 2-layer smollm-headed stack, and the jamba, deepseek
+    and xLSTM smoke stacks) on the card against the CPU port, logits and
+    MoE aux loss within ``FWD_TOL`` relative to the largest logit; each
+    path's kernels launched and no other attention kernel.  Then
+    ``SingleShot(model="smollm-360m:smoke", framework="torch")`` on the
+    card against the same on the CPU (its loader draws the weights on the
+    CPU, so both hold the same numbers)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.single import SingleShot
+    smollm2 = get_config("smollm-360m").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    cases = [
+        ("2-layer f32 smollm heads", smollm2, ("flash_attention",)),
+        ("jamba-v0.1 smoke (8 layers, 4 experts)",
+         get_config("jamba-v0.1-52b", smoke=True),
+         ("flash_attention", "selective_scan", "gating_topk")),
+        ("deepseek-v3 smoke (MLA, 4 experts)",
+         get_config("deepseek-v3-671b", smoke=True),
+         ("flash_attention", "gating_topk")),
+        ("xlstm-350m smoke", get_config("xlstm-350m", smoke=True), ())]
+    for tag, cfg, path in cases:
+        tokens = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (4, 70)).astype(np.int32))
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(seed=0)
+        want, want_aux = cpu_model.apply(cpu_params, tokens)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = bridge.to_torch(cpu_params, "cuda")
+        reset(kernels)
+        with torch.inference_mode():
+            got, aux = gpu_model.apply(gpu_params, tokens.to("cuda"))
+        torch.cuda.synchronize()
+        launches = _tally(kernels, acc)
+        err = (got.cpu() - want).abs().max().item()
+        tol = FWD_TOL * max(1.0, want.abs().max().item())
+        aux_err = abs(aux.item() - want_aux.item())
+        check(err <= tol and aux_err <= tol,
+              f"[forward] {tag}: logits max_abs_err {err}, aux {aux_err} "
+              f"> {tol}")
+        check(all(launches[n] > 0 for n in path)
+              and all(launches[n] == 0 for n in ATTN_KERNELS
+                      if n not in path)
+              and (path or not any(launches.values())),
+              f"[forward] {tag}: launches {launches}")
+        log(f"[forward] {tag}: apply (4, 70) on cuda vs cpu: logits "
+            f"max_abs_err {err:.3e}, aux {aux_err:.3e} (tol {tol:.3e}); "
+            f"launches { {n: c for n, c in launches.items() if c} }")
+    tokens = np.random.default_rng(15).integers(0, 512, (4, 40)).astype(
+        np.int32)
+    want, _ = SingleShot(model="smollm-360m:smoke", framework="torch",
+                         device="cpu").invoke(tokens)
+    reset(kernels)
+    single = SingleShot(model="smollm-360m:smoke", framework="torch")
+    got, _ = single.invoke(tokens)
+    launches = _tally(kernels, acc)
+    err = float(np.abs(got - want).max())
+    tol = FWD_TOL * max(1.0, float(np.abs(want).max()))
+    check(err <= tol and launches["flash_attention"] == 2,
+          f"[forward] SingleShot smollm-360m:smoke: max_abs_err {err} > "
+          f"{tol} or launches {launches}")
+    log(f"[forward] SingleShot(model='smollm-360m:smoke', framework='torch') "
+        f"cuda vs cpu: logits {got.shape} max_abs_err {err:.3e} (tol "
+        f"{tol:.3e}), {single.mean_latency_s * 1e3:.1f} ms a call")
+
+
+def phase_forward(kernels, acc, card: str) -> None:
+    """Phase 14(b): smollm-360m at full width and depth (bf16, random
+    weights from seed 0 made on the card): ``apply`` on (8, 512) tokens
+    through ``SingleShot(fn=..., framework="torch")`` (numpy in and out);
+    B2 through its tensor-core entry, once a layer.  Its last row against
+    ``prefill``'s logits on the same tokens: argmax equal on every row
+    whose top two logits lie further apart than the two differ (bf16: one
+    GEMM over 4096 rows, the other over 8, may round apart)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.single import SingleShot
+    cfg = get_config("smollm-360m")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    tokens = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (8, 512)).astype(np.int32)
+    single = SingleShot(fn=lambda t: model.apply(params, t),
+                        framework="torch")
+    reset(kernels)
+    t0 = time.perf_counter()
+    logits, aux = single.invoke(tokens)
+    wall = time.perf_counter() - t0
+    check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                    "forward")
+    launches = _tally(kernels, acc)
+    check(logits.shape == (8, 512, cfg.vocab_size)
+          and np.isfinite(logits).all() and float(aux) == 0.0,
+          f"[forward] smollm-360m apply: {logits.shape}, aux {aux}")
+    check(launches["flash_attention"] == cfg.n_layers
+          and all(launches[n] == 0 for n in ATTN_KERNELS
+                  if n != "flash_attention"),
+          f"[forward] smollm-360m apply launches {launches}")
+    with torch.inference_mode():
+        last, _ = model.prefill(params, torch.from_numpy(tokens).to("cuda"),
+                                capacity=512, cache_dtype=torch.bfloat16)
+    _tally(kernels, acc)
+    last = last.float().cpu().numpy()
+    row = logits[:, -1]
+    err = float(np.abs(last - row).max())
+    top2 = np.sort(row, axis=1)[:, -2:]
+    same = row.argmax(1) == last.argmax(1)
+    check(all(same[r] or top2[r, 1] - top2[r, 0] <= err for r in range(8)),
+          f"[forward] apply's last row vs prefill: argmax {row.argmax(1)} "
+          f"vs {last.argmax(1)}, max_abs_err {err}")
+    log(f"[forward] smollm-360m full width (32 layers, bf16): apply (8, 512) "
+        f"through SingleShot(fn=, framework='torch') in {wall * 1e3:.1f} ms "
+        f"(numpy in, {logits.nbytes / 2**20:.0f} MiB f32 logits out); B2 "
+        f"{launches['flash_attention']} launches, `_mma`; last row vs "
+        f"prefill: argmax equal on {int(same.sum())}/8 rows, max_abs_err "
+        f"{err:.3e} (bf16 logits up to {float(np.abs(row).max()):.2f}); "
+        f"{card}")
+
+
+# -- phase 15 -------------------------------------------------------------------
+
+WHISPER_PLEN, WHISPER_NEW = 4, 64
+
+
+def _whisper_frames(cfg, batch: int):
+    """Encoder frames (batch, enc_seq, d_model) from numpy seed 0."""
+    return (np.random.default_rng(0).standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model)) * 0.02).astype(np.float32)
+
+
+def _trace_generate(eng, prompts, extra, tag: str) -> None:
+    """A CUDA trace of one more ``generate_batch`` (a prefill and
+    max_new_tokens - 1 decode steps: one device step per new token)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate_batch(prompts, extra_embeds=extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_trace(prof, wall, eng.max_new_tokens, tag,
+                  f"generate_batch of {prompts.shape[0]} x "
+                  f"{prompts.shape[1]}-token prompts, "
+                  f"{eng.max_new_tokens} new tokens (prefill + "
+                  f"{eng.max_new_tokens - 1} decode steps)")
+
+
+def phase_whisper(kernels, acc, card: str) -> None:
+    """Phase 15: whisper-tiny at full width and depth (4 + 4 layers, d
+    384, 6 heads, 1500 encoder frames, vocab 51865, bf16, random weights
+    from seed 0 made on the card; no cut) on the dense engine:
+    ``generate_batch`` of 8 prompts of 4 tokens with (8, 1500, 384) frames
+    from numpy seed 0, 64 new tokens.  B2 (``_mma``) launches 3 times a
+    layer: the encoder's bidirectional self-attention, the decoder's
+    causal one and its cross-attention (no mask); B4 twice a layer and
+    decode step (self, and cross over all 1500 slots).  Then the smoke
+    config in f32: the card's tokens equal the CPU port's.  Then a trace
+    of the full-width run."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("whisper-tiny")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    eng = ServeEngine(model, params, batch_size=8,
+                      capacity=WHISPER_PLEN + WHISPER_NEW,
+                      max_new_tokens=WHISPER_NEW, kv_dtype="bf16",
+                      device="cuda")
+    frames = _whisper_frames(cfg, 8)
+    prompts = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (8, WHISPER_PLEN)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    gen = eng.generate_batch(prompts, extra_embeds=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                    "whisper")
+    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
+                    "whisper")
+    launches = _tally(kernels, acc)
+    L = cfg.n_layers
+    check(gen.shape == (8, WHISPER_NEW) and 0 <= int(gen.min())
+          and int(gen.max()) < cfg.vocab_size,
+          f"[whisper] generated {gen.shape}, range {gen.min()}..{gen.max()}")
+    check(launches["flash_attention"] == cfg.n_enc_layers + 2 * L
+          and launches["decode_attention"] == 2 * L * (WHISPER_NEW - 1)
+          and all(launches[n] == 0 for n in ATTN_KERNELS
+                  if n not in DENSE_KERNELS),
+          f"[whisper] launches {launches}")
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[whisper] whisper-tiny full width and depth ({cfg.n_enc_layers} + "
+        f"{L} layers, d {cfg.d_model}, {cfg.n_heads} heads, enc_seq "
+        f"{cfg.enc_seq}, vocab {cfg.vocab_size}, bf16, "
+        f"{n_params / 1e6:.1f}M parameters): generate_batch 8 x "
+        f"{WHISPER_PLEN} tokens + (8, {cfg.enc_seq}, {cfg.d_model}) frames, "
+        f"{WHISPER_NEW} new: {gen.size / wall:.1f} tok/s ({wall:.2f}s, "
+        f"{wall * 1e3 / WHISPER_NEW:.2f} ms per new token); B2 "
+        f"{launches['flash_attention']} launches (encoder "
+        f"{cfg.n_enc_layers} bidirectional, {L} causal, {L} cross), B4 "
+        f"{launches['decode_attention']} ({L} self + {L} cross a step); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{card}")
+    scfg = get_config("whisper-tiny", smoke=True)
+    cpu_model = build_model(scfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    kw = dict(batch_size=4, capacity=WHISPER_PLEN + 16, max_new_tokens=16,
+              kv_dtype="f32")
+    sframes = _whisper_frames(scfg, 4)
+    sprompts = prompts[:4] % scfg.vocab_size
+    want = ServeEngine(cpu_model, cpu_params, device="cpu",
+                       **kw).generate_batch(sprompts, extra_embeds=sframes)
+    reset(kernels)
+    got = ServeEngine(build_model(scfg, device="cuda"),
+                      bridge.to_torch(cpu_params, "cuda"), device="cuda",
+                      **kw).generate_batch(sprompts, extra_embeds=sframes)
+    launches = _tally(kernels, acc)
+    check(np.array_equal(want, got),
+          f"[whisper] smoke f32: cpu {want} != cuda {got}")
+    check(launches["flash_attention"] == scfg.n_enc_layers
+          + 2 * scfg.n_layers and launches["decode_attention"] > 0,
+          f"[whisper] smoke launches {launches}")
+    log(f"[whisper] whisper-tiny smoke (2 + 2 layers, d 256, 64 frames, "
+        f"f32): generate_batch tokens on cuda == cpu ({got.size} tokens); "
+        f"launches { {n: c for n, c in launches.items() if c} }")
+    _trace_generate(eng, prompts, frames, "whisper")
+    reset(kernels)
+
+
+# -- phase 16 -------------------------------------------------------------------
+
+VLM_TEXT, VLM_NEW, VLM_LAYERS = 128, 32, 8
+
+
+def phase_vlm(kernels, acc, card: str) -> None:
+    """Phase 16: qwen2-vl-72b at full width (d 8192, 64/8 heads of 128,
+    M-RoPE sections (16, 24, 24), d_ff 29568, vocab 152064, bf16) cut to 8
+    of its 80 layers (random weights from seed 0 made on the card) on the
+    dense engine: ``generate_batch`` of 8 requests of 1024 patch rows
+    (``fake_vision_patches`` from a card generator seeded 16) plus 128 text
+    tokens, 32 new tokens.  B2 (``_mma``, causal, hd 128) launches once a
+    layer, B4 once a layer and decode step.  Then a trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, frontends
+    from repro_torch.serving import ServeEngine
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-vl-72b").replace(n_layers=VLM_LAYERS)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    S = cfg.vision_seq + VLM_TEXT
+    eng = ServeEngine(model, params, batch_size=8, capacity=S + VLM_NEW,
+                      max_new_tokens=VLM_NEW, kv_dtype="bf16", device="cuda")
+    patches = frontends.fake_vision_patches(
+        cfg, 8, torch.Generator(device="cuda").manual_seed(16),
+        dtype=torch.bfloat16)
+    prompts = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (8, S)).astype(np.int32)
+    log(f"[vlm] qwen2-vl-72b full width, {VLM_LAYERS} of 80 layers: d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, mrope {cfg.mrope_sections}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, bf16: {n_params / 1e9:.2f}B "
+        f"parameters made on the card in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    gen = eng.generate_batch(prompts, extra_embeds=patches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                    "vlm")
+    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
+                    "vlm")
+    launches = _tally(kernels, acc)
+    check(gen.shape == (8, VLM_NEW) and 0 <= int(gen.min())
+          and int(gen.max()) < cfg.vocab_size,
+          f"[vlm] generated {gen.shape}, range {gen.min()}..{gen.max()}")
+    check(launches["flash_attention"] == VLM_LAYERS
+          and launches["decode_attention"] == VLM_LAYERS * (VLM_NEW - 1)
+          and all(launches[n] == 0 for n in ATTN_KERNELS
+                  if n not in DENSE_KERNELS),
+          f"[vlm] launches {launches}")
+    log(f"[vlm] generate_batch 8 x ({cfg.vision_seq} patch rows + "
+        f"{VLM_TEXT} text tokens), {VLM_NEW} new: {gen.size / wall:.1f} "
+        f"tok/s ({wall:.2f}s, {wall * 1e3 / VLM_NEW:.2f} ms per new token); "
+        f"B2 {launches['flash_attention']} launches, B4 "
+        f"{launches['decode_attention']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    _trace_generate(eng, prompts, patches, "vlm")
+    reset(kernels)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2663,6 +3120,7 @@ def main() -> None:
     served["gating_topk"] = phase_gating(timer, floor_ms)
     served.update(phase_dense_kernels(timer))
     mla_rows = phase_mla_kernels(timer)
+    slice_rows = phase_slice_kernels(timer)
     served.update(phase_quant_kernels(timer))
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
@@ -2711,6 +3169,19 @@ def main() -> None:
     launches13, mla_served = phase_mla(kernels, card)
     gc.collect()
     torch.cuda.empty_cache()
+    launches14: dict = {}
+    launches15: dict = {}
+    launches16: dict = {}
+    for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
+                                     phase_forward(kernels, launches14,
+                                                   card))),
+                     ("15", lambda: phase_whisper(kernels, launches15, card)),
+                     ("16", lambda: phase_vlm(kernels, launches16, card))):
+        t0 = time.perf_counter()
+        run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase {tag}] {time.perf_counter() - t0:.1f}s")
     launches = {"paged_decode_attention": launches5["paged_decode_attention"],
                 "paged_prefill_attention": launches5["paged_prefill_attention"],
                 "selective_scan": launches6["selective_scan"],
@@ -2725,11 +3196,16 @@ def main() -> None:
                  replaces=REPLACES[k.name], launches=launches[k.name],
                  launches_phase11=launches11.get(k.name, 0),
                  launches_phase13=launches13.get(k.name, 0),
+                 launches_phase14=launches14.get(k.name, 0),
+                 launches_phase15=launches15.get(k.name, 0),
+                 launches_phase16=launches16.get(k.name, 0),
                  **served[k.name]) for k in kernels]
     for row in rows:
         if row["name"] in mla_rows:
             row["mla_heads"] = mla_rows[row["name"]]
             row["mla_served"] = mla_served[row["name"]]
+        if row["name"] in slice_rows:
+            row["slice_shapes"] = slice_rows[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

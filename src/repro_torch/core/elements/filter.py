@@ -5,12 +5,14 @@ The NNFW sub-plugin structure of the paper maps to *backends*:
   * ``python`` — arbitrary callable (the custom-C/Python sub-plugin)
   * ``torch``  — callable on torch tensors placed on a device (the NPU /
                  accelerator-delegation analogue): numpy inputs are
-                 uploaded, outputs come back as numpy arrays
+                 uploaded, outputs come back as numpy arrays (bf16 as
+                 f32: numpy has no bf16)
 
 A filter is resolved either from a direct ``fn`` or from the model
-registry (``model="glm4-9b"``), which mirrors loading a .tflite/.snpe
-artifact by path.  Filters keep per-invocation latency statistics so
-benchmarks can report per-stage numbers like the paper's Table II.
+registry (``model="glm4-9b:smoke"``, built on the filter's ``device``),
+which mirrors loading a .tflite/.snpe artifact by path.  Filters keep
+per-invocation latency statistics so benchmarks can report per-stage
+numbers like the paper's Table II.
 
 Micro-batching: buffers produced by ``TensorBatcher`` carry
 ``meta["batch"]`` and a leading batch axis.  The filter pads such
@@ -76,7 +78,7 @@ class TensorFilter(Element):
             if self.model_name is None:
                 raise ValueError(f"{self.name}: TensorFilter needs fn= or model=")
             from ...registry import get_model
-            fn = get_model(self.model_name)
+            fn = get_model(self.model_name, self._device)
         if self.framework == "python":
             self._compiled = fn
         elif self.framework == "torch":
@@ -151,6 +153,15 @@ class TensorFilter(Element):
         return self.total_latency_s / max(self.n_invocations, 1)
 
 
+def _to_numpy(t) -> np.ndarray:
+    """A tensor copied to host numpy; bf16 (which numpy lacks) widened to
+    f32, which is exact."""
+    import torch
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def _torch_backend(fn: Callable, device) -> Callable:
     """Wrap ``fn`` (tensors in, tensor or tuple of tensors out) so it
     takes and returns numpy arrays: inputs are uploaded to ``device``
@@ -164,6 +175,6 @@ def _torch_backend(fn: Callable, device) -> Callable:
             out = fn(*[torch.as_tensor(np.asarray(a), device=dev)
                        for a in args])
         if isinstance(out, (tuple, list)):
-            return tuple(o.cpu().numpy() for o in out)
-        return out.cpu().numpy()
+            return tuple(_to_numpy(o) for o in out)
+        return _to_numpy(out)
     return run

@@ -174,9 +174,10 @@ def paged_prefill_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
 def check_flash_operands(q, k, v, causal: bool, sliding_window: int):
     """Raise unless the operands are what the contiguous kernel takes:
     one CUDA device, contiguous, q/k/v of one type (f32 or bf16), q (B,
-    S, H, hd) and k/v (B, T, KV, hd) with KV dividing H, hd % 8 == 0 and
-    1 <= S <= T, and a window only under the causal mask (so every query
-    row sees at least one key)."""
+    S, H, hd) and k/v (B, T, KV, hd) with KV dividing H, hd % 8 == 0,
+    S, T >= 1 and, under the causal mask, S <= T (without it any S: a
+    decoder's queries over an encoder's keys), and a window only under
+    the causal mask (so every query row sees at least one key)."""
     ts = (q, k, v)
     if any(t.device != q.device for t in ts):
         raise ValueError("flash attention operands must share one device")
@@ -196,9 +197,10 @@ def check_flash_operands(q, k, v, causal: bool, sliding_window: int):
     if hd % 8:
         raise ValueError(f"head_dim {hd}: the kernel loads K/V rows in "
                          "16-byte chunks and needs head_dim % 8 == 0")
-    if not 1 <= S <= T:
+    if S < 1 or T < 1 or (causal and S > T):
         raise ValueError(f"{S} queries over {T} keys: the kernel takes "
-                         "1 <= S <= T")
+                         "1 <= S <= T under the causal mask, S, T >= 1 "
+                         "without it")
     if sliding_window < 0 or (sliding_window and not causal):
         raise ValueError(f"sliding_window={sliding_window} needs "
                          "causal=True and a window >= 0")
@@ -217,8 +219,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     """q: (B, S, H, hd); k/v: (B, T, KV, hd), one type; query s at
     position s sees keys kpos < T with kpos <= s (causal) and
-    kpos > s - sliding_window (window > 0) -> (B, S, H, hd) in q's
-    type."""
+    kpos > s - sliding_window (window > 0); without the causal mask
+    every key, and S may exceed T -> (B, S, H, hd) in q's type."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sliding_window=sliding_window)

@@ -19,6 +19,8 @@ are random, drawn from seed 0.
         --device cpu                  # mLSTM/sLSTM blocks, state slabs
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --smoke --device cpu  # MLA: dense engine
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-vl-72b --smoke --device cpu  # M-RoPE: dense engine
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --paged off                  # the dense engine (contiguous cache)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
@@ -48,6 +50,7 @@ import numpy as np
 from ..configs import ARCH_IDS, get_config
 from ..models import build_model
 from ..models.config import ModelConfig, SSMConfig
+from ..serving.engine import check_continuous
 from ..serving import (LANES, ServeEngine, TensorQueryClient,
                        TensorQueryServer)
 
@@ -324,6 +327,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             dcfg = dcfg.replace(param_dtype="float32",
                                 compute_dtype="float32")
     model = build_model(cfg, device=args.device)
+    check_continuous(model)
     params = model.init(seed=0)
     draft_model = draft_params = None
     if dcfg is not None:

@@ -29,7 +29,13 @@ head shares, one row per token (the decode reads it in place from the
 latent cache); scale ``1/sqrt(qk_nope + qk_rope)``.  The absorbed
 decode runs the reference's latent einsums in plain torch (no TPU
 kernel computes it; ROADMAP Queue B).
-``mla_forward`` waits for A14 with ``gqa_forward``.
+The full-sequence forwards ``gqa_forward``/``mla_forward`` are the
+prefills less their caches; ``gqa_prefill`` also runs bidirectionally
+(``causal=False``, the whisper encoder), and ``cross_attention`` attends
+decoder queries over encoder K/V without a mask (the flash kernel there,
+``decode_attention`` in the decode step).  Rotary positions are ``rope``
+(B,S), ``mrope`` (3,B,S: temporal, height, width streams), or none
+(``learned``/``none``).
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
 
-from .common import apply_rope, dense_init, mm, rmsnorm
+from .common import apply_mrope, apply_rope, dense_init, mm, rmsnorm
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -236,27 +242,32 @@ def paged_attention(q, k_gath, v_gath, positions, *,
     return _grouped_out(probs, v_gath)
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+def _project_qkv(p, cfg: ModelConfig, x, q: bool = True, kv: bool = True):
+    """(q, k, v) of x (B,S,D), as (B,S,H,hd) and (B,S,KV,hd); ``q=False``
+    or ``kv=False`` skips those projections (None in their place)."""
+    h, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     B, S, _ = x.shape
-    q = mm(x, p["wq"])
-    k = mm(x, p["wk"])
-    v = mm(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    return (q.reshape(B, S, h, hd), k.reshape(B, S, kv, hd),
-            v.reshape(B, S, kv, hd))
+
+    def proj(w, b, n):
+        y = mm(x, p[w])
+        if cfg.qkv_bias:
+            y = y + p[b]
+        return y.reshape(B, S, n, hd)
+    return (proj("wq", "bq", h) if q else None,
+            proj("wk", "bk", nkv) if kv else None,
+            proj("wv", "bv", nkv) if kv else None)
 
 
 def _rope_qk(cfg: ModelConfig, q, k, positions):
+    """Rotary positions on q and k: ``rope`` over (B,S) positions,
+    ``mrope`` over (3,B,S) streams; nothing for ``none`` and ``learned``
+    (whisper adds its positions to the embedding)."""
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    elif cfg.rope != "none":
-        raise NotImplementedError(
-            f"rope={cfg.rope!r}: mrope is not ported yet (ROADMAP A13)")
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k
 
 
@@ -342,17 +353,40 @@ def gqa_paged_step(p, cfg: ModelConfig, x, pools, page_table, lengths,
     return mm(out.reshape(B, T, -1), p["wo"])
 
 
-def gqa_prefill(p, cfg: ModelConfig, x, positions):
-    """Prefill: causal (sliding-window) attention over the whole prompt
-    through the contiguous flash kernel.  x: (B,S,D); positions: (B,S).
-    Returns (out (B,S,D), (k, v) (B,S,KV,hd)) for cache seeding."""
+def gqa_prefill(p, cfg: ModelConfig, x, positions, causal: bool = True):
+    """Prefill: attention over the whole prompt through the contiguous
+    flash kernel, causal (with the config's sliding window) or, for an
+    encoder, bidirectional.  x: (B,S,D); positions: (B,S), or (3,B,S)
+    under mrope.  Returns (out (B,S,D), (k, v) (B,S,KV,hd)) for cache
+    seeding."""
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope_qk(cfg, q, k, positions)
     out = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True,
+                                    v.contiguous(), causal=causal,
                                     sliding_window=cfg.sliding_window)
     B, S = x.shape[:2]
     return mm(out.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def gqa_forward(p, cfg: ModelConfig, x, positions, causal: bool = True):
+    """The full-sequence forward: ``gqa_prefill`` less the cache."""
+    return gqa_prefill(p, cfg, x, positions, causal)[0]
+
+
+def cross_attention(p, cfg: ModelConfig, x, k, v):
+    """Encoder-decoder cross-attention over the encoder's K/V (B,T,KV,hd)
+    (``cross_kv``): queries from x (B,S,D), no mask, S free of T, through
+    the contiguous flash kernel.  Returns (B,S,D)."""
+    q, _, _ = _project_qkv(p, cfg, x, kv=False)
+    out = flash_ops.flash_attention(q.contiguous(), k, v, causal=False)
+    B, S = x.shape[:2]
+    return mm(out.reshape(B, S, -1), p["wo"])
+
+
+def cross_kv(p, cfg: ModelConfig, enc):
+    """The cross-attention K/V of encoder states enc (B,T,D), contiguous."""
+    _, k, v = _project_qkv(p, cfg, enc, q=False)
+    return k.contiguous(), v.contiguous()
 
 
 def gqa_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
@@ -364,6 +398,10 @@ def gqa_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
     B = x.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
+    if cfg.rope == "mrope":
+        # the reference's decode position: the sequence index on all
+        # three streams (not the prefill's text offset; ROADMAP Queue C)
+        positions = positions.expand(3, B, 1)
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rope_qk(cfg, q, k, positions)
     cache_update_one(k_cache, v_cache, k, v, pos, cfg.sliding_window)
@@ -417,6 +455,12 @@ def mla_prefill(p, cfg: ModelConfig, x, positions):
     out = flash_ops.mla_flash_attention(q, k_nope.contiguous(), k_rope,
                                         v.contiguous())
     return mm(out.reshape(B, S, -1), p["wo"]), (c_kv, k_rope)
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions):
+    """The full-sequence forward (causal, as the reference runs it):
+    ``mla_prefill`` less the latent cache."""
+    return mla_prefill(p, cfg, x, positions)[0]
 
 
 def mla_decode(p, cfg: ModelConfig, x, c_cache, kr_cache, pos: int,

@@ -119,6 +119,34 @@ def apply_rope(x, positions, theta: float, rope_pct: float = 1.0):
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
 
 
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL M-RoPE [arXiv:2409.12191].  x: (..., seq, heads,
+    head_dim); positions3: (3, ..., seq), the temporal, height and width
+    position streams.  The head_dim/2 frequency bands are cut into three
+    ``sections`` (summing to head_dim/2), each rotated by its own stream;
+    the angles are summed over one-hot weights in f32 as the reference
+    does."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim/2 = {half}")
+    inv = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+    inv = torch.tensor(inv, dtype=torch.float32, device=x.device)
+    sec_id = np.concatenate([np.full((s,), i) for i, s in enumerate(sections)])
+    onehot = torch.tensor(np.eye(3)[sec_id].T, dtype=torch.float32,
+                          device=x.device)                  # (3, half)
+    ang_all = positions3.float()[..., :, None] * inv        # (3,..., seq, half)
+    bshape = (3,) + (1,) * (ang_all.dim() - 2) + (half,)
+    ang = (ang_all * onehot.reshape(bshape)).sum(dim=0)     # (..., seq, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
 # -- activations -------------------------------------------------------------------
 
 def relu2(x):

@@ -1,7 +1,8 @@
 """Decoder-only model: dense, MoE (GQA or MLA attention), hybrid
-Mamba+attention and xLSTM families (port of the serving subset of
-``repro/models/transformer.py``): the
-block-paged step (``paged_step``) with its preemption spill
+Mamba+attention, xLSTM and vision-language families (port of
+``repro/models/transformer.py`` but for its training half, ``loss`` and
+``mtp_logits``): the full-sequence forward (``apply``), the block-paged
+step (``paged_step``) with its preemption spill
 (``gather_paged_pages``/``scatter_paged_pages``) and the dense engine's
 contiguous cache (``init_cache``, ``prefill``, ``decode_step``).
 
@@ -16,14 +17,18 @@ stacked tensors.
 
 Sub-layer descriptor: (block, mlp) with block in {attn, mla, mamba,
 mlstm, slstm} and mlp in {dense, moe, none}.  The layer stack runs as a
-Python loop over the periods; the caches are updated in place.  Not
-ported yet, raising with its ROADMAP item: encoder-decoder and the
-vision-language family (A13).
+Python loop over the periods; the caches are updated in place.  The
+full-sequence forward ``apply`` returns every position's logits and the
+MoE aux loss.  The vision-language family is a dense stack with M-RoPE
+positions (``make_positions``) whose first ``vision_seq`` embeddings the
+caller's patch embeddings replace; the encoder-decoder is ``EncDecLM``
+(``encdec.py``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import attention as A
@@ -43,10 +48,9 @@ RECURRENT_BLOCKS = ("mamba", "mlstm", "slstm")
 def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
     """Returns (prefix_descs, period_descs, n_periods)."""
     if cfg.n_enc_layers or cfg.family in ("encdec", "audio"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: encoder-decoder is not ported yet "
-            "(ROADMAP A13)")
-    if cfg.family == "dense":
+        raise ValueError(f"family {cfg.family!r} is an encoder-decoder: "
+                         "build it with build_model (EncDecLM)")
+    if cfg.family in ("dense", "vlm"):
         return [], [("attn", "dense")], cfg.n_layers
     if cfg.family == "moe":
         attn = "mla" if cfg.mla is not None else "attn"
@@ -63,10 +67,6 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[Desc], List[Desc], int]:
         period = [("mlstm", "none")] * (every - 1) + [("slstm", "none")]
         assert cfg.n_layers % every == 0
         return [], period, cfg.n_layers // every
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "family 'vlm': mrope and the vision stub are not ported yet "
-            "(ROADMAP A13)")
     raise ValueError(cfg.family)
 
 
@@ -225,6 +225,56 @@ def _mlp_residual(p, cfg: ModelConfig, desc: Desc, x):
     return x + y
 
 
+def _apply_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions):
+    """Full-sequence forward of one sub-layer, from zero state -> (x, its
+    MoE aux loss: a zero without MoE).  Attention and MLA run the
+    contiguous flash kernel; mamba its cold-start scan; the xLSTM blocks
+    their recurrence from zero state."""
+    _, norm = make_norm(cfg.norm)
+    h = norm(p["norm1"], x)
+    block = desc[0]
+    if block == "attn":
+        y = A.gqa_forward(p["attn"], cfg, h, positions)
+    elif block == "mla":
+        y = A.mla_forward(p["attn"], cfg, h, positions)
+    elif block == "mamba":
+        y, _ = M.mamba_forward(p["mamba"], cfg, h)
+    else:
+        forward = X.mlstm_forward if block == "mlstm" else X.slstm_forward
+        y, _ = forward(p[block], cfg, h)
+    x = x + y
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if desc[1] == "moe":
+        y, aux = moe_forward(p["moe"], cfg, norm(p["norm2"], x))
+        return x + y, aux
+    return _mlp_residual(p, cfg, desc, x), aux
+
+
+def make_positions(cfg: ModelConfig, B: int, S: int, offset: int = 0,
+                   device=None):
+    """(B,S) int32 positions ``offset .. offset+S-1``, or (3,B,S) under
+    mrope: with a vision prefix (``vision_seq`` < S) the patches sit on a
+    sqrt(vision_seq) grid (t = 0, h = i // g, w = i % g) and the text
+    tokens after it at a shared index starting one past the largest h;
+    ``offset`` is added to every stream."""
+    pos = (torch.arange(S, dtype=torch.int32, device=device)
+           + offset).expand(B, S)
+    if cfg.rope != "mrope":
+        return pos
+    vs = cfg.vision_seq
+    if vs == 0 or S <= vs:
+        return pos.expand(3, B, S)
+    g = max(int(np.sqrt(vs)), 1)
+    vis = np.arange(vs)
+    hh, ww = (vis // g).astype(np.int32), (vis % g).astype(np.int32)
+    text = np.arange(S - vs, dtype=np.int32) + int(np.max(hh)) + 1
+    pos3 = np.stack([np.concatenate([np.zeros(vs, np.int32), text]),
+                     np.concatenate([hh, text]),
+                     np.concatenate([ww, text])])
+    pos3 = torch.tensor(pos3, dtype=torch.int32, device=device) + offset
+    return pos3[:, None, :].expand(3, B, S)
+
+
 def _prefill_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions, *,
                       capacity: int, cache_dtype):
     """Full-sequence forward that also emits the sub-layer's dense
@@ -361,8 +411,15 @@ class TransformerLM:
         return params
 
     # -- embedding / head ------------------------------------------------------
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(dtype_of(self.cfg.compute_dtype))
+    def _embed(self, params, tokens, extra_embeds=None):
+        """Token embeddings in the compute type; ``extra_embeds`` (B, n,
+        d), the modality stub's patch embeddings, overwrite the first n
+        positions."""
+        x = params["embed"][tokens.long()].to(dtype_of(self.cfg.compute_dtype))
+        if extra_embeds is not None:
+            n = extra_embeds.shape[1]
+            x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
+        return x
 
     def _head(self, params, x):
         cfg = self.cfg
@@ -370,6 +427,28 @@ class TransformerLM:
         h = norm(params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return h @ w.to(h.dtype)
+
+    # -- full-sequence forward ---------------------------------------------
+    def apply(self, params, tokens, extra_embeds=None, positions=None):
+        """tokens: (B,S) int32 -> (logits (B,S,V), the MoE aux loss summed
+        over layers, f32).  ``extra_embeds`` overwrite the first
+        positions' embeddings; ``positions`` default to
+        ``make_positions``."""
+        B, S = tokens.shape
+        if positions is None:
+            positions = make_positions(self.cfg, B, S, device=tokens.device)
+        x = self._embed(params, tokens, extra_embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, desc in enumerate(self.prefix_descs):
+            x, a = _apply_sublayer(params["prefix"][i], self.cfg, desc, x,
+                                   positions)
+            aux = aux + a
+        for i in range(self.n_periods):
+            for j, desc in enumerate(self.period_descs):
+                x, a = _apply_sublayer(_index(params["blocks"][f"s{j}"], i),
+                                       self.cfg, desc, x, positions)
+                aux = aux + a
+        return self._head(params, x), aux
 
     # -- dense serving ------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):
@@ -392,18 +471,14 @@ class TransformerLM:
 
     def prefill(self, params, tokens, capacity: int, extra_embeds=None,
                 cache_dtype=torch.bfloat16):
-        """tokens: (B,S) int32, every row at positions 0..S-1 -> (last-
-        token logits (B,V), a dense cache of ``capacity`` slots seeded
-        with the prompt's state)."""
-        if extra_embeds is not None:
-            raise NotImplementedError(
-                "extra_embeds: the vision-language stub is not ported yet "
-                "(ROADMAP A13)")
+        """tokens: (B,S) int32, every row at ``make_positions`` ->
+        (last-token logits (B,V), a dense cache of ``capacity`` slots
+        seeded with the prompt's state).  ``extra_embeds``: as
+        ``apply``."""
         cfg = self.cfg
         B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-        x = self._embed(params, tokens)
+        positions = make_positions(cfg, B, S, device=tokens.device)
+        x = self._embed(params, tokens, extra_embeds)
         kw = dict(capacity=capacity, cache_dtype=cache_dtype)
         cache: Dict[str, Any] = {}
         if self.prefix_descs:
@@ -426,7 +501,8 @@ class TransformerLM:
 
     def decode_step(self, params, cache, token, pos: int):
         """token: (B,1) int32; ``pos``: host int, the position of this
-        token in every row.  -> (logits (B,V), cache updated in place)."""
+        token in every row (on all three streams under mrope, as the
+        reference) -> (logits (B,V), cache updated in place)."""
         cfg = self.cfg
         x = self._embed(params, token)
         for i, desc in enumerate(self.prefix_descs):
@@ -462,6 +538,26 @@ class TransformerLM:
         carries are f32 whatever the cache type, so a pure xLSTM stack
         has none (a bf16 one serves over an f32 ``cache_dtype``)."""
         return any(d[0] not in X.STATE_LEAVES for d in self._descs())
+
+    def has_kv_cache(self) -> bool:
+        """True if any layer caches keys: attention K/V or an MLA latent
+        cache, in the cache type."""
+        return any(d[0] in ("attn", "mla") for d in self._descs())
+
+    def state_slab_bytes(self, num_slots: int, dtype) -> int:
+        """Device bytes of ``num_slots`` paged state slabs across every
+        recurrent layer (the dump row is not counted: the reference's
+        slab pools have none); 0 without recurrent layers."""
+        descs = [(d, 1) for d in self.prefix_descs] + \
+            [(d, self.n_periods) for d in self.period_descs]
+        total = 0
+        for desc, n in descs:
+            if desc[0] in RECURRENT_BLOCKS:
+                st = _sublayer_state(self.cfg, desc, num_slots, 0, dtype,
+                                     "meta")
+                total += n * sum(a.numel() * a.element_size()
+                                 for a in st.values())
+        return total
 
     def supports_prefix_sharing(self) -> bool:
         """KV pages are position-indexed and sharable; recurrent state

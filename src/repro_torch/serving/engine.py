@@ -115,6 +115,13 @@ reads per-row ``prompt_len``/``lane``/``deadline``/``tag`` metadata and
 writes ``status``/``ttft_s``/``n_tokens`` back (``net.py`` serves the
 engine over TCP through them).
 
+**Frontends** — ``generate_batch(prompts, extra_embeds=...)`` carries
+the VLM's patch embeddings or the encoder-decoder's frames.  The
+continuous API carries none: it serves the VLM text-only (dense mode,
+as every M-RoPE model), and refuses the encoder-decoder with a
+``ValueError`` (``check_continuous``), whose requests the reference
+fails.
+
 Not ported yet: ``mesh=`` (A17) raises ``NotImplementedError``.  In
 dense mode ``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
 reference's ``ValueError``: they need the block pool.
@@ -131,6 +138,7 @@ import torch
 
 from .. import bridge
 from ..models.common import dtype_of, resolve_device
+from ..models.encdec import EncDecLM
 from .kv_cache import (ROOT_DIGEST, SPEC_STATE_KEYS, BlockAllocator,
                        CacheFullError, DeviceSlotState, StateStore,
                        chain_digest)
@@ -214,6 +222,18 @@ class _PagedSlot:
 
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def check_continuous(model) -> None:
+    """Raise unless the continuous API (``submit``/``serve`` and what
+    drives them) can serve ``model``: an encoder-decoder needs its
+    encoder frames, which a request does not carry (the reference fails
+    such requests)."""
+    if isinstance(model, EncDecLM):
+        raise ValueError(
+            "an encoder-decoder needs its encoder frames, which the "
+            "continuous API (submit/serve) does not carry: call "
+            "generate_batch(prompts, extra_embeds=frames)")
 
 
 def _check_speculative(model, draft_model, draft_params, mesh,
@@ -360,13 +380,16 @@ class ServeEngine:
                 "dequantized K/V are f32; serve an f32 model, or a bf16 "
                 "model with kv_dtype='bf16'")
         if compute == torch.bfloat16 and cache_dtype == torch.float32 \
-                and model.has_cache_typed_state():
-            # the reference cannot serve this either: f32 K/V (or an f32
-            # latent cache or mamba conv window) promote the residual
-            # stream out of bf16, which fails its paged mode's first step
-            # and its dense mode's first decode step.  A pure xLSTM stack
-            # keeps only f32 carries, which the cache type does not touch:
-            # it serves, as in the reference
+                and (model.has_kv_cache() or (
+                    not self.paged and model.has_cache_typed_state())):
+            # the reference cannot serve this either: f32 K/V or an f32
+            # latent cache promote the residual stream out of bf16, which
+            # fails its first step; in dense mode an f32 mamba conv window
+            # changes the decode carry's type, which fails its first
+            # decode step.  The paged mamba step casts the window it reads
+            # to the compute type, and the xLSTM carries are f32 whatever
+            # the cache type: a stack of those serves paged, as in the
+            # reference (the xLSTM one dense too)
             raise ValueError(
                 "a bf16 model with an f32 KV pool is not supported: pass "
                 "kv_dtype='bf16'")
@@ -523,7 +546,10 @@ class ServeEngine:
         """prompts: (B, S) int32 -> generated (B, max_new_tokens), greedy:
         one prefill, then ``max_new_tokens - 1`` dense decode steps at
         positions S, S+1, ...  (in either mode: it runs the model's dense
-        steps, not the engine's cache)."""
+        steps, not the engine's cache).  ``extra_embeds`` (numpy or a
+        tensor, uploaded to the engine's device): the VLM's patch
+        embeddings, or the encoder-decoder's frames, which only this
+        entry carries."""
         B, S = prompts.shape
         if B != self.batch_size:
             raise ValueError(f"generate_batch takes batch_size="
@@ -536,6 +562,8 @@ class ServeEngine:
         B, S = prompts.shape
         tokens = torch.as_tensor(np.asarray(prompts, np.int32),
                                  device=self.device)
+        if extra_embeds is not None:
+            extra_embeds = bridge.leaf_to_torch(extra_embeds, self.device)
         logits, cache = self._prefill(self.params, tokens, extra_embeds)
         token = greedy_sample(logits)[:, None]
         out = [token]
@@ -562,6 +590,7 @@ class ServeEngine:
         slots); ``deadline`` is a relative TTFT budget in seconds — a
         request still queued when it elapses fails with status
         ``"expired"``; ``tag`` is an opaque caller handle."""
+        check_continuous(self.model)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ValueError(f"prompt must be non-empty 1-D, got {prompt.shape}")
@@ -613,11 +642,17 @@ class ServeEngine:
         """Device bytes one physical block costs across every attention
         layer's pools — K and V, plus the f32 ``k_scale``/``v_scale``
         rows under ``kv_dtype='int8'``, as the reference's leaf-name rule
-        counts them (state slabs, sized by slots, not blocks, are not
-        counted); 0 in dense mode (no block pool)."""
+        counts them; 0 in dense mode (no block pool).  A stack without
+        attention has no such leaf, and the reference then counts every
+        leaf of the paged cache, its state slabs (sized by slots, not
+        blocks): their bytes over ``num_blocks``, floored."""
         if self.allocator is None:
             return 0
         cfg = self.model.cfg
+        if self.model.n_attn_layers() == 0:
+            return self.model.state_slab_bytes(
+                self.num_state_slots, self.cache_dtype) \
+                // self.allocator.num_blocks
         hd = cfg.resolved_head_dim
         if self.kv_dtype == "int8":
             row = 2 * hd + 2 * 4              # int8 K, V + two f32 scales

@@ -121,11 +121,15 @@ def test_unsupported_lane_family_and_listen_raise(pair):
     eng = ServeEngine(tm, tp, device="cpu")
     with pytest.raises(ValueError, match="unknown lane 'bulk'"):
         eng.submit(np.arange(4, dtype=np.int32), lane="bulk")
+    from repro_torch.models import EncDecLM
     from repro_torch.models.config import MLAConfig, MoEConfig, SSMConfig
-    for cfg in (TINY_SERVE.replace(family="vlm"),
-                TINY_SERVE.replace(family="encdec", n_enc_layers=2)):
-        with pytest.raises(NotImplementedError, match="A13"):
-            build_model(cfg, device="cpu")
+    # the vision-language family and the encoder-decoder (A13) are
+    # ported: they build, and serve dense only
+    vlm = build_model(TINY_SERVE.replace(family="vlm"), device="cpu")
+    assert vlm.period_descs == [("attn", "dense")]
+    encdec = build_model(TINY_SERVE.replace(family="encdec", n_enc_layers=2,
+                                            enc_seq=8), device="cpu")
+    assert isinstance(encdec, EncDecLM) and not encdec.supports_paged()
     # the xLSTM (A10b) and MLA (A12) families are ported: they build
     ssm = TINY_SERVE.replace(family="ssm", d_ff=0,
                              ssm=SSMConfig(slstm_every=2))

@@ -44,7 +44,9 @@ TINY_DBRX = TINY_SERVE.replace(
     arch_id="tiny-dbrx", family="moe", norm="layernorm",
     moe=MoEConfig(n_experts=6, top_k=4, d_expert=48, capacity_factor=1.0))
 CFGS = {"mamba": FAMILY_CFGS["mamba"], "hybrid": FAMILY_CFGS["hybrid"],
-        "jamba": TINY_JAMBA, "dbrx": TINY_DBRX}
+        "jamba": TINY_JAMBA, "dbrx": TINY_DBRX,
+        "mamba-bf16": FAMILY_CFGS["mamba"].replace(
+            param_dtype="bfloat16", compute_dtype="bfloat16")}
 
 
 def _port_cfg(cfg):
@@ -91,12 +93,6 @@ def _serve_both(name, prompts, **kw):
     for n in LOOP:
         assert tl[n] == jl[n], n
     ts, js = te.pool_stats(), je.pool_stats()
-    if tm.n_attn_layers() == 0:
-        # no K/V pool: the port reports 0 bytes; the reference falls back
-        # to the state slabs' bytes over num_blocks (ROADMAP Queue C)
-        assert ts["bytes_per_block"] == ts["pool_bytes"] == 0
-        for key in ("bytes_per_block", "pool_bytes"):
-            ts.pop(key), js.pop(key)
     assert ts == js
     return je, te
 
@@ -226,6 +222,24 @@ def test_fewer_state_slabs_than_slots_queue_and_recycle(name):
                         block_size=4).serve(prompts[-1:])
     np.testing.assert_array_equal(
         alone[0].tokens, te.serve(prompts[-1:])[0].tokens)
+
+
+def test_bf16_mamba_over_f32_pool_serves_paged_as_reference():
+    """A bf16 stack of mamba layers only over the default f32 pool: the
+    paged step reads the f32 conv window in the compute type, so the
+    reference serves it, and the port must too, with its statuses, tokens,
+    counters and pool statistics (the slabs' bytes over ``num_blocks``).
+    Dense mode keeps the port's up-front ``ValueError``: there the
+    reference's f32 conv window changes its decode carry's type, and its
+    requests end in ``error``."""
+    prompts = _prompts(3, (9, 5))
+    kw = dict(batch_size=2, capacity=64, max_new_tokens=4)
+    je, te = _serve_both("mamba-bf16", prompts, **kw)
+    assert te.paged and te.cache_dtype == torch.float32
+    assert te.pool_stats()["bytes_per_block"] > 0
+    _, _, tm, tp = _pair("mamba-bf16")
+    with pytest.raises(ValueError, match="f32 KV pool"):
+        ServeEngine(tm, tp, device="cpu", paged=False, **kw)
 
 
 def test_share_prefix_gating_and_unported_families():

@@ -351,6 +351,67 @@ def test_dense_wrappers_reject_unsupported_operands():
     dops.check_dense_operands(qd, k, v, 8)             # the valid call
 
 
+def test_flash_check_takes_more_queries_than_keys_without_causal_mask():
+    """Decoder queries over encoder keys: S > T passes without the causal
+    mask; S = 0 or T = 0 never does."""
+    q, k, v = _dense_qkv(0, 2, 8, 3, dict(H=4, KV=2, hd=8), torch.float32,
+                         "cpu")
+    fops.check_flash_operands(q, k, v, False, 0)
+    for qq, kk in ((q[:, :0], k), (q, k[:, :0])):
+        with pytest.raises(ValueError, match="queries over"):
+            fops.check_flash_operands(qq.contiguous(), kk.contiguous(),
+                                      kk.contiguous(), False, 0)
+
+
+# the whisper-tiny geometry: 6/6 heads of 64; qwen2-vl-72b's: 64/8 of 128
+_WHISPER = dict(H=6, KV=6, hd=64)
+_QWEN2VL = dict(H=64, KV=8, hd=128)
+
+
+@pytest.mark.parametrize("S,T", [(150, 150), (80, 64), (1500, 1500)])
+@pytest.mark.parametrize("heads", [_WHISPER, _JAMBA_HEADS],
+                         ids=["whisper", "jamba"])
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "flash_attention_bf16_mma"),
+    (torch.float32, "flash_attention_f32_tf32")])
+def test_flash_kernel_without_causal_mask_matches_plain(cuda, heads, S, T,
+                                                        dtype, entry):
+    """B2 bidirectional on the tensor-core bodies: the whisper encoder's
+    self-attention (S = T, no multiple of a 64-key tile, masked at kpos >=
+    T alone) and its decoder's cross-attention with more queries than
+    keys (S > T)."""
+    q, k, v = _dense_qkv(S + T + heads["hd"], 2, S, T, heads, dtype, cuda)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    got = fops.flash_attention(q, k, v, causal=False)
+    want = fops.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before, entry)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (ATOL_F32 if dtype == torch.float32
+                   else _TOL[torch.bfloat16]), err
+
+
+@pytest.mark.parametrize("heads,C,n_valid", [(_WHISPER, 1500, 1500),
+                                             (_WHISPER, 64, 64),
+                                             (_QWEN2VL, 1184, 1153)],
+                         ids=["whisper_cross", "whisper_smoke_cross",
+                              "qwen2vl"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_at_slice_shapes_matches_plain(cuda, heads, C,
+                                                           n_valid, dtype):
+    """B4 over the whole cross cache (one query, no mask: every one of
+    enc_seq slots valid) and at qwen2-vl's heads."""
+    q, k, v = _dense_qkv(C + n_valid, 8, 1, C, heads, dtype, cuda)
+    q = q[:, 0].contiguous()
+    n0 = dops.DENSE_KERNEL.launches
+    got = dops.decode_attention(q, k, v, n_valid)
+    want = dops.decode_attention_plain(q, k, v, n_valid)
+    torch.cuda.synchronize()
+    assert dops.DENSE_KERNEL.launches == n0 + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _TOL[dtype], err
+
+
 # -- the tensor-core prefill body (prefill_mma.cuh): bf16 at hd 64 / 128 -----
 
 def _entry_counts(kernel):

@@ -206,12 +206,6 @@ def _serve_both(name, prompts, **kw):
         assert tl[n] == jl[n], n
     ts, js = te.pool_stats(), je.pool_stats()
     assert ts["kv_dtype"] == "int8"
-    if tm.n_attn_layers() == 0:
-        # no K/V pool: the port reports 0 bytes; the reference falls back
-        # to the state slabs' bytes over num_blocks (ROADMAP Queue C)
-        assert ts["bytes_per_block"] == ts["pool_bytes"] == 0
-        for key in ("bytes_per_block", "pool_bytes"):
-            ts.pop(key), js.pop(key)
     assert ts == js
     return je, te
 
