@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
-  2. build     — compile the nine hand-written CUDA kernels (one nvcc
+  2. build     — compile the ten hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout;
                  log the registers, spills and shared memory of the
                  tensor-core prefill bodies (prefill_mma.cuh, bf16;
@@ -66,6 +66,15 @@ result line):
                  causal at qwen2-vl-72b's heads (64/8, hd 128, S = 1152,
                  timed); B4 over whisper's 1500-slot cross cache and at
                  qwen2-vl's heads (1183 of 1184 slots), timed in bf16.
+                 Then B2's backward (``flash_backward.cu``; no TPU kernel:
+                 the JAX package differentiates attention through XLA):
+                 dq, dk, dv against torch.autograd of the plain version at
+                 smollm heads, B = 8, S = 512, causal, bf16 and f32; jamba
+                 heads; a 128-token window; MLA's heads on their own
+                 operands; whisper's encoder without the mask (S = T =
+                 1500); 100 queries over 64 keys; timed against the plain
+                 version, SDPA's backward and 2.5x the forward's
+                 operations.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -224,6 +233,21 @@ result line):
                  ``generate_batch`` of 8 requests of 1024 patch rows and
                  128 text tokens, 32 new; B2 (``_mma``) once a layer, B4
                  once a layer and step.  Then a trace.
+ 17. training  — (a) the f32 smoke configs of smollm, dbrx, deepseek-v3,
+                 whisper-tiny and xlstm train 3 steps on the card and on the
+                 CPU port from the same weights and ``TokenStream`` batches:
+                 loss and grad norm per step within 1e-4 relative; B2's
+                 forward and backward launch (B6 for the MoE configs,
+                 nothing for xLSTM); the jamba smoke stack raises B5's
+                 missing backward.  (b) ``python -m repro_torch.launch.train
+                 --arch smollm-360m --steps 30 --batch 8 --seq 512`` at full
+                 width and depth (32 layers, bf16; no cut) in process:
+                 finite, falling loss, B2's forward (``_mma``) and backward
+                 once a layer and step, ms per step, tokens/s, peak memory,
+                 the checkpoint restored bit for bit, a trace of one step;
+                 then the same run with ``--remat``: the forward launches
+                 twice a layer and step, the losses equal the plain run's,
+                 the peak memory is lower.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
@@ -231,9 +255,11 @@ phase 11's gated card runs; ``launches_phase13``: phase 13(b)'s two
 runs; ``mla_heads``: B2's and B4's phase-3 rows at the MLA heads;
 ``mla_served``: the same at phase 13(b)'s shapes; ``launches_phase14``
 to ``launches_phase16``: those phases' runs; ``slice_shapes``: B2's and
-B4's phase-3 rows at phases 15 and 16's shapes); then
+B4's phase-3 rows at phases 15 and 16's shapes; B2's backward: its
+launches from phase 17(b), ``training_shapes`` its phase-3 rows,
+``launches_phase17``/``launches_phase17a`` every kernel's in 17(b)/(a)); then
 the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.  The whole run takes ~5-9 minutes on one H100, the
+"device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
 """
 from __future__ import annotations
@@ -294,7 +320,11 @@ REPLACES = {
     # the int8 form of K2 (the reference dequantizes in XLA for T > 1)
     "paged_prefill_attention_quant":
         "src/repro/kernels/flash_attention/kernel.py:67",
-    "fused_transform": "src/repro/kernels/transform/kernel.py:31"}
+    "fused_transform": "src/repro/kernels/transform/kernel.py:31",
+    # B2's gradient: no TPU kernel computes it (the JAX package
+    # differentiates attention through XLA); B2's forward is the function
+    "flash_attention_backward":
+        "src/repro/kernels/flash_attention/kernel.py:67"}
 
 
 def log(msg: str) -> None:
@@ -1178,6 +1208,197 @@ def phase_slice_kernels(timer: Timer):
                     max_abs_err=err, **row)
             log(line)
     return rows
+
+
+# B2's backward against torch.autograd of its plain version: each
+# gradient's largest error over its largest magnitude, just above what
+# the card gave in the kernel tests (f32 1.5e-6; bf16 7.5e-3, one to two
+# bf16 ulps of the largest gradient)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+GRAD_TOL_REASON = ("f32: sums in another order than autograd's; bf16: the "
+                   "plain version rounds every intermediate product to "
+                   "bf16, the kernel keeps them in f32 and rounds the "
+                   "gradients once")
+
+
+def _grad_err(got, want) -> float:
+    """The largest of dq's, dk's and dv's max error over max magnitude."""
+    return max((g.float() - w.float()).abs().max().item()
+               / max(w.float().abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _n_visible(S, T, causal, window) -> int:
+    """Query-key pairs the masks leave (query s at position s)."""
+    s = torch.arange(S)[:, None]
+    t = torch.arange(T)[None, :]
+    vis = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        vis &= t <= s
+    if window:
+        vis &= t > s - window
+    return int(vis.sum())
+
+
+def _backward_bound(B, H, n_vis, hd, hdv, n_bytes, dtype):
+    """2.5 times the forward's operations: five S x T products a head
+    (scores, dP at hdv, dV at hdv, dQ and dK at hd), multiply and add, at
+    the peak rate for the type; against the bytes it must move."""
+    ops = 2 * B * H * n_vis * (3 * hd + 2 * hdv)
+    return _bound(n_bytes, ops, dtype)
+
+
+def _sdpa_backward_ms(timer, q, k, v, dout, G, mask=None, causal=False):
+    """SDPA's backward, the yardstick: its forward plus backward under
+    autograd (K/V expanded to the query heads beforehand) less its
+    forward.  The port never calls it."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (kh, vh))
+    leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+    doh = dout.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        return sdpa(*leaves, attn_mask=mask, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, doh)
+    return timer.ms(fwd_bwd) - timer.ms(fwd)
+
+
+def _backward_row(timer, q, k, v, tag, *, causal=True, window=0, mask=None):
+    """B2's backward on (q, k, v) and a random dout: dq, dk, dv against
+    ``flash_attention_backward_plain`` within ``GRAD_TOL``, then timed
+    against the plain version, SDPA's backward and its bound."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = torch.Generator(device="cpu").manual_seed(S + T)
+    dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
+    out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    kw = dict(causal=causal, sliding_window=window)
+    n0 = fops.BACKWARD_KERNEL.launches
+    got = fops.flash_attention_backward(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    check(fops.BACKWARD_KERNEL.launches == n0 + 1,
+          f"{tag}: flash_attention_backward did not launch")
+    check(all(torch.isfinite(t.float()).all().item() for t in got),
+          f"{tag}: non-finite gradients")
+    want = fops.flash_attention_backward_plain(q, k, v, out, dout, **kw)
+    err = _grad_err(got, want)
+    tol = GRAD_TOL[q.dtype]
+    check(err <= tol, f"{tag}: relative gradient error {err} > {tol}")
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + 2 * out.numel() * q.element_size()
+    bound = _backward_bound(B, H, _n_visible(S, T, causal, window), hd, hd,
+                            n_bytes, q.dtype)
+    ms = timer.ms(lambda: fops.flash_attention_backward(q, k, v, out, dout,
+                                                         **kw))
+    plain_ms = timer.ms(lambda: fops.flash_attention_backward_plain(
+        q, k, v, out, dout, **kw))
+    lib = _sdpa_backward_ms(timer, q, k, v, dout, H // KV, mask=mask,
+                            causal=causal and not window)
+    row = dict(max_abs_err=max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)),
+               rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+               bound_by=bound[1], library_ms=lib)
+    log(f"{tag}: relative error {err:.3e} (tol {tol})" + _fmt(row))
+    return row
+
+
+def _mla_backward_row(timer, B, S, H):
+    """B2's backward at DeepSeek-V3's MLA heads on MLA's own operands
+    (q/k 128 + 64 with one rope key a token shared by every head, V 128,
+    bf16): the gradient of ``mla_flash_attention`` (the MLA forward entry,
+    then ``flash_attention_backward`` at q/k 192 and V 128, the rope key's
+    gradient summed over the heads) against torch.autograd of its plain
+    version; timed as that autograd backward."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    nope, rope, vd = 128, 64, 128
+    g = torch.Generator(device="cpu").manual_seed(S + H)
+    ops_in = [torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+              for shape in ((B, S, H, nope + rope), (B, S, H, nope),
+                            (B, S, rope), (B, S, H, vd))]
+    dout = torch.randn((B, S, H, vd), generator=g).to("cuda", torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in ops_in]
+    out = fops.mla_flash_attention(*leaves)
+    n0 = fops.BACKWARD_KERNEL.launches
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    check(fops.BACKWARD_KERNEL.launches == n0 + 1,
+          "MLA backward did not launch flash_attention_backward")
+    plain_leaves = [t.clone().requires_grad_() for t in ops_in]
+    want = torch.autograd.grad(fops.mla_flash_attention_plain(*plain_leaves),
+                               plain_leaves, dout)
+    err = _grad_err(got, want)
+    tol = GRAD_TOL[torch.bfloat16]
+    tag = (f"[kernels] flash_attention_backward MLA heads {H}/{H} q/k "
+           f"{nope + rope} (rope {rope} shared) V {vd} B={B} S=T={S} causal "
+           f"bfloat16")
+    check(err <= tol, f"{tag}: relative gradient error {err} > {tol}")
+    n_bytes = 2 * sum(t.numel() for t in ops_in) * 2 + 2 * out.numel() * 2
+    bound = _backward_bound(B, H, _n_visible(S, S, True, 0), nope + rope, vd,
+                            n_bytes, torch.bfloat16)
+    ms = timer.ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                              retain_graph=True))
+
+    def plain():
+        ls = [t.clone().requires_grad_() for t in ops_in]
+        torch.autograd.grad(fops.mla_flash_attention_plain(*ls), ls, dout)
+    plain_ms = timer.ms(plain)
+    k = torch.cat([ops_in[1], ops_in[2][:, :, None].expand(B, S, H, rope)],
+                  dim=-1)
+    lib = _sdpa_backward_ms(timer, ops_in[0], k, ops_in[3], dout, 1,
+                            causal=True)
+    row = dict(max_abs_err=max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)),
+               rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+               bound_by=bound[1], library_ms=lib)
+    log(f"{tag}: relative error {err:.3e} (tol {tol})" + _fmt(row))
+    return row
+
+
+def phase_backward_kernels(timer: Timer):
+    """B2's backward (``flash_backward.cu``; the JAX package has no TPU
+    kernel for it) against its plain version at the shapes training
+    gives it: smollm-360m's heads at B = 8, S = 512 causal in bf16 (phase
+    17(b)'s shape) and f32, jamba's heads causal, a 128-token window,
+    DeepSeek-V3's MLA heads on their own operands, whisper-tiny's encoder
+    without the mask (S = T = 1500, no multiple of the 64-key tile), and
+    a cross case, 100 queries over 64 keys without the mask.  Returns
+    the rows by tag; the served row is phase 17(b)'s shape."""
+    B, S = 8, 512
+    rows = {}
+    cases = [("smollm", SMOLLM_HEADS, torch.bfloat16, S, S, True, 0),
+             ("smollm", SMOLLM_HEADS, torch.float32, S, S, True, 0),
+             ("jamba", JAMBA_HEADS, torch.bfloat16, S, S, True, 0),
+             ("smollm", SMOLLM_HEADS, torch.bfloat16, S, S, True, 128),
+             ("whisper encoder", WHISPER_HEADS, torch.bfloat16, 1500, 1500,
+              False, 0),
+             ("cross", WHISPER_HEADS, torch.bfloat16, 100, 64, False, 0)]
+    for geo, heads, dtype, S_, T, causal, window in cases:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        q, k, v = _dense_qkv(S_ + T + window + hd, B, S_, T, heads, dtype)
+        mask = None
+        if window:
+            pos = torch.arange(S_, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+        tag = (f"[kernels] flash_attention_backward {geo} heads {H}/{KV} hd "
+               f"{hd} B={B} S={S_} T={T} "
+               + ("causal" if causal else "no mask")
+               + (f" window {window}" if window else "")
+               + f" {str(dtype)[6:]}")
+        rows[tag] = _backward_row(timer, q, k, v, tag, causal=causal,
+                                  window=window, mask=mask)
+    rows["mla"] = _mla_backward_row(timer, B, S, MLA_HEADS["H"])
+    log(f"[kernels] backward tolerance: {GRAD_TOL} of each gradient's "
+        f"largest magnitude ({GRAD_TOL_REASON}); bound: 2.5 x the "
+        f"forward's operations at {PEAK_OPS_PER_S[torch.bfloat16] / 1e12:.0f} "
+        f"(bf16) / {PEAK_OPS_PER_S[torch.float32] / 1e12:.0f} (f32) TFLOP/s")
+    served = next(r for t, r in rows.items()
+                  if "smollm" in t and "bfloat16" in t and "window" not in t)
+    return served, rows
 
 
 def _quant_pools(k, v):
@@ -3086,6 +3307,202 @@ def phase_vlm(kernels, acc, card: str) -> None:
     reset(kernels)
 
 
+# -- phase 17 -------------------------------------------------------------------
+
+TRAIN_RTOL = 1e-4       # card vs CPU port, loss and grad norm per step (f32)
+TRAIN_STEPS = 3
+# phase 17(a)'s smoke configs and the kernels each must launch
+TRAIN_ARCHS = (
+    ("smollm-360m", ("flash_attention", "flash_attention_backward")),
+    ("dbrx-132b", ("flash_attention", "flash_attention_backward",
+                   "gating_topk")),
+    ("deepseek-v3-671b", ("flash_attention", "flash_attention_backward",
+                          "gating_topk")),
+    ("whisper-tiny", ("flash_attention", "flash_attention_backward")),
+    ("xlstm-350m", ()))
+FULL_TRAIN = dict(steps=30, batch=8, seq=512)      # phase 17(b)
+# 17(b)'s --remat run against the plain run, loss per step: the same
+# computation, so equal bits are expected; the tolerance leaves room for
+# a bf16 rounding that a reordered sum could flip late in the run
+REMAT_RTOL = 1e-3
+
+
+def _train_batches(cfg, batch: int = 4, seq: int = 64):
+    """The seeded ``TokenStream`` (seed 0); an encoder-decoder's frames
+    from numpy seed 0 as ``extra_embeds``."""
+    from repro_torch.data import TokenStream
+    extra = _whisper_frames(cfg, batch) if cfg.family == "audio" else None
+    for b in TokenStream(cfg.vocab_size, seq, batch, seed=0):
+        yield b if extra is None else dict(b, extra_embeds=extra)
+
+
+def phase_train_small(kernels, acc) -> None:
+    """Phase 17(a): the f32 smoke configs of smollm, dbrx (softmax router,
+    B6), deepseek-v3 (MLA, ``sigmoid_bias`` router, MTP), whisper-tiny and
+    xLSTM train ``TRAIN_STEPS`` steps from the same weights (drawn on the
+    CPU from seed 0) and batches on the card and on the CPU port: loss
+    and grad norm per step within ``TRAIN_RTOL``; on the card B2's
+    forward and backward launch (B6 too for the MoE configs, nothing for
+    xLSTM).  The jamba smoke stack must raise B5's missing backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+    kw = dict(peak_lr=1e-3, warmup=1, total_steps=TRAIN_STEPS)
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    train_kernels = ATTN_KERNELS + ("flash_attention_backward",
+                                    "gating_topk", "selective_scan")
+    for arch, path in TRAIN_ARCHS:
+        cfg = get_config(arch, smoke=True).replace(**f32)
+        cpu_model = build_model(cfg, device="cpu")
+        params = cpu_model.init(seed=0)
+        want = Trainer(cpu_model, device="cpu", params=params, **kw).fit(
+            _train_batches(cfg), TRAIN_STEPS, log_fn=None)
+        reset(kernels)
+        got = Trainer(build_model(cfg, device="cuda"), params=params,
+                      **kw).fit(_train_batches(cfg), TRAIN_STEPS,
+                                log_fn=None)
+        launches = _tally(kernels, acc)
+        errs = [max(abs(g[k] - w[k]) / abs(w[k]) for k in ("loss",
+                                                          "grad_norm"))
+                for g, w in zip(got, want)]
+        check(max(errs) <= TRAIN_RTOL,
+              f"[train] {arch} smoke: card vs cpu relative errors {errs}")
+        check(all(launches[n] > 0 for n in path)
+              and all(launches[n] == 0 for n in train_kernels
+                      if n not in path),
+              f"[train] {arch} smoke: launches {launches}")
+        log(f"[train] {arch} smoke (f32, {TRAIN_STEPS} steps, 4 x 64 "
+            f"tokens): card vs cpu loss "
+            f"{[round(g['loss'], 5) for g in got]} vs "
+            f"{[round(w['loss'], 5) for w in want]}, largest relative error "
+            f"(loss, grad norm) {max(errs):.2e} (tol {TRAIN_RTOL}); "
+            f"launches { {n: c for n, c in launches.items() if c} }")
+    cfg = get_config("jamba-v0.1-52b", smoke=True).replace(**f32)
+    model = build_model(cfg, device="cuda")
+    try:
+        Trainer(model, params=model.init(seed=0), **kw).fit(
+            _train_batches(cfg), 1, log_fn=None)
+    except NotImplementedError as e:
+        check("A15b" in str(e), f"[train] jamba smoke raised {e!r}")
+        log(f"[train] jamba-v0.1 smoke on the card raises as it must: {e}")
+    else:
+        raise RuntimeError("[train] jamba smoke trained on the card without "
+                           "a backward for B5")
+    reset(kernels)
+
+
+def phase_train(kernels, acc, card: str) -> None:
+    """Phase 17(b): ``python -m repro_torch.launch.train --arch
+    smollm-360m --steps 30 --batch 8 --seq 512`` in process, at full
+    width and depth (32 layers, bf16, random weights from seed 0; no
+    cut), with ``--ckpt-dir`` under a temporary directory.  Finite loss
+    at every step, the last 5 steps' mean below the first 5's; B2's
+    forward (``flash_attention_bf16_mma``) and its backward launch once a
+    layer and step; the checkpoint restores bit for bit.  Logged: ms per
+    step, training tokens/s (steps 1-29's tokens over their summed time),
+    peak memory, and a trace of one more step (busy share, the kernels
+    that take the device time, the backward kernel's share).  Then the
+    same run with ``--remat``: B2's forward launches twice a layer and
+    step (the recompute), the first loss equals the plain run's bit for
+    bit and every loss is within ``REMAT_RTOL`` of it, and the peak
+    memory is lower."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree import tree_leaves
+    steps, B, S = FULL_TRAIN["steps"], FULL_TRAIN["batch"], FULL_TRAIN["seq"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        t0 = time.perf_counter()
+        trainer = launch_train.main(
+            ["--arch", "smollm-360m", "--steps", str(steps), "--batch",
+             str(B), "--seq", str(S), "--ckpt-dir", ckpt,
+             "--log-every", "5"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                        "train")
+        launches = _tally(kernels, acc)
+        L = trainer.model.cfg.n_layers
+        check(launches["flash_attention"] == L * steps
+              and launches["flash_attention_backward"] == L * steps
+              and all(launches[n] == 0 for n in ATTN_KERNELS
+                      if n != "flash_attention"),
+              f"[train] smollm-360m launches {launches}")
+        losses = [h["loss"] for h in trainer.history]
+        check(all(np.isfinite(losses)) and np.mean(losses[-5:])
+              < np.mean(losses[:5]),
+              f"[train] smollm-360m losses {losses}")
+        params = trainer.state.params
+        back = restore_checkpoint(ckpt, steps, params)
+        same = all(torch.equal(a.detach().view(torch.int16),
+                               b.view(torch.int16))
+                   for a, b in zip(tree_leaves(params), tree_leaves(back)))
+        check(same, "[train] the checkpoint does not restore bit for bit")
+    times = [h["step_time_s"] for h in trainer.history[1:]]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(f"[train] smollm-360m full width and depth ({L} layers, "
+        f"{n_params / 1e6:.1f}M bf16 parameters), {steps} steps of {B} x "
+        f"{S} tokens through the launcher in {wall:.1f}s: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 mean "
+        f"{np.mean(losses[:5]):.4f}, last 5 {np.mean(losses[-5:]):.4f}); "
+        f"{B * S * len(times) / sum(times):.0f} training tokens/s (steps "
+        f"1-{steps - 1}: {sum(times):.3f} s in all), per step median "
+        f"{np.median(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms "
+        f"(step 0 {trainer.history[0]['step_time_s'] * 1e3:.1f} ms); peak "
+        f"memory {peak:.2f} GiB; B2 {launches['flash_attention']} forward "
+        f"launches (`_mma`), {launches['flash_attention_backward']} "
+        f"backward; the checkpoint restores bit for bit; {card}")
+    stream = TokenStream(trainer.model.cfg.vocab_size, S, B, seed=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(stream, 1, log_fn=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_trace(prof, wall, 1, "train", f"one training step of {B} x {S} "
+                  f"tokens")
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    busy = sum(us for _, us in rows)
+    bwd = sum(us for key, us in rows if "flash_bwd" in key)
+    fwd = sum(us for key, us in rows if "prefill_mma" in key)
+    log(f"[train] B2's backward kernels (flash_bwd::prep/dq/dkdv) {bwd / 1e3:.2f} "
+        f"ms = {100 * bwd / busy:.1f}% of the step's device time, its "
+        f"forward {fwd / 1e3:.2f} ms = {100 * fwd / busy:.1f}%; {card}")
+    _tally(kernels, {})
+    del trainer, params, back, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    remat = launch_train.main(
+        ["--arch", "smollm-360m", "--steps", str(steps), "--batch", str(B),
+         "--seq", str(S), "--log-every", str(steps), "--remat"])
+    peak_r = torch.cuda.max_memory_allocated() / 2**30
+    launches_r = _tally(kernels, {})
+    losses_r = [h["loss"] for h in remat.history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_r, losses))
+    check(remat.model.remat and launches_r["flash_attention"] == 2 * L * steps
+          and launches_r["flash_attention_backward"] == L * steps,
+          f"[train] --remat launches {launches_r}")
+    check(losses_r[0] == losses[0] and rel <= REMAT_RTOL,
+          f"[train] --remat losses {losses_r} against {losses}")
+    check(peak_r < peak, f"[train] --remat peak {peak_r:.2f} GiB, plain "
+          f"{peak:.2f}")
+    times_r = [h["step_time_s"] for h in remat.history[1:]]
+    log(f"[train] smollm-360m --remat (each of the {L} periods "
+        f"checkpointed), the same {steps} steps: losses "
+        f"{'equal bit for bit' if losses_r == losses else 'differ'} "
+        f"(largest relative difference {rel:.2e}, tol {REMAT_RTOL}); "
+        f"{B * S * len(times_r) / sum(times_r):.0f} training tokens/s, "
+        f"per step median {np.median(times_r) * 1e3:.2f} ms; peak memory "
+        f"{peak_r:.2f} GiB against {peak:.2f}; B2 "
+        f"{launches_r['flash_attention']} forward launches (the recompute "
+        f"twice), {launches_r['flash_attention_backward']} backward; "
+        f"{card}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3109,7 +3526,7 @@ def main() -> None:
     from repro_torch.kernels.transform import ops as tops
     kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL,
                fops.FLASH_KERNEL, dops.DENSE_KERNEL, dops.QUANT_KERNEL,
-               fops.QUANT_KERNEL, tops.KERNEL]
+               fops.QUANT_KERNEL, tops.KERNEL, fops.BACKWARD_KERNEL]
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(kernels)
@@ -3121,6 +3538,8 @@ def main() -> None:
     served.update(phase_dense_kernels(timer))
     mla_rows = phase_mla_kernels(timer)
     slice_rows = phase_slice_kernels(timer)
+    served["flash_attention_backward"], backward_rows = \
+        phase_backward_kernels(timer)
     served.update(phase_quant_kernels(timer))
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
@@ -3172,11 +3591,16 @@ def main() -> None:
     launches14: dict = {}
     launches15: dict = {}
     launches16: dict = {}
+    launches17: dict = {}
+    launches17a: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
                      ("15", lambda: phase_whisper(kernels, launches15, card)),
-                     ("16", lambda: phase_vlm(kernels, launches16, card))):
+                     ("16", lambda: phase_vlm(kernels, launches16, card)),
+                     ("17", lambda: (phase_train_small(kernels, launches17a),
+                                     phase_train(kernels, launches17,
+                                                 card)))):
         t0 = time.perf_counter()
         run()
         gc.collect()
@@ -3188,7 +3612,10 @@ def main() -> None:
                 "gating_topk": launches6["gating_topk"],
                 "flash_attention": launches7["flash_attention"],
                 "decode_attention": launches7["decode_attention"],
-                "fused_transform": launches9}
+                "fused_transform": launches9,
+                # the training path's own kernel: phase 17(b)'s run
+                "flash_attention_backward":
+                    launches17["flash_attention_backward"]}
     launches.update({n: launches8[n] for n in QUANT_KERNELS})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
@@ -3199,6 +3626,8 @@ def main() -> None:
                  launches_phase14=launches14.get(k.name, 0),
                  launches_phase15=launches15.get(k.name, 0),
                  launches_phase16=launches16.get(k.name, 0),
+                 launches_phase17=launches17.get(k.name, 0),
+                 launches_phase17a=launches17a.get(k.name, 0),
                  **served[k.name]) for k in kernels]
     for row in rows:
         if row["name"] in mla_rows:
@@ -3206,6 +3635,8 @@ def main() -> None:
             row["mla_served"] = mla_served[row["name"]]
         if row["name"] in slice_rows:
             row["slice_shapes"] = slice_rows[row["name"]]
+        if row["name"] == "flash_attention_backward":
+            row["training_shapes"] = backward_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,14 @@ at ``MLA_DIMS`` run the bf16 tensor-core body with a q/k head of 192
 and a V head of 128 (``flash_attention_mla_bf16_mma``).
 ``paged_prefill_entry``, ``quant_prefill_entry``, ``flash_entry`` and
 ``mla_flash_entry`` pick the entry from dtypes and dims alone.
+
+Training differentiates both contiguous forms on the card: on a CUDA
+tensor ``flash_attention`` and ``mla_flash_attention`` run inside a
+``torch.autograd.Function`` whose forward launches the entry above and
+whose backward launches ``flash_attention_backward`` (see
+``csrc/flash_backward.cu``: the gradient of B2, which the JAX package
+leaves to XLA).  On a CPU tensor the plain versions are differentiated
+by torch itself.
 """
 from __future__ import annotations
 
@@ -57,6 +65,13 @@ FLASH_KERNEL = CudaKernel(
         for t in ("f32", "bf16", "bf16_mma", "f32_tf32")},
      "flash_attention_mla_bf16_mma": [_P] * 5 + [_I] * 4
      + [ctypes.c_float, _P]})
+BACKWARD_KERNEL = CudaKernel(
+    "flash_attention_backward",
+    Path(__file__).parent / "csrc" / "flash_backward.cu",
+    {f"flash_attention_backward_{t}": [_P] * 10 + [_I] * 9
+     + [ctypes.c_float, _P] for t in ("f32", "bf16")})
+# the backward holds q/k and V tiles of up to this head_dim in shared memory
+BACKWARD_MAX_HEAD_DIM = 192
 # head_dims the GQA tensor-core bodies are instantiated for: smollm-360m's
 # and jamba-v0.1's (and most configs'; 56 takes the CUDA-core body).
 # DeepSeek-V3's MLA (q/k 192, V 128) has its own tensor-core entry
@@ -216,16 +231,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                            sliding_window=sliding_window)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
-    """q: (B, S, H, hd); k/v: (B, T, KV, hd), one type; query s at
-    position s sees keys kpos < T with kpos <= s (causal) and
-    kpos > s - sliding_window (window > 0); without the causal mask
-    every key, and S may exceed T -> (B, S, H, hd) in q's type."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sliding_window=sliding_window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+def _flash_forward(q, k, v, causal: bool, sliding_window: int):
+    """Launch the contiguous forward entry ``flash_entry`` picks."""
     check_flash_operands(q, k, v, causal, sliding_window)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -237,6 +244,108 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
         B, S, T, H, KV, hd, int(causal), int(sliding_window),
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B2 on the card with its gradient: the forward entry, then
+    ``flash_attention_backward`` from the saved operands and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window):
+        out = _flash_forward(q, k, v, causal, sliding_window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, sliding_window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.contiguous(), causal=causal,
+            sliding_window=window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
+    """q: (B, S, H, hd); k/v: (B, T, KV, hd), one type; query s at
+    position s sees keys kpos < T with kpos <= s (causal) and
+    kpos > s - sliding_window (window > 0); without the causal mask
+    every key, and S may exceed T -> (B, S, H, hd) in q's type.
+    Differentiable: on the card through ``flash_attention_backward``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    return _FlashAttention.apply(q, k, v, causal, sliding_window)
+
+
+def check_backward_operands(q, k, v, out, dout, causal: bool,
+                            sliding_window: int):
+    """Raise unless the operands are what the backward kernel takes: the
+    forward's (``check_flash_operands``, but V and the output may have a
+    head dim of their own), out and dout (B, S, H, hdv) of q's type, both
+    head dims multiples of 8 and at most ``BACKWARD_MAX_HEAD_DIM``."""
+    check_flash_operands(q, k, k, causal, sliding_window)  # q and k
+    for t in (v, out, dout):
+        if t.device != q.device or t.dtype != q.dtype \
+                or not t.is_contiguous():
+            raise ValueError("flash attention backward: v, out and dout must "
+                             "be contiguous, of q's type and device")
+    B, S, H, hd = q.shape
+    hdv = v.shape[-1]
+    if v.shape[:3] != k.shape[:3] or out.shape != (B, S, H, hdv) \
+            or dout.shape != out.shape:
+        raise ValueError(f"bad shapes v={tuple(v.shape)} "
+                         f"out={tuple(out.shape)} dout={tuple(dout.shape)}")
+    if hdv % 8 or max(hd, hdv) > BACKWARD_MAX_HEAD_DIM:
+        raise ValueError(f"head dims {hd}/{hdv}: the backward kernel takes "
+                         f"multiples of 8 up to {BACKWARD_MAX_HEAD_DIM}")
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
+                                   sliding_window: int = 0):
+    """The same function in plain PyTorch: ``torch.autograd.grad`` of
+    ``flash_attention_plain`` at (q, k, v) against ``dout`` (``out`` is
+    recomputed, so unused) -> (dq, dk, dv)."""
+    del out
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = flash_attention_plain(*qkv, causal=causal,
+                                  sliding_window=sliding_window)
+        return torch.autograd.grad(o, qkv, dout)
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             sliding_window: int = 0):
+    """The gradient of ``flash_attention`` (masks as there): q (B, S, H,
+    hd), k (B, T, KV, hd), v (B, T, KV, hdv), the forward's out and the
+    incoming dout (B, S, H, hdv) -> (dq, dk, dv) in q's type; scale
+    1/sqrt(hd).  GQA's group sum lands in dk/dv.  On a CPU tensor the
+    plain version; on a CUDA tensor the kernel (three passes: row
+    logsumexp and rowsum(dout * out), then dq, then dk/dv) or a raise."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, out, dout, causal=causal, sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: no kernel for "
+                         f"{q.device}")
+    check_backward_operands(q, k, v, out, dout, causal, sliding_window)
+    B, S, H, hd = q.shape
+    T, KV, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # per-row logsumexp and rowsum(dout * out), f32
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    BACKWARD_KERNEL.launch(
+        f"flash_attention_backward_{_NAMES[q.dtype]}",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), B, S, T, H, KV, hd, hdv,
+        int(causal), int(sliding_window), ctypes.c_float(1.0 / np.sqrt(hd)),
+        stream)
+    return dq, dk, dv
 
 
 def mla_flash_entry(dtypes, dims) -> str:
@@ -258,24 +367,8 @@ def mla_flash_attention_plain(q, k_nope, k_rope, v):
     return flash_attention_plain(q, k, vp, causal=True)[..., :v.shape[-1]]
 
 
-def mla_flash_attention(q, k_nope, k_rope, v):
-    """q: (B, S, H, nope + rope) = [q_nope | q_rope]; k_nope (B, T, H,
-    nope); k_rope (B, T, rope), one rope key per token shared by every
-    head; v (B, T, H, vd); query s at position s sees keys kpos <= s
-    (causal, as MLA's prefill) -> (B, S, H, vd) in q's type.  Scale
-    1/sqrt(nope + rope).  bf16 at ``MLA_DIMS`` launches
-    ``flash_attention_mla_bf16_mma``; other types or dims launch the GQA
-    entry over ``mla_gqa_operands``."""
-    if q.device.type == "cpu":
-        return mla_flash_attention_plain(q, k_nope, k_rope, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"mla_flash_attention: no kernel for {q.device}")
-    dims = (k_nope.shape[-1], k_rope.shape[-1], v.shape[-1])
-    entry = mla_flash_entry((q.dtype, k_nope.dtype, k_rope.dtype, v.dtype),
-                            dims)
-    if entry != "flash_attention_mla_bf16_mma":
-        k, vp = mla_gqa_operands(k_nope, k_rope, v)
-        return flash_attention(q, k, vp, causal=True)[..., :v.shape[-1]]
+def _mla_flash_forward(q, k_nope, k_rope, v):
+    """Launch ``flash_attention_mla_bf16_mma`` on MLA's own operands."""
     check_mla_operands(q, k_nope, k_rope, v, 4)
     B, S, H, hd = q.shape
     T = k_nope.shape[1]
@@ -286,7 +379,54 @@ def mla_flash_attention(q, k_nope, k_rope, v):
     out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     FLASH_KERNEL.launch(
-        entry, q.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(),
-        v.data_ptr(), out.data_ptr(), B, S, T, H,
+        "flash_attention_mla_bf16_mma", q.data_ptr(), k_nope.data_ptr(),
+        k_rope.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
     return out
+
+
+class _MlaFlashAttention(torch.autograd.Function):
+    """MLA's B2 entry with its gradient: the backward runs
+    ``flash_attention_backward`` at q/k nope + rope over K = [k_nope |
+    the rope key broadcast to every head] with V at its own head dim,
+    then sums the rope key's gradient over the heads that share it."""
+
+    @staticmethod
+    def forward(ctx, q, k_nope, k_rope, v):
+        out = _mla_flash_forward(q, k_nope, k_rope, v)
+        ctx.save_for_backward(q, k_nope, k_rope, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k_nope, k_rope, v, out = ctx.saved_tensors
+        nope = k_nope.shape[-1]
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(
+            k_nope.shape[:3] + (k_rope.shape[-1],))], dim=-1)
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(),
+                                              causal=True)
+        d_rope = dk[..., nope:].float().sum(dim=2).to(k_rope.dtype)
+        return dq, dk[..., :nope], d_rope, dv
+
+
+def mla_flash_attention(q, k_nope, k_rope, v):
+    """q: (B, S, H, nope + rope) = [q_nope | q_rope]; k_nope (B, T, H,
+    nope); k_rope (B, T, rope), one rope key per token shared by every
+    head; v (B, T, H, vd); query s at position s sees keys kpos <= s
+    (causal, as MLA's prefill) -> (B, S, H, vd) in q's type.  Scale
+    1/sqrt(nope + rope).  bf16 at ``MLA_DIMS`` launches
+    ``flash_attention_mla_bf16_mma``; other types or dims launch the GQA
+    entry over ``mla_gqa_operands``.  Differentiable on the card: the
+    MLA entry through ``_MlaFlashAttention``, the GQA one through
+    ``flash_attention`` and the torch ops that build its operands."""
+    if q.device.type == "cpu":
+        return mla_flash_attention_plain(q, k_nope, k_rope, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_flash_attention: no kernel for {q.device}")
+    dims = (k_nope.shape[-1], k_rope.shape[-1], v.shape[-1])
+    entry = mla_flash_entry((q.dtype, k_nope.dtype, k_rope.dtype, v.dtype),
+                            dims)
+    if entry != "flash_attention_mla_bf16_mma":
+        k, vp = mla_gqa_operands(k_nope, k_rope, v)
+        return flash_attention(q, k, vp, causal=True)[..., :v.shape[-1]]
+    return _MlaFlashAttention.apply(q, k_nope, k_rope, v)

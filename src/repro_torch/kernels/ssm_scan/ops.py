@@ -170,10 +170,19 @@ def selective_scan(dt, xs, Bc, Cc, A, D, h0, t_valid):
     """dt, xs: (B, T, di); Bc, Cc: (B, T, N) in the model dtype (Bc, Cc
     may be split views, see ``check_scan_operands``); A: (di, N), D:
     (di,), h0: (B, di, N) float32; t_valid: (B,) int32 -> (y (B, T, di)
-    float32 with ``D x`` added, h_last (B, di, N) float32)."""
+    float32 with ``D x`` added, h_last (B, di, N) float32).  On a CUDA
+    tensor with grad on and an operand that requires grad it raises
+    ``NotImplementedError``: the kernel has no backward yet (ROADMAP
+    A15b), and a result without a gradient would train silently wrong."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, xs, Bc, Cc, A, D, h0, t_valid)
     _device("selective_scan", dt)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, xs, Bc, Cc, A, D, h0)):
+        raise NotImplementedError(
+            "selective_scan: the scan kernel (B5) has no backward yet, so a "
+            "mamba layer cannot be trained on the card (ROADMAP Queue A, "
+            "A15b); run it under torch.no_grad() or train on the CPU")
     ldbc = check_scan_operands(dt, xs, Bc, Cc, A, D, h0, t_valid)
     B, T, di = dt.shape
     N = Bc.shape[-1]

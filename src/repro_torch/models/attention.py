@@ -17,9 +17,10 @@ pools written).  Dense: ``naive_attention`` and
 ``decode_attention`` are the plain versions; ``gqa_prefill`` runs the
 contiguous ``flash_attention`` kernel and ``gqa_decode`` the
 ``decode_attention`` kernel.  On CPU tensors every wrapper runs its
-plain version.  The reference's ``chunked_attention`` computes the same
-function as ``naive_attention`` and serves only training (ROADMAP A15):
-on the card the flash kernel covers every length.
+plain version.  ``chunked_attention`` is the reference's blockwise form of
+``naive_attention``, held to it by the tests; the full-sequence forwards
+run ``naive_attention`` on the CPU at every length and the flash kernel,
+which torch differentiates through its backward kernel, on the card.
 
 MLA: ``mla_prefill`` runs the contiguous flash kernel's MLA form
 (``mla_flash_attention``) and the expanded ``mla_decode`` the dense
@@ -129,6 +130,58 @@ def naive_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return _grouped_out(probs, v)
+
+
+def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024,
+                      sliding_window: int = 0, scale: Optional[float] = None):
+    """Two-level blockwise attention (the reference's flash-style XLA
+    form): query chunks of ``chunk`` tokens, each over key chunks with an
+    online softmax.  q: (B,S,H,hd); k: (B,T,KV,hd); v: (B,T,KV,hv) ->
+    (B,S,H,hv).  Key padding is masked."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    hv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    ck, cq = min(chunk, T), min(chunk, S)
+    nk, nq = -(-T // ck), -(-S // cq)
+    pad_k, pad_q = nk * ck - T, nq * cq - S
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kc = k.reshape(B, nk, ck, KV, hd)
+    vc = v.reshape(B, nk, ck, KV, hv)
+    qg = (q * scale).reshape(B, nq, cq, KV, G, hd)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    outs = []
+    for iq in range(nq):
+        qb = qg[:, iq]                               # (B,cq,KV,G,hd)
+        q_pos = iq * cq + torch.arange(cq, device=q.device)[:, None]
+        m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KV, G, cq, hv), dtype=v.dtype, device=q.device)
+        for ik in range(nk):
+            kb, vb = kc[:, ik], vc[:, ik]            # (B,ck,KV,.)
+            s = torch.einsum("bskgd,btkd->bkgst", qb.to(dt),
+                             kb.to(dt)).float()
+            k_pos = ik * ck + torch.arange(ck, device=q.device)[None, :]
+            mask = k_pos < T
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if sliding_window:
+                mask = mask & (k_pos > q_pos - sliding_window)
+            s = torch.where(mask[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vb.dtype), vb)
+            acc = acc * corr[..., None].to(acc.dtype) + pv.to(acc.dtype)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None].to(acc.dtype)
+        outs.append(out.reshape(B, KV * G, cq, hv).transpose(1, 2))
+    return torch.cat(outs, dim=1)[:, :S]
 
 
 def _dynamic_token_update(cache, new, idx: int):

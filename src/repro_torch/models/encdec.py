@@ -34,7 +34,7 @@ from ..kernels.decode_attention import ops as decode_ops
 from .common import dtype_of, embed_init, make_norm, mm, resolve_device
 from .config import ModelConfig
 from .mlp import mlp_forward, mlp_params
-from .transformer import _index, _seed_cache, _stack
+from .transformer import _index, _seed_cache, _stack, softmax_xent
 
 
 def _sinusoid(length: int, d: int, device=None) -> torch.Tensor:
@@ -158,6 +158,13 @@ class EncDecLM:
                                    pos)
         return self._head(params, x), torch.zeros((), dtype=torch.float32,
                                                   device=x.device)
+
+    def loss(self, params, batch):
+        """batch: {"tokens", "labels": (B, S), "extra_embeds": the encoder
+        frames} -> the mean cross-entropy (f32; the aux loss is zero)."""
+        logits, aux = self.apply(params, batch["tokens"],
+                                 batch.get("extra_embeds"))
+        return softmax_xent(logits, batch["labels"]) + aux
 
     # -- dense serving ------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):

@@ -6,7 +6,9 @@ Routing variants:
   * "sigmoid_bias" — DeepSeek-V3: sigmoid scores, top-k over (score + bias),
                      weights = score/top-sum × routed_scale.
 
-The top-k is the gating kernel (``kernels/moe_gating``) on a CUDA device.
+The top-k is the gating kernel (``kernels/moe_gating``) on a CUDA device;
+it chooses the experts, and the routing weights are gathered from the
+scores at its indices, so training differentiates them on the card.
 Dispatch is capacity-based, per sequence (batch row), exactly as the
 reference: each expert takes at most C tokens of a row, in token order;
 an assignment past its expert's capacity is dropped (it lands in a dump
@@ -66,7 +68,11 @@ def route(p, m: MoEConfig, x):
         probs = scores / (scores.sum(-1, keepdim=True) + 1e-20)
     else:
         probs = torch.softmax(logits, dim=-1)
-        w, idx = _topk(probs, m.top_k)
+        # the kernel gives the indices; the weights are gathered from probs
+        # (the same bits as its values) so that they carry the router's
+        # gradient, as jax.lax.top_k's values do
+        _, idx = _topk(probs, m.top_k)
+        w = torch.gather(probs, -1, idx.long())
         w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
     # switch-style load-balance aux loss (mean over batch rows)
     B, S, k = idx.shape

@@ -1,8 +1,8 @@
 """Decoder-only model: dense, MoE (GQA or MLA attention), hybrid
 Mamba+attention, xLSTM and vision-language families (port of
-``repro/models/transformer.py`` but for its training half, ``loss`` and
-``mtp_logits``): the full-sequence forward (``apply``), the block-paged
-step (``paged_step``) with its preemption spill
+``repro/models/transformer.py``): the full-sequence forward (``apply``)
+with its training loss (``loss``, ``mtp_logits``, ``softmax_xent``),
+the block-paged step (``paged_step``) with its preemption spill
 (``gather_paged_pages``/``scatter_paged_pages``) and the dense engine's
 contiguous cache (``init_cache``, ``prefill``, ``decode_step``).
 
@@ -19,10 +19,12 @@ Sub-layer descriptor: (block, mlp) with block in {attn, mla, mamba,
 mlstm, slstm} and mlp in {dense, moe, none}.  The layer stack runs as a
 Python loop over the periods; the caches are updated in place.  The
 full-sequence forward ``apply`` returns every position's logits and the
-MoE aux loss.  The vision-language family is a dense stack with M-RoPE
-positions (``make_positions``) whose first ``vision_seq`` embeddings the
-caller's patch embeddings replace; the encoder-decoder is ``EncDecLM``
-(``encdec.py``).
+MoE aux loss; torch differentiates it (on the card through B2's
+backward kernel), and ``remat=True`` checkpoints each period's body as
+the reference's ``jax.checkpoint`` does.  The vision-language family is
+a dense stack with M-RoPE positions (``make_positions``) whose first
+``vision_seq`` embeddings the caller's patch embeddings replace; the
+encoder-decoder is ``EncDecLM`` (``encdec.py``).
 """
 from __future__ import annotations
 
@@ -30,11 +32,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import attention as A
 from . import mamba as M
 from . import xlstm as X
-from .common import (dense_init, dtype_of, embed_init, make_norm,
+from .common import (dense_init, dtype_of, embed_init, make_norm, mm,
                      resolve_device)
 from .config import ModelConfig
 from .mlp import mlp_forward, mlp_params
@@ -358,15 +361,29 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree, n: int) -> List[Dict[str, Any]]:
+    """Every layer of a stacked pytree, as views: ``torch.unbind`` once a
+    leaf, whose backward stacks the layers' gradients in one copy (a view
+    per layer would write each layer's gradient into a zeroed stack of
+    all ``n`` and add the stacks up)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 mla_absorb: bool = False):
+                 mla_absorb: bool = False, remat: bool = False):
         """``mla_absorb``: MLA decode folds W_uk into the query and
-        attends in the latent space (``attention.mla_decode``)."""
+        attends in the latent space (``attention.mla_decode``).
+        ``remat``: the full-sequence forward checkpoints each period's
+        body, so the backward recomputes it (``launch.train --remat``)."""
         self.cfg = cfg
         self.prefix_descs, self.period_descs, self.n_periods = layer_pattern(cfg)
         self.device = resolve_device(device)
         self.mla_absorb = mla_absorb
+        self.remat = remat
 
     def _descs(self) -> List[Desc]:
         return list(self.prefix_descs) + list(self.period_descs)
@@ -429,11 +446,20 @@ class TransformerLM:
         return h @ w.to(h.dtype)
 
     # -- full-sequence forward ---------------------------------------------
+    def _period(self, pp, x, aux, positions):
+        """One period of the stack over its layer's weights ``pp``."""
+        for j, desc in enumerate(self.period_descs):
+            x, a = _apply_sublayer(pp[f"s{j}"], self.cfg, desc, x,
+                                   positions)
+            aux = aux + a
+        return x, aux
+
     def apply(self, params, tokens, extra_embeds=None, positions=None):
         """tokens: (B,S) int32 -> (logits (B,S,V), the MoE aux loss summed
         over layers, f32).  ``extra_embeds`` overwrite the first
         positions' embeddings; ``positions`` default to
-        ``make_positions``."""
+        ``make_positions``.  Differentiable; under ``remat`` (with grad
+        on) each period's body is checkpointed."""
         B, S = tokens.shape
         if positions is None:
             positions = make_positions(self.cfg, B, S, device=tokens.device)
@@ -443,12 +469,47 @@ class TransformerLM:
             x, a = _apply_sublayer(params["prefix"][i], self.cfg, desc, x,
                                    positions)
             aux = aux + a
-        for i in range(self.n_periods):
-            for j, desc in enumerate(self.period_descs):
-                x, a = _apply_sublayer(_index(params["blocks"][f"s{j}"], i),
-                                       self.cfg, desc, x, positions)
-                aux = aux + a
+        for pp in _unbind(params["blocks"], self.n_periods):
+            if self.remat and torch.is_grad_enabled():
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    self._period, pp, x, aux, positions, use_reentrant=False)
+            else:
+                x, aux = self._period(pp, x, aux, positions)
         return self._head(params, x), aux
+
+    def mtp_logits(self, params, hidden, tokens_next, positions):
+        """The multi-token-prediction head (DeepSeek-V3): predict t+2 from
+        ``hidden`` and the embedding of token t+1, through one dense
+        sub-layer of the stack's attention kind and the LM head."""
+        cfg = self.cfg
+        _, norm = make_norm(cfg.norm)
+        p = params["mtp"]
+        e = params["embed"][tokens_next.long()].to(hidden.dtype)
+        h = torch.cat([norm(p["norm_h"], hidden), norm(p["norm_e"], e)],
+                      dim=-1)
+        h = mm(h, p["proj"])
+        h, _ = _apply_sublayer(p["layer"], cfg, (self.period_descs[0][0],
+                                                 "dense"), h, positions)
+        return self._head(params, h)
+
+    def loss(self, params, batch):
+        """batch: {"tokens": (B,S), "labels": (B,S), ["extra_embeds"]} ->
+        the mean cross-entropy plus the MoE aux loss, plus 0.3 x the MTP
+        head's cross-entropy when ``mtp_depth`` is set (f32 scalar).  As
+        the reference, the MTP head reads the *embeddings* of
+        ``tokens[:, :-1]`` as its hidden state, not the stack's final
+        hidden state."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        logits, aux = self.apply(params, tokens, batch.get("extra_embeds"))
+        total = softmax_xent(logits, labels) + aux
+        if cfg.mtp_depth:
+            B, S = tokens.shape
+            positions = make_positions(cfg, B, S - 1, device=tokens.device)
+            hidden = self._embed(params, tokens[:, :-1])
+            mtp = self.mtp_logits(params, hidden, tokens[:, 1:], positions)
+            total = total + 0.3 * softmax_xent(mtp, labels[:, 1:])
+        return total
 
     # -- dense serving ------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):
@@ -731,6 +792,14 @@ class TransformerLM:
             last = (t_valid - 1).clamp(min=0).long()             # (B,)
             x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return self._head(params, x_last)[:, 0], cache
+
+
+def softmax_xent(logits, labels):
+    """Mean over positions of the f32 logsumexp minus the gold logit."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def _stack(layers: List[Dict[str, Any]]) -> Dict[str, Any]:

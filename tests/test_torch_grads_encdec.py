@@ -1,0 +1,13 @@
+"""The port's training loss and gradients against the JAX reference's
+``jax.value_and_grad(model.loss)`` on whisper-tiny's smoke
+encoder-decoder (frames as ``extra_embeds``), on the CPU, with
+``test_torch_grads.py``'s tolerances.
+"""
+import pytest
+
+from test_torch_grads import check_arch
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
+def test_loss_and_grads_match_reference(arch):
+    check_arch(arch, len(arch))

@@ -963,3 +963,110 @@ def test_fused_transform_kernel_matches_plain_bitwise(cuda, in_dt, out_dt):
                 same |= got.isnan() & other.isnan()
             assert bool(same.all()), (kw, int((~same).sum()))
 
+
+
+# -- B2's backward (flash_backward.cu: the gradient the JAX package leaves to
+#    XLA) ------------------------------------------------------------------------
+
+# each gradient's max error over its largest magnitude (chip_smoke.py's
+# GRAD_TOL), just above what the card gave (f32 1.5e-6, bf16 7.5e-3): f32
+# sums in another order than torch's autograd; bf16: the plain version
+# rounds every intermediate product to bf16, the kernel keeps them in f32
+# and rounds the gradients once
+_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+_WHISPER_HEADS = dict(H=6, KV=6, hd=64)
+
+
+def _grad_errs(got, want):
+    return [(g.float() - w.float()).abs().max().item()
+            / max(w.float().abs().max().item(), 1e-30)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("heads,S,T,causal,window", [
+    (_SMOLLM, 200, 200, True, 0), (_SMOLLM, 200, 200, True, 48),
+    (_SMOLLM, 64, 130, True, 0), (_JAMBA_HEADS, 130, 130, True, 0),
+    (_WHISPER_HEADS, 150, 150, False, 0), (_WHISPER_HEADS, 100, 64, False, 0),
+    (dict(H=4, KV=2, hd=16), 37, 37, True, 0),
+    (dict(H=4, KV=4, hd=48), 70, 70, True, 0)],
+    ids=["smollm", "window", "s_lt_t", "jamba", "bidirectional", "cross",
+         "hd16", "hd48"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
+                                             window, dtype):
+    """dq, dk, dv against torch.autograd of the plain version: causal,
+    windowed, S < T, GQA and MHA, without the causal mask (S = T and the
+    cross case S > T), T no multiple of the 64-key tile, head dims 16 to
+    128 (bf16 at 16 and 48 over the CUDA-core forward body); through the
+    autograd Function around B2's forward."""
+    q, k, v = _dense_qkv(S + T + window, 2, S, T, heads, dtype, cuda)
+    dout = _t(np.random.default_rng(S + 2).standard_normal(
+        q.shape).astype(np.float32), cuda, dtype)
+    want = fops.flash_attention_backward_plain(
+        q, k, v, None, dout, causal=causal, sliding_window=window)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = fops.BACKWARD_KERNEL.launches
+    out = fops.flash_attention(*qkv, causal=causal, sliding_window=window)
+    got = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    assert fops.BACKWARD_KERNEL.launches == n0 + 1
+    errs = _grad_errs(got, want)
+    print(f"backward {heads} S={S} T={T} causal={causal} window={window} "
+          f"{dtype}: relative errors dq/dk/dv {errs}")
+    assert all(torch.isfinite(g.float()).all().item() for g in got)
+    assert max(errs) <= _GRAD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 77, 8), (1, 128, 128)])
+def test_mla_flash_backward_matches_plain(cuda, B, S, H):
+    """The MLA entry's gradient (q/k 192, V 128, one rope key a token
+    shared by every head: its gradient summed over the heads) against
+    torch.autograd of the plain version."""
+    ops_in = _mla_operands(S + H + 1, B, S, S, S, H, cuda)
+    dout = _t(np.random.default_rng(S).standard_normal(
+        (B, S, H, 128)).astype(np.float32), cuda, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in ops_in]
+    want = torch.autograd.grad(fops.mla_flash_attention_plain(*leaves),
+                               leaves, dout)
+    leaves = [t.clone().requires_grad_() for t in ops_in]
+    before = _entry_counts(fops.FLASH_KERNEL)
+    n0 = fops.BACKWARD_KERNEL.launches
+    got = torch.autograd.grad(fops.mla_flash_attention(*leaves), leaves, dout)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before,
+                          "flash_attention_mla_bf16_mma")
+    assert fops.BACKWARD_KERNEL.launches == n0 + 1
+    errs = _grad_errs(got, want)
+    print(f"MLA backward B={B} S={S} H={H}: relative errors "
+          f"dq/dk_nope/dk_rope/dv {errs}")
+    assert max(errs) <= _GRAD_TOL[torch.bfloat16], errs
+
+
+def test_flash_backward_plain_is_autograd_of_the_plain_forward():
+    """On the CPU the backward wrapper runs its plain version, which is
+    torch.autograd of ``flash_attention_plain``; ``flash_attention``
+    itself is differentiable there."""
+    q, k, v = _dense_qkv(3, 2, 20, 20, dict(H=4, KV=2, hd=16),
+                         torch.float32, "cpu")
+    dout = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        q.shape).astype(np.float32))
+    got = fops.flash_attention_backward(q, k, v, None, dout, causal=True,
+                                        sliding_window=8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fops.flash_attention(*leaves, causal=True, sliding_window=8)
+    want = torch.autograd.grad(out, leaves, dout)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_backward_rejects_unsupported_operands():
+    q, k, v = (torch.zeros((1, 8, 2, 200)) for _ in range(3))
+    with pytest.raises(ValueError, match="192"):
+        fops.check_backward_operands(q, k, v, q, q, True, 0)
+    q, k, v = (torch.zeros((1, 8, 2, 64)) for _ in range(3))
+    with pytest.raises(ValueError, match="bad shapes"):
+        fops.check_backward_operands(q, k, v, q[..., :32].contiguous(), q,
+                                     True, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.check_backward_operands(q, k, v.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), q, q, True, 0)
