@@ -8,9 +8,11 @@ result line):
   2. build     — compile the ten hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout;
                  log the registers, spills and shared memory of the
-                 tensor-core prefill bodies (prefill_mma.cuh, bf16;
-                 prefill_tf32.cuh, split TF32) per head_dim and K/V type,
-                 and of the split decode body (decode_body.cuh).
+                 tensor-core prefill bodies (prefill_mma.cuh, bf16, with
+                 and without the logsumexp; prefill_tf32.cuh, split TF32)
+                 per head_dim and K/V type, of the tensor-core backward
+                 (backward_mma.cuh: delta, dq, dk/dv, rope sum) and of
+                 the split decode body (decode_body.cuh).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -72,9 +74,15 @@ result line):
                  smollm heads, B = 8, S = 512, causal, bf16 and f32; jamba
                  heads; a 128-token window; MLA's heads on their own
                  operands; whisper's encoder without the mask (S = T =
-                 1500); 100 queries over 64 keys; timed against the plain
-                 version, SDPA's backward and 2.5x the forward's
-                 operations.
+                 1500); 100 queries over 64 keys; each row's entry checked
+                 (bf16: the tensor-core ``*_mma`` ones; f32: the CUDA-core
+                 one), two launches equal bit for bit, the MLA backward's
+                 peak memory (no (B, T, H, 192) tensor); timed against the
+                 plain version, SDPA's backward and 2.5x the forward's
+                 operations.  Then the ``*_lse`` forward entries (smollm,
+                 jamba, MLA heads): out equal to the served entries' bit
+                 for bit, the logsumexp within 1e-5 of the plain version,
+                 both timed.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -238,16 +246,21 @@ result line):
                  CPU port from the same weights and ``TokenStream`` batches:
                  loss and grad norm per step within 1e-4 relative; B2's
                  forward and backward launch (B6 for the MoE configs,
-                 nothing for xLSTM); the jamba smoke stack raises B5's
-                 missing backward.  (b) ``python -m repro_torch.launch.train
-                 --arch smollm-360m --steps 30 --batch 8 --seq 512`` at full
-                 width and depth (32 layers, bf16; no cut) in process:
-                 finite, falling loss, B2's forward (``_mma``) and backward
-                 once a layer and step, ms per step, tokens/s, peak memory,
-                 the checkpoint restored bit for bit, a trace of one step;
-                 then the same run with ``--remat``: the forward launches
-                 twice a layer and step, the losses equal the plain run's,
-                 the peak memory is lower.
+                 nothing for xLSTM), the backward only through its
+                 CUDA-core f32 entry, no ``*_lse`` forward; the jamba smoke
+                 stack raises B5's missing backward.  (b) ``python -m
+                 repro_torch.launch.train --arch smollm-360m --steps 30
+                 --batch 8 --seq 512`` at full width and depth (32 layers,
+                 bf16; no cut) in process: finite, falling loss, B2's
+                 forward (only ``_mma_lse``) and backward (only
+                 ``_bf16_mma``) once a layer and step, ms per step,
+                 tokens/s, peak memory, the checkpoint restored bit for
+                 bit, a trace of one step; then the same run with
+                 ``--remat``: the forward launches twice a layer and step,
+                 the losses equal the plain run's bit for bit, the peak
+                 memory is lower.
+Phases 4-16 (serving) must launch no backward entry and no ``*_lse``
+forward entry: every reset of the launch counts checks it.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
@@ -256,7 +269,8 @@ runs; ``mla_heads``: B2's and B4's phase-3 rows at the MLA heads;
 ``mla_served``: the same at phase 13(b)'s shapes; ``launches_phase14``
 to ``launches_phase16``: those phases' runs; ``slice_shapes``: B2's and
 B4's phase-3 rows at phases 15 and 16's shapes; B2's backward: its
-launches from phase 17(b), ``training_shapes`` its phase-3 rows,
+launches from phase 17(b), ``training_shapes`` its phase-3 rows (with
+the ``*_lse`` forward rows under ``lse_entries``),
 ``launches_phase17``/``launches_phase17a`` every kernel's in 17(b)/(a)); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
@@ -336,7 +350,23 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+# serving (phases 4-16) must launch no backward entry and no *_lse
+# forward entry: only training's autograd Functions do.  While this is
+# on, every reset first checks the launches since the last one.
+SERVING_ONLY = {"on": False, "resets": 0}
+
+
+def check_serving_launches(kernels, tag: str) -> None:
+    for k in kernels:
+        bad = {e: n for e, n in k.entry_launches.items() if n and (
+            k.name == "flash_attention_backward" or e.endswith("_lse"))}
+        check(not bad, f"[{tag}] serving launched training entries {bad}")
+
+
 def reset(kernels) -> None:
+    if SERVING_ONLY["on"]:
+        check_serving_launches(kernels, "serving")
+        SERVING_ONLY["resets"] += 1
     for k in kernels:
         k.reset_launches()
 
@@ -384,9 +414,16 @@ def phase_build(kernels) -> None:
         _log_body_build(k.name, text)
 
 
+# the tensor-core backward's kernels (backward_mma.cuh)
+BWD_MMA_KERNELS = ("delta_kernel", "dq_kernel", "dkdv_kernel",
+                   "rope_sum_kernel")
+
+
 def _log_body_build(name: str, text: str) -> None:
     """The redesigned bodies' instantiations in a ptxas report, registers
-    and spills each: the tensor-core bodies (prefill_mma.cuh, bf16;
+    and spills each: the tensor-core backward (backward_mma.cuh: its
+    delta, dq, dk/dv and rope-sum kernels with their head dims and ring
+    stages); the tensor-core bodies (prefill_mma.cuh, bf16;
     prefill_tf32.cuh, split TF32) with head_dim (q/k and V: they differ
     for MLA), ring stages and warps a block from the mangled template
     arguments and the
@@ -406,6 +443,8 @@ def _log_body_build(name: str, text: str) -> None:
                 stage, q = 64 * ((hd + 8) + (vd + 8)), warps * 16 * (hd + 8)
                 smem = 2 * (stages * stage + (q if q > stage else 0))
                 form = "MLA " if "MlaRows" in targs else ""
+                form += "(+ logsumexp, the *_lse entries) " \
+                    if "Lb1E" in targs else ""
                 log(f"[build] {name} tensor-core body {form}hd {hd} v {vd}: "
                     f"{warps} warps, {stages} ring stages, {smem} bytes of "
                     f"dynamic shared memory; " + " | ".join(props))
@@ -423,6 +462,14 @@ def _log_body_build(name: str, text: str) -> None:
                     f"{ {'f': 'f32', 'a': 'int8'}.get(kv, 'bf16')} hd {hd}: "
                     f"{stages} ring stages, {smem} bytes of dynamic shared "
                     f"memory; " + " | ".join(props))
+            elif fn and "bwd_mma" in fn:
+                kind = next(k for k in BWD_MMA_KERNELS if k in fn)
+                args = re.findall(r"Li(\d+)E", fn.split(kind, 1)[1])
+                what = (f"hd {args[0]} v {args[1]} rope {args[2]}, "
+                        f"{args[3]} ring stages, {args[4]} warps"
+                        if len(args) == 5 else f"width {args[0]}")
+                log(f"[build] {name} tensor-core backward {kind} {what}: "
+                    + " | ".join(props))
             elif fn and "decode_kernel" in fn:
                 targs = fn.split("decode_kernel", 1)[1]
                 names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
@@ -1266,10 +1313,31 @@ def _sdpa_backward_ms(timer, q, k, v, dout, G, mask=None, causal=False):
     return timer.ms(fwd_bwd) - timer.ms(fwd)
 
 
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int16 if x.element_size() == 2
+                                  else torch.int32),
+                           y.view(torch.int16 if y.element_size() == 2
+                                  else torch.int32))
+               for x, y in zip(a, b))
+
+
+def _check_backward_entry(fops, before, entry, tag) -> None:
+    """Exactly one backward launch since ``before``, of ``entry``."""
+    after = dict(fops.BACKWARD_KERNEL.entry_launches)
+    got = {e: n - before[e] for e, n in after.items() if n - before[e]}
+    check(got == {entry: 1}, f"{tag}: backward launches {got}, not one "
+          f"of {entry}")
+
+
 def _backward_row(timer, q, k, v, tag, *, causal=True, window=0, mask=None):
-    """B2's backward on (q, k, v) and a random dout: dq, dk, dv against
-    ``flash_attention_backward_plain`` within ``GRAD_TOL``, then timed
-    against the plain version, SDPA's backward and its bound."""
+    """B2's backward on (q, k, v) and a random dout through
+    ``flash_attention_backward`` as a caller without the logsumexp calls
+    it (the tensor-core entry takes it from the ``*_lse`` forward):
+    exactly one launch of the entry ``flash_backward_entry`` picks; dq,
+    dk, dv against ``flash_attention_backward_plain`` within ``GRAD_TOL``;
+    a second launch gives the same bits.  Then timed as autograd runs
+    it (the tensor-core entry given the forward's logsumexp) against the
+    plain version, SDPA's backward and its bound."""
     from repro_torch.kernels.flash_attention import ops as fops
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -1277,42 +1345,54 @@ def _backward_row(timer, q, k, v, tag, *, causal=True, window=0, mask=None):
     dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
     out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
     kw = dict(causal=causal, sliding_window=window)
-    n0 = fops.BACKWARD_KERNEL.launches
+    entry = fops.flash_backward_entry((q.dtype,), hd, hd)
+    before = dict(fops.BACKWARD_KERNEL.entry_launches)
     got = fops.flash_attention_backward(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
-    check(fops.BACKWARD_KERNEL.launches == n0 + 1,
-          f"{tag}: flash_attention_backward did not launch")
+    _check_backward_entry(fops, before, entry, tag)
     check(all(torch.isfinite(t.float()).all().item() for t in got),
           f"{tag}: non-finite gradients")
     want = fops.flash_attention_backward_plain(q, k, v, out, dout, **kw)
     err = _grad_err(got, want)
     tol = GRAD_TOL[q.dtype]
     check(err <= tol, f"{tag}: relative gradient error {err} > {tol}")
+    lse = None
+    if fops.backward_takes_lse(q, v):
+        _, lse = fops._flash_forward(q, k, v, causal, window, lse=True)
+    again = fops.flash_attention_backward(q, k, v, out, dout, lse=lse, **kw)
+    torch.cuda.synchronize()
+    check(_same_bits(got, again), f"{tag}: two launches differ")
     n_bytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size() \
         + 2 * out.numel() * q.element_size()
     bound = _backward_bound(B, H, _n_visible(S, T, causal, window), hd, hd,
                             n_bytes, q.dtype)
     ms = timer.ms(lambda: fops.flash_attention_backward(q, k, v, out, dout,
-                                                         **kw))
+                                                         lse=lse, **kw))
     plain_ms = timer.ms(lambda: fops.flash_attention_backward_plain(
         q, k, v, out, dout, **kw))
     lib = _sdpa_backward_ms(timer, q, k, v, dout, H // KV, mask=mask,
                             causal=causal and not window)
-    row = dict(max_abs_err=max((a.float() - b.float()).abs().max().item()
+    row = dict(entry=entry,
+               max_abs_err=max((a.float() - b.float()).abs().max().item()
                                for a, b in zip(got, want)),
                rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                bound_by=bound[1], library_ms=lib)
-    log(f"{tag}: relative error {err:.3e} (tol {tol})" + _fmt(row))
+    log(f"{tag}: {entry}, relative error {err:.3e} (tol {tol}), two launches "
+        f"equal" + _fmt(row))
     return row
 
 
 def _mla_backward_row(timer, B, S, H):
     """B2's backward at DeepSeek-V3's MLA heads on MLA's own operands
     (q/k 128 + 64 with one rope key a token shared by every head, V 128,
-    bf16): the gradient of ``mla_flash_attention`` (the MLA forward entry,
-    then ``flash_attention_backward`` at q/k 192 and V 128, the rope key's
-    gradient summed over the heads) against torch.autograd of its plain
-    version; timed as that autograd backward."""
+    bf16): the gradient of ``mla_flash_attention`` (the MLA ``*_lse``
+    forward, then ``flash_attention_backward_mla_bf16_mma``, which reads
+    the rope key in place and sums its gradient over the heads) against
+    torch.autograd of its plain version; a second launch gives the same
+    bits; the backward's peak memory above what the forward left: its
+    four gradients and delta, nothing else (no broadcast K, no (B, T, H,
+    192) dk, no f32 copy of the rope columns; the rope partials live in
+    dq's storage); timed as that autograd backward."""
     from repro_torch.kernels.flash_attention import ops as fops
     nope, rope, vd = 128, 64, 128
     g = torch.Generator(device="cpu").manual_seed(S + H)
@@ -1321,20 +1401,36 @@ def _mla_backward_row(timer, B, S, H):
                             (B, S, rope), (B, S, H, vd))]
     dout = torch.randn((B, S, H, vd), generator=g).to("cuda", torch.bfloat16)
     leaves = [t.clone().requires_grad_() for t in ops_in]
+    tag = (f"[kernels] flash_attention_backward MLA heads {H}/{H} q/k "
+           f"{nope + rope} (rope {rope} shared) V {vd} B={B} S=T={S} causal "
+           f"bfloat16")
+    before = dict(fops.FLASH_KERNEL.entry_launches)
     out = fops.mla_flash_attention(*leaves)
-    n0 = fops.BACKWARD_KERNEL.launches
+    torch.cuda.synchronize()
+    check(fops.FLASH_KERNEL.entry_launches["flash_attention_mla_bf16_mma_lse"]
+          == before["flash_attention_mla_bf16_mma_lse"] + 1,
+          f"{tag}: the forward did not launch its *_lse entry")
+    entry = "flash_attention_backward_mla_bf16_mma"
+    before = dict(fops.BACKWARD_KERNEL.entry_launches)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
     torch.cuda.synchronize()
-    check(fops.BACKWARD_KERNEL.launches == n0 + 1,
-          "MLA backward did not launch flash_attention_backward")
+    peak = torch.cuda.max_memory_allocated() - base
+    _check_backward_entry(fops, before, entry, tag)
+    # the four gradients (the operands' sizes) and delta (B, H, S) f32
+    own = sum(t.numel() for t in ops_in) * 2 + B * H * S * 4
+    check(peak <= own + (2 << 20),
+          f"{tag}: backward peak {peak} bytes above the forward's, its "
+          f"gradients and delta take {own}")
+    again = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    check(_same_bits(got, again), f"{tag}: two launches differ")
     plain_leaves = [t.clone().requires_grad_() for t in ops_in]
     want = torch.autograd.grad(fops.mla_flash_attention_plain(*plain_leaves),
                                plain_leaves, dout)
     err = _grad_err(got, want)
     tol = GRAD_TOL[torch.bfloat16]
-    tag = (f"[kernels] flash_attention_backward MLA heads {H}/{H} q/k "
-           f"{nope + rope} (rope {rope} shared) V {vd} B={B} S=T={S} causal "
-           f"bfloat16")
     check(err <= tol, f"{tag}: relative gradient error {err} > {tol}")
     n_bytes = 2 * sum(t.numel() for t in ops_in) * 2 + 2 * out.numel() * 2
     bound = _backward_bound(B, H, _n_visible(S, S, True, 0), nope + rope, vd,
@@ -1350,12 +1446,134 @@ def _mla_backward_row(timer, B, S, H):
                   dim=-1)
     lib = _sdpa_backward_ms(timer, ops_in[0], k, ops_in[3], dout, 1,
                             causal=True)
-    row = dict(max_abs_err=max((a.float() - b.float()).abs().max().item()
+    row = dict(entry=entry,
+               max_abs_err=max((a.float() - b.float()).abs().max().item()
                                for a, b in zip(got, want)),
                rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-               bound_by=bound[1], library_ms=lib)
-    log(f"{tag}: relative error {err:.3e} (tol {tol})" + _fmt(row))
+               bound_by=bound[1], library_ms=lib, peak_mib=peak / 2**20)
+    log(f"{tag}: {entry}, relative error {err:.3e} (tol {tol}), two launches "
+        f"equal; peak {peak / 2**20:.1f} MiB above the forward's (gradients "
+        f"and delta {own / 2**20:.1f}; PR 23's design also held a broadcast "
+        f"K, its (B, T, H, 192) dk and an f32 copy of the rope columns)"
+        + _fmt(row))
     return row
+
+
+def _lse_rows(timer):
+    """The ``*_lse`` forward entries beside the served ones at phase 3's
+    backward shapes (smollm and jamba heads, B = 8, S = 512, causal; MLA's
+    heads on their own operands): the same out bit for bit (random normal
+    operands); the logsumexp within 1e-5 of ``flash_attention_lse_plain``
+    on operands in {-1, 0, 1} (every score exact in f32 in any summation
+    order, so both round the same scores); timed beside the served entry,
+    the plain version, SDPA's forward and the bound (the served entry's
+    plus the logsumexp's bytes)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S = 8, 512
+    rows = {}
+
+    def signs(seed, shape):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randint(-1, 2, shape, generator=g).to("cuda",
+                                                           torch.bfloat16)
+    cases = [("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS), ("mla", None)]
+    for geo, heads in cases:
+        if heads is None:
+            H, (nope, rope, vd) = MLA_HEADS["H"], dops.MLA_DIMS
+            shapes = ((B, S, H, nope + rope), (B, S, H, nope), (B, S, rope),
+                      (B, S, H, vd))
+            g = torch.Generator(device="cpu").manual_seed(7)
+            ins = [torch.randn(sh, generator=g).to("cuda", torch.bfloat16)
+                   for sh in shapes]
+            ones = [signs(i, sh) for i, sh in enumerate(shapes)]
+            fwd = fops._mla_flash_forward
+            served = "flash_attention_mla_bf16_mma"
+            k, vp = dops.mla_gqa_operands(*ones[1:])
+            plain = (ones[0], k, vp)
+            tag = (f"MLA heads {H}/{H} q/k {nope + rope} (rope shared) V "
+                   f"{vd}")
+            kb = torch.cat([ins[1], ins[2][:, :, None].expand(
+                B, S, H, rope)], dim=-1)
+            library = _sdpa(ins[0], kb, ins[3], 1, causal=True)
+
+            def plain_call():
+                k_, vp_ = dops.mla_gqa_operands(*ins[1:])
+                return fops.flash_attention_lse_plain(ins[0], k_, vp_,
+                                                      causal=True)
+            ops = 2 * B * H * _n_visible(S, S, True, 0) * (nope + rope + vd)
+        else:
+            H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+            ins = list(_dense_qkv(hd, B, S, S, heads, torch.bfloat16))
+            shapes = ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+            ones = [signs(i, sh) for i, sh in enumerate(shapes)]
+
+            def fwd(*a, lse=False):
+                return fops._flash_forward(*a, True, 0, lse=lse)
+            served = fops.flash_entry(torch.bfloat16, hd)
+            plain = ones
+            tag = f"{geo} heads {H}/{KV} hd {hd}"
+            library = _sdpa(*ins, H // KV, causal=True)
+
+            def plain_call():
+                return fops.flash_attention_lse_plain(*ins, causal=True)
+            ops = 4 * B * H * hd * _n_visible(S, S, True, 0)
+        lse_entry = fops.LSE_ENTRIES[served]
+        want = fwd(*ins)
+        before = dict(fops.FLASH_KERNEL.entry_launches)
+        got, _ = fwd(*ins, lse=True)
+        _, lse = fwd(*ones, lse=True)
+        torch.cuda.synchronize()
+        check(fops.FLASH_KERNEL.entry_launches[lse_entry]
+              == before[lse_entry] + 2, f"{lse_entry} did not launch")
+        check(_same_bits([got], [want]),
+              f"{lse_entry}: out differs from {served}'s")
+        _, lse_want = fops.flash_attention_lse_plain(*plain, causal=True)
+        err = (lse - lse_want).abs().max().item()
+        check(err <= 1e-5, f"{lse_entry} {tag}: logsumexp error {err}")
+        # operands read once, out and the logsumexp written once
+        n_bytes = (sum(t.numel() for t in ins) + got.numel()) * 2 \
+            + lse.numel() * 4
+        bound = _bound(n_bytes, ops, torch.bfloat16)
+        served_ms = timer.ms(lambda: fwd(*ins))
+        row = dict(served_ms=served_ms, lse_max_abs_err=err,
+                   **_time_row(timer, lambda: fwd(*ins, lse=True),
+                               plain_call, (), library, bound))
+        rows[f"{lse_entry} {tag}"] = row
+        log(f"[kernels] {lse_entry} {tag} B={B} S=T={S} causal: out equal "
+            f"to {served}'s bit for bit, logsumexp error {err:.3e} (tol "
+            f"1e-5), served entry {served_ms:.4f} ms" + _fmt(row))
+    return rows
+
+
+# the smoke configs' 4 heads of 48: outside the tensor-core head dims
+SMOKE48_HEADS = dict(H=4, KV=4, hd=48)
+# phase 3's backward rows (geometry, heads, dtype, S, T, causal, window),
+# B = 8; kernel_ab.py --backward times the same
+BACKWARD_CASES = (
+    ("smollm", SMOLLM_HEADS, torch.bfloat16, 512, 512, True, 0),
+    ("smollm", SMOLLM_HEADS, torch.float32, 512, 512, True, 0),
+    ("jamba", JAMBA_HEADS, torch.bfloat16, 512, 512, True, 0),
+    ("smollm", SMOLLM_HEADS, torch.bfloat16, 512, 512, True, 128),
+    ("whisper encoder", WHISPER_HEADS, torch.bfloat16, 1500, 1500, False, 0),
+    ("cross", WHISPER_HEADS, torch.bfloat16, 100, 64, False, 0),
+    ("smoke", SMOKE48_HEADS, torch.bfloat16, 512, 512, True, 0))
+
+
+def backward_case(geo, heads, dtype, S, T, causal, window, B=8):
+    """One of ``BACKWARD_CASES``: its tag, random (q, k, v) on the card and
+    SDPA's mask for the window (None without one)."""
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    qkv = _dense_qkv(S + T + window + hd, B, S, T, heads, dtype)
+    mask = None
+    if window:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+    tag = (f"[kernels] flash_attention_backward {geo} heads {H}/{KV} hd "
+           f"{hd} B={B} S={S} T={T} " + ("causal" if causal else "no mask")
+           + (f" window {window}" if window else "") + f" {str(dtype)[6:]}")
+    return tag, qkv, mask
 
 
 def phase_backward_kernels(timer: Timer):
@@ -1365,33 +1583,26 @@ def phase_backward_kernels(timer: Timer):
     17(b)'s shape) and f32, jamba's heads causal, a 128-token window,
     DeepSeek-V3's MLA heads on their own operands, whisper-tiny's encoder
     without the mask (S = T = 1500, no multiple of the 64-key tile), and
-    a cross case, 100 queries over 64 keys without the mask.  Returns
-    the rows by tag; the served row is phase 17(b)'s shape."""
-    B, S = 8, 512
+    a cross case, 100 queries over 64 keys without the mask, and bf16 at
+    the smoke configs' head dim 48; bf16 rows at head dim 64 or 128 must
+    launch the tensor-core entry, f32 and head dim 48 the CUDA-core entry
+    of their type.  Then the
+    ``*_lse`` forward entries beside the served ones.  Returns the rows
+    by tag (the ``*_lse`` rows under "lse_entries"); the served row is
+    phase 17(b)'s shape."""
     rows = {}
-    cases = [("smollm", SMOLLM_HEADS, torch.bfloat16, S, S, True, 0),
-             ("smollm", SMOLLM_HEADS, torch.float32, S, S, True, 0),
-             ("jamba", JAMBA_HEADS, torch.bfloat16, S, S, True, 0),
-             ("smollm", SMOLLM_HEADS, torch.bfloat16, S, S, True, 128),
-             ("whisper encoder", WHISPER_HEADS, torch.bfloat16, 1500, 1500,
-              False, 0),
-             ("cross", WHISPER_HEADS, torch.bfloat16, 100, 64, False, 0)]
-    for geo, heads, dtype, S_, T, causal, window in cases:
-        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
-        q, k, v = _dense_qkv(S_ + T + window + hd, B, S_, T, heads, dtype)
-        mask = None
-        if window:
-            pos = torch.arange(S_, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) \
-                & (pos[None, :] > pos[:, None] - window)
-        tag = (f"[kernels] flash_attention_backward {geo} heads {H}/{KV} hd "
-               f"{hd} B={B} S={S_} T={T} "
-               + ("causal" if causal else "no mask")
-               + (f" window {window}" if window else "")
-               + f" {str(dtype)[6:]}")
+    for case in BACKWARD_CASES:
+        tag, (q, k, v), mask = backward_case(*case)
+        dtype, causal, window = case[2], case[5], case[6]
         rows[tag] = _backward_row(timer, q, k, v, tag, causal=causal,
                                   window=window, mask=mask)
-    rows["mla"] = _mla_backward_row(timer, B, S, MLA_HEADS["H"])
+        bf16 = dtype == torch.bfloat16
+        want = (f"flash_attention_backward_{'bf16' if bf16 else 'f32'}"
+                + ("_mma" if bf16 and case[1]["hd"] in (64, 128) else ""))
+        check(rows[tag]["entry"] == want,
+              f"{tag}: served by {rows[tag]['entry']}, not {want}")
+    rows["mla"] = _mla_backward_row(timer, 8, 512, MLA_HEADS["H"])
+    rows["lse_entries"] = _lse_rows(timer)
     log(f"[kernels] backward tolerance: {GRAD_TOL} of each gradient's "
         f"largest magnitude ({GRAD_TOL_REASON}); bound: 2.5 x the "
         f"forward's operations at {PEAK_OPS_PER_S[torch.bfloat16] / 1e12:.0f} "
@@ -3321,10 +3532,6 @@ TRAIN_ARCHS = (
     ("whisper-tiny", ("flash_attention", "flash_attention_backward")),
     ("xlstm-350m", ()))
 FULL_TRAIN = dict(steps=30, batch=8, seq=512)      # phase 17(b)
-# 17(b)'s --remat run against the plain run, loss per step: the same
-# computation, so equal bits are expected; the tolerance leaves room for
-# a bf16 rounding that a reordered sum could flip late in the run
-REMAT_RTOL = 1e-3
 
 
 def _train_batches(cfg, batch: int = 4, seq: int = 64):
@@ -3361,6 +3568,15 @@ def phase_train_small(kernels, acc) -> None:
         got = Trainer(build_model(cfg, device="cuda"), params=params,
                       **kw).fit(_train_batches(cfg), TRAIN_STEPS,
                                 log_fn=None)
+        entries = {k.name: {e: n for e, n in k.entry_launches.items() if n}
+                   for k in kernels if k.name in ("flash_attention",
+                                                  "flash_attention_backward")}
+        # f32: the CUDA-core backward after the served forward, no *_lse
+        check(set(entries["flash_attention_backward"])
+              <= {"flash_attention_backward_f32"}
+              and not any(e.endswith("_lse")
+                          for e in entries["flash_attention"]),
+              f"[train] {arch} smoke: entries {entries}")
         launches = _tally(kernels, acc)
         errs = [max(abs(g[k] - w[k]) / abs(w[k]) for k in ("loss",
                                                           "grad_norm"))
@@ -3376,7 +3592,8 @@ def phase_train_small(kernels, acc) -> None:
             f"{[round(g['loss'], 5) for g in got]} vs "
             f"{[round(w['loss'], 5) for w in want]}, largest relative error "
             f"(loss, grad norm) {max(errs):.2e} (tol {TRAIN_RTOL}); "
-            f"launches { {n: c for n, c in launches.items() if c} }")
+            f"launches { {n: c for n, c in launches.items() if c} }; B2 "
+            f"entries {entries}")
     cfg = get_config("jamba-v0.1-52b", smoke=True).replace(**f32)
     model = build_model(cfg, device="cuda")
     try:
@@ -3397,15 +3614,16 @@ def phase_train(kernels, acc, card: str) -> None:
     width and depth (32 layers, bf16, random weights from seed 0; no
     cut), with ``--ckpt-dir`` under a temporary directory.  Finite loss
     at every step, the last 5 steps' mean below the first 5's; B2's
-    forward (``flash_attention_bf16_mma``) and its backward launch once a
-    layer and step; the checkpoint restores bit for bit.  Logged: ms per
-    step, training tokens/s (steps 1-29's tokens over their summed time),
-    peak memory, and a trace of one more step (busy share, the kernels
-    that take the device time, the backward kernel's share).  Then the
-    same run with ``--remat``: B2's forward launches twice a layer and
-    step (the recompute), the first loss equals the plain run's bit for
-    bit and every loss is within ``REMAT_RTOL`` of it, and the peak
-    memory is lower."""
+    forward (only ``flash_attention_bf16_mma_lse``) and its backward (only
+    ``flash_attention_backward_bf16_mma``) launch once a layer and step;
+    the checkpoint restores bit for bit.  Logged: ms per step, training
+    tokens/s (steps 1-29's tokens over their summed time), peak memory,
+    and a trace of one more step (busy share, the kernels that take the
+    device time, the backward's kernels and their share).  Then the same
+    run with ``--remat``: B2's forward launches twice a layer and step
+    (the recompute), the same entries, every loss equal to the plain
+    run's bit for bit (the backward has no atomics), and the peak memory
+    is lower."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.checkpoint import restore_checkpoint
@@ -3423,8 +3641,10 @@ def phase_train(kernels, acc, card: str) -> None:
              "--log-every", "5"])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
-                        "train")
+        check_served_by(kernels, "flash_attention",
+                        "flash_attention_bf16_mma_lse", "train")
+        check_served_by(kernels, "flash_attention_backward",
+                        "flash_attention_backward_bf16_mma", "train")
         launches = _tally(kernels, acc)
         L = trainer.model.cfg.n_layers
         check(launches["flash_attention"] == L * steps
@@ -3454,8 +3674,9 @@ def phase_train(kernels, acc, card: str) -> None:
         f"{np.median(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms "
         f"(step 0 {trainer.history[0]['step_time_s'] * 1e3:.1f} ms); peak "
         f"memory {peak:.2f} GiB; B2 {launches['flash_attention']} forward "
-        f"launches (`_mma`), {launches['flash_attention_backward']} "
-        f"backward; the checkpoint restores bit for bit; {card}")
+        f"launches (`_mma_lse`), {launches['flash_attention_backward']} "
+        f"backward (`_bf16_mma`); the checkpoint restores bit for bit; "
+        f"{card}")
     stream = TokenStream(trainer.model.cfg.vocab_size, S, B, seed=1)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3466,11 +3687,18 @@ def phase_train(kernels, acc, card: str) -> None:
                   f"tokens")
     rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
     busy = sum(us for _, us in rows)
-    bwd = sum(us for key, us in rows if "flash_bwd" in key)
+    bwd = {kind: sum(us for key, us in rows
+                     if "bwd_mma" in key and kind in key)
+           for kind in BWD_MMA_KERNELS}
+    check(not any("flash_bwd" in key for key, _ in rows),
+          "[train] the CUDA-core backward ran in the bf16 step")
     fwd = sum(us for key, us in rows if "prefill_mma" in key)
-    log(f"[train] B2's backward kernels (flash_bwd::prep/dq/dkdv) {bwd / 1e3:.2f} "
-        f"ms = {100 * bwd / busy:.1f}% of the step's device time, its "
-        f"forward {fwd / 1e3:.2f} ms = {100 * fwd / busy:.1f}%; {card}")
+    log(f"[train] B2's backward kernels (bwd_mma::delta/dq/dkdv) "
+        f"{sum(bwd.values()) / 1e3:.2f} ms = "
+        f"{100 * sum(bwd.values()) / busy:.1f}% of the step's device time ("
+        + ", ".join(f"{k} {us / 1e3:.2f}" for k, us in bwd.items() if us)
+        + f"), its forward {fwd / 1e3:.2f} ms = {100 * fwd / busy:.1f}%; "
+        f"{card}")
     _tally(kernels, {})
     del trainer, params, back, prof
     gc.collect()
@@ -3480,21 +3708,22 @@ def phase_train(kernels, acc, card: str) -> None:
         ["--arch", "smollm-360m", "--steps", str(steps), "--batch", str(B),
          "--seq", str(S), "--log-every", str(steps), "--remat"])
     peak_r = torch.cuda.max_memory_allocated() / 2**30
+    check_served_by(kernels, "flash_attention",
+                    "flash_attention_bf16_mma_lse", "train --remat")
+    check_served_by(kernels, "flash_attention_backward",
+                    "flash_attention_backward_bf16_mma", "train --remat")
     launches_r = _tally(kernels, {})
     losses_r = [h["loss"] for h in remat.history]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_r, losses))
     check(remat.model.remat and launches_r["flash_attention"] == 2 * L * steps
           and launches_r["flash_attention_backward"] == L * steps,
           f"[train] --remat launches {launches_r}")
-    check(losses_r[0] == losses[0] and rel <= REMAT_RTOL,
+    check(losses_r == losses,
           f"[train] --remat losses {losses_r} against {losses}")
     check(peak_r < peak, f"[train] --remat peak {peak_r:.2f} GiB, plain "
           f"{peak:.2f}")
     times_r = [h["step_time_s"] for h in remat.history[1:]]
     log(f"[train] smollm-360m --remat (each of the {L} periods "
-        f"checkpointed), the same {steps} steps: losses "
-        f"{'equal bit for bit' if losses_r == losses else 'differ'} "
-        f"(largest relative difference {rel:.2e}, tol {REMAT_RTOL}); "
+        f"checkpointed), the same {steps} steps: losses equal bit for bit; "
         f"{B * S * len(times_r) / sum(times_r):.0f} training tokens/s, "
         f"per step median {np.median(times_r) * 1e3:.2f} ms; peak memory "
         f"{peak_r:.2f} GiB against {peak:.2f}; B2 "
@@ -3544,6 +3773,8 @@ def main() -> None:
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
     del timer
+    reset(kernels)
+    SERVING_ONLY["on"] = True
     phase_engine(kernels)
     launches5, eng, tok_s5 = phase_main_path(kernels)
     d2h, _ = phase_trace(eng, "main")
@@ -3602,6 +3833,11 @@ def main() -> None:
                                      phase_train(kernels, launches17,
                                                  card)))):
         t0 = time.perf_counter()
+        if tag == "17":
+            check_serving_launches(kernels, "phase 16")
+            SERVING_ONLY["on"] = False
+            log(f"[serving] phases 4-16 launched no backward and no *_lse "
+                f"entry ({SERVING_ONLY['resets']} runs checked)")
         run()
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,8 +1,8 @@
-"""This checkout's selective scan (B5) and top-k gating (B6), or its
-B2/B4 rows at DeepSeek-V3's MLA heads, against another checkout's, on
-one GPU.
+"""This checkout's selective scan (B5) and top-k gating (B6), its B2/B4
+rows at DeepSeek-V3's MLA heads, or its B2 backward rows, against
+another checkout's, on one GPU.
 
-    python3 kernel_ab.py OTHER [--jamba | --mla]
+    python3 kernel_ab.py OTHER [--jamba | --mla | --backward]
 
 OTHER is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -39,8 +39,22 @@ for both), serves phase 13(b)'s traced requests (``phase_trace``: device
 time by kernel, the operand-building copies, device operations per
 step), in turns other, this, this, other, and the operations whose
 count per device step differs most are listed.  --jamba's traces run in
-the same turns.  Needs one CUDA device and nvcc, as chip_smoke.py does; the
-jamba and the MLA parts ~30 GB of device memory.
+the same turns.
+
+With --backward, the rows are B2's backward (B2′) at chip_smoke.py
+phase 3's backward shapes (``BACKWARD_CASES``: smollm, jamba, the
+128-token window, whisper's encoder, the cross case and the smoke
+configs' head dim 48, bf16, and smollm in f32), each tree's ``flash_attention_backward`` on the same operands
+and its own forward's out; a tree whose wrapper takes the forward's
+logsumexp (``lse=``, the tensor-core body) gets the one its ``*_lse``
+entry stores, made before the timing, as its autograd Function saves
+it; an older tree recomputes it inside its backward.  Then MLA's heads
+on MLA's own operands through each tree's autograd
+(``mla_flash_attention`` then ``torch.autograd.grad``), with each
+backward's peak memory above what its forward left.  The two trees'
+gradients are compared first and the largest difference logged.  Needs
+one CUDA device and nvcc, as chip_smoke.py does; the jamba and the MLA
+parts ~30 GB of device memory.
 """
 from __future__ import annotations
 
@@ -137,9 +151,63 @@ def mla_rows(trees):
     return rows
 
 
+def backward_rows(cs, trees):
+    """(tag, {tree: callable}) of B2's backward at phase 3's shapes (the
+    module's docstring says what each tree is given)."""
+    rows = []
+    for case in cs.BACKWARD_CASES:
+        tag, (q, k, v), _ = cs.backward_case(*case)
+        causal, window = case[5], case[6]
+        g = torch.Generator(device="cpu").manual_seed(7)
+        dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
+        fns = {}
+        for n, f in trees.items():
+            out = f.flash_attention(q, k, v, causal=causal,
+                                    sliding_window=window)
+            kw = dict(causal=causal, sliding_window=window)
+            if hasattr(f, "backward_takes_lse") and f.backward_takes_lse(q, v):
+                kw["lse"] = f._flash_forward(q, k, v, causal, window,
+                                             lse=True)[1]
+            fns[n] = (lambda f=f, out=out, kw=kw, qkv=(q, k, v), do=dout:
+                      f.flash_attention_backward(*qkv, out, do, **kw))
+        rows.append((tag.split("] ", 1)[1], fns))
+    return rows
+
+
+def mla_backward_row(trees):
+    """(tag, {tree: callable}) of the MLA backward through each tree's
+    autograd, B = 8, S = T = 512, 128 heads, bf16 (random operands from
+    seed 640); each backward's peak memory above its forward's is
+    logged."""
+    B, S, H, nope, rope, vd = 8, 512, 128, 128, 64, 128
+    gen = torch.Generator(device="cpu").manual_seed(640)
+    ins = [torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+           for shape in ((B, S, H, nope + rope), (B, S, H, nope),
+                         (B, S, rope), (B, S, H, vd))]
+    dout = torch.randn((B, S, H, vd), generator=gen).to("cuda",
+                                                        torch.bfloat16)
+    fns = {}
+    for n, f in trees.items():
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = f.mla_flash_attention(*leaves)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[ab] MLA backward {n}: peak {peak / 2**20:.1f} MiB above "
+              f"the forward's", flush=True)
+        fns[n] = (lambda o=out, ls=leaves:
+                  torch.autograd.grad(o, ls, dout, retain_graph=True))
+    return [(f"B2' MLA heads {H} q/k {nope}+{rope} V {vd} B={B} S=T={S} "
+             f"causal bf16 (autograd)", fns)]
+
+
 def time_kernels(cs, trees, rows, compare: bool = False) -> None:
     """Each row timed other, this, this, other; with ``compare`` the two
-    trees' outputs, cut to the narrower last dim, compared first."""
+    trees' outputs (each tensor of a tuple), cut to the narrower last
+    dim, compared first."""
     timer = cs.Timer()
     floor = [timer.ms(lambda: torch.cuda._sleep(1)) for _ in range(2)]
     print(f"[ab] launch floor (one-thread kernel): "
@@ -147,11 +215,16 @@ def time_kernels(cs, trees, rows, compare: bool = False) -> None:
     for tag, fns in rows:
         if compare:
             outs = [fns[n]() for n in ("this", "other")]
-            vd = min(o.shape[-1] for o in outs)
-            diff = outs[0][..., :vd].float() - outs[1][..., :vd].float()
-            print(f"[ab] {tag}: largest |this - other| "
-                  f"{diff.abs().max().item():.3e}", flush=True)
-            del outs, diff
+            pairs = (zip(*outs) if isinstance(outs[0], (tuple, list))
+                     else [outs])
+            diff = 0.0
+            for a, b in pairs:
+                vd = min(a.shape[-1], b.shape[-1])
+                diff = max(diff, (a[..., :vd].float() - b[..., :vd].float())
+                           .abs().max().item())
+            print(f"[ab] {tag}: largest |this - other| {diff:.3e}",
+                  flush=True)
+            del outs
         got = {n: [] for n in fns}
         for n in ("other", "this", "this", "other"):
             got[n].append(timer.ms(fns[n]))
@@ -197,6 +270,9 @@ def main() -> None:
     mode.add_argument("--mla", action="store_true",
                       help="time B2/B4 at the MLA heads instead of B5/B6, "
                       "then trace phase 13(b)'s engine on each tree")
+    mode.add_argument("--backward", action="store_true",
+                      help="time B2's backward at phase 3's backward rows "
+                      "instead of B5/B6")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -214,6 +290,14 @@ def main() -> None:
     import repro_torch  # noqa: F401  (this tree, from ROOT/src)
     load_tree(a.other.resolve(), pkgs["other"])
     from repro_torch.kernels.build import load_all
+    if a.backward:
+        trees = {n: importlib.import_module(
+            f"{p}.kernels.flash_attention.ops") for n, p in pkgs.items()}
+        load_all([k for f in trees.values()
+                  for k in (f.FLASH_KERNEL, f.BACKWARD_KERNEL)])
+        time_kernels(cs, trees, backward_rows(cs, trees)
+                     + mla_backward_row(trees), compare=True)
+        return
     if a.mla:
         trees = {n: tuple(importlib.import_module(f"{p}.kernels.{k}.ops")
                           for k in ("flash_attention", "decode_attention"))

@@ -18,35 +18,54 @@
 // has a zero output and gets zero gradients.  GQA: query head h reads KV
 // head h / G, and dk/dv sum the group's heads inside the kernel.
 //
-// Three passes, each a kernel on the caller's stream, accumulators in f32:
+// Two bodies, picked by the wrapper (ops.py::flash_backward_entry) from
+// dtypes and head dims alone, as the forward's are:
+//   flash_attention_backward_bf16_mma (bf16, hd = hdv = 64 or 128) and
+//   flash_attention_backward_mla_bf16_mma (bf16, DeepSeek-V3's MLA
+//   operands: q/k 192 = 128 + 64 with one rope key a token shared by every
+//   head, V 128) run backward_mma.cuh: FlashAttention-2's backward on the
+//   tensor cores (mma.sync bf16, f32 accumulators, a cp.async ring), from
+//   the row logsumexp that the forward's *_lse entries store.  Four
+//   kernels: delta = rowsum(dout * out); dk/dv per 64-key tile, the
+//   group's heads walked inside the block; MLA's rope key gradient summed
+//   over head groups in a fixed order; dq per 64 packed GQA rows.  MLA's K tile is
+//   assembled in shared memory from k_nope and the rope key, as the MLA
+//   forward does: no (B, T, H, 192) K or dk is built.  What bounds them is
+//   in backward_mma.cuh.
+//   flash_attention_backward_f32 and _bf16 (f32, and bf16 at any other
+//   head dim: the smoke configs' 16 and 48) run the first design, below,
+//   on CUDA cores: three passes, each a kernel on the caller's stream,
+//   accumulators in f32:
 //   prep  one block per (64-query tile, head, row): each row's logsumexp
-//         lse over its visible keys (recomputed, so the served forward
-//         bodies stay as they are) and delta = rowsum(dout * out);
+//         lse over its visible keys (recomputed: the CUDA-core forward
+//         bodies do not store it) and delta = rowsum(dout * out);
 //   dq    one block per (64-query tile, head, row): over the visible key
 //         tiles, P = exp(s - lse), dS = P * (dout . v - delta) and
 //         dq += scale * dS k;
 //   dk/dv one block per (64-key tile, KV head, row): over the group's
 //         heads and the query tiles that see the key tile, dv += P^T dout
 //         and dk += dS^T (scale * q).
-// No atomics: every output element is written by one block, so the result
-// is deterministic.
+// No atomics in either body: every output element is written by one
+// block, so the result is deterministic (training's --remat run gives the
+// plain run's losses bit for bit).
 //
-// What bounds it on the card: about 2.5 times the forward's operations
-// (five S x T x hd products a head against the forward's two) against
-// reading q, k, v, out, dout and writing dq, dk, dv once.  At smollm-360m's
-// training shape (B = 8, S = 512, 15/5 heads of 64) that is the bytes in
-// bf16 (~0.013 ms, the operations ~0.010 at 989 TFLOP/s) and the
-// operations in f32.  This first design is simple and far from either:
-// f32 products on CUDA cores from shared memory, 4 x 4 register tiles a
-// thread (two 16-byte shared loads per 16 multiply-adds), one block of 256
-// threads per tile.  Tensor cores (mma.sync, then wgmma with TMA) are the
-// redesign.
+// What bounds the CUDA-core body: about 2.5 times the forward's
+// operations (five S x T x hd products a head against the forward's two)
+// against reading q, k, v, out, dout and writing dq, dk, dv once; in f32
+// the operations (~0.15 ms at smollm-360m's training shape against 67
+// TFLOP/s).  It runs its f32 products from shared memory, 4 x 4 register
+// tiles a thread (two 16-byte shared loads per 16 multiply-adds), one
+// block of 256 threads per tile, at ~10 TFLOP/s; split TF32 on the tensor
+// cores is its redesign.
 //
-// Rounding follows B2's forward: q * scale rounded to the input type and
-// the scores rounded to it before the exponent; everything after in f32,
-// the gradients rounded to the input type once, at the end.
+// Rounding (both bodies) follows B2's forward: q * scale rounded to the
+// input type and the scores rounded to it before the exponent; the CUDA-
+// core body keeps everything after in f32, the tensor-core body rounds P
+// and dS to bf16 as operands of its products; the gradients are rounded
+// to the input type once, at the end.
 
 #include "../../csrc/common.cuh"
+#include "backward_mma.cuh"
 
 namespace kern {
 namespace flash_bwd {
@@ -494,3 +513,61 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 
 FLASH_BACKWARD_ENTRY(flash_attention_backward_f32, float)
 FLASH_BACKWARD_ENTRY(flash_attention_backward_bf16, __nv_bfloat16)
+
+// bf16 at hd = hdv = 64 or 128 on the tensor cores: the operands as above,
+// lse (B, H, S) the forward's (an input here), delta (B, H, S) f32
+// scratch; any other head dim is refused (cudaErrorInvalidValue), the
+// wrapper never sends one.  Blocks of 4 warps; rings of 3 stages at hd
+// 64, 2 at 128.
+extern "C" int flash_attention_backward_bf16_mma(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    int B, int S, int T_, int H, int KV, int hd, int hdv, int causal,
+    int window, float scale, void* stream) {
+  namespace bm = kern::bwd_mma;
+  using bf16 = __nv_bfloat16;
+  auto st = (cudaStream_t)stream;
+  if (hd != hdv) return (int)cudaErrorInvalidValue;
+  if (hd == 64) {
+    const bm::Args<64, 64, 0> p{(const bf16*)q, (const bf16*)k, nullptr,
+                                (const bf16*)v, (const bf16*)dout,
+                                (const float*)lse, nullptr, S, T_, H, KV,
+                                causal, window, scale};
+    return bm::launch<64, 64, 0, 3, 4>(p, B, out, (float*)delta, dq, dk, dv,
+                                       nullptr, nullptr, st);
+  }
+  if (hd == 128) {
+    const bm::Args<128, 128, 0> p{(const bf16*)q, (const bf16*)k, nullptr,
+                                  (const bf16*)v, (const bf16*)dout,
+                                  (const float*)lse, nullptr, S, T_, H, KV,
+                                  causal, window, scale};
+    return bm::launch<128, 128, 0, 2, 4>(p, B, out, (float*)delta, dq, dk,
+                                         dv, nullptr, nullptr, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// MLA's operands (common.cuh's MlaDims: nope 128, rope 64, V 128), causal:
+// q (B, S, H, 192), k_nope (B, T, H, 128), k_rope (B, T, 64), v and out
+// (B, T|S, H, 128), dout (B, S, H, 128), lse (B, H, S) the forward's ->
+// dq (B, S, H, 192), dk_nope (B, T, H, 128), d_rope (B, T, 64), dv (B, T,
+// H, 128); delta (B, H, S) and rope_part (B, T, ceil(H / 8), 64) f32
+// scratch (it may be dq's storage: dq is written last).  Blocks of 8 warps (dq: 128 rows; dk/dv: 128 keys), one an SM
+// by shared memory (dq 172 KB, dk/dv 205 KB), 2-stage rings.
+extern "C" int flash_attention_backward_mla_bf16_mma(
+    const void* q, const void* k_nope, const void* k_rope, const void* v,
+    const void* out, const void* dout, void* lse, void* dq, void* dk_nope,
+    void* d_rope, void* dv, void* delta, void* rope_part, int B, int S,
+    int T_, int H, float scale, void* stream) {
+  namespace bm = kern::bwd_mma;
+  using bf16 = __nv_bfloat16;
+  using D = kern::MlaDims;
+  constexpr int kHd = D::kNope + D::kRope;
+  const bm::Args<kHd, D::kVd, D::kRope> p{
+      (const bf16*)q, (const bf16*)k_nope, (const bf16*)k_rope,
+      (const bf16*)v, (const bf16*)dout, (const float*)lse, nullptr, S, T_,
+      H, H, 1, 0, scale};
+  return bm::launch<kHd, D::kVd, D::kRope, 2, 8>(
+      p, B, out, (float*)delta, dq, dk_nope, dv, d_rope, (float*)rope_part,
+      (cudaStream_t)stream);
+}

@@ -32,6 +32,12 @@
 // shared memory from k_nope and the rope key (no broadcast, no padded V;
 // the plain version is flash_attention/ops.py::mla_flash_attention_plain,
 // which builds those operands and calls naive_attention).
+// flash_attention_bf16_mma_lse and flash_attention_mla_bf16_mma_lse are
+// the two tensor-core entries with the body's kLse flag set: the same
+// output bit for bit, and each row's logsumexp (natural log, f32, (B, H,
+// S)) stored beside it for B2's backward (flash_backward.cu), so the
+// backward does not recompute the scores to find it.  Only training's
+// autograd Functions launch them; serving keeps the entries above.
 // Rounding: K2's, and scores rounded to the input type, as
 // naive_attention does.
 
@@ -83,6 +89,17 @@ extern "C" int flash_attention_bf16_mma(const void* q, const void* k,
                                    H, KV, hd, causal, window, scale, stream);
 }
 
+extern "C" int flash_attention_bf16_mma_lse(const void* q, const void* k,
+                                            const void* v, void* out,
+                                            void* lse, int B, int S,
+                                            int T_len, int H, int KV, int hd,
+                                            int causal, int window,
+                                            float scale, void* stream) {
+  return kern::prefill_mma::launch<ContiguousRows, true>(
+      q, k, v, out, ContiguousRows{T_len}, B, S, H, KV, hd, causal, window,
+      scale, stream, static_cast<float*>(lse));
+}
+
 extern "C" int flash_attention_f32_tf32(const void* q, const void* k,
                                         const void* v, void* out, int B,
                                         int S, int T_len, int H, int KV,
@@ -102,4 +119,14 @@ extern "C" int flash_attention_mla_bf16_mma(const void* q, const void* k_nope,
       q, k_nope, v, out,
       MlaRows{{T_len}, {}, static_cast<const __nv_bfloat16*>(k_rope)}, B, S,
       H, scale, stream);
+}
+
+extern "C" int flash_attention_mla_bf16_mma_lse(
+    const void* q, const void* k_nope, const void* k_rope, const void* v,
+    void* out, void* lse, int B, int S, int T_len, int H, float scale,
+    void* stream) {
+  return kern::prefill_mma::launch_mla<MlaRows, true>(
+      q, k_nope, v, out,
+      MlaRows{{T_len}, {}, static_cast<const __nv_bfloat16*>(k_rope)}, B, S,
+      H, scale, stream, static_cast<float*>(lse));
 }

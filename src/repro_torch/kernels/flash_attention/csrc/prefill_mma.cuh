@@ -180,7 +180,12 @@ constexpr size_t smem_bytes() {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename Rows, int kHd, int kVd, int kStages, int kWarps>
+// kLse: the epilogue also stores each row's logsumexp (natural log, f32,
+// (B, H, S); +inf for a row that sees no key), which B2's backward
+// (backward_mma.cuh) takes instead of recomputing it.  The served entries
+// instantiate kLse = false: their code is the body's without it.
+template <typename Rows, int kHd, int kVd, int kStages, int kWarps,
+          bool kLse = false>
 __global__ void __launch_bounds__(kWarps * 32)
 prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
                    // slabs of (KV, kHd), or (H, kNope) for MLA; see Rows
@@ -188,7 +193,9 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
                    const bf16* __restrict__ v,  // slabs of (KV, kVd)
                    bf16* __restrict__ out,      // (B, S, H, kVd)
                    Rows rows, int S, int H, int KV, int causal, int window,
-                   float scale) {
+                   float scale,
+                   float* __restrict__ lse) {   // (B, H, S) with kLse
+
   constexpr int kRope = SplitK<Rows>::kRope;  // K columns from rows.rope
   constexpr int kThreads = kWarps * 32;
   constexpr int kRows = kWarps * 16;  // score rows per block, 16 a warp
@@ -482,6 +489,20 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
   cp_async_wait<0>();
   __syncthreads();
   if (!warp_active) return;
+  if constexpr (kLse) {
+    // m is the row's largest score (natural units; ml holds it times
+    // log2 e) and l the sum of exp(s - m) over its keys; a row whose
+    // max is still kNeg saw no key
+    if (lane % 4 == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rg = r0 + warp * 16 + lane / 4 + 8 * h;
+        const int t = rg / G, g = rg - t * G;
+        if (t < S)
+          lse[((size_t)b * H + kvh * G + g) * S + t] =
+              m[h] == kNeg ? INFINITY : m[h] + logf(l[h]);
+      }
+  }
   bf16* o_s = ring + warp * 16 * kLdV;
   const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
 #pragma unroll
@@ -503,13 +524,14 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
   }
 }
 
-template <typename Rows, int kHd, int kVd, int kStages, int kWarps>
+template <typename Rows, int kHd, int kVd, int kStages, int kWarps,
+          bool kLse = false>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
               Rows rows, int B, int S, int H, int KV, int causal, int window,
-              float scale, void* stream) {
+              float scale, void* stream, float* lse = nullptr) {
   constexpr int kRows = kWarps * 16;
   constexpr size_t smem = smem_bytes<kHd, kVd, kStages, kWarps>();
-  auto kernel = prefill_mma_kernel<Rows, kHd, kVd, kStages, kWarps>;
+  auto kernel = prefill_mma_kernel<Rows, kHd, kVd, kStages, kWarps, kLse>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -518,7 +540,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B, KV, (S * (H / KV) + kRows - 1) / kRows);
   kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, rows, S, H,
-      KV, causal, window, scale);
+      KV, causal, window, scale, lse);
   return (int)cudaGetLastError();
 }
 
@@ -527,16 +549,17 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
 // (cudaErrorInvalidValue), the wrappers never send one.  Deeper rings,
 // 8-warp blocks and 32 rows a warp measured no faster at the served
 // shapes (PERF.md §6).
-template <typename Rows>
+// With kLse, each row's logsumexp into lse (B, H, S) besides.
+template <typename Rows, bool kLse = false>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
            int B, int S, int H, int KV, int hd, int causal, int window,
-           float scale, void* stream) {
+           float scale, void* stream, float* lse = nullptr) {
   if (hd == 64)
-    return launch_hd<Rows, 64, 64, 3, 4>(q, k, v, out, rows, B, S, H, KV,
-                                         causal, window, scale, stream);
+    return launch_hd<Rows, 64, 64, 3, 4, kLse>(
+        q, k, v, out, rows, B, S, H, KV, causal, window, scale, stream, lse);
   if (hd == 128)
-    return launch_hd<Rows, 128, 128, 2, 4>(q, k, v, out, rows, B, S, H, KV,
-                                           causal, window, scale, stream);
+    return launch_hd<Rows, 128, 128, 2, 4, kLse>(
+        q, k, v, out, rows, B, S, H, KV, causal, window, scale, stream, lse);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -548,13 +571,15 @@ int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
 // L2 serves twice the rows of a 4-warp block), one a SM by registers, a
 // ring of kMlaStages stages and q staged after it.
 constexpr int kMlaWarps = 8, kMlaStages = 2;
-template <typename Rows>
+template <typename Rows, bool kLse = false>
 int launch_mla(const void* q, const void* k, const void* v, void* out,
-               Rows rows, int B, int S, int H, float scale, void* stream) {
+               Rows rows, int B, int S, int H, float scale, void* stream,
+               float* lse = nullptr) {
   using D = SplitK<Rows>;
   static_assert(D::kRope > 0, "launch_mla takes MLA rows");
-  return launch_hd<Rows, D::kNope + D::kRope, D::kVd, kMlaStages, kMlaWarps>(
-      q, k, v, out, rows, B, S, H, H, 1, 0, scale, stream);
+  return launch_hd<Rows, D::kNope + D::kRope, D::kVd, kMlaStages, kMlaWarps,
+                   kLse>(q, k, v, out, rows, B, S, H, H, 1, 0, scale, stream,
+                         lse);
 }
 
 }  // namespace prefill_mma

@@ -25,12 +25,18 @@ and a V head of 128 (``flash_attention_mla_bf16_mma``).
 ``mla_flash_entry`` pick the entry from dtypes and dims alone.
 
 Training differentiates both contiguous forms on the card: on a CUDA
-tensor ``flash_attention`` and ``mla_flash_attention`` run inside a
-``torch.autograd.Function`` whose forward launches the entry above and
-whose backward launches ``flash_attention_backward`` (see
-``csrc/flash_backward.cu``: the gradient of B2, which the JAX package
-leaves to XLA).  On a CPU tensor the plain versions are differentiated
-by torch itself.
+tensor with grad on and an operand that requires grad,
+``flash_attention`` and ``mla_flash_attention`` run inside a
+``torch.autograd.Function``, whose backward is the gradient of B2 (see
+``csrc/flash_backward.cu``; the JAX package leaves it to XLA).  Where
+``flash_backward_entry`` picks a tensor-core backward (bf16 at head_dim
+64/128 and at ``MLA_DIMS``), the Function's forward launches the
+forward entry's ``*_lse`` twin, which also stores each row's
+logsumexp, and the backward (``csrc/backward_mma.cuh``) takes it; f32
+and other head dims keep the served forward entry and the CUDA-core
+backward, which recomputes it.  Serving (no grad) launches the served
+entries only.  On a CPU tensor the plain versions are differentiated by
+torch itself.
 """
 from __future__ import annotations
 
@@ -64,12 +70,26 @@ FLASH_KERNEL = CudaKernel(
     {**{f"flash_attention_{t}": [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
         for t in ("f32", "bf16", "bf16_mma", "f32_tf32")},
      "flash_attention_mla_bf16_mma": [_P] * 5 + [_I] * 4
+     + [ctypes.c_float, _P],
+     # the tensor-core entries that also store the row logsumexp
+     "flash_attention_bf16_mma_lse": [_P] * 5 + [_I] * 8
+     + [ctypes.c_float, _P],
+     "flash_attention_mla_bf16_mma_lse": [_P] * 6 + [_I] * 4
      + [ctypes.c_float, _P]})
 BACKWARD_KERNEL = CudaKernel(
     "flash_attention_backward",
     Path(__file__).parent / "csrc" / "flash_backward.cu",
-    {f"flash_attention_backward_{t}": [_P] * 10 + [_I] * 9
-     + [ctypes.c_float, _P] for t in ("f32", "bf16")})
+    {**{f"flash_attention_backward_{t}": [_P] * 10 + [_I] * 9
+        + [ctypes.c_float, _P] for t in ("f32", "bf16", "bf16_mma")},
+     "flash_attention_backward_mla_bf16_mma": [_P] * 13 + [_I] * 4
+     + [ctypes.c_float, _P]})
+# the forward entries that also store the row logsumexp, by served entry
+LSE_ENTRIES = {"flash_attention_bf16_mma": "flash_attention_bf16_mma_lse",
+               "flash_attention_mla_bf16_mma":
+               "flash_attention_mla_bf16_mma_lse"}
+# heads a block of the MLA backward walks (csrc/backward_mma.cuh's
+# kMlaHeads): the rope key's gradient has ceil(H / this) f32 partials
+BACKWARD_MLA_HEADS = 8
 # the backward holds q/k and V tiles of up to this head_dim in shared memory
 BACKWARD_MAX_HEAD_DIM = 192
 # head_dims the GQA tensor-core bodies are instantiated for: smollm-360m's
@@ -105,6 +125,36 @@ def quant_prefill_entry(hd: int) -> str:
 def flash_entry(dtype, hd: int) -> str:
     """The C entry of ``FLASH_KERNEL`` that serves these operands."""
     return f"flash_attention_{_NAMES[dtype]}" + _body((dtype,), hd)
+
+
+def flash_backward_entry(dtypes, hd: int, hdv: int, *,
+                         mla: bool = False) -> str:
+    """The C entry of ``BACKWARD_KERNEL`` that serves these operands (q's
+    type first): ``_mma`` (the tensor-core body) for bf16 throughout at
+    hd = hdv where the forward entry has a ``*_lse`` twin in
+    ``LSE_ENTRIES`` (the tensor-core body's head dims); with ``mla``
+    (MLA's own operands: q/k ``hd`` = nope + rope, V ``hdv``)
+    ``_mla_bf16_mma`` for bf16 at ``MLA_DIMS``; else the CUDA-core body
+    for q's type.  From dtypes and dims alone, never from a failed build
+    or launch."""
+    bf16 = all(d == torch.bfloat16 for d in dtypes)
+    if mla:
+        if not bf16 or (hd, hdv) != (MLA_DIMS[0] + MLA_DIMS[1], MLA_DIMS[2]):
+            raise ValueError(f"MLA backward at {hd}/{hdv}, {dtypes}: the "
+                             f"MLA entry takes bf16 at {MLA_DIMS}")
+        return "flash_attention_backward_mla_bf16_mma"
+    if bf16 and hd == hdv and flash_entry(dtypes[0], hd) in LSE_ENTRIES:
+        return "flash_attention_backward_bf16_mma"
+    return f"flash_attention_backward_{_NAMES[dtypes[0]]}"
+
+
+def backward_takes_lse(q, v) -> bool:
+    """Whether B2's gradient at GQA operands q, v runs the tensor-core
+    backward, which takes each row's logsumexp from the forward's
+    ``*_lse`` twin (the CUDA-core one recomputes it)."""
+    return flash_backward_entry((q.dtype, v.dtype), q.shape[-1],
+                                v.shape[-1]) == \
+        "flash_attention_backward_bf16_mma"
 
 
 def prefill_positions(lengths, T: int):
@@ -231,39 +281,83 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                            sliding_window=sliding_window)
 
 
-def _flash_forward(q, k, v, causal: bool, sliding_window: int):
-    """Launch the contiguous forward entry ``flash_entry`` picks."""
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True,
+                              sliding_window: int = 0):
+    """``flash_attention_plain``'s output and each row's logsumexp (B, H,
+    S) f32 of the masked scores as it computes them (q * scale and the
+    scores rounded to q's type, masked keys at -1e30): what the ``*_lse``
+    entries store."""
+    from ...models.attention import NEG_INF, _grouped_scores
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    scores = _grouped_scores(q * (1.0 / np.sqrt(hd)), k).float()
+    s = torch.arange(S, device=q.device)[:, None]
+    t = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= t <= s
+    if sliding_window:
+        mask &= t > s - sliding_window
+    lse = torch.logsumexp(torch.where(mask, scores, NEG_INF), dim=-1)
+    return (flash_attention_plain(q, k, v, causal=causal,
+                                  sliding_window=sliding_window),
+            lse.reshape(B, H, S))
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _flash_forward(q, k, v, causal: bool, sliding_window: int,
+                   lse: bool = False):
+    """Launch the contiguous forward entry ``flash_entry`` picks; with
+    ``lse`` its ``*_lse`` twin, and return (out, lse (B, H, S) f32)."""
     check_flash_operands(q, k, v, causal, sliding_window)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    FLASH_KERNEL.launch(
-        flash_entry(q.dtype, hd),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, T, H, KV, hd, int(causal), int(sliding_window),
-        ctypes.c_float(1.0 / np.sqrt(hd)), stream)
-    return out
+    args = (B, S, T, H, KV, hd, int(causal), int(sliding_window),
+            ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    entry = flash_entry(q.dtype, hd)
+    if not lse:
+        FLASH_KERNEL.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), *args)
+        return out
+    if entry not in LSE_ENTRIES:
+        raise ValueError(f"{entry} stores no logsumexp: only the bf16 "
+                         f"tensor-core entries at head_dim {MMA_HEAD_DIMS}")
+    rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    FLASH_KERNEL.launch(LSE_ENTRIES[entry], q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), rows.data_ptr(), *args)
+    return out, rows
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B2 on the card with its gradient: the forward entry, then
-    ``flash_attention_backward`` from the saved operands and output."""
+    """B2 on the card with its gradient: the forward entry (its ``*_lse``
+    twin where the backward runs on the tensor cores), then
+    ``flash_attention_backward`` from the saved operands, output and
+    logsumexp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sliding_window):
-        out = _flash_forward(q, k, v, causal, sliding_window)
-        ctx.save_for_backward(q, k, v, out)
+        if backward_takes_lse(q, v):
+            out, lse = _flash_forward(q, k, v, causal, sliding_window,
+                                      lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = _flash_forward(q, k, v, causal, sliding_window)
+            ctx.save_for_backward(q, k, v, out)
         ctx.mask = (causal, sliding_window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, *lse = ctx.saved_tensors
         causal, window = ctx.mask
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, dout.contiguous(), causal=causal,
-            sliding_window=window)
+            sliding_window=window, lse=lse[0] if lse else None)
         return dq, dk, dv, None, None
 
 
@@ -272,12 +366,16 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0):
     position s sees keys kpos < T with kpos <= s (causal) and
     kpos > s - sliding_window (window > 0); without the causal mask
     every key, and S may exceed T -> (B, S, H, hd) in q's type.
-    Differentiable: on the card through ``flash_attention_backward``."""
+    Differentiable: on the card through ``flash_attention_backward`` when
+    grad is on and an operand requires it; otherwise the served entry
+    alone."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sliding_window=sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if not _wants_grad(q, k, v):
+        return _flash_forward(q, k, v, causal, sliding_window)
     return _FlashAttention.apply(q, k, v, causal, sliding_window)
 
 
@@ -317,14 +415,28 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
         return torch.autograd.grad(o, qkv, dout)
 
 
+def _check_lse(lse, q):
+    B, S, H = q.shape[:3]
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 (B, H, S) = "
+                         f"{(B, H, S)} tensor on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
-                             sliding_window: int = 0):
+                             sliding_window: int = 0, lse=None):
     """The gradient of ``flash_attention`` (masks as there): q (B, S, H,
     hd), k (B, T, KV, hd), v (B, T, KV, hdv), the forward's out and the
     incoming dout (B, S, H, hdv) -> (dq, dk, dv) in q's type; scale
     1/sqrt(hd).  GQA's group sum lands in dk/dv.  On a CPU tensor the
-    plain version; on a CUDA tensor the kernel (three passes: row
-    logsumexp and rowsum(dout * out), then dq, then dk/dv) or a raise."""
+    plain version; on a CUDA tensor the entry ``flash_backward_entry``
+    picks, or a raise.  The tensor-core entry (bf16 at hd = hdv = 64 or
+    128: delta = rowsum(dout * out), then dq, then dk/dv) takes each row's
+    logsumexp ``lse`` (B, H, S) f32 as the ``*_lse`` forward entry stores
+    it; without one it launches that entry to get it.  The CUDA-core
+    entry (f32, other head dims) recomputes it in a first pass and ignores
+    ``lse``."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, out, dout, causal=causal, sliding_window=sliding_window)
@@ -334,15 +446,21 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     check_backward_operands(q, k, v, out, dout, causal, sliding_window)
     B, S, H, hd = q.shape
     T, KV, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    entry = flash_backward_entry((q.dtype,), hd, hdv)
+    if backward_takes_lse(q, v):
+        if lse is None:
+            _, lse = _flash_forward(q, k, v, causal, sliding_window,
+                                    lse=True)
+        _check_lse(lse, q)
+    else:  # the CUDA-core entry writes its own
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # per-row logsumexp and rowsum(dout * out), f32
-    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     BACKWARD_KERNEL.launch(
-        f"flash_attention_backward_{_NAMES[q.dtype]}",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), B, S, T, H, KV, hd, hdv,
+        lse.data_ptr(), delta.data_ptr(), B, S, T, H, KV, hd, hdv,
         int(causal), int(sliding_window), ctypes.c_float(1.0 / np.sqrt(hd)),
         stream)
     return dq, dk, dv
@@ -367,46 +485,102 @@ def mla_flash_attention_plain(q, k_nope, k_rope, v):
     return flash_attention_plain(q, k, vp, causal=True)[..., :v.shape[-1]]
 
 
-def _mla_flash_forward(q, k_nope, k_rope, v):
-    """Launch ``flash_attention_mla_bf16_mma`` on MLA's own operands."""
+def _check_mla_flash_operands(q, k_nope, k_rope, v):
     check_mla_operands(q, k_nope, k_rope, v, 4)
-    B, S, H, hd = q.shape
-    T = k_nope.shape[1]
+    S, T = q.shape[1], k_nope.shape[1]
     if k_rope.shape[1] != T or not 1 <= S <= T:
         raise ValueError(f"{S} queries over {T} keys and "
                          f"{k_rope.shape[1]} rope keys: the kernel takes "
                          "1 <= S <= T rope keys")
+
+
+def _mla_flash_forward(q, k_nope, k_rope, v, lse: bool = False):
+    """Launch ``flash_attention_mla_bf16_mma`` on MLA's own operands; with
+    ``lse`` its ``*_lse`` twin, and return (out, lse (B, H, S) f32)."""
+    _check_mla_flash_operands(q, k_nope, k_rope, v)
+    B, S, H, hd = q.shape
+    T = k_nope.shape[1]
     out = torch.empty((B, S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [q.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(), v.data_ptr(),
+            out.data_ptr()]
+    rows = None
+    if lse:
+        rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        ptrs.append(rows.data_ptr())
     FLASH_KERNEL.launch(
-        "flash_attention_mla_bf16_mma", q.data_ptr(), k_nope.data_ptr(),
-        k_rope.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
+        LSE_ENTRIES["flash_attention_mla_bf16_mma"] if lse
+        else "flash_attention_mla_bf16_mma", *ptrs, B, S, T, H,
         ctypes.c_float(1.0 / np.sqrt(hd)), stream)
-    return out
+    return (out, rows) if lse else out
+
+
+def mla_flash_attention_backward(q, k_nope, k_rope, v, out, dout, *,
+                                 lse=None):
+    """The gradient of ``mla_flash_attention`` on MLA's own operands (bf16
+    at ``MLA_DIMS``): the forward's out and the incoming dout (B, S, H,
+    vd) -> (dq (B, S, H, nope + rope), dk_nope (B, T, H, nope), d_rope
+    (B, T, rope), the rope key's gradient summed over the heads that share
+    it, dv (B, T, H, vd)).  CUDA tensors only (on the CPU torch
+    differentiates ``mla_flash_attention_plain``):
+    ``flash_attention_backward_mla_bf16_mma``, which assembles each K tile
+    from k_nope and the rope key in shared memory (no broadcast K or (B,
+    T, H, nope + rope) dk is built), from ``lse`` (B, H, S) f32 as
+    ``flash_attention_mla_bf16_mma_lse`` stores it (launched here when
+    none is given).  Beyond the gradients it holds delta (B, H, S) f32
+    only: the rope key's per-group f32 partials live in dq's storage,
+    which the kernel writes last (a tensor of their own where dq is
+    smaller, S < T / 12 at 128 heads)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"mla_flash_attention_backward: no kernel for "
+                         f"{q.device}")
+    _check_mla_flash_operands(q, k_nope, k_rope, v)
+    B, S, H, hd = q.shape
+    T, vd = k_nope.shape[1], v.shape[-1]
+    if out.shape != (B, S, H, vd) or dout.shape != out.shape or any(
+            t.dtype != q.dtype or t.device != q.device
+            or not t.is_contiguous() for t in (out, dout)):
+        raise ValueError(f"out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)}: contiguous {(B, S, H, vd)} "
+                         "of q's type and device")
+    entry = flash_backward_entry(
+        (q.dtype, k_nope.dtype, k_rope.dtype, v.dtype), hd, vd, mla=True)
+    if lse is None:
+        _, lse = _mla_flash_forward(q, k_nope, k_rope, v, lse=True)
+    _check_lse(lse, q)
+    dq, dk_nope, dv = (torch.empty_like(t) for t in (q, k_nope, v))
+    d_rope = torch.empty((B, T, k_rope.shape[-1]), dtype=k_rope.dtype,
+                         device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    part_bytes = B * T * -(-H // BACKWARD_MLA_HEADS) * k_rope.shape[-1] * 4
+    rope_part = dq if dq.numel() * dq.element_size() >= part_bytes else \
+        torch.empty(part_bytes, dtype=torch.uint8, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    BACKWARD_KERNEL.launch(
+        entry, q.data_ptr(), k_nope.data_ptr(), k_rope.data_ptr(),
+        v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk_nope.data_ptr(), d_rope.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), rope_part.data_ptr(), B, S, T, H,
+        ctypes.c_float(1.0 / np.sqrt(hd)), stream)
+    return dq, dk_nope, d_rope, dv
 
 
 class _MlaFlashAttention(torch.autograd.Function):
-    """MLA's B2 entry with its gradient: the backward runs
-    ``flash_attention_backward`` at q/k nope + rope over K = [k_nope |
-    the rope key broadcast to every head] with V at its own head dim,
-    then sums the rope key's gradient over the heads that share it."""
+    """MLA's B2 entry with its gradient: the forward's ``*_lse`` twin, then
+    ``mla_flash_attention_backward`` on the same operands (the rope key
+    read in place, its gradient summed over the heads in the kernel)."""
 
     @staticmethod
     def forward(ctx, q, k_nope, k_rope, v):
-        out = _mla_flash_forward(q, k_nope, k_rope, v)
-        ctx.save_for_backward(q, k_nope, k_rope, v, out)
+        out, lse = _mla_flash_forward(q, k_nope, k_rope, v, lse=True)
+        ctx.save_for_backward(q, k_nope, k_rope, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k_nope, k_rope, v, out = ctx.saved_tensors
-        nope = k_nope.shape[-1]
-        k = torch.cat([k_nope, k_rope[:, :, None].expand(
-            k_nope.shape[:3] + (k_rope.shape[-1],))], dim=-1)
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout.contiguous(),
-                                              causal=True)
-        d_rope = dk[..., nope:].float().sum(dim=2).to(k_rope.dtype)
-        return dq, dk[..., :nope], d_rope, dv
+        q, k_nope, k_rope, v, out, lse = ctx.saved_tensors
+        return mla_flash_attention_backward(q, k_nope, k_rope, v, out,
+                                            dout.contiguous(), lse=lse)
 
 
 def mla_flash_attention(q, k_nope, k_rope, v):
@@ -416,9 +590,10 @@ def mla_flash_attention(q, k_nope, k_rope, v):
     (causal, as MLA's prefill) -> (B, S, H, vd) in q's type.  Scale
     1/sqrt(nope + rope).  bf16 at ``MLA_DIMS`` launches
     ``flash_attention_mla_bf16_mma``; other types or dims launch the GQA
-    entry over ``mla_gqa_operands``.  Differentiable on the card: the
-    MLA entry through ``_MlaFlashAttention``, the GQA one through
-    ``flash_attention`` and the torch ops that build its operands."""
+    entry over ``mla_gqa_operands``.  Differentiable on the card (with
+    grad on and an operand that requires it): the MLA entry through
+    ``_MlaFlashAttention``, the GQA one through ``flash_attention`` and
+    the torch ops that build its operands."""
     if q.device.type == "cpu":
         return mla_flash_attention_plain(q, k_nope, k_rope, v)
     if q.device.type != "cuda":
@@ -429,4 +604,6 @@ def mla_flash_attention(q, k_nope, k_rope, v):
     if entry != "flash_attention_mla_bf16_mma":
         k, vp = mla_gqa_operands(k_nope, k_rope, v)
         return flash_attention(q, k, vp, causal=True)[..., :v.shape[-1]]
+    if not _wants_grad(q, k_nope, k_rope, v):
+        return _mla_flash_forward(q, k_nope, k_rope, v)
     return _MlaFlashAttention.apply(q, k_nope, k_rope, v)

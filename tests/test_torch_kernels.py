@@ -998,18 +998,26 @@ def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
     windowed, S < T, GQA and MHA, without the causal mask (S = T and the
     cross case S > T), T no multiple of the 64-key tile, head dims 16 to
     128 (bf16 at 16 and 48 over the CUDA-core forward body); through the
-    autograd Function around B2's forward."""
+    autograd Function around B2's forward.  bf16 at 64 and 128 runs the
+    tensor-core backward from the ``*_lse`` forward's logsumexp, f32 and
+    the other head dims the CUDA-core one after the served forward."""
     q, k, v = _dense_qkv(S + T + window, 2, S, T, heads, dtype, cuda)
     dout = _t(np.random.default_rng(S + 2).standard_normal(
         q.shape).astype(np.float32), cuda, dtype)
     want = fops.flash_attention_backward_plain(
         q, k, v, None, dout, causal=causal, sliding_window=window)
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-    n0 = fops.BACKWARD_KERNEL.launches
+    entry = fops.flash_backward_entry((dtype,), heads["hd"], heads["hd"])
+    forward = fops.flash_entry(dtype, heads["hd"])
+    forward = fops.LSE_ENTRIES.get(forward, forward)
+    assert entry.endswith("_mma") == forward.endswith("_lse")
+    before = (_entry_counts(fops.FLASH_KERNEL),
+              _entry_counts(fops.BACKWARD_KERNEL))
     out = fops.flash_attention(*qkv, causal=causal, sliding_window=window)
     got = torch.autograd.grad(out, qkv, dout)
     torch.cuda.synchronize()
-    assert fops.BACKWARD_KERNEL.launches == n0 + 1
+    _assert_one_launch_of(fops.FLASH_KERNEL, before[0], forward)
+    _assert_one_launch_of(fops.BACKWARD_KERNEL, before[1], entry)
     errs = _grad_errs(got, want)
     print(f"backward {heads} S={S} T={T} causal={causal} window={window} "
           f"{dtype}: relative errors dq/dk/dv {errs}")
@@ -1029,17 +1037,110 @@ def test_mla_flash_backward_matches_plain(cuda, B, S, H):
     want = torch.autograd.grad(fops.mla_flash_attention_plain(*leaves),
                                leaves, dout)
     leaves = [t.clone().requires_grad_() for t in ops_in]
-    before = _entry_counts(fops.FLASH_KERNEL)
-    n0 = fops.BACKWARD_KERNEL.launches
+    before = (_entry_counts(fops.FLASH_KERNEL),
+              _entry_counts(fops.BACKWARD_KERNEL))
     got = torch.autograd.grad(fops.mla_flash_attention(*leaves), leaves, dout)
     torch.cuda.synchronize()
-    _assert_one_launch_of(fops.FLASH_KERNEL, before,
-                          "flash_attention_mla_bf16_mma")
-    assert fops.BACKWARD_KERNEL.launches == n0 + 1
+    _assert_one_launch_of(fops.FLASH_KERNEL, before[0],
+                          "flash_attention_mla_bf16_mma_lse")
+    _assert_one_launch_of(fops.BACKWARD_KERNEL, before[1],
+                          "flash_attention_backward_mla_bf16_mma")
+    assert [g.shape for g in got] == [t.shape for t in ops_in]
     errs = _grad_errs(got, want)
     print(f"MLA backward B={B} S={S} H={H}: relative errors "
           f"dq/dk_nope/dk_rope/dv {errs}")
     assert max(errs) <= _GRAD_TOL[torch.bfloat16], errs
+
+
+def _backward_case(name, device, dtype=torch.bfloat16):
+    """(call, operands) of one backward at a small shape: GQA through
+    ``flash_attention_backward``, MLA through
+    ``mla_flash_attention_backward``, each with its forward's out."""
+    if name == "mla":
+        ins = _mla_operands(9, 2, 77, 77, 77, 8, device)
+        out = fops.mla_flash_attention(*ins)
+        dout = torch.randn(out.shape, generator=torch.Generator(
+            device="cpu").manual_seed(1)).to(device, dtype)
+        return (lambda: fops.mla_flash_attention_backward(*ins, out, dout))
+    heads, S, T, causal, window = {
+        "smollm": (_SMOLLM, 200, 200, True, 48),
+        "jamba": (_JAMBA_HEADS, 130, 130, True, 0),
+        "cross": (_WHISPER_HEADS, 100, 64, False, 0)}[name]
+    q, k, v = _dense_qkv(S + T, 2, S, T, heads, dtype, device)
+    out = fops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    dout = torch.randn(out.shape, generator=torch.Generator(
+        device="cpu").manual_seed(2)).to(device, dtype)
+    return lambda: fops.flash_attention_backward(
+        q, k, v, out, dout, causal=causal, sliding_window=window)
+
+
+@pytest.mark.parametrize("name", ["smollm", "jamba", "cross", "mla"])
+def test_flash_backward_kernel_is_deterministic(cuda, name):
+    """Two launches of the tensor-core backward give the same bits (no
+    atomics: training's --remat run must give the plain run's losses)."""
+    call = _backward_case(name, cuda)
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+
+def _signs(rng, shape, device):
+    """Entries in {-1, 0, 1}: every score q * scale . k is then a multiple
+    of one bf16 value, exact in f32 in any summation order, so kernel and
+    plain version round the same scores and their logsumexps differ only
+    by the exponent and the sums' order."""
+    return _t(rng.integers(-1, 2, shape).astype(np.float32), device,
+              torch.bfloat16)
+
+
+@pytest.mark.parametrize("heads,S,T,causal,window", [
+    (_SMOLLM, 200, 200, True, 0), (_SMOLLM, 200, 200, True, 48),
+    (_JAMBA_HEADS, 130, 130, True, 0), (_WHISPER_HEADS, 100, 64, False, 0)],
+    ids=["smollm", "window", "jamba", "cross"])
+def test_lse_entry_matches_served_entry(cuda, heads, S, T, causal, window):
+    """``flash_attention_bf16_mma_lse``: its out equals the served entry's
+    bit for bit (random normal operands), its logsumexp the plain
+    version's within 1e-5 (operands in {-1, 0, 1})."""
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    q, k, v = _dense_qkv(S + T + 1, 2, S, T, heads, torch.bfloat16, cuda)
+    served = fops._flash_forward(q, k, v, causal, window)
+    out, _ = fops._flash_forward(q, k, v, causal, window, lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), served.view(torch.int16))
+    rng = np.random.default_rng(S)
+    q, k, v = (_signs(rng, (2, n, h, hd), cuda)
+               for n, h in ((S, H), (T, KV), (T, KV)))
+    before = _entry_counts(fops.FLASH_KERNEL)
+    _, lse = fops._flash_forward(q, k, v, causal, window, lse=True)
+    _, want = fops.flash_attention_lse_plain(q, k, v, causal=causal,
+                                             sliding_window=window)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before,
+                          "flash_attention_bf16_mma_lse")
+    err = (lse - want).abs().max().item()
+    assert err <= ATOL_F32, err
+
+
+def test_mla_lse_entry_matches_served_entry(cuda):
+    """``flash_attention_mla_bf16_mma_lse`` likewise, on MLA's own
+    operands (the plain logsumexp over ``mla_gqa_operands``)."""
+    ins = _mla_operands(3, 2, 77, 77, 77, 16, cuda)
+    served = fops._mla_flash_forward(*ins)
+    out, _ = fops._mla_flash_forward(*ins, lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), served.view(torch.int16))
+    rng = np.random.default_rng(4)
+    q, kn, kr, v = (_signs(rng, t.shape, cuda) for t in ins)
+    before = _entry_counts(fops.FLASH_KERNEL)
+    _, lse = fops._mla_flash_forward(q, kn, kr, v, lse=True)
+    k, vp = dops.mla_gqa_operands(kn, kr, v)
+    _, want = fops.flash_attention_lse_plain(q, k, vp, causal=True)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before,
+                          "flash_attention_mla_bf16_mma_lse")
+    err = (lse - want).abs().max().item()
+    assert err <= ATOL_F32, err
 
 
 def test_flash_backward_plain_is_autograd_of_the_plain_forward():
