@@ -5,7 +5,7 @@
 Phases (any failure raises, and the script exits non-zero without its
 result line):
   1. device    — the card's name and power limit; TF32 off.
-  2. build     — compile the ten hand-written CUDA kernels (one nvcc
+  2. build     — compile the eleven hand-written CUDA kernels (one nvcc
                  each, in parallel) from the sources in this checkout;
                  log the registers, spills and shared memory of the
                  tensor-core prefill bodies (prefill_mma.cuh, bf16, with
@@ -82,7 +82,18 @@ result line):
                  operations.  Then the ``*_lse`` forward entries (smollm,
                  jamba, MLA heads): out equal to the served entries' bit
                  for bit, the logsumexp within 1e-5 of the plain version,
-                 both timed.
+                 both timed.  Then B5's backward (B5',
+                 ``selective_scan_backward.cu``; no TPU kernel: the JAX
+                 package differentiates its scan through XLA): all seven
+                 gradients against ``selective_scan_backward_plain`` at
+                 jamba's training shape (B = 8, T = 512, d_inner 8192,
+                 d_state 16, Bc/Cc split views at ldbc 288) in bf16 and
+                 f32, at B = 1, at a ragged T = 300, and with a non-zero
+                 h0 and an incoming dh_last; two launches the same bits;
+                 timed against the plain version and its bound (no one
+                 PyTorch call computes it).  B5's checkpointing twin
+                 (``selective_scan_ckpt_bf16``): y and h_last equal the
+                 served entry's bit for bit, both timed.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -247,8 +258,14 @@ result line):
                  loss and grad norm per step within 1e-4 relative; B2's
                  forward and backward launch (B6 for the MoE configs,
                  nothing for xLSTM), the backward only through its
-                 CUDA-core f32 entry, no ``*_lse`` forward; the jamba smoke
-                 stack raises B5's missing backward.  (b) ``python -m
+                 CUDA-core f32 entry, no ``*_lse`` forward; so does the
+                 jamba smoke stack (8 layers, 7 mamba), B5 only through
+                 its checkpointing twin and B5' once a mamba layer and
+                 step, each card step held to the CPU port at the card's
+                 weights (``FORCED_ARCHS``: free-running, the two part
+                 whatever the kernels do; logged), then again with
+                 ``remat=True``: the twin twice a layer and step, the
+                 losses equal bit for bit.  (b) ``python -m
                  repro_torch.launch.train --arch smollm-360m --steps 30
                  --batch 8 --seq 512`` at full width and depth (32 layers,
                  bf16; no cut) in process: finite, falling loss, B2's
@@ -258,9 +275,19 @@ result line):
                  bit, a trace of one step; then the same run with
                  ``--remat``: the forward launches twice a layer and step,
                  the losses equal the plain run's bit for bit, the peak
-                 memory is lower.
-Phases 4-16 (serving) must launch no backward entry and no ``*_lse``
-forward entry: every reset of the launch counts checks it.
+                 memory is lower.  (c) jamba-v0.1 at full width, one
+                 period (phase 6's model, bf16): ``model.loss`` and the
+                 gradients of every leaf on 8 x 512 tokens, 3 steps of
+                 plain SGD in place (the port's AdamW does not fit one
+                 card at 13.30B parameters): loss and gradients finite,
+                 the loss falling; B5's twin and B5' 7 times a step, B2
+                 (``_mma_lse``) and B2' (``_bf16_mma``) once, B6 4 times;
+                 tokens/s, ms a step, peak memory, a trace of one step
+                 (B5''s share), and layer 0's scan operands, captured in
+                 the step, through B5' against its plain version.
+Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
+forward entry and no checkpointing scan: every reset of the launch counts
+checks it.
 Two lines before the last is a JSON object with one entry per kernel
 (K1/K2 launches from phase 5, B5/B6 from phase 6, B2-contiguous/B4 from
 phase 7, B3/K2q from phase 8, B7 from phase 9; ``launches_phase11``:
@@ -270,8 +297,10 @@ runs; ``mla_heads``: B2's and B4's phase-3 rows at the MLA heads;
 to ``launches_phase16``: those phases' runs; ``slice_shapes``: B2's and
 B4's phase-3 rows at phases 15 and 16's shapes; B2's backward: its
 launches from phase 17(b), ``training_shapes`` its phase-3 rows (with
-the ``*_lse`` forward rows under ``lse_entries``),
-``launches_phase17``/``launches_phase17a`` every kernel's in 17(b)/(a)); then
+the ``*_lse`` forward rows under ``lse_entries``); B5's backward: its
+launches from phase 17(c), ``training_shapes`` its phase-3 rows and the
+twin's; ``launches_phase17``/``_phase17a``/``_phase17c`` every kernel's
+in 17(b)/(a)/(c)); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
@@ -338,7 +367,12 @@ REPLACES = {
     # B2's gradient: no TPU kernel computes it (the JAX package
     # differentiates attention through XLA); B2's forward is the function
     "flash_attention_backward":
-        "src/repro/kernels/flash_attention/kernel.py:67"}
+        "src/repro/kernels/flash_attention/kernel.py:67",
+    # B5's gradient (B5'), likewise left to XLA by the JAX package
+    "selective_scan_backward": "src/repro/kernels/ssm_scan/kernel.py:53"}
+# the kernels only training launches, and the training entries of the
+# others (*_lse forwards, B5's checkpointing twin)
+BACKWARD_KERNELS = ("flash_attention_backward", "selective_scan_backward")
 
 
 def log(msg: str) -> None:
@@ -350,16 +384,18 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-# serving (phases 4-16) must launch no backward entry and no *_lse
-# forward entry: only training's autograd Functions do.  While this is
-# on, every reset first checks the launches since the last one.
+# serving (phases 4-16) must launch no backward entry, no *_lse forward
+# entry and no checkpointing (*_ckpt_*) scan: only training's autograd
+# Functions do.  While this is on, every reset first checks the launches
+# since the last one.
 SERVING_ONLY = {"on": False, "resets": 0}
 
 
 def check_serving_launches(kernels, tag: str) -> None:
     for k in kernels:
         bad = {e: n for e, n in k.entry_launches.items() if n and (
-            k.name == "flash_attention_backward" or e.endswith("_lse"))}
+            k.name in BACKWARD_KERNELS or e.endswith("_lse")
+            or "_ckpt_" in e)}
         check(not bad, f"[{tag}] serving launched training entries {bad}")
 
 
@@ -828,6 +864,147 @@ def phase_scan(timer: Timer, floor_ms: float):
             served = dict(max_abs_err=err, **row)
     log(f"[kernels] scan tolerance: {SCAN_TOL}; {SCAN_TOL_REASON}")
     return served
+
+
+# B5' against its plain version: each gradient's largest error over its
+# largest magnitude (f32: the kernel's ex2.approx and fused multiply-adds
+# against torch's exp, its sums over steps, lanes and channel blocks in
+# another order; bf16: d_dt, d_xs, d_Bc, d_Cc are rounded to bf16 once,
+# one bf16 ulp of the largest is 2^-8)
+SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+# f32 operations a state value, counting the state itself (its decay exp
+# once), g, the terms of ddt, dx, dA, dB, dC and the carry
+SCAN_BWD_OPS = 20
+
+
+def _scan_grad_err(got, want, dtype) -> float:
+    """The largest ratio of a gradient's error (over its largest
+    magnitude) to its tolerance: the model-type gradients at the dtype's,
+    dA, dD, dh0 (f32) at f32's."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = SCAN_GRAD_TOL[dtype if i < 4 else torch.float32]
+        err = (g.float() - w.float()).abs().max().item() \
+            / max(w.float().abs().max().item(), 1e-30)
+        worst = max(worst, err / tol)
+    return worst
+
+
+def _scan_bwd_bound(dt, Bc, carried: bool):
+    """Least time of the unmasked scan's gradient: the bytes it must move
+    (dt, xs in the model type, dy f32 read; d_dt, d_xs written; Bc, Cc
+    read and d_Bc, d_Cc written; A, D read and dA, dD written; h0 and
+    dh_last read where given, dh0 written) and ``SCAN_BWD_OPS`` f32
+    operations a state value."""
+    B, T, di = dt.shape
+    N = Bc.shape[-1]
+    e = dt.element_size()
+    n_bytes = B * T * di * (4 * e + 4) + 4 * B * T * N * e \
+        + 2 * (di * N + di) * 4 + (3 if carried else 1) * B * di * N * 4
+    return _bound(n_bytes, SCAN_BWD_OPS * B * T * di * N, torch.float32)
+
+
+def scan_backward_check(ops_in, dy, dh, tag):
+    """B5' on ``ops_in`` (dt, xs, Bc, Cc, A, D, h0) and cotangents (dy,
+    dh_last or None): the checkpointing twin, then exactly one launch of
+    the backward entry of the model type; its gradients against
+    ``selective_scan_backward_plain`` within ``SCAN_GRAD_TOL``, finite, a
+    second launch the same bits.  Returns (states, gradients, the largest
+    absolute error, the worst error over its tolerance)."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    dtype = ops_in[0].dtype
+    entry = f"selective_scan_backward_{sops._NAMES[dtype]}"
+    _, _, states = sops.selective_scan_ckpt(*ops_in)
+    n0 = sops.BACKWARD_KERNEL.entry_launches[entry]
+    got = sops.selective_scan_backward(*ops_in[:6], states, dy, dh)
+    torch.cuda.synchronize()
+    check(sops.BACKWARD_KERNEL.entry_launches[entry] == n0 + 1,
+          f"{tag}: {entry} did not launch")
+    check(all(torch.isfinite(g.float()).all().item() for g in got),
+          f"{tag}: non-finite gradients")
+    want = sops.selective_scan_backward_plain(*ops_in, dy, dh)
+    worst = _scan_grad_err(got, want, dtype)
+    check(worst <= 1.0, f"{tag}: gradient error {worst:.3f} x its tolerance")
+    again = sops.selective_scan_backward(*ops_in[:6], states, dy, dh)
+    torch.cuda.synchronize()
+    check(_same_bits(got, again), f"{tag}: two launches differ")
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return states, got, err, worst
+
+
+# phase 3's B5' rows: (B, T, dtype, non-zero h0 and a dh_last); di 8192,
+# N 16, Bc/Cc split views at ldbc 288 (jamba-v0.1's training shape)
+SCAN_BACKWARD_CASES = ((8, 512, torch.bfloat16, False),
+                       (8, 512, torch.float32, False),
+                       (1, 512, torch.bfloat16, False),
+                       (8, 300, torch.bfloat16, False),
+                       (8, 512, torch.bfloat16, True))
+
+
+def phase_scan_backward(timer: Timer):
+    """B5' (``selective_scan_backward.cu``; no TPU kernel: the JAX package
+    differentiates its scan through XLA) against its plain version at
+    ``SCAN_BACKWARD_CASES``, as ``mamba_forward`` trains (h0 zero, no
+    dh_last) and once with both; timed alone from the twin's states
+    against the plain version (which recomputes from h0) and the bound;
+    no one PyTorch call computes it.  Then B5's checkpointing twin at
+    the training shape: y and h_last equal the served entry's bit for
+    bit, both timed.  Returns (the training shape's bf16 row, the rows
+    by tag)."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    rows = {}
+    for B, T, dtype, carried in SCAN_BACKWARD_CASES:
+        *ops_in, _ = _scan_case(B * T + carried, B, T, 8192, 16, dtype,
+                                carried)
+        g = torch.Generator(device="cpu").manual_seed(T + B)
+        dy = torch.randn((B, T, 8192), generator=g).to("cuda")
+        dh = torch.randn((B, 8192, 16), generator=g).to("cuda") \
+            if carried else None
+        tag = (f"selective_scan_backward B={B} T={T} di=8192 N=16 "
+               f"{str(dtype)[6:]} " + ("h0 + dh_last" if carried else
+                                       "h0 = 0, no dh_last")
+               + f", Bc/Cc split views (ldbc {ops_in[2].stride(1)})")
+        states, _, err, worst = scan_backward_check(ops_in, dy, dh, tag)
+        ms = timer.ms(lambda: sops.selective_scan_backward(
+            *ops_in[:6], states, dy, dh))
+        plain_ms = timer.ms(lambda: sops.selective_scan_backward_plain(
+            *ops_in, dy, dh), iters=3, warmup=1)
+        bound = _scan_bwd_bound(ops_in[0], ops_in[2], carried)
+        row = dict(max_abs_err=err, err_over_tol=worst, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=None)
+        rows[tag] = row
+        log(f"[kernels] {tag}: max_abs_err={err:.3e}, worst error "
+            f"{worst:.3f} x its tolerance, two launches equal" + _fmt(row))
+    # the checkpointing twin beside the served entry, training's shape
+    *ops_in, _ = _scan_case(3, 8, 512, 8192, 16, torch.bfloat16, False)
+    y, h_last = sops.selective_scan(*ops_in)
+    y2, h2, states = sops.selective_scan_ckpt(*ops_in)
+    torch.cuda.synchronize()
+    tag = ("selective_scan_ckpt_bf16 B=8 T=512 di=8192 N=16, Bc/Cc split "
+           "views")
+    check(_same_bits([y, h_last], [y2, h2]),
+          f"{tag}: y/h_last differ from the served entry's")
+    served_ms = timer.ms(lambda: sops.selective_scan(*ops_in))
+    ckpt_ms = timer.ms(lambda: sops.selective_scan_ckpt(*ops_in))
+    n_bytes = sum(a.numel() * a.element_size() for a in ops_in[:2]) \
+        + 2 * 8 * 512 * 16 * 2 + (8192 * 17 + 8 * 8192 * 16) * 4 \
+        + (y.numel() + h_last.numel() + states.numel()) * 4
+    bound = _bound(n_bytes, 512 * 8 * 8192 * (7 * 16 + 3), torch.float32)
+    rows[tag] = dict(served_ms=served_ms, ms=ckpt_ms, bound_ms=bound[0],
+                     bound_by=bound[1], states_mb=states.numel() * 4 / 1e6)
+    log(f"[kernels] {tag}: y and h_last equal the served entry's bit for "
+        f"bit; {states.numel() * 4 / 1e6:.1f} MB of states "
+        f"({states.shape[1]} per row); {ckpt_ms:.4f} ms against the served "
+        f"entry's {served_ms:.4f}, bound {bound[0]:.5f} ({bound[1]})")
+    log(f"[kernels] scan backward tolerance: {SCAN_GRAD_TOL} of each "
+        f"gradient's largest magnitude (bf16 for the model-type gradients, "
+        f"f32 for dA, dD, dh0); bound: {SCAN_BWD_OPS} f32 operations a "
+        f"state value at {PEAK_OPS_PER_S[torch.float32] / 1e12:.0f} TFLOP/s "
+        f"against its bytes")
+    served = next(iter(rows.values()))
+    return served, rows
 
 
 def phase_floor(timer: Timer) -> float:
@@ -3530,8 +3707,36 @@ TRAIN_ARCHS = (
     ("deepseek-v3-671b", ("flash_attention", "flash_attention_backward",
                           "gating_topk")),
     ("whisper-tiny", ("flash_attention", "flash_attention_backward")),
-    ("xlstm-350m", ()))
+    ("xlstm-350m", ()),
+    ("jamba-v0.1-52b", ("flash_attention", "flash_attention_backward",
+                        "gating_topk", "selective_scan",
+                        "selective_scan_backward")))
 FULL_TRAIN = dict(steps=30, batch=8, seq=512)      # phase 17(b)
+# smoke configs whose free-running card and CPU runs can part by more
+# than TRAIN_RTOL at the third step whatever the kernels do: differences
+# in the last bits of the weights grow along the trajectory, so the
+# distance varies from call to call, and a card run with the plain torch
+# scan in place of B5 and B5' parts from the CPU port as a run with them
+# does (``_log_forced`` logs both, and the CPU port against itself from
+# weights moved by 1e-6 relative).  Each card step is held to the CPU
+# port's loss and grad norm at the card's own weights and batch instead,
+# every step within TRAIN_RTOL.
+FORCED_ARCHS = ("jamba-v0.1-52b",)
+
+
+def _port_metrics(model, params, batch) -> dict:
+    """The CPU port's loss and grad norm (the trainer's metrics) at
+    ``params`` on ``batch``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.training.trainer import trainable
+    from repro_torch.tree import tree_leaves, tree_map
+    p = trainable(tree_map(lambda t: t.detach().to("cpu", copy=True),
+                           params))
+    leaves = [t for t in tree_leaves(p) if t.is_floating_point()]
+    loss = model.loss(p, {k: torch.from_numpy(np.asarray(v))
+                          for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return {"loss": loss.item(), "grad_norm": global_norm(list(grads)).item()}
 
 
 def _train_batches(cfg, batch: int = 4, seq: int = 64):
@@ -3543,46 +3748,105 @@ def _train_batches(cfg, batch: int = 4, seq: int = 64):
         yield b if extra is None else dict(b, extra_embeds=extra)
 
 
+def _rel_errs(got, want):
+    return [max(abs(g[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm"))
+            for g, w in zip(got, want)]
+
+
+def _log_forced(arch, cfg, params, kw, got, want) -> None:
+    """Why ``arch`` is held step by step (``FORCED_ARCHS``), logged: how
+    far the free-running card run parts from the CPU port's; how far the
+    CPU port parts from itself from weights moved by 1e-6 relative; and
+    how far a card run with the plain torch scan in place of B5 and B5'
+    parts from the CPU port (launches not counted)."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_map
+    g = torch.Generator(device="cpu").manual_seed(1)
+    moved = tree_map(lambda t: t * (1 + 1e-6 * torch.randn(
+        t.shape, generator=g)) if t.is_floating_point() else t, params)
+    cpu_moved = Trainer(build_model(cfg, device="cpu"), device="cpu",
+                        params=moved, **kw).fit(_train_batches(cfg),
+                                                TRAIN_STEPS, log_fn=None)
+    served = sops.selective_scan
+    sops.selective_scan = lambda *a: sops.selective_scan_plain(*a, None)
+    try:
+        card_plain = Trainer(build_model(cfg, device="cuda"), params=params,
+                             **kw).fit(_train_batches(cfg), TRAIN_STEPS,
+                                       log_fn=None)
+    finally:
+        sops.selective_scan = served
+    log(f"[train] {arch} smoke: each card step held to the CPU port at the "
+        f"card's weights and batch (FORCED_ARCHS); free-running, the card "
+        f"parts from the CPU port by {_rel_errs(got, want)} (loss or grad "
+        f"norm, relative, per step), the CPU port from itself with weights "
+        f"moved by 1e-6 by {_rel_errs(cpu_moved, want)}, a card run with "
+        f"the plain torch scan for B5 and B5' from the CPU port by "
+        f"{_rel_errs(card_plain, want)}")
+
+
 def phase_train_small(kernels, acc) -> None:
     """Phase 17(a): the f32 smoke configs of smollm, dbrx (softmax router,
-    B6), deepseek-v3 (MLA, ``sigmoid_bias`` router, MTP), whisper-tiny and
-    xLSTM train ``TRAIN_STEPS`` steps from the same weights (drawn on the
-    CPU from seed 0) and batches on the card and on the CPU port: loss
-    and grad norm per step within ``TRAIN_RTOL``; on the card B2's
+    B6), deepseek-v3 (MLA, ``sigmoid_bias`` router, MTP), whisper-tiny,
+    xLSTM and jamba (8 layers: 7 mamba, 4 MoE of 4 experts) train
+    ``TRAIN_STEPS`` steps from the same weights (drawn on the CPU from
+    seed 0) and batches on the card and on the CPU port: loss and grad
+    norm per step within ``TRAIN_RTOL`` (for ``FORCED_ARCHS`` against
+    the CPU port at the card's weights of that step); on the card B2's
     forward and backward launch (B6 too for the MoE configs, nothing for
-    xLSTM).  The jamba smoke stack must raise B5's missing backward."""
+    xLSTM; for jamba also B5, only through its checkpointing twin, and
+    B5' once a mamba layer and step).  Then the jamba stack again with
+    ``build_model(cfg, remat=True)``: the twin twice a layer and step,
+    every loss equal to the plain card run's bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.training import Trainer
     kw = dict(peak_lr=1e-3, warmup=1, total_steps=TRAIN_STEPS)
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     train_kernels = ATTN_KERNELS + ("flash_attention_backward",
-                                    "gating_topk", "selective_scan")
+                                    "gating_topk", "selective_scan",
+                                    "selective_scan_backward")
     for arch, path in TRAIN_ARCHS:
         cfg = get_config(arch, smoke=True).replace(**f32)
         cpu_model = build_model(cfg, device="cpu")
         params = cpu_model.init(seed=0)
         want = Trainer(cpu_model, device="cpu", params=params, **kw).fit(
             _train_batches(cfg), TRAIN_STEPS, log_fn=None)
+        card_model = build_model(cfg, device="cuda")
+        # B5 and B5' launch once a mamba layer and step
+        n_mamba = getattr(card_model, "n_periods", 0) * sum(
+            d[0] == "mamba" for d in getattr(card_model, "period_descs", ()))
         reset(kernels)
-        got = Trainer(build_model(cfg, device="cuda"), params=params,
-                      **kw).fit(_train_batches(cfg), TRAIN_STEPS,
-                                log_fn=None)
+        card = Trainer(card_model, params=params, **kw)
+        batches, forced = _train_batches(cfg), []
+        for _, batch in zip(range(TRAIN_STEPS), _train_batches(cfg)):
+            if arch in FORCED_ARCHS:  # the port at the card's weights
+                forced.append(_port_metrics(cpu_model, card.state.params,
+                                            batch))
+            card.fit(batches, 1, log_fn=None)
+        got = card.history
         entries = {k.name: {e: n for e, n in k.entry_launches.items() if n}
                    for k in kernels if k.name in ("flash_attention",
-                                                  "flash_attention_backward")}
+                                                  "flash_attention_backward",
+                                                  "selective_scan")}
         # f32: the CUDA-core backward after the served forward, no *_lse
         check(set(entries["flash_attention_backward"])
               <= {"flash_attention_backward_f32"}
               and not any(e.endswith("_lse")
                           for e in entries["flash_attention"]),
               f"[train] {arch} smoke: entries {entries}")
+        check(entries["selective_scan"] == (
+            {"selective_scan_ckpt_f32": n_mamba * TRAIN_STEPS}
+            if n_mamba else {}), f"[train] {arch} smoke: B5 entries {entries}")
         launches = _tally(kernels, acc)
-        errs = [max(abs(g[k] - w[k]) / abs(w[k]) for k in ("loss",
-                                                          "grad_norm"))
-                for g, w in zip(got, want)]
+        check(launches["selective_scan_backward"] == n_mamba * TRAIN_STEPS,
+              f"[train] {arch} smoke: launches {launches}")
+        errs = _rel_errs(got, forced if arch in FORCED_ARCHS else want)
         check(max(errs) <= TRAIN_RTOL,
               f"[train] {arch} smoke: card vs cpu relative errors {errs}")
+        if arch in FORCED_ARCHS:
+            _log_forced(arch, cfg, params, kw, got, want)
         check(all(launches[n] > 0 for n in path)
               and all(launches[n] == 0 for n in train_kernels
                       if n not in path),
@@ -3592,20 +3856,27 @@ def phase_train_small(kernels, acc) -> None:
             f"{[round(g['loss'], 5) for g in got]} vs "
             f"{[round(w['loss'], 5) for w in want]}, largest relative error "
             f"(loss, grad norm) {max(errs):.2e} (tol {TRAIN_RTOL}); "
-            f"launches { {n: c for n, c in launches.items() if c} }; B2 "
+            f"launches { {n: c for n, c in launches.items() if c} }; B2/B5 "
             f"entries {entries}")
-    cfg = get_config("jamba-v0.1-52b", smoke=True).replace(**f32)
-    model = build_model(cfg, device="cuda")
-    try:
-        Trainer(model, params=model.init(seed=0), **kw).fit(
-            _train_batches(cfg), 1, log_fn=None)
-    except NotImplementedError as e:
-        check("A15b" in str(e), f"[train] jamba smoke raised {e!r}")
-        log(f"[train] jamba-v0.1 smoke on the card raises as it must: {e}")
-    else:
-        raise RuntimeError("[train] jamba smoke trained on the card without "
-                           "a backward for B5")
+    # the loop ends on jamba; again under remat: each period checkpointed,
+    # so its forward (and the twin) runs twice a step; B5' has no atomics,
+    # the losses must not move
+    check(arch == "jamba-v0.1-52b" and n_mamba == 7,
+          f"[train] the remat run needs jamba's smoke stack, not {arch}")
     reset(kernels)
+    remat = Trainer(build_model(cfg, device="cuda", remat=True),
+                    params=params, **kw).fit(_train_batches(cfg), TRAIN_STEPS,
+                                             log_fn=None)
+    launches = _tally(kernels, acc)
+    check(launches["selective_scan"] == 2 * n_mamba * TRAIN_STEPS
+          and launches["selective_scan_backward"] == n_mamba * TRAIN_STEPS,
+          f"[train] {arch} smoke --remat: launches {launches}")
+    check([r["loss"] for r in remat] == [g["loss"] for g in got],
+          f"[train] {arch} smoke --remat losses {remat} against {got}")
+    log(f"[train] {arch} smoke with remat: losses equal the plain card "
+        f"run's bit for bit; B5 {launches['selective_scan']} twin launches "
+        f"(twice a mamba layer and step), B5' "
+        f"{launches['selective_scan_backward']}")
 
 
 def phase_train(kernels, acc, card: str) -> None:
@@ -3732,6 +4003,159 @@ def phase_train(kernels, acc, card: str) -> None:
         f"{card}")
 
 
+JAMBA_TRAIN = dict(steps=3, batch=8, seq=512, lr=1e-2)    # phase 17(c)
+
+
+def jamba_train_step(model, params, leaves, batch, lr: float):
+    """One step of phase 17(c): ``model.loss``, the gradients of every
+    leaf, then plain SGD in place (``p.add_(g, alpha=-lr)``, no optimizer
+    state).  Returns (loss, gradients, seconds of forward and backward)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    fb = time.perf_counter() - t0
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            if g is not None:
+                p.add_(g, alpha=-lr)
+    return loss.detach(), grads, fb
+
+
+def phase_train_jamba(kernels, acc, card: str) -> None:
+    """Phase 17(c): jamba-v0.1 at full width, one period (phase 6's
+    model: 8 layers, 1 attention + 7 mamba, 4 MoE of 16 experts top-2;
+    bf16, random weights from seed 0 made on the card) trains
+    ``JAMBA_TRAIN["steps"]`` steps on 8 x 512-token ``TokenStream``
+    batches: ``model.loss``, the gradients of every leaf, plain SGD in
+    place (the port's AdamW holds ~16 bytes a parameter, ~213 GB for the
+    period's 13.30B, more than one card).  Checks: every loss and
+    gradient finite, the loss falling; B5 through its checkpointing twin
+    and B5' once a mamba layer and step, B2 (``_mma_lse``) and B2'
+    (``_bf16_mma``) once a step, B6 once a MoE layer and step.  Logged:
+    training tokens/s of forward plus backward, ms a step, peak memory;
+    a trace of one more step (busy share, B5''s share, the top device
+    operations); then layer 0's scan operands and the gradient that
+    reached its y, captured in step 0, through B5' against its plain
+    version."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import trainable
+    from repro_torch.tree import tree_leaves
+    steps, B, S, lr = (JAMBA_TRAIN[k] for k in ("steps", "batch", "seq",
+                                                "lr"))
+    t0 = time.perf_counter()
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8)
+    model = build_model(cfg, device="cuda")
+    params = trainable(model.init(seed=0))
+    leaves = [p for p in tree_leaves(params) if p.requires_grad]
+    descs = model.period_descs
+    n_mamba = model.n_periods * sum(d[0] == "mamba" for d in descs)
+    n_attn = model.n_periods * sum(d[0] == "attn" for d in descs)
+    n_moe = model.n_periods * sum(d[1] == "moe" for d in descs)
+    torch.cuda.synchronize()
+    log(f"[train-jamba] {cfg.arch_id} one period at full width ({descs}): "
+        f"{sum(p.numel() for p in leaves) / 1e9:.2f}B bf16 parameters made "
+        f"on the card in {time.perf_counter() - t0:.1f}s; {steps} steps of "
+        f"{B} x {S} tokens, SGD lr {lr}")
+    stream = TokenStream(cfg.vocab_size, S, B, seed=0)
+
+    def batch():
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in next(stream).items()}
+
+    # layer 0's scan operands and the gradient that reaches its y
+    captured = {}
+    served_scan = sops.selective_scan
+
+    def keep_dy(g):
+        captured["dy"] = g.detach()
+
+    def capture(*a):
+        out = served_scan(*a)
+        if not captured:
+            captured["ops"] = [t.detach() for t in a]
+            out[0].register_hook(keep_dy)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    losses, fb_s, step_s, unused = [], [], [], 0
+    for step in range(steps):
+        t0 = time.perf_counter()
+        sops.selective_scan = capture if step == 0 else served_scan
+        try:
+            loss, grads, fb = jamba_train_step(model, params, leaves, batch(),
+                                               lr)
+        finally:
+            sops.selective_scan = served_scan
+        finite = torch.stack([torch.isfinite(loss)] + [
+            torch.isfinite(g).all() for g in grads if g is not None]).all()
+        losses.append(loss.item())
+        check(bool(finite.item()), f"[train-jamba] step {step}: a non-finite "
+              f"loss or gradient (loss {losses[-1]})")
+        unused = sum(g is None for g in grads)
+        del grads
+        torch.cuda.synchronize()
+        fb_s.append(fb)
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served_by(kernels, "selective_scan", "selective_scan_ckpt_bf16",
+                    "train-jamba")
+    check_served_by(kernels, "flash_attention",
+                    "flash_attention_bf16_mma_lse", "train-jamba")
+    check_served_by(kernels, "flash_attention_backward",
+                    "flash_attention_backward_bf16_mma", "train-jamba")
+    launches = _tally(kernels, acc)
+    want = {"selective_scan": n_mamba, "selective_scan_backward": n_mamba,
+            "flash_attention": n_attn, "flash_attention_backward": n_attn,
+            "gating_topk": n_moe}
+    check(all(launches[n] == c * steps for n, c in want.items())
+          and all(c == 0 for n, c in launches.items() if n not in want),
+          f"[train-jamba] launches {launches}, want {want} a step")
+    check(losses[-1] < losses[0], f"[train-jamba] losses {losses}")
+    tok_s = B * S * (steps - 1) / sum(fb_s[1:])
+    log(f"[train-jamba] losses {[round(x, 4) for x in losses]} (finite, "
+        f"falling), every gradient finite ({unused} leaves the loss does "
+        f"not reach); forward + backward {[round(x * 1e3, 1) for x in fb_s]} "
+        f"ms = {tok_s:.0f} training tokens/s (steps 1-{steps - 1}), a step "
+        f"with SGD {[round(x * 1e3, 1) for x in step_s]} ms; peak memory "
+        f"{peak:.2f} GiB; launches a step "
+        f"{ {n: launches[n] // steps for n in want} }; {card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads, _ = jamba_train_step(model, params, leaves, batch(), lr)
+        del grads
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _tally(kernels, {})
+    _report_trace(prof, wall, 1, "train-jamba",
+                  f"one training step of {B} x {S} tokens (SGD)")
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    busy = sum(us for _, us in rows)
+    share = {name: sum(us for key, us in rows if pat in key)
+             for name, pat in (("B5' scan", "scan_backward_kernel"),
+                               ("B5' sum", "scan_backward_reduce"),
+                               ("B5 twin", "selective_scan_kernel"))}
+    log(f"[train-jamba] device time a step {busy / 1e3:.2f} ms: "
+        + ", ".join(f"{n} {us / 1e3:.2f} ms = {100 * us / busy:.1f}%"
+                    for n, us in share.items()) + f"; {card}")
+    # layer 0's operands through B5' against the plain version
+    ops_in, dy = captured["ops"], captured["dy"].float().contiguous()
+    tag = (f"[train-jamba] layer 0's scan operands (B={B} T={S} di "
+           f"{cfg.d_inner} N {cfg.ssm.d_state}, Bc/Cc views at ldbc "
+           f"{ops_in[2].stride(1)})")
+    _, _, err, worst = scan_backward_check(ops_in, dy, None, tag)
+    _tally(kernels, {})
+    log(f"{tag}: B5' against its plain version, max_abs_err {err:.3e}, "
+        f"worst error {worst:.3f} x its tolerance, two launches equal")
+    del params, leaves, model, captured, ops_in, dy, prof
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3755,7 +4179,8 @@ def main() -> None:
     from repro_torch.kernels.transform import ops as tops
     kernels = [dops.KERNEL, fops.KERNEL, sops.KERNEL, gops.KERNEL,
                fops.FLASH_KERNEL, dops.DENSE_KERNEL, dops.QUANT_KERNEL,
-               fops.QUANT_KERNEL, tops.KERNEL, fops.BACKWARD_KERNEL]
+               fops.QUANT_KERNEL, tops.KERNEL, fops.BACKWARD_KERNEL,
+               sops.BACKWARD_KERNEL]
     t_start = time.perf_counter()
     card = phase_device()
     phase_build(kernels)
@@ -3763,6 +4188,8 @@ def main() -> None:
     served = phase_attention(timer)
     floor_ms = phase_floor(timer)
     served["selective_scan"] = phase_scan(timer, floor_ms)
+    served["selective_scan_backward"], scan_backward_rows = \
+        phase_scan_backward(timer)
     served["gating_topk"] = phase_gating(timer, floor_ms)
     served.update(phase_dense_kernels(timer))
     mla_rows = phase_mla_kernels(timer)
@@ -3824,14 +4251,17 @@ def main() -> None:
     launches16: dict = {}
     launches17: dict = {}
     launches17a: dict = {}
+    launches17c: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
                      ("15", lambda: phase_whisper(kernels, launches15, card)),
                      ("16", lambda: phase_vlm(kernels, launches16, card)),
                      ("17", lambda: (phase_train_small(kernels, launches17a),
-                                     phase_train(kernels, launches17,
-                                                 card)))):
+                                     phase_train(kernels, launches17, card),
+                                     gc.collect(), torch.cuda.empty_cache(),
+                                     phase_train_jamba(kernels, launches17c,
+                                                       card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")
@@ -3849,9 +4279,12 @@ def main() -> None:
                 "flash_attention": launches7["flash_attention"],
                 "decode_attention": launches7["decode_attention"],
                 "fused_transform": launches9,
-                # the training path's own kernel: phase 17(b)'s run
+                # the training path's own kernels: phase 17(b)'s run, and
+                # jamba's at full width (17(c)) for B5'
                 "flash_attention_backward":
-                    launches17["flash_attention_backward"]}
+                    launches17["flash_attention_backward"],
+                "selective_scan_backward":
+                    launches17c["selective_scan_backward"]}
     launches.update({n: launches8[n] for n in QUANT_KERNELS})
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
@@ -3864,6 +4297,7 @@ def main() -> None:
                  launches_phase16=launches16.get(k.name, 0),
                  launches_phase17=launches17.get(k.name, 0),
                  launches_phase17a=launches17a.get(k.name, 0),
+                 launches_phase17c=launches17c.get(k.name, 0),
                  **served[k.name]) for k in kernels]
     for row in rows:
         if row["name"] in mla_rows:
@@ -3873,6 +4307,8 @@ def main() -> None:
             row["slice_shapes"] = slice_rows[row["name"]]
         if row["name"] == "flash_attention_backward":
             row["training_shapes"] = backward_rows
+        if row["name"] == "selective_scan_backward":
+            row["training_shapes"] = scan_backward_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,22 @@
 // (b T + t) ldbc + n, so the strided views that torch.split makes of the
 // x_proj output (B, T, dt_rank + 2N) go in as they are.
 //
-// Two entries share one body, which differs only in where a row's state
+// Three entries share one body, which differs only in where a row's state
 // comes from and goes to (the State policy):
 //   * selective_scan_*: h0 in, h_last out (RowState);
+//   * selective_scan_ckpt_* (training's forward): the same, unmasked
+//     (every row valid for all T steps), and the body's kCkpt flag also
+//     stores each row's state before steps 0, kCkptSteps, 2 kCkptSteps,
+//     ... into ckpt (B, ceil(T / kCkptSteps), di, N) f32, from which the
+//     backward (selective_scan_backward.cu) recomputes one chunk at a
+//     time.  y and h_last equal the served entry's bit for bit (the same
+//     arithmetic; the stores are extra).  kCkptSteps = 16: at jamba's
+//     training shape (B 8, T 512, di 8192, N 16) that is 134 MB a layer,
+//     written here once and read by the backward once (~0.04 ms each way
+//     at 3.35 TB/s); a state every 64 steps (34 MB) would cost the
+//     backward a second recompute pass over each chunk, one more exp per
+//     state value (~0.13 ms on the special-function units) and more than
+//     the bytes saved;
 //   * selective_scan_slab_*: the engine's pool (n_slabs, di, N), updated
 //     in place (SlabState).  Row b starts from pool[read_rows[b]] (a
 //     negative row: from zero, a sequence that starts this step) and
@@ -103,6 +116,10 @@ using kern::to_f32;
 
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
+// steps between two stored states of the checkpointing entry (a multiple
+// of every staged tile's kSteps; ssm_scan/ops.py::CKPT_STEPS and
+// selective_scan_backward.cu's kChunk)
+constexpr int kCkptSteps = 16;
 
 // which loads may go 16 bytes at a time (host-checked)
 enum : int { kVecDx = 1, kVecBc = 2, kVecState = 4 };
@@ -174,6 +191,20 @@ __device__ __forceinline__ void load_quad(const float* row, int n0, int N,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     o[i] = row != nullptr && n0 + i < N ? row[n0 + i] : 0.f;
+}
+
+// Store a lane's state quad to row (f32, N values), 16 bytes at once
+// where the flag allows.
+__device__ __forceinline__ void store_quad(float* row, int n0, int N,
+                                           bool vec, const float* h) {
+  if (vec) {
+    if (n0 < N) *reinterpret_cast<float4*>(row + n0) =
+        make_float4(h[0], h[1], h[2], h[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n0 + i < N) row[n0 + i] = h[i];
+  }
 }
 
 // Stage steps [row0, row0 + nt) of this block's dt / x columns and of
@@ -269,7 +300,7 @@ template <int L> __device__ __forceinline__ float lane_sum(const float* p) {
   }
 }
 
-template <typename T, int L, typename State>
+template <typename T, int L, typename State, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
                       const T* __restrict__ x,       // (B, T, di)
@@ -280,6 +311,7 @@ selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
                       State state,
                       const int* __restrict__ t_valid,  // (B,)
                       float* __restrict__ y,            // (B, T, di)
+                      float* __restrict__ ckpt,  // kCkpt: (B, n_ckpt, di, N)
                       int n_steps, int di, int N, int ldbc, int flags) {
   using S = Smem<T, L>;
   constexpr int kCh = S::kCh, kNP = S::kNP, kSteps = S::kSteps;
@@ -309,11 +341,18 @@ selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
   for (int i = 0; i < 4; ++i) a[i] *= kLog2e;
   for (int i = threadIdx.x; i < kCh; i += kThreads)
     s.dd[i] = d0 + i < di ? D[d0 + i] : 0.f;
-  const int tv = t_valid[b];
+  const int tv = kCkpt ? n_steps : t_valid[b];
 
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = it * kSteps, nt = min(kSteps, n_steps - t0);
     const int buf = it & 1;
+    if constexpr (kCkpt) {  // the state before step t0
+      if (live && t0 % kCkptSteps == 0) {
+        const size_t n_ckpt = (n_steps + kCkptSteps - 1) / kCkptSteps;
+        store_quad(ckpt + ((b * n_ckpt + t0 / kCkptSteps) * di + d) * N,
+                   4 * q, N, vec, h);
+      }
+    }
     if (it + 1 < n_tiles) {
       stage<T, L>(s, buf ^ 1, dt, x, Bc, Cc, row0 + t0 + kSteps,
                   min(kSteps, n_steps - t0 - kSteps), di, d0, N, ldbc, flags);
@@ -351,41 +390,34 @@ selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
 
   float* dst = state.dst(b, slab);
   if (!live || dst == nullptr) return;
-  float* out = dst + (size_t)d * N + 4 * q;
-  if (vec) {
-    if (4 * q < N) *reinterpret_cast<float4*>(out) =
-        make_float4(h[0], h[1], h[2], h[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (4 * q + i < N) out[i] = h[i];
-  }
+  store_quad(dst + (size_t)d * N, 4 * q, N, vec, h);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <typename T, int L, typename State>
+template <typename T, int L, bool kCkpt, typename State>
 int launch_l(const void* dt, const void* x, const void* Bc, const void* Cc,
              const void* A, const void* D, State state, const void* t_valid,
-             void* y, int B, int n_steps, int di, int N, int ldbc, int flags,
-             void* stream) {
+             void* y, void* ckpt, int B, int n_steps, int di, int N,
+             int ldbc, int flags, void* stream) {
   constexpr int kCh = Smem<T, L>::kCh;
   const dim3 grid((di + kCh - 1) / kCh, B);
-  selective_scan_kernel<T, L, State>
+  selective_scan_kernel<T, L, State, kCkpt>
       <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
           (const T*)dt, (const T*)x, (const T*)Bc, (const T*)Cc,
           (const float*)A, (const float*)D, state, (const int*)t_valid,
-          (float*)y, n_steps, di, N, ldbc, flags);
+          (float*)y, (float*)ckpt, n_steps, di, N, ldbc, flags);
   return (int)cudaGetLastError();
 }
 
 // state_in / state_out: the f32 state arrays the State reads and writes
-// (for the 16-byte state flag)
-template <typename T, typename State>
+// (for the 16-byte state flag); ckpt: the stored states (kCkpt) or null
+template <typename T, bool kCkpt = false, typename State>
 int launch(const void* dt, const void* x, const void* Bc, const void* Cc,
            const void* A, const void* D, State state, const void* state_in,
            const void* state_out, const void* t_valid, void* y, int B,
-           int n_steps, int di, int N, int ldbc, void* stream) {
+           int n_steps, int di, int N, int ldbc, void* stream,
+           void* ckpt = nullptr) {
   if (N < 1 || N > 16 || ldbc < N || B < 1 || di < 1 || n_steps < 0)
     return (int)cudaErrorInvalidValue;
   const int L = N <= 4 ? 1 : N <= 8 ? 2 : 4;
@@ -396,18 +428,21 @@ int launch(const void* dt, const void* x, const void* Bc, const void* Cc,
       ldbc % per == 0)
     flags |= kVecBc;
   if (N % 4 == 0 && aligned16(A) && aligned16(state_in) &&
-      aligned16(state_out))
+      aligned16(state_out) && (ckpt == nullptr || aligned16(ckpt)))
     flags |= kVecState;
   switch (L) {
     case 1:
-      return launch_l<T, 1>(dt, x, Bc, Cc, A, D, state, t_valid, y, B,
-                            n_steps, di, N, ldbc, flags, stream);
+      return launch_l<T, 1, kCkpt>(dt, x, Bc, Cc, A, D, state, t_valid, y,
+                                   ckpt, B, n_steps, di, N, ldbc, flags,
+                                   stream);
     case 2:
-      return launch_l<T, 2>(dt, x, Bc, Cc, A, D, state, t_valid, y, B,
-                            n_steps, di, N, ldbc, flags, stream);
+      return launch_l<T, 2, kCkpt>(dt, x, Bc, Cc, A, D, state, t_valid, y,
+                                   ckpt, B, n_steps, di, N, ldbc, flags,
+                                   stream);
     default:
-      return launch_l<T, 4>(dt, x, Bc, Cc, A, D, state, t_valid, y, B,
-                            n_steps, di, N, ldbc, flags, stream);
+      return launch_l<T, 4, kCkpt>(dt, x, Bc, Cc, A, D, state, t_valid, y,
+                                   ckpt, B, n_steps, di, N, ldbc, flags,
+                                   stream);
   }
 }
 
@@ -437,7 +472,20 @@ int launch(const void* dt, const void* x, const void* Bc, const void* Cc,
                      n_steps, di, N, ldbc, stream);                         \
   }
 
+#define SELECTIVE_SCAN_CKPT_ENTRY(NAME, T)                                  \
+  extern "C" int NAME(const void* dt, const void* x, const void* Bc,       \
+                      const void* Cc, const void* A, const void* D,        \
+                      const void* h0, void* y, void* h_last, void* ckpt,   \
+                      int B, int n_steps, int di, int N, int ldbc,          \
+                      void* stream) {                                       \
+    const RowState st{(const float*)h0, (float*)h_last};                    \
+    return launch<T, true>(dt, x, Bc, Cc, A, D, st, h0, h_last, nullptr,   \
+                           y, B, n_steps, di, N, ldbc, stream, ckpt);       \
+  }
+
 SELECTIVE_SCAN_ENTRY(selective_scan_f32, float)
 SELECTIVE_SCAN_ENTRY(selective_scan_bf16, __nv_bfloat16)
 SELECTIVE_SCAN_SLAB_ENTRY(selective_scan_slab_f32, float)
 SELECTIVE_SCAN_SLAB_ENTRY(selective_scan_slab_bf16, __nv_bfloat16)
+SELECTIVE_SCAN_CKPT_ENTRY(selective_scan_ckpt_f32, float)
+SELECTIVE_SCAN_CKPT_ENTRY(selective_scan_ckpt_bf16, __nv_bfloat16)

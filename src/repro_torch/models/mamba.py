@@ -93,13 +93,11 @@ def selective_scan(dt, Bc, Cc, xs, A, D, h0=None):
     (B,S,di); Bc, Cc: (B,S,N); A: (di,N).  Returns (y in xs's type,
     h_last (B,di,N) f32).  The plain version (the tests' oracle for the
     kernel's cold-start case)."""
-    B, S, di = xs.shape
+    B, _, di = xs.shape
     if h0 is None:
         h0 = torch.zeros((B, di, Bc.shape[-1]), dtype=torch.float32,
                          device=xs.device)
-    t_valid = torch.full((B,), S, dtype=torch.int32, device=xs.device)
-    y, h_last = scan_ops.selective_scan_plain(dt, xs, Bc, Cc, A, D, h0,
-                                              t_valid)
+    y, h_last = scan_ops.selective_scan_plain(dt, xs, Bc, Cc, A, D, h0, None)
     return y.to(xs.dtype), h_last
 
 
@@ -108,9 +106,9 @@ def mamba_forward(p, cfg: ModelConfig, x):
     ssm_state)): the last d_conv-1 pre-conv inputs seed the decode conv
     window, the scan's final state (f32) the SSM state.  The scan is the
     selective-scan kernel's cold-start case (``h0`` zero, every row
-    valid for all S tokens)."""
+    valid for all S tokens), and differentiable: training runs it."""
     dc = cfg.ssm.d_conv
-    B, S, _ = x.shape
+    B = x.shape[0]
     xz = mm(x, p["in_proj"])
     xs, z = torch.chunk(xz, 2, dim=-1)
     conv_tail = xs[:, -(dc - 1):, :]                            # decode seed
@@ -119,11 +117,10 @@ def mamba_forward(p, cfg: ModelConfig, x):
     A = -torch.exp(p["A_log"])
     h0 = torch.zeros((B, cfg.d_inner, cfg.ssm.d_state), dtype=torch.float32,
                      device=x.device)
-    t_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    # Bc/Cc go in as torch.split views of the x_proj output (the kernel
-    # takes their row stride)
-    y, h_last = scan_ops.selective_scan(dt, xs, Bc, Cc, A, p["D"], h0,
-                                        t_valid)
+    # the unmasked scan, differentiable (B5' on the card); Bc/Cc go in as
+    # torch.split views of the x_proj output (the kernel takes their row
+    # stride)
+    y, h_last = scan_ops.selective_scan(dt, xs, Bc, Cc, A, p["D"], h0)
     y = y.to(xs.dtype) * F.silu(z)
     return mm(y, p["out_proj"]), (conv_tail, h_last)
 

@@ -1,5 +1,6 @@
-"""The port's attention kernels and its fused transform (B7) against
-the JAX reference and their plain versions.
+"""The port's attention kernels, its fused transform (B7) and the
+selective scan's backward (B5') against the JAX reference and their
+plain versions.
 
 On the CPU the kernel wrappers run their plain PyTorch versions, which
 must equal the reference's Pallas kernels (interpret mode) and its
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.ssm_scan import ops as sops
 from repro_torch.kernels.transform import ops as tops
 
 ATOL_F32 = 1e-5
@@ -1171,3 +1173,120 @@ def test_flash_backward_rejects_unsupported_operands():
     with pytest.raises(ValueError, match="contiguous"):
         fops.check_backward_operands(q, k, v.transpose(1, 2).contiguous()
                                      .transpose(1, 2), q, q, True, 0)
+
+
+# -- the selective scan's backward (B5') and its checkpointing forward --------
+
+# each gradient's largest error over its largest magnitude: f32, the
+# kernel's ex2.approx and fused multiply-adds against torch's exp, and its
+# sums over steps, lanes and channel blocks in another order; bf16
+# gradients (d_dt, d_xs, d_Bc, d_Cc in the model type), one bf16 ulp of
+# the largest (2^-8) besides
+_SCAN_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+
+
+def _scan_grad_case(seed, B, T, di, N, dtype, device, dtr=7):
+    """Scan operands as a Mamba layer makes them (dt from a softplus,
+    A < 0, Bc/Cc split views of one (B, T, dtr + 2N) projection, a
+    non-zero h0) and cotangents dy, dh_last."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dt = torch.nn.functional.softplus(f(B, T, di)).to(device, dtype)
+    xs = f(B, T, di).to(device, dtype)
+    proj = torch.cat([torch.zeros((B, T, dtr)), f(B, T, N), f(B, T, N)],
+                     dim=-1).to(device, dtype)
+    Bc, Cc = torch.split(proj, [dtr, N, N], dim=-1)[1:]
+    A = (-torch.exp(f(di, N) * 0.5)).to(device)
+    D, h0 = f(di).to(device), f(B, di, N).to(device)
+    return (dt, xs, Bc, Cc, A, D, h0), f(B, T, di).to(device), \
+        f(B, di, N).to(device)
+
+
+def _scan_grad_errs(got, want):
+    return [(g.float() - w.float()).abs().max().item()
+            / max(w.float().abs().max().item(), 1e-30)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,T,di,N", [
+    (2, 37, 200, 16), (1, 64, 256, 16), (3, 16, 203, 8), (2, 5, 96, 3),
+    (4, 300, 512, 16), (8, 512, 1024, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_backward_kernel_matches_plain(cuda, B, T, di, N, dtype):
+    """B5' from the checkpointing twin's states against
+    ``selective_scan_backward_plain``: T not a multiple of the 16-step
+    chunk (37, 5, 300), odd di (203), B = 1, N < 16 (the 2- and 1-lane
+    channels), a non-zero h0 with an incoming dh_last and, once, without
+    one; Bc/Cc as split views; each gradient within the tolerance of its
+    largest magnitude, in its input's type; two launches the same bits."""
+    ops_in, dy, dh = _scan_grad_case(T + di, B, T, di, N, dtype, cuda)
+    n0, b0 = sops.KERNEL.launches, sops.BACKWARD_KERNEL.launches
+    _, _, states = sops.selective_scan_ckpt(*ops_in)
+    got = sops.selective_scan_backward(*ops_in[:6], states, dy, dh)
+    again = sops.selective_scan_backward(*ops_in[:6], states, dy, dh)
+    no_dh = sops.selective_scan_backward(*ops_in[:6], states, dy, None)
+    torch.cuda.synchronize()
+    assert sops.KERNEL.launches == n0 + 1
+    assert sops.BACKWARD_KERNEL.launches == b0 + 3
+    assert [g.dtype for g in got] == [dtype] * 4 + [torch.float32] * 3
+    assert all(g.is_contiguous() for g in got)
+    for kern, cot in ((got, dh), (no_dh, None)):
+        want = sops.selective_scan_backward_plain(*ops_in, dy, cot)
+        errs = _scan_grad_errs(kern, want)
+        tols = [_SCAN_GRAD_TOL[dtype]] * 4 \
+            + [_SCAN_GRAD_TOL[torch.float32]] * 3
+        assert all(e <= t for e, t in zip(errs, tols)), errs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,T,di,N", [(2, 37, 200, 16), (3, 16, 203, 8),
+                                      (8, 512, 1024, 16), (2, 5, 96, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_ckpt_entry_matches_served_entry_bitwise(cuda, B, T, di, N,
+                                                      dtype):
+    """The checkpointing twin's y and h_last equal the served entry's bit
+    for bit; its stored states are h0 and the plain scan's states at
+    steps 16, 32, ... within the scan's tolerance."""
+    ops_in, _, _ = _scan_grad_case(T + di + 1, B, T, di, N, dtype, cuda)
+    entry = f"selective_scan_ckpt_{sops._NAMES[dtype]}"
+    e0 = sops.KERNEL.entry_launches[entry]
+    y, h_last = sops.selective_scan(*ops_in)
+    y2, h2, states = sops.selective_scan_ckpt(*ops_in)
+    torch.cuda.synchronize()
+    assert sops.KERNEL.entry_launches[entry] == e0 + 1
+    assert torch.equal(y, y2) and torch.equal(h_last, h2)
+    assert states.shape == (B, -(-T // sops.CKPT_STEPS), di, N)
+    assert torch.equal(states[:, 0], ops_in[6])
+    for c in range(1, states.shape[1]):
+        t = c * sops.CKPT_STEPS
+        _, want = sops.selective_scan_plain(*(a[:, :t] for a in ops_in[:4]),
+                                            *ops_in[4:], None)
+        assert (states[:, c] - want).abs().max().item() <= 1e-4
+
+
+def test_scan_autograd_runs_the_twin_and_b5_backward(cuda):
+    """``selective_scan`` under autograd on the card: the checkpointing
+    twin once, B5' once, the gradients B5''s; no served entry.  The
+    masked call and the slab entry raise under autograd."""
+    ops_in, dy, dh = _scan_grad_case(5, 2, 40, 256, 16, torch.bfloat16, cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in ops_in]
+    before = dict(sops.KERNEL.entry_launches)
+    b0 = sops.BACKWARD_KERNEL.launches
+    y, h_last = sops.selective_scan(*leaves)
+    got = torch.autograd.grad((y, h_last), leaves, (dy, dh))
+    torch.cuda.synchronize()
+    ran = {e: n - before[e] for e, n in sops.KERNEL.entry_launches.items()
+           if n != before[e]}
+    assert ran == {"selective_scan_ckpt_bf16": 1}
+    assert sops.BACKWARD_KERNEL.launches == b0 + 1
+    _, _, states = sops.selective_scan_ckpt(*ops_in)
+    want = sops.selective_scan_backward(*ops_in[:6], states, dy, dh)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    t_valid = torch.full((2,), 40, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="unmasked"):
+        sops.selective_scan(*leaves, t_valid)
+    pool = torch.zeros((2, 256, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="not differentiable"):
+        sops.selective_scan_slab(*leaves[:6], pool, None, None, t_valid)
