@@ -285,6 +285,37 @@ result line):
                  tokens/s, ms a step, peak memory, a trace of one step
                  (B5''s share), and layer 0's scan operands, captured in
                  the step, through B5' against its plain version.
+ 18. tensor-parallel serving — the paged engine over a two-rank mesh on
+                 the one card (``make_serving_mesh(2, ["cuda:0"] * 2)``:
+                 one thread per rank, the same SMs).  (a) The launcher's
+                 four f32 families (transformer, mamba, xlstm, hybrid):
+                 the mesh's greedy tokens equal the card's ``mesh=None``
+                 engine's and the CPU port's two-rank mesh's; every rank
+                 launches K1/K2 (attention families) and B5 (mamba
+                 families).  (b) smollm-360m at full width (32 layers, d
+                 960, 15/5 heads split 9/3 and 6/2, vocab 49152), f32
+                 weights over an f32 pool (phase 8's model), 8 requests of
+                 512 tokens and 32 new: the greedy tokens equal
+                 ``mesh=None``'s and every logit is within
+                 ``MESH_F32_TOL`` of the largest; then the same at bf16
+                 over a bf16 pool through K1/K2's ``_mma``-served entries:
+                 first-step logits within ``MESH_BF16_TOL`` of the
+                 largest, the share of equal tokens logged.  Each rank's
+                 launches by C entry, tok/s, peak memory, per-rank weight
+                 and pool bytes.  (c) jamba-v0.1, one period at full width
+                 (phase 6's model), 4 x 128 tokens, 16 new, mesh 2, B6 (8
+                 experts a rank) on each rank: its bf16 weights computing
+                 in f32 (B5's f32 slab entry at d_inner 4096, K2's
+                 ``_tf32``): tokens equal, logits within ``MESH_F32_TOL``
+                 of the largest; then in bf16 (B5's bf16 slab entry, K1/K2
+                 at 16/4 heads, 8/2 a rank) with every expert tied to
+                 expert 0 and capacity factor 8 (dropless), so that a
+                 route flipped by rounding moves no output: first-step
+                 logits within ``MESH_BF16_TOL`` of the largest, the
+                 share of equal tokens logged.  In (b) and (c) every
+                 rank launches each kernel, C entry by C entry, as often
+                 as the engine without a mesh.  Then
+                 ``launch.serve --smoke --mesh 1`` on the card.
 Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
 forward entry and no checkpointing scan: every reset of the launch counts
 checks it.
@@ -300,13 +331,15 @@ launches from phase 17(b), ``training_shapes`` its phase-3 rows (with
 the ``*_lse`` forward rows under ``lse_entries``); B5's backward: its
 launches from phase 17(c), ``training_shapes`` its phase-3 rows and the
 twin's; ``launches_phase17``/``_phase17a``/``_phase17c`` every kernel's
-in 17(b)/(a)/(c)); then
+in 17(b)/(a)/(c); ``launches_phase18`` every kernel's in phase 18's
+mesh runs, ``launches_phase18_by_rank`` the same per rank); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib
 import json
@@ -370,6 +403,18 @@ REPLACES = {
         "src/repro/kernels/flash_attention/kernel.py:67",
     # B5's gradient (B5'), likewise left to XLA by the JAX package
     "selective_scan_backward": "src/repro/kernels/ssm_scan/kernel.py:53"}
+# phase 18: a two-rank mesh against no mesh, logits as a share of the
+# largest logit.  f32: the ranks' partial sums add in another order than
+# one device's matmul (rounding only); bf16: the partials are rounded to
+# bf16 before they are summed, and a served step holds bf16 activations.
+# jamba in bf16: at random weights its router is near uniform over 16
+# experts, so bf16 rounding flips top-2 routes (each flip a jump; the
+# engine without a mesh parts from itself by 7.2e-1 between prefill
+# chunks of 16 and 32, PERF.md); its bf16 run ties every expert to expert
+# 0 and drops nothing, so that a flipped route moves no output, and the
+# model's own experts are checked computing in f32
+MESH_F32_TOL = 1e-4
+MESH_BF16_TOL = 5e-2
 # the kernels only training launches, and the training entries of the
 # others (*_lse forwards, B5's checkpointing twin)
 BACKWARD_KERNELS = ("flash_attention_backward", "selective_scan_backward")
@@ -4156,6 +4201,294 @@ def phase_train_jamba(kernels, acc, card: str) -> None:
     del params, leaves, model, captured, ops_in, dy, prof
 
 
+# -- phase 18 -------------------------------------------------------------------
+
+def _rank_launches(kernels) -> dict:
+    """{kernel: {rank: {C entry: launches}}} since the last reset."""
+    out: dict = {}
+    for k in kernels:
+        for (r, e), n in sorted(k.rank_launches.items()):
+            out.setdefault(k.name, {}).setdefault(r, {})[e] = n
+    return out
+
+
+def _tally_ranks(kernels, acc, by_rank) -> None:
+    """Add this run's launches to ``acc`` and, per rank, to ``by_rank``
+    (phase 18's totals)."""
+    for k in kernels:
+        acc[k.name] = acc.get(k.name, 0) + k.launches
+    for name, ranks in _rank_launches(kernels).items():
+        for r, entries in ranks.items():
+            by_rank.setdefault(name, {}).setdefault(r, 0)
+            by_rank[name][r] += sum(entries.values())
+
+
+def _check_each_rank(kernels, names, n_ranks: int, tag: str) -> dict:
+    by_rank = _rank_launches(kernels)
+    for name in names:
+        got = by_rank.get(name, {})
+        check(all(sum(got.get(r, {}).values()) > 0 for r in range(n_ranks)),
+              f"[{tag}] {name} did not launch on every rank: {got}")
+    log(f"[{tag}] launches by rank and C entry: {by_rank}")
+    return by_rank
+
+
+def _one_device_launches(kernels, names, tag: str) -> dict:
+    """{kernel: {C entry: launches}} of the engine without a mesh since
+    the last reset, logged."""
+    out = {k.name: {e: n for e, n in k.entry_launches.items() if n}
+           for k in kernels if k.name in names}
+    log(f"[{tag}] without a mesh, launches by C entry: {out}")
+    return out
+
+
+def _check_as_one_device(by_rank, one: dict, tag: str) -> None:
+    """Every rank launched each kernel, entry by entry, as often as the
+    engine without a mesh did (the same steps, each rank on its shard)."""
+    for name, entries in one.items():
+        check(all(by_rank.get(name, {}).get(r) == entries for r in (0, 1)),
+              f"[{tag}] {name}: ranks {by_rank.get(name)} vs one device "
+              f"{entries}")
+
+
+def _serve_traced(eng, prompts):
+    """Serve ``prompts`` direct on a fresh engine; returns ({rid:
+    tokens}, wall s)."""
+    t0 = time.perf_counter()
+    res = eng.serve(prompts, timeout_s=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.status == "ok" for r in res),
+          f"mesh serve: {[r.status for r in res]}")
+    return {r.request_id: np.asarray(r.tokens) for r in res}, wall
+
+
+def _logit_gap(a_trace, b_trace, first_only: bool):
+    """Largest |logit difference| over two engines' logit traces (the
+    first step of each request, or every step), and the largest |logit|."""
+    gap = top = 0.0
+    for rid, ta in a_trace.items():
+        tb = b_trace[rid]
+        for x, y in list(zip(ta, tb))[:1 if first_only else None]:
+            gap = max(gap, float(np.abs(x - y).max()))
+            top = max(top, float(np.abs(x).max()))
+    return gap, top
+
+
+def _bytes(tree) -> int:
+    return sum(a.numel() * a.element_size() for a in _leaves(tree))
+
+
+def phase_mesh_small(kernels, acc, by_rank) -> None:
+    """18(a): the launcher's four f32 families over a two-rank mesh on
+    the card, against the card without a mesh and the CPU port's
+    two-rank mesh."""
+    from repro_torch import bridge
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import FAMILY_CONFIGS
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    kw = dict(batch_size=2, capacity=64, max_new_tokens=8, block_size=4,
+              prefill_chunk=4)
+    for family, cfg in FAMILY_CONFIGS.items():
+        rng = np.random.default_rng(18)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (4, 12, 6, 11, 8)]
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(seed=0)
+        want = ServeEngine(cpu_model, cpu_params, device="cpu",
+                           mesh=make_serving_mesh(2, ["cpu"] * 2),
+                           **kw).serve(prompts)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = bridge.to_torch(cpu_params, "cuda")
+        single = ServeEngine(gpu_model, gpu_params, device="cuda",
+                             **kw).serve(prompts)
+        reset(kernels)
+        eng = ServeEngine(gpu_model, gpu_params,
+                          mesh=make_serving_mesh(2, ["cuda:0"] * 2), **kw)
+        got = eng.serve(prompts)
+        torch.cuda.synchronize()
+        for a, b, c in zip(want, single, got):
+            check(c.status == "ok", f"[mesh {family}] {c.status}")
+            check(np.array_equal(a.tokens, c.tokens)
+                  and np.array_equal(b.tokens, c.tokens),
+                  f"[mesh {family}] request {c.request_id}: cpu mesh "
+                  f"{a.tokens}, card {b.tokens}, card mesh {c.tokens}")
+        path = {"transformer": PAGED_KERNELS, "mamba": ("selective_scan",),
+                "xlstm": (), "hybrid": PAGED_KERNELS + ("selective_scan",)}
+        _check_each_rank(kernels, path[family], 2, f"mesh {family}")
+        _tally_ranks(kernels, acc, by_rank)
+        log(f"[mesh] {family}: {len(prompts)} requests, two-rank mesh "
+            "tokens on the card == the card without a mesh == the CPU "
+            "port's two-rank mesh")
+
+
+def phase_mesh(kernels, acc, by_rank, card: str) -> None:
+    """18(b) and (c): smollm-360m at full width, f32 then bf16, and one
+    jamba-v0.1 period, each over a two-rank mesh on the card against
+    the engine without a mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    mesh = make_serving_mesh(2, ["cuda:0"] * 2)
+
+    # (b) smollm-360m, f32 then bf16
+    rng = np.random.default_rng(18)
+    kw = dict(batch_size=8, capacity=512 + 32 + 8, max_new_tokens=32,
+              prefill_chunk=32, block_size=16, burst=8, trace_logits=True)
+    for dt, tol in (("f32", MESH_F32_TOL), ("bf16", MESH_BF16_TOL)):
+        cfg = get_config("smollm-360m")
+        if dt == "f32":
+            cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        model = build_model(cfg, device="cuda")
+        params = model.init(seed=0)
+        prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+                   for _ in range(8)]
+        tag = f"mesh smollm {dt}"
+        reset(kernels)
+        ref = ServeEngine(model, params, kv_dtype=dt, device="cuda", **kw)
+        want, wall0 = _serve_traced(ref, prompts)
+        one = _one_device_launches(kernels, PAGED_KERNELS, tag)
+        ref_trace, ref_pool = ref.logit_trace, _bytes(ref._paged_cache)
+        del ref
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        eng = ServeEngine(model, params, kv_dtype=dt, mesh=mesh, **kw)
+        got, wall = _serve_traced(eng, prompts)
+        ranks = _check_each_rank(kernels, PAGED_KERNELS, 2, tag)
+        _check_as_one_device(ranks, one, tag)
+        if dt == "bf16":
+            for name, entry in (("paged_prefill_attention",
+                                 "paged_prefill_attention_bf16_bf16_mma"),
+                                ("paged_decode_attention",
+                                 "paged_decode_attention_bf16_bf16")):
+                check(all(set(ranks[name][r]) == {entry} for r in (0, 1)),
+                      f"[{tag}] {name} entries {ranks[name]}")
+        _tally_ranks(kernels, acc, by_rank)
+        gap, top = _logit_gap(ref_trace, eng.logit_trace,
+                              first_only=(dt == "bf16"))
+        total = sum(len(t) for t in got.values())
+        agree = sum(int((got[i] == want[i]).sum()) for i in want)
+        check(gap <= tol * top, f"[{tag}] logits differ by {gap:.3e}, "
+              f"{gap / top:.2e} of the largest |logit| {top:.2f} > {tol}")
+        if dt == "f32":
+            check(agree == total, f"[{tag}] {agree}/{total} tokens equal")
+        w_rank = [_bytes(p) for p in eng.params]
+        pool_rank = [_bytes(c) for c in eng._paged_cache]
+        log(f"[{tag}] {card}: smollm-360m full width (32 layers, d 960, "
+            f"heads 9/3 and 6/2 a rank, vocab 49152 split), 8 x 512-token "
+            f"prompts, 32 new: mesh 2 {total / wall:.1f} tok/s vs "
+            f"{total / wall0:.1f} without a mesh (direct; the two ranks "
+            f"share the card's SMs); logits "
+            f"{'first step' if dt == 'bf16' else 'every step'} within "
+            f"{gap:.3e} = {gap / top:.2e} of the largest |logit| "
+            f"{top:.2f} (gate {tol}); greedy tokens equal "
+            f"{agree}/{total} ({100 * agree / total:.1f}%"
+            f"{'' if dt == 'f32' else ', logged, not gated'}); peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"weights per rank {[round(b / 2**20, 1) for b in w_rank]} MiB "
+            f"of {_bytes(params) / 2**20:.1f}, pool per rank "
+            f"{[round(b / 2**20, 1) for b in pool_rank]} MiB of "
+            f"{ref_pool / 2**20:.1f}")
+        del eng, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) jamba-v0.1, one period at full width: its bf16 weights computing
+    # in f32 (routes and all: tokens equal), then in bf16 with every
+    # expert a copy of expert 0 and no capacity drops, so that a top-2
+    # route flipped by bf16 rounding moves no output (MESH_BF16_TOL)
+    t0 = time.perf_counter()
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8)
+    params = build_model(cfg, device="cuda").init(seed=0)
+    whole = _bytes(params)
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+               for _ in range(4)]
+    kw = dict(batch_size=4, capacity=128 + 16 + 8, max_new_tokens=16,
+              prefill_chunk=32, block_size=16, burst=8, num_state_slots=4,
+              trace_logits=True)
+    # capacity per expert ceil(32 * 2 / 16 * 8) = 32 = the chunk: dropless
+    dropless = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                   capacity_factor=8.0))
+    for compute, kv, scan, run_cfg in (
+            ("float32", "f32", "selective_scan_slab_f32", cfg),
+            ("bfloat16", "bf16", "selective_scan_slab_bf16", dropless)):
+        f32 = kv == "f32"
+        if not f32:
+            with torch.no_grad():
+                for sub in params["blocks"].values():
+                    for name in ("w_gate", "w_up", "w_down"):
+                        if "moe" in sub:
+                            w = sub["moe"][name]    # (periods, E, ...)
+                            w[:, 1:].copy_(w[:, :1].expand_as(w[:, 1:]))
+        model = build_model(run_cfg.replace(compute_dtype=compute),
+                            device="cuda")
+        tag = f"mesh jamba {kv}"
+        reset(kernels)
+        ref = ServeEngine(model, params, kv_dtype=kv, device="cuda", **kw)
+        want, wall0 = _serve_traced(ref, prompts)
+        paths = PAGED_KERNELS + ("selective_scan", "gating_topk")
+        one = _one_device_launches(kernels, paths, tag)
+        ref_trace = ref.logit_trace
+        del ref
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        eng = ServeEngine(model, params, kv_dtype=kv, mesh=mesh, **kw)
+        got, wall = _serve_traced(eng, prompts)
+        ranks = _check_each_rank(kernels, paths, 2, tag)
+        _check_as_one_device(ranks, one, tag)
+        check(all(set(ranks["selective_scan"][r]) == {scan} for r in (0, 1)),
+              f"[{tag}] B5 entries {ranks['selective_scan']}")
+        check([c.d_inner for c in eng.model.rank_cfgs] == [4096, 4096]
+              and [p["blocks"]["s1"]["moe"]["w_up"].shape[1]
+                   for p in eng.params] == [8, 8],
+              f"[{tag}] rank shapes: d_inner "
+              f"{[c.d_inner for c in eng.model.rank_cfgs]}")
+        _tally_ranks(kernels, acc, by_rank)
+        gap, top = _logit_gap(ref_trace, eng.logit_trace, first_only=not f32)
+        total = sum(len(t) for t in got.values())
+        agree = sum(int((got[i] == want[i]).sum()) for i in want)
+        check(np.isfinite(gap) and all(
+            0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+            for t in got.values()), f"[{tag}] logits or tokens out of range")
+        tol = MESH_F32_TOL if f32 else MESH_BF16_TOL
+        check(gap <= tol * top and (agree == total or not f32),
+              f"[{tag}] {agree}/{total} tokens equal; logits differ by "
+              f"{gap:.3e} = {gap / top:.2e} of the largest |logit| > {tol}")
+        log(f"[{tag}] {card}: one period (8 layers), bf16 weights, "
+            f"{compute} compute"
+            f"{'' if f32 else ', experts tied to expert 0, dropless'}, "
+            f"d_inner 4096 and 8 of 16 experts a rank, 4 x 128-token "
+            f"prompts, 16 new: mesh 2 {total / wall:.1f} tok/s vs "
+            f"{total / wall0:.1f} without a mesh; logits "
+            f"{'every step' if f32 else 'first step'} within {gap:.3e} = "
+            f"{gap / top:.2e} of the largest |logit| {top:.2f} (gate "
+            f"{tol}); tokens equal {agree}/{total}"
+            f"{'' if f32 else ' (logged, not gated)'}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; weights "
+            f"per rank {[round(_bytes(p) / 2**30, 2) for p in eng.params]} "
+            f"GiB of {whole / 2**30:.2f}")
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh jamba] phase (c) {time.perf_counter() - t0:.1f}s")
+
+    # the launcher over a one-device mesh
+    out = serve.main(["--smoke", "--mesh", "1", "--requests", "4",
+                      "--batch", "2", "--max-new", "4", "--direct"])
+    check(out["n_results"] == 4 and out["engine"].model.mesh.size == 1,
+          f"launch.serve --mesh 1: {out['n_results']} results")
+    log("[mesh] launch.serve --smoke --mesh 1 served 4 requests on the card")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4252,6 +4585,8 @@ def main() -> None:
     launches17: dict = {}
     launches17a: dict = {}
     launches17c: dict = {}
+    launches18: dict = {}
+    launches18r: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
@@ -4261,7 +4596,11 @@ def main() -> None:
                                      phase_train(kernels, launches17, card),
                                      gc.collect(), torch.cuda.empty_cache(),
                                      phase_train_jamba(kernels, launches17c,
-                                                       card)))):
+                                                       card))),
+                     ("18", lambda: (phase_mesh_small(kernels, launches18,
+                                                      launches18r),
+                                     phase_mesh(kernels, launches18,
+                                                launches18r, card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")
@@ -4298,6 +4637,10 @@ def main() -> None:
                  launches_phase17=launches17.get(k.name, 0),
                  launches_phase17a=launches17a.get(k.name, 0),
                  launches_phase17c=launches17c.get(k.name, 0),
+                 launches_phase18=launches18.get(k.name, 0),
+                 launches_phase18_by_rank={
+                     str(r): n for r, n in launches18r.get(k.name,
+                                                           {}).items()},
                  **served[k.name]) for k in kernels]
     for row in rows:
         if row["name"] in mla_rows:

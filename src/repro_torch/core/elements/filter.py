@@ -7,6 +7,24 @@ The NNFW sub-plugin structure of the paper maps to *backends*:
                  accelerator-delegation analogue): numpy inputs are
                  uploaded, outputs come back as numpy arrays (bf16 as
                  f32: numpy has no bf16)
+  * ``torch-sharded`` — the same over a ``mesh=`` (the reference's
+                 ``jax-sharded``): a registry model (``ModelForward``)
+                 runs its ``apply`` with its weights sharded over the
+                 ranks (``sharding.ShardedModel``).  Any other callable
+                 runs once per rank on its share of the inputs, each
+                 split along the axis its ``in_shardings`` spec names
+                 "model" (whole where it names none), and its outputs
+                 are joined along the axis ``out_shardings`` names —
+                 ``shard_map``'s per-shard semantics, not ``jit``'s
+                 global ones (a difference ``models/sharding.py``
+                 lists): the callable
+                 must treat the split axis's rows independently, and
+                 where an input is split every output must name the axis
+                 its rows join along (else ``ValueError``).  With no
+                 input split it runs once, whole, on the first rank.  A
+                 spec is a tuple of axis names or None per dimension, as
+                 a ``PartitionSpec``; one spec stands for every input or
+                 output.
 
 A filter is resolved either from a direct ``fn`` or from the model
 registry (``model="glm4-9b:smoke"``, built on the filter's ``device``),
@@ -46,8 +64,9 @@ def bucket_for(n: int, max_batch: int) -> int:
 class TensorFilter(Element):
     def __init__(self, name: str, fn: Optional[Callable] = None,
                  model: Optional[str] = None, framework: str = "python",
-                 device=None, outputs_meta_key: Optional[str] = None, max_batch: int = 8,
-                 pass_meta: bool = False):
+                 device=None, mesh=None, in_shardings=None,
+                 out_shardings=None, outputs_meta_key: Optional[str] = None,
+                 max_batch: int = 8, pass_meta: bool = False):
         super().__init__(name)
         if pass_meta and framework != "python":
             raise ValueError(
@@ -60,7 +79,19 @@ class TensorFilter(Element):
         self.model_name = model
         self._raw_fn = fn
         self._device = device
+        self._mesh = mesh
+        self._in_shardings = in_shardings
+        self._out_shardings = out_shardings
+        if framework == "torch-sharded" and mesh is None:
+            raise ValueError(f"{name}: framework 'torch-sharded' needs mesh=")
+        if framework != "torch-sharded" and (
+                mesh is not None or in_shardings is not None
+                or out_shardings is not None):
+            raise ValueError(f"{name}: mesh=/in_shardings=/out_shardings= "
+                             "need framework 'torch-sharded'")
         self._compiled: Optional[Callable] = None
+        if framework == "torch-sharded":
+            self._resolve()     # place the weights, refuse bad shardings
         self.outputs_meta_key = outputs_meta_key
         self.max_batch = int(max_batch)
         # latency stats (paper Table II rows 3-5)
@@ -78,11 +109,16 @@ class TensorFilter(Element):
             if self.model_name is None:
                 raise ValueError(f"{self.name}: TensorFilter needs fn= or model=")
             from ...registry import get_model
-            fn = get_model(self.model_name, self._device)
+            fn = get_model(self.model_name, self._device
+                           if self.framework != "torch-sharded"
+                           else self._mesh.devices[0])
         if self.framework == "python":
             self._compiled = fn
         elif self.framework == "torch":
             self._compiled = _torch_backend(fn, self._device)
+        elif self.framework == "torch-sharded":
+            self._compiled = _sharded_backend(
+                fn, self._mesh, self._in_shardings, self._out_shardings)
         else:
             raise ValueError(f"unknown TensorFilter framework {self.framework!r}")
         return self._compiled
@@ -160,6 +196,84 @@ def _to_numpy(t) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+def _model_axis(spec) -> Optional[int]:
+    """The dimension a spec puts on "model" (None: whole)."""
+    for i, a in enumerate(spec or ()):
+        if a == "model" or (isinstance(a, tuple) and "model" in a):
+            return i
+    return None
+
+
+def _one_spec(shardings) -> bool:
+    """Whether ``shardings`` is one spec for every array (None or a
+    tuple of axis names) rather than a sequence of specs."""
+    return shardings is None or (isinstance(shardings, tuple) and all(
+        a is None or isinstance(a, str) for a in shardings))
+
+
+def _all_specs(shardings) -> List[Optional[int]]:
+    """The split axis of every spec ``shardings`` holds."""
+    return [_model_axis(shardings)] if _one_spec(shardings) else [
+        _model_axis(s) for s in shardings]
+
+
+def _specs(shardings, n: int) -> List[Optional[int]]:
+    """One split axis per array: ``shardings`` is one spec for all of
+    them or a sequence of specs."""
+    axes = _all_specs(shardings)
+    if _one_spec(shardings):
+        return axes * n
+    if len(axes) != n:
+        raise ValueError(f"{len(axes)} shardings for {n} arrays")
+    return axes
+
+
+def _sharded_backend(fn: Callable, mesh, in_shardings,
+                     out_shardings) -> Callable:
+    """``torch-sharded``: numpy in, numpy out, over the mesh's ranks
+    (see the module docstring)."""
+    import torch
+    from ...models import sharding
+    from ...registry import ModelForward
+    devices = tuple(sharding.normalize_device(d) for d in mesh.devices)
+    n = len(devices)
+    if isinstance(fn, ModelForward):
+        model = sharding.ShardedModel(fn.model, mesh)
+        shards = model.shard(fn.params)
+
+        def call(*args):
+            return model.apply(shards, *args)
+    elif all(ax is None for ax in _all_specs(in_shardings)):
+        # nothing split: the shardings only place whole arrays
+        call = fn
+    elif None in _all_specs(out_shardings):
+        raise ValueError(
+            f"torch-sharded: in_shardings={in_shardings!r} splits an input, "
+            f"so fn runs per rank on its slice (shard_map's semantics, not "
+            f"jit's), and out_shardings must name the axis every output's "
+            f"rows join along; got out_shardings={out_shardings!r}")
+    else:
+        def call(*args):
+            axes = _specs(in_shardings, len(args))
+
+            def one(r):
+                local = []
+                for a, ax in zip(args, axes):
+                    if ax is not None:
+                        lo, hi = sharding.ranges(a.shape[ax], n)[r]
+                        a = a.narrow(ax, lo, hi - lo)
+                    local.append(a.to(devices[r]))
+                return fn(*local)
+            outs = sharding.run_ranks(one, devices)
+            single = not isinstance(outs[0], (tuple, list))
+            per = [[o] if single else list(o) for o in outs]
+            oaxes = _specs(out_shardings, len(per[0]))
+            joined = [torch.cat([p[i].to(devices[0]) for p in per], dim=ax)
+                      for i, ax in enumerate(oaxes)]
+            return joined[0] if single else tuple(joined)
+    return _torch_backend(call, devices[0])
 
 
 def _torch_backend(fn: Callable, device) -> Callable:

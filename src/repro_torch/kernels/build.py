@@ -16,6 +16,7 @@ at import time: this module imports on machines without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -92,12 +93,29 @@ def build(name: str, source: Path) -> Path:
     return out
 
 
+_RANK = threading.local()
+
+
+@contextlib.contextmanager
+def launch_rank(rank: int):
+    """Count the calling thread's launches under tensor-parallel rank
+    ``rank`` as well (``CudaKernel.rank_launches``)."""
+    _RANK.rank = rank
+    try:
+        yield
+    finally:
+        del _RANK.rank
+
+
 class CudaKernel:
     """One kernel library: built and loaded at first use, its C entries
     bound with ``ctypes``.  ``launches`` counts launches that the runtime
     accepted — the count a run reads to show it went through the
     kernel — and ``entry_launches`` the same per C entry, which shows
-    which of a library's bodies served a run."""
+    which of a library's bodies served a run; ``rank_launches`` counts
+    them per (tensor-parallel rank, C entry) for launches made inside
+    ``launch_rank``.  The counts are kept under a lock: ranks launch
+    from threads of their own."""
 
     def __init__(self, name: str, source: Path,
                  entries: Dict[str, Sequence]):
@@ -106,9 +124,11 @@ class CudaKernel:
         self.entries = dict(entries)
         self.launches = 0
         self.entry_launches = dict.fromkeys(self.entries, 0)
+        self.rank_launches: Dict[tuple, int] = {}
         self.library_path: Path | None = None
         self._lib = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
@@ -132,12 +152,19 @@ class CudaKernel:
             msg = lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: {entry} failed to launch: "
                                f"CUDA error {rc} ({msg})")
-        self.launches += 1
-        self.entry_launches[entry] += 1
+        rank = getattr(_RANK, "rank", None)
+        with self._count_lock:
+            self.launches += 1
+            self.entry_launches[entry] += 1
+            if rank is not None:
+                key = (rank, entry)
+                self.rank_launches[key] = self.rank_launches.get(key, 0) + 1
 
     def reset_launches(self) -> None:
-        self.launches = 0
-        self.entry_launches = dict.fromkeys(self.entries, 0)
+        with self._count_lock:
+            self.launches = 0
+            self.entry_launches = dict.fromkeys(self.entries, 0)
+            self.rank_launches = {}
 
 
 def load_all(kernels: Iterable[CudaKernel]) -> List[Path]:

@@ -31,6 +31,10 @@ are random, drawn from seed 0.
         --temperature 0.8 --top-k 50 --seed 0  # seeded sampling
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --spec-k 4                   # speculative decoding, tiny draft
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 2                     # tensor-parallel, two CPU ranks
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --kv-dtype bf16 --mesh 2     # over the first two GPUs
 
 With ``--listen PORT`` the engine serves over TCP behind the
 tensor-query elements (``serving/net.py``); with ``--smoke`` a loopback
@@ -183,8 +187,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "client gets a terminal frame and the process "
                          "exits 0")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
-                    help="tensor-parallel over N devices (not ported yet, "
-                         "ROADMAP A17)")
+                    help="tensor-parallel serving over a (1, N) data x "
+                         "model mesh (paged mode only): the first N CUDA "
+                         "devices, or N ranks on --device when it is named "
+                         "(--device cpu simulates N ranks on the CPU)")
     ap.add_argument("--retain-cap", type=int, default=None,
                     help="cap on retained (prefix-reusable) free blocks")
     ap.add_argument("--retain-ttl-s", type=float, default=None,
@@ -336,6 +342,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         print(f"speculative decoding: K={args.spec_k}, draft "
               f"{dcfg.arch_id} ({dcfg.n_layers}L d{dcfg.d_model})")
     tri = {"auto": None, "on": True, "off": False}
+    mesh = None
+    if args.mesh is not None:
+        import torch
+        from .mesh import make_serving_mesh
+        mesh = make_serving_mesh(
+            model=args.mesh, devices=None if args.device is None
+            else [args.device] * args.mesh)
+        print(f"serving over mesh {mesh.shape} on "
+              f"{[str(d) for d in mesh.devices]} "
+              f"({torch.cuda.device_count()} CUDA device(s) visible)")
     engine = ServeEngine(model, params, batch_size=args.batch,
                          capacity=args.prompt_len + args.max_new + 8,
                          max_new_tokens=args.max_new,
@@ -347,7 +363,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          num_state_slots=args.num_state_slots,
                          burst=args.burst, temperature=args.temperature,
                          top_k=args.top_k, seed=args.seed,
-                         mesh=args.mesh, retain_cap=args.retain_cap,
+                         mesh=mesh, retain_cap=args.retain_cap,
                          retain_ttl_s=args.retain_ttl_s,
                          draft_model=draft_model, draft_params=draft_params,
                          spec_k=args.spec_k, kv_dtype=args.kv_dtype,

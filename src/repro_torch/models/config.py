@@ -37,6 +37,8 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     dt_rank: int = 0               # 0 = ceil(d_model/16)
+    d_inner: int = 0               # 0 = expand * d_model; a tensor-
+    #                                parallel rank pins its share
     # xlstm [arXiv:2405.04517]
     slstm_every: int = 0           # pattern period for sLSTM blocks; 0 = none
 
@@ -100,7 +102,9 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
-        return self.ssm.expand * self.d_model if self.ssm else 0
+        if self.ssm is None:
+            return 0
+        return self.ssm.d_inner or self.ssm.expand * self.d_model
 
     def is_attn_layer(self, i: int) -> bool:
         """Hybrid interleave: True if layer i is attention (else SSM)."""

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ops as scan_ops
+from . import sharding as S
 from .common import dense_init, mm
 from .config import ModelConfig
 
@@ -69,9 +70,11 @@ def _softplus(x):
 
 
 def _ssm_inputs(p, cfg: ModelConfig, xs):
-    """xs: (B,S,di) post-conv.  Returns dt (B,S,di), Bc, Cc (B,S,N)."""
+    """xs: (B,S,di) post-conv.  Returns dt (B,S,di), Bc, Cc (B,S,N).
+    ``x_proj`` is row-parallel under tensor parallelism: its (dt_rank +
+    2N) output is summed over the ranks before dt, B and C are cut."""
     N, dtr = cfg.ssm.d_state, cfg.dt_rank
-    proj = mm(xs, p["x_proj"])
+    proj = S.all_reduce(mm(xs, p["x_proj"]))
     dt_in, Bc, Cc = torch.split(proj, [dtr, N, N], dim=-1)
     dt = _softplus(mm(dt_in, p["dt_proj"]) + p["dt_bias"])
     return dt, Bc, Cc

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gating import ops as gating_ops
+from . import sharding
 from .common import dense_init
 from .config import ModelConfig, MoEConfig
 from .mlp import mlp_forward, mlp_params
@@ -160,7 +161,17 @@ def moe_forward(p, cfg: ModelConfig, x, *,
     C = int(np.ceil(S * k / E * cf))
     C = max(min(C, S), 1)
     xe, slot, keep = _dispatch(x, idx, E, C)
-    ye = _expert_ffn(xe, p)                                  # (B,E,C,d)
+    if p["w_gate"].shape[0] < E:
+        # expert-parallel: this rank runs its experts' rows of the global
+        # dispatch (routing and capacity are the whole batch's, so the
+        # same assignments drop) and combines a partial the caller sums
+        g = sharding.current()
+        e0, e1 = sharding.ranges(E, g.size)[g.rank]
+        mine = _expert_ffn(xe[:, e0:e1], p)
+        ye = mine.new_zeros(xe.shape)
+        ye[:, e0:e1] = mine
+    else:
+        ye = _expert_ffn(xe, p)                              # (B,E,C,d)
     y = _combine(ye, slot, keep, w, S)
     if m.n_shared:
         y = y + mlp_forward(p["shared"], "swiglu", x)

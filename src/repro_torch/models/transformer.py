@@ -36,6 +36,7 @@ import torch.utils.checkpoint
 
 from . import attention as A
 from . import mamba as M
+from . import sharding as S
 from . import xlstm as X
 from .common import (dense_init, dtype_of, embed_init, make_norm, mm,
                      resolve_device)
@@ -194,8 +195,9 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
     h = norm(p["norm1"], x)
     block = desc[0]
     if block == "attn":
+        # a tensor-parallel rank without q heads adds a zero partial
         y = A.gqa_paged_step(p["attn"], cfg, h, state, page_table, lengths,
-                             index)
+                             index) if cfg.n_heads else torch.zeros_like(h)
     elif block == "mamba":
         rows, fresh, read, write = slabs
         conv = torch.where(fresh, 0, state["conv"][rows])
@@ -212,7 +214,15 @@ def _paged_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, page_table,
         y, new = step(p[block], cfg, h, carry, t_valid)
         for k, a in zip(keys, new):
             state[k].index_copy_(0, write, a.to(state[k].dtype))
-    return _mlp_residual(p, cfg, desc, x + y)
+    return _mlp_residual(p, cfg, desc, x + _reduce(block, y))
+
+
+def _reduce(block: str, y):
+    """A block's output summed over the tensor-parallel ranks: a
+    row-parallel projection leaves each rank a partial sum; the
+    replicated blocks (``sharding.REPLICATED_BLOCKS``) are whole.  The
+    identity without a mesh."""
+    return y if block in S.REPLICATED_BLOCKS else S.all_reduce(y)
 
 
 def _mlp_residual(p, cfg: ModelConfig, desc: Desc, x):
@@ -223,9 +233,9 @@ def _mlp_residual(p, cfg: ModelConfig, desc: Desc, x):
     _, norm = make_norm(cfg.norm)
     h = norm(p["norm2"], x)
     if desc[1] == "dense":
-        return x + mlp_forward(p["mlp"], cfg.mlp_act, h)
+        return x + S.all_reduce(mlp_forward(p["mlp"], cfg.mlp_act, h))
     y, _ = moe_forward(p["moe"], cfg, h)
-    return x + y
+    return x + S.all_reduce(y)
 
 
 def _apply_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions):
@@ -237,7 +247,8 @@ def _apply_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions):
     h = norm(p["norm1"], x)
     block = desc[0]
     if block == "attn":
-        y = A.gqa_forward(p["attn"], cfg, h, positions)
+        y = (A.gqa_forward(p["attn"], cfg, h, positions) if cfg.n_heads
+             else torch.zeros_like(h))
     elif block == "mla":
         y = A.mla_forward(p["attn"], cfg, h, positions)
     elif block == "mamba":
@@ -245,11 +256,11 @@ def _apply_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions):
     else:
         forward = X.mlstm_forward if block == "mlstm" else X.slstm_forward
         y, _ = forward(p[block], cfg, h)
-    x = x + y
+    x = x + _reduce(block, y)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if desc[1] == "moe":
         y, aux = moe_forward(p["moe"], cfg, norm(p["norm2"], x))
-        return x + y, aux
+        return x + S.all_reduce(y), aux
     return _mlp_residual(p, cfg, desc, x), aux
 
 
@@ -288,7 +299,11 @@ def _prefill_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions, *,
     h = norm(p["norm1"], x)
     block = desc[0]
     if block == "attn":
-        y, (k, v) = A.gqa_prefill(p["attn"], cfg, h, positions)
+        if cfg.n_heads:
+            y, (k, v) = A.gqa_prefill(p["attn"], cfg, h, positions)
+        else:   # a tensor-parallel rank without heads: a zero partial
+            y = torch.zeros_like(h)
+            k = v = h.new_zeros(h.shape[:2] + (0, cfg.resolved_head_dim))
         w = cfg.sliding_window
         cap = min(capacity, w) if w else capacity
         state = {"k": _seed_cache(k, cap, cache_dtype, w),
@@ -304,7 +319,7 @@ def _prefill_sublayer(p, cfg: ModelConfig, desc: Desc, x, positions, *,
         forward = X.mlstm_forward if block == "mlstm" else X.slstm_forward
         y, carry = forward(p[block], cfg, h)
         state = dict(zip(X.STATE_LEAVES[block], carry))
-    return _mlp_residual(p, cfg, desc, x + y), state
+    return _mlp_residual(p, cfg, desc, x + _reduce(block, y)), state
 
 
 def _seed_cache(seq_kv, capacity: int, dtype, window: int):
@@ -336,7 +351,8 @@ def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int,
     h = norm(p["norm1"], x)
     block = desc[0]
     if block == "attn":
-        y, _, _ = A.gqa_decode(p["attn"], cfg, h, state["k"], state["v"], pos)
+        y = (A.gqa_decode(p["attn"], cfg, h, state["k"], state["v"], pos)[0]
+             if cfg.n_heads else torch.zeros_like(h))
     elif block == "mla":
         y, _, _ = A.mla_decode(p["attn"], cfg, h, state["c"], state["kr"],
                                pos, absorb=mla_absorb)
@@ -351,7 +367,7 @@ def _decode_sublayer(p, cfg: ModelConfig, desc: Desc, x, state, pos: int,
         y, new = decode(p[block], cfg, h, tuple(state[k] for k in keys))
         for k, a in zip(keys, new):
             state[k].copy_(a)
-    return _mlp_residual(p, cfg, desc, x + y)
+    return _mlp_residual(p, cfg, desc, x + _reduce(block, y))
 
 
 def _index(tree, i: int):
@@ -431,8 +447,18 @@ class TransformerLM:
     def _embed(self, params, tokens, extra_embeds=None):
         """Token embeddings in the compute type; ``extra_embeds`` (B, n,
         d), the modality stub's patch embeddings, overwrite the first n
-        positions."""
-        x = params["embed"][tokens.long()].to(dtype_of(self.cfg.compute_dtype))
+        positions.  A tensor-parallel rank that holds a vocab range looks
+        up its own tokens, zeros elsewhere, and the ranks' rows are summed
+        (one rank adds each row: the sum is exact)."""
+        table = params["embed"]
+        V = table.shape[0]
+        if V < self.cfg.vocab_size:
+            local = tokens.long() - S.current().rank * V
+            ok = (local >= 0) & (local < V)
+            x = torch.where(ok[..., None], table[local.clamp(0, V - 1)], 0)
+            x = S.all_reduce(x.to(dtype_of(self.cfg.compute_dtype)))
+        else:
+            x = table[tokens.long()].to(dtype_of(self.cfg.compute_dtype))
         if extra_embeds is not None:
             n = extra_embeds.shape[1]
             x = torch.cat([extra_embeds.to(x.dtype), x[:, n:]], dim=1)
@@ -443,7 +469,11 @@ class TransformerLM:
         _, norm = make_norm(cfg.norm)
         h = norm(params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return h @ w.to(h.dtype)
+        logits = h @ w.to(h.dtype)
+        if w.shape[1] < cfg.vocab_size:
+            # a vocab-parallel head: the ranks' columns, gathered whole
+            logits = S.all_gather(logits, dim=-1)
+        return logits
 
     # -- full-sequence forward ---------------------------------------------
     def _period(self, pp, x, aux, positions):
@@ -737,8 +767,15 @@ class TransformerLM:
             put(cache["blocks"][f"s{j}"], payload["blocks"][f"s{j}"], d, 1)
         return cache
 
+    def paged_block_size(self, cache) -> Optional[int]:
+        """The block size of the pool's attention layers (None without
+        attention)."""
+        stores = cache.get("prefix", []) + list(cache["blocks"].values())
+        return next((st["k"].shape[-3] for st in stores if "k" in st), None)
+
     def paged_step(self, params, cache, tokens, page_table, lengths, t_valid,
-                   state_slots=None, *, all_logits: bool = False):
+                   state_slots=None, *, all_logits: bool = False,
+                   index=None):
         """Advance each slot by up to T tokens through the paged cache.
 
         tokens: (B,T) int32; page_table: (B,P) int32; lengths: (B,)
@@ -750,19 +787,20 @@ class TransformerLM:
         mix phases.  The cache is updated in place.  Returns (logits
         (B,V) at each slot's last valid token, cache) — or (logits
         (B,T,V) at every position, cache) under ``all_logits`` (rows past
-        ``t_valid`` are garbage).
+        ``t_valid`` are garbage).  ``index``: the step's
+        ``paged_write_index``, when the caller has it (a tensor-parallel
+        step computes it once per device for every rank).
         """
         if state_slots is None:
             state_slots = torch.arange(tokens.shape[0], dtype=torch.int32,
                                        device=tokens.device)
         cfg = self.cfg
-        stores = cache.get("prefix", []) + list(cache["blocks"].values())
-        block_size = next((st["k"].shape[-3] for st in stores if "k" in st),
-                          None)
+        block_size = self.paged_block_size(cache)
         # every attention layer writes through one index, so the step
         # pays its selection's host sync once, not once per layer
-        index = (None if block_size is None else A.paged_write_index(
-            page_table, lengths, t_valid, tokens.shape[1], block_size))
+        if index is None and block_size is not None:
+            index = A.paged_write_index(page_table, lengths, t_valid,
+                                        tokens.shape[1], block_size)
         # and every recurrent layer addresses its slabs through one set of
         # rows; the dump row is the last of the slab axis, axis 1 behind
         # the layer axis (recurrent blocks are periodic: ``layer_pattern``)

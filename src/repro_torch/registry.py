@@ -43,32 +43,41 @@ def get_model(name: str, device=None) -> Callable:
     raise ValueError(f"unknown model {name!r}; registered: {sorted(_MODELS)}")
 
 
+class ModelForward:
+    """A port model's full-sequence forward on fixed weights:
+    ``forward(tokens, *extra) -> (logits, aux)`` under
+    ``torch.inference_mode()`` (``extra``: the frames or patches).  It
+    keeps ``model`` and ``params``, so the ``torch-sharded`` filter can
+    shard them over a mesh."""
+
+    def __init__(self, model, params):
+        self.model = model
+        self.params = params
+
+    def __call__(self, tokens, *extra):
+        import torch
+        with torch.inference_mode():
+            return self.model.apply(self.params, tokens, *extra)
+
+
 def _try_lazy_load(name: str, device: str) -> Optional[Callable]:
-    """Resolve "<arch>:smoke" to the forward of the reduced config on
-    ``device``: ``forward(tokens, *extra) -> (logits, aux)`` under
-    ``torch.inference_mode()`` (``extra``: the frames or patches).  The
-    random weights are ``init(seed=0)``'s on the CPU, moved to
-    ``device``: the same numbers on every device (a CUDA generator draws
-    others)."""
+    """Resolve "<arch>:smoke" to the ``ModelForward`` of the reduced
+    config on ``device``.  The random weights are ``init(seed=0)``'s on
+    the CPU, moved to ``device``: the same numbers on every device (a
+    CUDA generator draws others)."""
     arch = name[: -len(":smoke")]
     from .configs import get_config
     try:
         cfg = get_config(arch, smoke=True)
     except KeyError:
         return None
-    import torch
     from . import bridge
     from .models import build_model
 
     model = build_model(cfg, device=device)
     params = bridge.to_torch(build_model(cfg, device="cpu").init(seed=0),
                              device)
-
-    def forward(tokens, *extra):
-        with torch.inference_mode():
-            return model.apply(params, tokens, *extra)
-
-    return forward
+    return ModelForward(model, params)
 
 
 register_model("identity", lambda *xs: xs if len(xs) > 1 else xs[0])

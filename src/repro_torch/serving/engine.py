@@ -122,8 +122,18 @@ as every M-RoPE model), and refuses the encoder-decoder with a
 ``ValueError`` (``check_continuous``), whose requests the reference
 fails.
 
-Not ported yet: ``mesh=`` (A17) raises ``NotImplementedError``.  In
-dense mode ``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
+**Tensor parallelism** — ``mesh=`` (a ``launch.mesh.make_serving_mesh``)
+serves the paged engine over N ranks, one per mesh device: the model
+becomes a ``sharding.ShardedModel``, its weights and pool lists with one
+shard per rank (heads, FFN, ``d_inner``, experts and vocab split;
+xLSTM whole), each step runs every rank on its own thread through the
+kernels at the rank's shapes, and the logits come back whole to the
+sampler on rank 0's device.  Scheduling, page tables, slot state and
+spills are the engine's as without a mesh, so the tokens are the
+single-device engine's.  ``kv_bytes_per_block`` and the slab bytes count
+one device's share.  ``spec_k`` and int8 KV under a mesh raise
+``NotImplementedError`` as in the reference.  In dense mode
+``share_prefix``, ``spec_k``, int8 KV and ``mesh=`` raise the
 reference's ``ValueError``: they need the block pool.
 """
 from __future__ import annotations
@@ -139,6 +149,7 @@ import torch
 from .. import bridge
 from ..models.common import dtype_of, resolve_device
 from ..models.encdec import EncDecLM
+from ..models.sharding import ShardedModel, normalize_device
 from .kv_cache import (ROOT_DIGEST, SPEC_STATE_KEYS, BlockAllocator,
                        CacheFullError, DeviceSlotState, StateStore,
                        chain_digest)
@@ -358,16 +369,26 @@ class ServeEngine:
         if self._spec:
             _check_speculative(model, draft_model, draft_params, mesh,
                                prefill_chunk, share_prefix)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: multi-device serving is not ported yet (ROADMAP A17)")
         if burst < 1:
             raise ValueError(f"burst must be >= 1, got {burst}")
-        self.device = resolve_device(device)
-        for role, m in (("model", model), ("draft model", draft_model)):
-            if m is not None and m.device != self.device:
-                raise ValueError(f"{role} lives on {m.device}, engine on "
-                                 f"{self.device}: build both on one device")
+        # tensor-parallel serving over a mesh: the model becomes one rank
+        # model per mesh device (sharding.ShardedModel), whose weights and
+        # pools are lists with one entry per rank; the engine, its slot
+        # state and its sampler live on rank 0's device
+        self.mesh = mesh
+        if mesh is not None:
+            model = ShardedModel(model, mesh)
+            if device is not None and normalize_device(device) != model.device:
+                raise ValueError(f"mesh= runs rank 0 on {model.device}, "
+                                 f"not on the engine's device {device}")
+            self.device = model.device
+        else:
+            self.device = resolve_device(device)
+            for role, m in (("model", model), ("draft model", draft_model)):
+                if m is not None and m.device != self.device:
+                    raise ValueError(f"{role} lives on {m.device}, engine on "
+                                     f"{self.device}: build both on one "
+                                     "device")
         if kv_dtype in _KV_DTYPES:
             cache_dtype = _KV_DTYPES[kv_dtype]
         compute = dtype_of(model.cfg.compute_dtype)
@@ -394,7 +415,7 @@ class ServeEngine:
                 "a bf16 model with an f32 KV pool is not supported: pass "
                 "kv_dtype='bf16'")
         self.model = model
-        self.params = params
+        self.params = model.shard(params) if mesh is not None else params
         self.batch_size = batch_size
         self.capacity = capacity
         self.max_new_tokens = max_new_tokens
@@ -653,14 +674,16 @@ class ServeEngine:
             return self.model.state_slab_bytes(
                 self.num_state_slots, self.cache_dtype) \
                 // self.allocator.num_blocks
+        # under a mesh, one device's share: the rank with most KV heads
+        n_kv = max(c.n_kv_heads for c in self.model.rank_cfgs) \
+            if self.mesh is not None else cfg.n_kv_heads
         hd = cfg.resolved_head_dim
         if self.kv_dtype == "int8":
             row = 2 * hd + 2 * 4              # int8 K, V + two f32 scales
         else:
             row = 2 * hd * torch.empty(
                 (), dtype=self.cache_dtype).element_size()
-        return (self.model.n_attn_layers() * self.block_size
-                * cfg.n_kv_heads * row)
+        return self.model.n_attn_layers() * self.block_size * n_kv * row
 
     def pool_stats(self) -> Optional[Dict[str, Any]]:
         """Block-pool occupancy incl. shared vs private split, plus

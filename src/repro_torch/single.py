@@ -9,10 +9,16 @@ Run one model with a unified interface, no pipeline required::
     single = SingleShot(model="smollm-360m:smoke", framework="torch")
     logits, aux = single.invoke(tokens)      # numpy in, numpy out
 
-Backends as ``TensorFilter``'s: ``python`` (any callable) and ``torch``
+    mesh = make_serving_mesh(model=2, devices=["cpu", "cpu"])
+    single = SingleShot(model="smollm-360m:smoke",
+                        framework="torch-sharded", mesh=mesh)
+
+Backends as ``TensorFilter``'s: ``python`` (any callable), ``torch``
 (numpy inputs uploaded to ``device``, ``cuda`` unless named; numpy
-outputs).  Multi-device placement (``mesh=`` and the shardings) is not
-ported yet (ROADMAP A17).
+outputs) and ``torch-sharded`` (the same over ``mesh=``: a registry
+model's weights sharded over the ranks, or a callable run per rank on
+the inputs ``in_shardings`` split, its outputs joined as
+``out_shardings`` say).
 """
 from __future__ import annotations
 
@@ -20,23 +26,20 @@ from typing import Any, Optional
 
 from .core.elements.filter import TensorFilter
 
-FRAMEWORKS = ("python", "torch")
+FRAMEWORKS = ("python", "torch", "torch-sharded")
 
 
 class SingleShot:
     def __init__(self, model: Optional[str] = None, fn=None,
                  framework: str = "python", device=None, mesh=None,
                  in_shardings=None, out_shardings=None):
-        if mesh is not None or in_shardings is not None \
-                or out_shardings is not None:
-            raise NotImplementedError(
-                "SingleShot mesh=/in_shardings=/out_shardings=: multi-device "
-                "placement is not ported yet (ROADMAP A17)")
         if framework not in FRAMEWORKS:
             raise ValueError(f"unknown SingleShot framework {framework!r}; "
                              f"the port has {FRAMEWORKS}")
         self._filter = TensorFilter("single", fn=fn, model=model,
-                                    framework=framework, device=device)
+                                    framework=framework, device=device,
+                                    mesh=mesh, in_shardings=in_shardings,
+                                    out_shardings=out_shardings)
 
     def invoke(self, *inputs: Any) -> Any:
         out = self._filter.invoke(inputs)

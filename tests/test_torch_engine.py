@@ -17,6 +17,7 @@ from repro.models import build_model as jax_build_model
 from repro.serving import ServeEngine as JaxEngine
 from repro_torch import bridge
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import build_model
 from repro_torch.serving import ServeEngine
 
@@ -107,13 +108,27 @@ def test_bf16_model_with_f32_pool_raises(pair):
     # dense mode refuses
     ({"paged": False, "share_prefix": True}, ValueError,
      "share_prefix=True requires paged mode"),
-    ({"mesh": object()}, NotImplementedError, "A17"),
     ({"paged": False, "kv_dtype": "int8"}, ValueError,
      "int8' requires paged mode")])
 def test_unsupported_options_raise(pair, kw, exc, item):
     _, _, tm, tp = pair
     with pytest.raises(exc, match=item):
         ServeEngine(tm, tp, device="cpu", **kw)
+
+
+def test_mesh_serves_the_single_device_tokens(pair):
+    """``mesh=`` is ported: two CPU ranks serve the tokens of the engine
+    without a mesh (``test_torch_mesh_serving.py`` holds it to the
+    reference across families, sizes, forks and preemption)."""
+    _, _, tm, tp = pair
+    prompts = _prompts(5, (5, 9, 7))
+    kw = dict(batch_size=2, capacity=24, max_new_tokens=4, block_size=4)
+    ref = ServeEngine(tm, tp, device="cpu", **kw).serve(prompts)
+    eng = ServeEngine(tm, tp, device="cpu", **kw,
+                      mesh=make_serving_mesh(model=2, devices=["cpu"] * 2))
+    got = eng.serve(prompts)
+    assert [list(r.tokens) for r in got] == [list(r.tokens) for r in ref]
+    assert len(eng.params) == 2 and eng.model.mesh.size == 2
 
 
 def test_unsupported_lane_family_and_listen_raise(pair):

@@ -15,6 +15,7 @@ import torch
 from repro_torch import registry
 from repro_torch.configs import get_config
 from repro_torch.core.elements.filter import TensorFilter
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import build_model
 from repro_torch.single import SingleShot
 
@@ -86,9 +87,17 @@ def test_singleshot_fn_backends_and_refusals():
     assert SingleShot(model="identity").invoke(np.ones(2)).shape == (2,)
     with pytest.raises(ValueError, match="framework 'jax'"):
         SingleShot(fn=lambda x: x, framework="jax")
-    for kw in ({"mesh": object()}, {"in_shardings": object()},
-               {"out_shardings": object()}):
-        with pytest.raises(NotImplementedError, match="A17"):
+    # mesh= and the shardings run on the torch-sharded backend: the rows
+    # split over two CPU ranks and joined give the unsharded result
+    mesh = make_serving_mesh(model=2, devices=["cpu", "cpu"])
+    x = np.arange(30, dtype=np.float32).reshape(5, 6)
+    sharded = SingleShot(fn=lambda t: t.sum(dim=1), framework="torch-sharded",
+                         mesh=mesh, in_shardings=("model", None),
+                         out_shardings=("model",))
+    np.testing.assert_array_equal(sharded.invoke(x), x.sum(axis=1))
+    for kw in ({"mesh": mesh}, {"in_shardings": ("model",)},
+               {"out_shardings": ("model",)}):
+        with pytest.raises(ValueError, match="torch-sharded"):
             SingleShot(fn=lambda x: x, **kw)
 
 
