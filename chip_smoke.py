@@ -91,9 +91,18 @@ result line):
                  f32, at B = 1, at a ragged T = 300, and with a non-zero
                  h0 and an incoming dh_last; two launches the same bits;
                  timed against the plain version and its bound (no one
-                 PyTorch call computes it).  B5's checkpointing twin
-                 (``selective_scan_ckpt_bf16``): y and h_last equal the
-                 served entry's bit for bit, both timed.
+                 PyTorch call computes it), each row's device time split
+                 between its scan and its sum of the partials (one
+                 ``torch.profiler`` trace) and its partials' bytes (from
+                 the grid that trace saw launched); the kernel's layout
+                 as it reports it, registers and spills a thread, blocks
+                 and clusters resident on the card, and from its compiled
+                 code (``cuobjdump``, where the toolkit has it) its
+                 MUFU.EX2 instructions a state value and its compute
+                 passes' instructions a lane and step.
+                 B5's checkpointing twin (``selective_scan_ckpt_bf16``):
+                 y and h_last equal the served entry's bit for bit, both
+                 timed.
   4. engine    — small f32 models serve the same prompts on the GPU
                  (through the kernels) and on the CPU (plain path); the
                  greedy tokens must be equal.  Paged: 2 layers at
@@ -504,7 +513,8 @@ def _log_body_build(name: str, text: str) -> None:
     """The redesigned bodies' instantiations in a ptxas report, registers
     and spills each: the tensor-core backward (backward_mma.cuh: its
     delta, dq, dk/dv and rope-sum kernels with their head dims and ring
-    stages); the tensor-core bodies (prefill_mma.cuh, bf16;
+    stages); B5''s scan kernel by its type and lanes a channel; the
+    tensor-core bodies (prefill_mma.cuh, bf16;
     prefill_tf32.cuh, split TF32) with head_dim (q/k and V: they differ
     for MLA), ring stages and warps a block from the mangled template
     arguments and the
@@ -551,6 +561,13 @@ def _log_body_build(name: str, text: str) -> None:
                         if len(args) == 5 else f"width {args[0]}")
                 log(f"[build] {name} tensor-core backward {kind} {what}: "
                     + " | ".join(props))
+            elif fn and "scan_backward_kernel" in fn:
+                targs = fn.split("scan_backward_kernel", 1)[1]
+                kind = "bf16" if targs.startswith("I13__nv_bfloat16") \
+                    else "f32"
+                lanes = re.findall(r"Li(\d+)E", targs)[0]
+                log(f"[build] {name} B5' scan kernel {kind}, {lanes} lanes "
+                    f"a channel: " + " | ".join(props))
             elif fn and "decode_kernel" in fn:
                 targs = fn.split("decode_kernel", 1)[1]
                 names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
@@ -987,18 +1004,120 @@ SCAN_BACKWARD_CASES = ((8, 512, torch.bfloat16, False),
                        (8, 512, torch.bfloat16, True))
 
 
+def scan_backward_split(fn, calls: int = 3) -> dict:
+    """B5''s device time a call (``fn`` runs it once) split between its
+    two kernels, the scan and the sum of the partials: each kernel's mean
+    over its ``calls`` launches in one ``torch.profiler`` trace, after a
+    warm-up call (L2 warm from the call before).  The trace opens with a
+    ~10 ms spin of the card, so that it records from the first call.
+    ``grid`` is the scan kernel's launch grid as the trace records it."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    got = {k: [(e.self_device_time_total, e.count)
+               for e in prof.key_averages() if pat in e.key]
+           for k, pat in (("scan", "scan_backward_kernel"),
+                          ("reduce", "scan_backward_reduce"))}
+    counts = {k: sum(c for _, c in v) for k, v in got.items()}
+    check(all(c == calls for c in counts.values()),
+          f"the trace holds {counts} launches of B5''s kernels, want {calls}")
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(str(Path(d) / "trace.json"))
+        events = json.loads((Path(d) / "trace.json").read_text())
+    grids = {tuple(e["args"]["grid"]) for e in events.get("traceEvents", [])
+             if "scan_backward_kernel" in str(e.get("name", ""))
+             and "grid" in (e.get("args") or {})}
+    check(len(grids) == 1, f"B5''s scan traced at grids {sorted(grids)}")
+    return {**{f"{k}_ms": sum(us for us, _ in v) / calls / 1e3
+               for k, v in got.items()}, "grid": grids.pop()}
+
+
+def scan_backward_sass(lib: Path, layout: dict) -> dict:
+    """What the compiled B5' kernel that serves bf16 at N = 16
+    (``scan_backward_kernel<bf16, 4>``) does, from ``cuobjdump -sass``:
+    its ``MUFU.EX2`` instructions over the state values a thread walks in
+    one pass of its chunk loop (``layout``, the kernel's own
+    ``sops.backward_layout``: steps a chunk x values a thread), which is
+    exps a state value while the chunk loop is unrolled and holds the
+    kernel's only exps; and the instructions of its three compute passes
+    (the code between its second and third block barrier in a chunk) a
+    lane and step, by opcode.  Empty without the tool."""
+    import collections
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", sass)
+                 if f.startswith("_Z") and
+                 "scan_backward_kernelI13__nv_bfloat16Li4E" in
+                 f.split("\n", 1)[0]), None)
+    if body is None:
+        return {}
+    full = [m.group(2) for m in (
+        re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)", ln)
+        for ln in body.splitlines()) if m]
+    ops = [op.split(".")[0] for op in full]
+    bars = [i for i, op in enumerate(ops) if op == "BAR"]
+    passes = collections.Counter(ops[bars[1] + 1:bars[2]]) \
+        if len(bars) >= 3 else collections.Counter()
+    steps = layout["chunk_steps"]
+    ex2 = sum(op.startswith("MUFU.EX2") for op in full)
+    return dict(ex2_per_state_value=ex2 / (steps
+                                           * layout["values_per_thread"]),
+                pass_instructions_per_lane_step=sum(passes.values()) / steps,
+                pass_mix_per_lane_step={k: v / steps
+                                        for k, v in passes.most_common(8)})
+
+
 def phase_scan_backward(timer: Timer):
     """B5' (``selective_scan_backward.cu``; no TPU kernel: the JAX package
     differentiates its scan through XLA) against its plain version at
     ``SCAN_BACKWARD_CASES``, as ``mamba_forward`` trains (h0 zero, no
     dh_last) and once with both; timed alone from the twin's states
     against the plain version (which recomputes from h0) and the bound;
-    no one PyTorch call computes it.  Then B5's checkpointing twin at
-    the training shape: y and h_last equal the served entry's bit for
-    bit, both timed.  Returns (the training shape's bf16 row, the rows
-    by tag)."""
+    no one PyTorch call computes it.  Each row's device time split
+    between its two kernels (``scan_backward_split``) and its partials'
+    bytes; the kernel's registers, spills, residency, ex2 count and
+    instruction mix (``scan_backward_sass``).
+    Then B5's checkpointing twin at the training shape: y and h_last
+    equal the served entry's bit for bit, both timed.  Returns (the
+    training shape's bf16 row, the rows by tag)."""
     from repro_torch.kernels.ssm_scan import ops as sops
     rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        occ = sops.backward_occupancy(dtype, 16)
+        rows[f"occupancy {str(dtype)[6:]} N=16"] = occ
+        log(f"[kernels] selective_scan_backward {str(dtype)[6:]} at N = 16: "
+            f"{occ['registers']} registers and {occ['spill_bytes']} bytes "
+            f"of local memory (spills) a thread, {occ['smem_bytes']} bytes "
+            f"of shared memory a block of 128 threads, "
+            f"{occ['blocks_per_sm']} blocks resident an SM, "
+            f"{occ['clusters']} clusters resident on the card")
+    layout = sops.backward_layout(8192, 16)
+    rows["layout (di = 8192, N = 16)"] = layout
+    log(f"[kernels] selective_scan_backward at di = 8192, N = 16, as the "
+        f"built kernel reports it: {layout['chunk_steps']}-step chunks, "
+        f"{layout['channels_per_block']} channels a block, "
+        f"{layout['values_per_thread']} state values a thread, "
+        f"{layout['clusters']} clusters of {layout['cluster']} blocks "
+        f"along di")
+    sass = scan_backward_sass(sops.BACKWARD_KERNEL.library_path, layout)
+    rows["compiled (bf16, N = 16)"] = sass
+    log(f"[kernels] selective_scan_backward bf16 at N = 16, compiled: "
+        + (f"{sass['ex2_per_state_value']:g} MUFU.EX2 a state value; its "
+           f"three passes {sass['pass_instructions_per_lane_step']:.1f} "
+           f"instructions a lane and step (4 state values): "
+           + ", ".join(f"{k} {v:g}" for k, v in
+                       sass["pass_mix_per_lane_step"].items())
+           if sass else "not measured (no cuobjdump)"))
     for B, T, dtype, carried in SCAN_BACKWARD_CASES:
         *ops_in, _ = _scan_case(B * T + carried, B, T, 8192, 16, dtype,
                                 carried)
@@ -1016,12 +1135,24 @@ def phase_scan_backward(timer: Timer):
         plain_ms = timer.ms(lambda: sops.selective_scan_backward_plain(
             *ops_in, dy, dh), iters=3, warmup=1)
         bound = _scan_bwd_bound(ops_in[0], ops_in[2], carried)
+        split = scan_backward_split(lambda: sops.selective_scan_backward(
+            *ops_in[:6], states, dy, dh))
+        # the partials of d_Bc and d_Cc, f32 (B, T, N) a cluster, from
+        # the grid the trace saw launched
+        grid = split.pop("grid")
+        want = (layout["clusters"] * layout["cluster"], B, 1)
+        check(grid == want, f"{tag}: traced grid {grid}, the kernel's "
+              f"layout says {want}")
+        partial_mb = 2 * B * T * (grid[0] // layout["cluster"]) * 16 * 4 / 1e6
         row = dict(max_abs_err=err, err_over_tol=worst, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                   library_ms=None)
+                   library_ms=None, **split, partial_mb=partial_mb)
         rows[tag] = row
         log(f"[kernels] {tag}: max_abs_err={err:.3e}, worst error "
-            f"{worst:.3f} x its tolerance, two launches equal" + _fmt(row))
+            f"{worst:.3f} x its tolerance, two launches equal" + _fmt(row)
+            + f"; traced (warm L2) scan {split['scan_ms']:.4f} ms + sum "
+            f"{split['reduce_ms']:.4f} ms; partials {partial_mb:.1f} MB "
+            f"(grid {grid})")
     # the checkpointing twin beside the served entry, training's shape
     *ops_in, _ = _scan_case(3, 8, 512, 8192, 16, torch.bfloat16, False)
     y, h_last = sops.selective_scan(*ops_in)
@@ -1048,7 +1179,8 @@ def phase_scan_backward(timer: Timer):
         f"f32 for dA, dD, dh0); bound: {SCAN_BWD_OPS} f32 operations a "
         f"state value at {PEAK_OPS_PER_S[torch.float32] / 1e12:.0f} TFLOP/s "
         f"against its bytes")
-    served = next(iter(rows.values()))
+    served = next(row for row in rows.values()
+                  if isinstance(row, dict) and "plain_ms" in row)
     return served, rows
 
 
@@ -4068,6 +4200,40 @@ def jamba_train_step(model, params, leaves, batch, lr: float):
     return loss.detach(), grads, fb
 
 
+def jamba_trainer(pkg: str = "repro_torch"):
+    """Phase 17(c)'s model from the port package importable as ``pkg``
+    (kernel_ab.py builds another checkout's the same way): jamba-v0.1,
+    one period at full width, random bf16 weights made on the card from
+    seed 0, its trainable leaves, and ``JAMBA_TRAIN``'s batches from a
+    seed-0 ``TokenStream``.  Returns (cfg, model, params, leaves,
+    batch), ``batch()`` the next batch on the card."""
+    configs, models, data, trainer, tree = (
+        importlib.import_module(f"{pkg}.{m}") for m in (
+            "configs", "models", "data", "training.trainer", "tree"))
+    B, S = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq"]
+    cfg = configs.get_config("jamba-v0.1-52b").replace(n_layers=8)
+    model = models.build_model(cfg, device="cuda")
+    params = trainer.trainable(model.init(seed=0))
+    leaves = [p for p in tree.tree_leaves(params) if p.requires_grad]
+    stream = data.TokenStream(cfg.vocab_size, S, B, seed=0)
+
+    def batch():
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in next(stream).items()}
+    return cfg, model, params, leaves, batch
+
+
+def train_step_shares(prof) -> tuple:
+    """A traced training step's device time (ms) and that of B5''s scan,
+    its sum of the partials and B5's twin (ms each)."""
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    share = {name: sum(us for key, us in rows if pat in key) / 1e3
+             for name, pat in (("B5' scan", "scan_backward_kernel"),
+                               ("B5' sum", "scan_backward_reduce"),
+                               ("B5 twin", "selective_scan_kernel"))}
+    return sum(us for _, us in rows) / 1e3, share
+
+
 def phase_train_jamba(kernels, acc, card: str) -> None:
     """Phase 17(c): jamba-v0.1 at full width, one period (phase 6's
     model: 8 layers, 1 attention + 7 mamba, 4 MoE of 16 experts top-2;
@@ -4085,19 +4251,11 @@ def phase_train_jamba(kernels, acc, card: str) -> None:
     reached its y, captured in step 0, through B5' against its plain
     version."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenStream
     from repro_torch.kernels.ssm_scan import ops as sops
-    from repro_torch.models import build_model
-    from repro_torch.training.trainer import trainable
-    from repro_torch.tree import tree_leaves
     steps, B, S, lr = (JAMBA_TRAIN[k] for k in ("steps", "batch", "seq",
                                                 "lr"))
     t0 = time.perf_counter()
-    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8)
-    model = build_model(cfg, device="cuda")
-    params = trainable(model.init(seed=0))
-    leaves = [p for p in tree_leaves(params) if p.requires_grad]
+    cfg, model, params, leaves, batch = jamba_trainer()
     descs = model.period_descs
     n_mamba = model.n_periods * sum(d[0] == "mamba" for d in descs)
     n_attn = model.n_periods * sum(d[0] == "attn" for d in descs)
@@ -4107,11 +4265,6 @@ def phase_train_jamba(kernels, acc, card: str) -> None:
         f"{sum(p.numel() for p in leaves) / 1e9:.2f}B bf16 parameters made "
         f"on the card in {time.perf_counter() - t0:.1f}s; {steps} steps of "
         f"{B} x {S} tokens, SGD lr {lr}")
-    stream = TokenStream(cfg.vocab_size, S, B, seed=0)
-
-    def batch():
-        return {k: torch.from_numpy(v).to("cuda")
-                for k, v in next(stream).items()}
 
     # layer 0's scan operands and the gradient that reaches its y
     captured = {}
@@ -4180,15 +4333,10 @@ def phase_train_jamba(kernels, acc, card: str) -> None:
     _tally(kernels, {})
     _report_trace(prof, wall, 1, "train-jamba",
                   f"one training step of {B} x {S} tokens (SGD)")
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
-    busy = sum(us for _, us in rows)
-    share = {name: sum(us for key, us in rows if pat in key)
-             for name, pat in (("B5' scan", "scan_backward_kernel"),
-                               ("B5' sum", "scan_backward_reduce"),
-                               ("B5 twin", "selective_scan_kernel"))}
-    log(f"[train-jamba] device time a step {busy / 1e3:.2f} ms: "
-        + ", ".join(f"{n} {us / 1e3:.2f} ms = {100 * us / busy:.1f}%"
-                    for n, us in share.items()) + f"; {card}")
+    busy, share = train_step_shares(prof)
+    log(f"[train-jamba] device time a step {busy:.2f} ms: "
+        + ", ".join(f"{n} {ms:.2f} ms = {100 * ms / busy:.1f}%"
+                    for n, ms in share.items()) + f"; {card}")
     # layer 0's operands through B5' against the plain version
     ops_in, dy = captured["ops"], captured["dy"].float().contiguous()
     tag = (f"[train-jamba] layer 0's scan operands (B={B} T={S} di "

@@ -1,8 +1,10 @@
 """This checkout's selective scan (B5) and top-k gating (B6), its B2/B4
-rows at DeepSeek-V3's MLA heads, or its B2 backward rows, against
-another checkout's, on one GPU.
+rows at DeepSeek-V3's MLA heads, its B2 backward rows, or its B5
+backward rows and jamba training step, against another checkout's, on
+one GPU.
 
-    python3 kernel_ab.py OTHER [--jamba | --mla | --backward]
+    python3 kernel_ab.py OTHER [--jamba | --mla | --backward |
+                                --scan-backward]
 
 OTHER is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -52,9 +54,21 @@ it; an older tree recomputes it inside its backward.  Then MLA's heads
 on MLA's own operands through each tree's autograd
 (``mla_flash_attention`` then ``torch.autograd.grad``), with each
 backward's peak memory above what its forward left.  The two trees'
-gradients are compared first and the largest difference logged.  Needs
-one CUDA device and nvcc, as chip_smoke.py does; the jamba and the MLA
-parts ~30 GB of device memory.
+gradients are compared first and the largest difference logged.
+
+With --scan-backward, the rows are B5's backward (B5') at chip_smoke.py
+phase 3's ``SCAN_BACKWARD_CASES`` (di 8192, N 16, Bc/Cc split views),
+each tree's ``selective_scan_backward`` from the states its own
+checkpointing twin stored (made before the timing: the trees may space
+them differently); the two trees' gradients are compared first and the
+largest difference logged.  Then each tree trains chip_smoke.py phase
+17(c)'s jamba period (``jamba_trainer``, the same seed-0 weights and
+batches) one step and traces a second, in turns other, this, this,
+other: the step's device time, B5''s scan and sum and the twin's, and
+the wall time of forward and backward.
+
+Needs one CUDA device and nvcc, as chip_smoke.py does; the jamba, the
+MLA and the scan-backward parts ~30-60 GB of device memory.
 """
 from __future__ import annotations
 
@@ -64,6 +78,7 @@ import importlib
 import importlib.util
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -204,6 +219,55 @@ def mla_backward_row(trees):
              f"causal bf16 (autograd)", fns)]
 
 
+def scan_backward_rows(cs, trees):
+    """(tag, {tree: callable}) of B5' at phase 3's rows, each tree from
+    its own twin's states."""
+    rows = []
+    for B, T, dtype, carried in cs.SCAN_BACKWARD_CASES:
+        *ops_in, _ = cs._scan_case(B * T + carried, B, T, 8192, 16, dtype,
+                                   carried)
+        g = torch.Generator(device="cpu").manual_seed(T + B)
+        dy = torch.randn((B, T, 8192), generator=g).to("cuda")
+        dh = torch.randn((B, 8192, 16), generator=g).to("cuda") \
+            if carried else None
+        fns = {}
+        for n, s in trees.items():
+            states = s.selective_scan_ckpt(*ops_in)[2]
+            fns[n] = (lambda s=s, st=states, a=ops_in[:6], dy=dy, dh=dh:
+                      s.selective_scan_backward(*a, st, dy, dh))
+        rows.append((f"B5' B={B} T={T} {str(dtype)[6:]} "
+                     + ("h0 + dh_last" if carried else "h0 = 0"), fns))
+    return rows
+
+
+def trace_train_jamba(cs, pkgs) -> None:
+    """Phase 17(c)'s step on each tree in turns other, this, this, other
+    (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+    lr = cs.JAMBA_TRAIN["lr"]
+    for name in ("other", "this", "this", "other"):
+        cfg, model, params, leaves, batch = cs.jamba_trainer(pkgs[name])
+        _, grads, _ = cs.jamba_train_step(model, params, leaves, batch(),
+                                          lr)  # the warm-up step
+        del grads
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss, grads, fb = cs.jamba_train_step(model, params, leaves,
+                                                  batch(), lr)
+            del grads
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, share = cs.train_step_shares(prof)
+        print(f"[ab] jamba training step {name}: loss {loss.item():.4f}, "
+              f"wall {wall * 1e3:.1f} ms (forward + backward "
+              f"{fb * 1e3:.1f}), device {busy:.2f} ms: "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in share.items()),
+              flush=True)
+        del cfg, model, params, leaves, batch, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def time_kernels(cs, trees, rows, compare: bool = False) -> None:
     """Each row timed other, this, this, other; with ``compare`` the two
     trees' outputs (each tensor of a tuple), cut to the narrower last
@@ -217,13 +281,15 @@ def time_kernels(cs, trees, rows, compare: bool = False) -> None:
             outs = [fns[n]() for n in ("this", "other")]
             pairs = (zip(*outs) if isinstance(outs[0], (tuple, list))
                      else [outs])
-            diff = 0.0
+            diff, rel = 0.0, 0.0
             for a, b in pairs:
                 vd = min(a.shape[-1], b.shape[-1])
-                diff = max(diff, (a[..., :vd].float() - b[..., :vd].float())
-                           .abs().max().item())
-            print(f"[ab] {tag}: largest |this - other| {diff:.3e}",
-                  flush=True)
+                d = (a[..., :vd].float() - b[..., :vd].float()).abs().max()
+                diff = max(diff, d.item())
+                rel = max(rel, d.item() / max(
+                    b[..., :vd].float().abs().max().item(), 1e-30))
+            print(f"[ab] {tag}: largest |this - other| {diff:.3e} (of one "
+                  f"output's largest |other|: at most {rel:.3e})", flush=True)
             del outs
         got = {n: [] for n in fns}
         for n in ("other", "this", "this", "other"):
@@ -273,6 +339,10 @@ def main() -> None:
     mode.add_argument("--backward", action="store_true",
                       help="time B2's backward at phase 3's backward rows "
                       "instead of B5/B6")
+    mode.add_argument("--scan-backward", action="store_true",
+                      help="time B5's backward at phase 3's rows instead "
+                      "of B5/B6, then trace phase 17(c)'s step on each "
+                      "tree")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -297,6 +367,17 @@ def main() -> None:
                   for k in (f.FLASH_KERNEL, f.BACKWARD_KERNEL)])
         time_kernels(cs, trees, backward_rows(cs, trees)
                      + mla_backward_row(trees), compare=True)
+        return
+    if a.scan_backward:
+        trees = {n: importlib.import_module(f"{p}.kernels.ssm_scan.ops")
+                 for n, p in pkgs.items()}
+        load_all([k for s in trees.values()
+                  for k in (s.KERNEL, s.BACKWARD_KERNEL)])
+        time_kernels(cs, trees, scan_backward_rows(cs, trees),
+                     compare=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trace_train_jamba(cs, pkgs)
         return
     if a.mla:
         trees = {n: tuple(importlib.import_module(f"{p}.kernels.{k}.ops")

@@ -8,23 +8,20 @@ The NNFW sub-plugin structure of the paper maps to *backends*:
                  uploaded, outputs come back as numpy arrays (bf16 as
                  f32: numpy has no bf16)
   * ``torch-sharded`` — the same over a ``mesh=`` (the reference's
-                 ``jax-sharded``): a registry model (``ModelForward``)
+                 ``jax-sharded``, ``jit(fn, in_shardings,
+                 out_shardings)``): a registry model (``ModelForward``)
                  runs its ``apply`` with its weights sharded over the
                  ranks (``sharding.ShardedModel``).  Any other callable
-                 runs once per rank on its share of the inputs, each
-                 split along the axis its ``in_shardings`` spec names
-                 "model" (whole where it names none), and its outputs
-                 are joined along the axis ``out_shardings`` names —
-                 ``shard_map``'s per-shard semantics, not ``jit``'s
-                 global ones (a difference ``models/sharding.py``
-                 lists): the callable
-                 must treat the split axis's rows independently, and
-                 where an input is split every output must name the axis
-                 its rows join along (else ``ValueError``).  With no
-                 input split it runs once, whole, on the first rank.  A
-                 spec is a tuple of axis names or None per dimension, as
-                 a ``PartitionSpec``; one spec stands for every input or
-                 output.
+                 computes what ``jit`` computes, ``fn`` of the global
+                 arrays, whatever the shardings: it runs once on the whole
+                 inputs on the mesh's first device.  The shardings are
+                 checked as ``jit`` checks them: a spec is a tuple of axis
+                 names (or None) per dimension, as a ``PartitionSpec``,
+                 naming only the mesh's axes and no longer than its
+                 array's rank, each split dimension a multiple of the
+                 size of the axes it is split over; one spec stands for
+                 every input or output, else there is one per array
+                 (``ValueError`` otherwise).
 
 A filter is resolved either from a direct ``fn`` or from the model
 registry (``model="glm4-9b:smoke"``, built on the filter's ``device``),
@@ -198,14 +195,6 @@ def _to_numpy(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _model_axis(spec) -> Optional[int]:
-    """The dimension a spec puts on "model" (None: whole)."""
-    for i, a in enumerate(spec or ()):
-        if a == "model" or (isinstance(a, tuple) and "model" in a):
-            return i
-    return None
-
-
 def _one_spec(shardings) -> bool:
     """Whether ``shardings`` is one spec for every array (None or a
     tuple of axis names) rather than a sequence of specs."""
@@ -213,67 +202,72 @@ def _one_spec(shardings) -> bool:
         a is None or isinstance(a, str) for a in shardings))
 
 
-def _all_specs(shardings) -> List[Optional[int]]:
-    """The split axis of every spec ``shardings`` holds."""
-    return [_model_axis(shardings)] if _one_spec(shardings) else [
-        _model_axis(s) for s in shardings]
+def _spec_names(spec) -> List[str]:
+    """The mesh axes a spec names (an entry may be a tuple of axes)."""
+    names: List[str] = []
+    for a in spec or ():
+        names.extend(a if isinstance(a, tuple) else [] if a is None else [a])
+    return names
 
 
-def _specs(shardings, n: int) -> List[Optional[int]]:
-    """One split axis per array: ``shardings`` is one spec for all of
-    them or a sequence of specs."""
-    axes = _all_specs(shardings)
-    if _one_spec(shardings):
-        return axes * n
-    if len(axes) != n:
-        raise ValueError(f"{len(axes)} shardings for {n} arrays")
-    return axes
+def _check_mesh_axes(shardings, mesh, side: str) -> None:
+    specs = [shardings] if _one_spec(shardings) else list(shardings)
+    for spec in specs:
+        bad = [a for a in _spec_names(spec) if a not in mesh.axis_names]
+        if bad:
+            raise ValueError(f"torch-sharded: {side} {spec!r} names "
+                             f"{bad}, not an axis of the mesh "
+                             f"{mesh.axis_names}")
+
+
+def _check_ranks(shardings, arrays, side: str, mesh) -> None:
+    """One spec for all arrays or one per array, none longer than its
+    array's rank, each split dimension a multiple of the ranks it is
+    split over (``jit`` refuses the rest)."""
+    specs = [shardings] * len(arrays) if _one_spec(shardings) \
+        else list(shardings)
+    if len(specs) != len(arrays):
+        raise ValueError(f"torch-sharded: {len(specs)} {side} for "
+                         f"{len(arrays)} arrays")
+    for spec, a in zip(specs, arrays):
+        if spec is not None and len(spec) > a.dim():
+            raise ValueError(f"torch-sharded: {side} {spec!r} has "
+                             f"{len(spec)} entries for an array of rank "
+                             f"{a.dim()}")
+        for dim, axes in enumerate(spec or ()):
+            n = int(np.prod([mesh.shape[x] for x in _spec_names([axes])]))
+            if a.shape[dim] % n:
+                raise ValueError(f"torch-sharded: {side} {spec!r} splits "
+                                 f"dimension {dim} of an array of shape "
+                                 f"{tuple(a.shape)} over {n} ranks: it is "
+                                 f"not divisible by {n}")
 
 
 def _sharded_backend(fn: Callable, mesh, in_shardings,
                      out_shardings) -> Callable:
-    """``torch-sharded``: numpy in, numpy out, over the mesh's ranks
-    (see the module docstring)."""
-    import torch
+    """``torch-sharded``: numpy in, numpy out, over the mesh (see the
+    module docstring)."""
     from ...models import sharding
     from ...registry import ModelForward
-    devices = tuple(sharding.normalize_device(d) for d in mesh.devices)
-    n = len(devices)
+    device = sharding.normalize_device(mesh.devices[0])
     if isinstance(fn, ModelForward):
         model = sharding.ShardedModel(fn.model, mesh)
         shards = model.shard(fn.params)
 
         def call(*args):
             return model.apply(shards, *args)
-    elif all(ax is None for ax in _all_specs(in_shardings)):
-        # nothing split: the shardings only place whole arrays
-        call = fn
-    elif None in _all_specs(out_shardings):
-        raise ValueError(
-            f"torch-sharded: in_shardings={in_shardings!r} splits an input, "
-            f"so fn runs per rank on its slice (shard_map's semantics, not "
-            f"jit's), and out_shardings must name the axis every output's "
-            f"rows join along; got out_shardings={out_shardings!r}")
-    else:
-        def call(*args):
-            axes = _specs(in_shardings, len(args))
+        return _torch_backend(call, device)
+    _check_mesh_axes(in_shardings, mesh, "in_shardings")
+    _check_mesh_axes(out_shardings, mesh, "out_shardings")
 
-            def one(r):
-                local = []
-                for a, ax in zip(args, axes):
-                    if ax is not None:
-                        lo, hi = sharding.ranges(a.shape[ax], n)[r]
-                        a = a.narrow(ax, lo, hi - lo)
-                    local.append(a.to(devices[r]))
-                return fn(*local)
-            outs = sharding.run_ranks(one, devices)
-            single = not isinstance(outs[0], (tuple, list))
-            per = [[o] if single else list(o) for o in outs]
-            oaxes = _specs(out_shardings, len(per[0]))
-            joined = [torch.cat([p[i].to(devices[0]) for p in per], dim=ax)
-                      for i, ax in enumerate(oaxes)]
-            return joined[0] if single else tuple(joined)
-    return _torch_backend(call, devices[0])
+    def call(*args):
+        # jit's result: fn of the global arrays; the specs are only checked
+        _check_ranks(in_shardings, args, "in_shardings", mesh)
+        out = fn(*args)
+        _check_ranks(out_shardings, list(out) if isinstance(
+            out, (tuple, list)) else [out], "out_shardings", mesh)
+        return out
+    return _torch_backend(call, device)
 
 
 def _torch_backend(fn: Callable, device) -> Callable:

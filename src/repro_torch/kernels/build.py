@@ -26,7 +26,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -115,13 +115,17 @@ class CudaKernel:
     which of a library's bodies served a run; ``rank_launches`` counts
     them per (tensor-parallel rank, C entry) for launches made inside
     ``launch_rank``.  The counts are kept under a lock: ranks launch
-    from threads of their own."""
+    from threads of their own.  ``check``, if given, is called with the
+    library when it loads and raises where the library disagrees with
+    the Python side (say, on a layout both assume)."""
 
     def __init__(self, name: str, source: Path,
-                 entries: Dict[str, Sequence]):
+                 entries: Dict[str, Sequence],
+                 check: Callable[[ctypes.CDLL], None] | None = None):
         self.name = name
         self.source = source
         self.entries = dict(entries)
+        self.check = check
         self.launches = 0
         self.entry_launches = dict.fromkeys(self.entries, 0)
         self.rank_launches: Dict[tuple, int] = {}
@@ -141,6 +145,8 @@ class CudaKernel:
                     fn.restype = ctypes.c_int
                 lib.kernel_error_string.argtypes = [ctypes.c_int]
                 lib.kernel_error_string.restype = ctypes.c_char_p
+                if self.check is not None:
+                    self.check(lib)
                 self.library_path = path
                 self._lib = lib
         return self._lib

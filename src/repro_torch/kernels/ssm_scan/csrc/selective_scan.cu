@@ -28,13 +28,14 @@
 //     ... into ckpt (B, ceil(T / kCkptSteps), di, N) f32, from which the
 //     backward (selective_scan_backward.cu) recomputes one chunk at a
 //     time.  y and h_last equal the served entry's bit for bit (the same
-//     arithmetic; the stores are extra).  kCkptSteps = 16: at jamba's
-//     training shape (B 8, T 512, di 8192, N 16) that is 134 MB a layer,
-//     written here once and read by the backward once (~0.04 ms each way
-//     at 3.35 TB/s); a state every 64 steps (34 MB) would cost the
-//     backward a second recompute pass over each chunk, one more exp per
-//     state value (~0.13 ms on the special-function units) and more than
-//     the bytes saved;
+//     arithmetic; the stores are extra).  kCkptSteps = 8: the backward
+//     keeps a chunk's decays in registers so that each decay is one exp,
+//     and 8 steps of a quad is what fits beside 5 resident blocks an SM.
+//     At jamba's training shape (B 8, T 512, di 8192, N 16) that is 268
+//     MB a layer, written here once and read by the backward once (~0.08
+//     ms each way at 3.35 TB/s); a state every 16 steps (134 MB) would
+//     cost the backward a second exp per state value (~0.13 ms on the
+//     special-function units) or twice the registers;
 //   * selective_scan_slab_*: the engine's pool (n_slabs, di, N), updated
 //     in place (SlabState).  Row b starts from pool[read_rows[b]] (a
 //     negative row: from zero, a sequence that starts this step) and
@@ -116,10 +117,10 @@ using kern::to_f32;
 
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-// steps between two stored states of the checkpointing entry (a multiple
-// of every staged tile's kSteps; ssm_scan/ops.py::CKPT_STEPS and
-// selective_scan_backward.cu's kChunk)
-constexpr int kCkptSteps = 16;
+// steps between two stored states of the checkpointing entry (it divides
+// every staged tile's kSteps); reported by selective_scan_ckpt_steps(),
+// which ssm_scan/ops.py holds to its CKPT_STEPS when it loads the library
+constexpr int kCkptSteps = 8;
 
 // which loads may go 16 bytes at a time (host-checked)
 enum : int { kVecDx = 1, kVecBc = 2, kVecState = 4 };
@@ -168,6 +169,9 @@ template <typename T, int L> struct Smem {
   alignas(16) float part[kSteps][kThreads];  // each lane's C . h
   float dd[kCh];                           // D
 };
+static_assert(Smem<float, 1>::kSteps % kCkptSteps == 0 &&
+                  Smem<float, 4>::kSteps % kCkptSteps == 0,
+              "a stored state falls on a step of a staged tile");
 
 __device__ __forceinline__ void load4(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -346,13 +350,6 @@ selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = it * kSteps, nt = min(kSteps, n_steps - t0);
     const int buf = it & 1;
-    if constexpr (kCkpt) {  // the state before step t0
-      if (live && t0 % kCkptSteps == 0) {
-        const size_t n_ckpt = (n_steps + kCkptSteps - 1) / kCkptSteps;
-        store_quad(ckpt + ((b * n_ckpt + t0 / kCkptSteps) * di + d) * N,
-                   4 * q, N, vec, h);
-      }
-    }
     if (it + 1 < n_tiles) {
       stage<T, L>(s, buf ^ 1, dt, x, Bc, Cc, row0 + t0 + kSteps,
                   min(kSteps, n_steps - t0 - kSteps), di, d0, N, ldbc, flags);
@@ -376,9 +373,21 @@ selective_scan_kernel(const T* __restrict__ dt,      // (B, T, di)
       s.cf[j][n] = to_f32(s.c[buf][j][n]);
     }
     __syncthreads();
-    const int n_adv = max(0, min(nt, tv - t0));  // steps that advance h
-    scan_steps<true, L>(s, 0, n_adv, a, h);
-    scan_steps<false, L>(s, n_adv, nt, a, h);
+    if constexpr (kCkpt) {
+      // every step advances h; the state before steps t0, t0 +
+      // kCkptSteps, ... is stored on the way (the same steps as below)
+      const size_t n_ckpt = (n_steps + kCkptSteps - 1) / kCkptSteps;
+      for (int j0 = 0; j0 < nt; j0 += kCkptSteps) {
+        if (live)
+          store_quad(ckpt + ((b * n_ckpt + (t0 + j0) / kCkptSteps) * di + d)
+                                * N, 4 * q, N, vec, h);
+        scan_steps<true, L>(s, j0, min(nt, j0 + kCkptSteps), a, h);
+      }
+    } else {
+      const int n_adv = max(0, min(nt, tv - t0));  // steps that advance h
+      scan_steps<true, L>(s, 0, n_adv, a, h);
+      scan_steps<false, L>(s, n_adv, nt, a, h);
+    }
     __syncthreads();  // every lane's partials are in
     for (int i = threadIdx.x; i < nt * kCh; i += kThreads) {
       const int j = i / kCh, cc = i % kCh;
@@ -489,3 +498,6 @@ SELECTIVE_SCAN_SLAB_ENTRY(selective_scan_slab_f32, float)
 SELECTIVE_SCAN_SLAB_ENTRY(selective_scan_slab_bf16, __nv_bfloat16)
 SELECTIVE_SCAN_CKPT_ENTRY(selective_scan_ckpt_f32, float)
 SELECTIVE_SCAN_CKPT_ENTRY(selective_scan_ckpt_bf16, __nv_bfloat16)
+
+// the checkpointing entry's spacing of stored states
+extern "C" int selective_scan_ckpt_steps(void) { return kCkptSteps; }

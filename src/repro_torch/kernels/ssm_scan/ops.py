@@ -24,6 +24,53 @@ import torch
 from ..build import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_STATE = 16          # d_state the kernel keeps in registers
+# steps between two stored states of the checkpointing forward: the
+# backward recomputes one such chunk at a time, its decays in registers.
+# The kernels' own copies (csrc/selective_scan.cu's kCkptSteps,
+# csrc/selective_scan_backward.cu's kChunk) are held to it when each
+# library loads.
+CKPT_STEPS = 8
+# channel blocks in one thread-block cluster of B5', which sums their
+# partials of d_Bc/d_Cc (held to the kernel's kCluster likewise)
+BACKWARD_CLUSTER = 8
+
+
+def _check_ckpt_steps(lib) -> None:
+    fn = lib.selective_scan_ckpt_steps
+    fn.argtypes, fn.restype = [], _I
+    if fn() != CKPT_STEPS:
+        raise RuntimeError(f"selective_scan.cu stores a state every {fn()} "
+                           f"steps, ops.py expects CKPT_STEPS = {CKPT_STEPS}")
+
+
+def _layout(lib, di: int, N: int) -> dict:
+    fn = lib.selective_scan_backward_layout
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    out = (_I * 5)()
+    rc = fn(di, N, out)
+    if rc != 0:
+        raise ValueError(f"selective_scan_backward_layout(di={di}, N={N}): "
+                         f"CUDA error {rc}")
+    return dict(zip(("chunk_steps", "cluster", "channels_per_block",
+                     "values_per_thread", "clusters"), out))
+
+
+def _check_backward_layout(lib) -> None:
+    """The backward's chunk, cluster and partials as ops.py sizes them:
+    the workspace it allocates is what the kernel indexes."""
+    for N in range(1, MAX_STATE + 1):
+        for di in (1, 96, 1000, 8192):
+            got = _layout(lib, di, N)
+            want = dict(chunk_steps=CKPT_STEPS, cluster=BACKWARD_CLUSTER,
+                        clusters=backward_workspace_shape(1, 1, di, N)[3])
+            if any(got[k] != v for k, v in want.items()):
+                raise RuntimeError(f"selective_scan_backward.cu's layout "
+                                   f"at di={di}, N={N} is {got}; ops.py "
+                                   f"expects {want}")
+
+
 KERNEL = CudaKernel(
     "selective_scan",
     Path(__file__).parent / "csrc" / "selective_scan.cu",
@@ -33,19 +80,14 @@ KERNEL = CudaKernel(
         for t in ("f32", "bf16")},
      # the unmasked scan that also stores the state every CKPT_STEPS steps
      **{f"selective_scan_ckpt_{t}": [_P] * 10 + [_I] * 5 + [_P]
-        for t in ("f32", "bf16")}})
+        for t in ("f32", "bf16")}},
+    check=_check_ckpt_steps)
 BACKWARD_KERNEL = CudaKernel(
     "selective_scan_backward",
     Path(__file__).parent / "csrc" / "selective_scan_backward.cu",
     {f"selective_scan_backward_{t}": [_P] * 19 + [_I] * 5 + [_P]
-     for t in ("f32", "bf16")})
-
-_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-MAX_STATE = 16          # d_state the kernel keeps in registers
-# steps between two stored states of the checkpointing forward: the
-# backward recomputes one such chunk at a time (csrc/selective_scan.cu's
-# kCkptSteps)
-CKPT_STEPS = 16
+     for t in ("f32", "bf16")},
+    check=_check_backward_layout)
 
 
 def bc_row_stride(t):
@@ -256,7 +298,7 @@ def _launch_scan(dt, xs, Bc, Cc, A, D, h0, t_valid, ckpt: bool = False):
     None: every row valid) or, with ``ckpt`` (unmasked only), its
     checkpointing twin.  Returns (y, h_last), and the stored states (B,
     ceil(T / CKPT_STEPS), di, N) f32 with ``ckpt``: the state before
-    steps 0, 16, 32, ..."""
+    steps 0, 8, 16, ..."""
     _device("selective_scan", dt)
     ldbc = check_scan_operands(dt, xs, Bc, Cc, A, D, h0, t_valid)
     B, T, di = dt.shape
@@ -292,12 +334,39 @@ def selective_scan_ckpt(dt, xs, Bc, Cc, A, D, h0):
     return _launch_scan(dt, xs, Bc, Cc, A, D, h0, None, ckpt=True)
 
 
-def backward_blocks(di: int, N: int) -> int:
-    """The channel blocks of B5' (csrc/selective_scan_backward.cu): 128
-    threads a block, ``L`` lanes a channel (1, 2 or 4 as N <= 4, 8, 16),
-    so 128 / L channels a block; each writes one partial of d_Bc/d_Cc."""
+def backward_workspace_shape(B: int, T: int, di: int, N: int) -> tuple:
+    """The d_Bc/d_Cc partials B5' (csrc/selective_scan_backward.cu)
+    writes, (2, B, T, n_grp, N) f32: 128 threads a block, ``L`` lanes a
+    channel (1, 2 or 4 as N <= 4, 8, 16), so 128 / L channels a block;
+    ``BACKWARD_CLUSTER`` blocks a cluster, which writes one partial."""
     L = 1 if N <= 4 else 2 if N <= 8 else 4
-    return -(-di // (128 // L))
+    n_blk = -(-di // (128 // L))
+    return (2, B, T, -(-n_blk // BACKWARD_CLUSTER), N)
+
+
+def backward_layout(di: int, N: int) -> dict:
+    """The layout B5' takes at (di, N), as the built kernel reports it:
+    steps a chunk, blocks a cluster, channels a block, state values a
+    thread, clusters along di (one partial of d_Bc/d_Cc each).  Builds
+    the library; launches nothing."""
+    return _layout(BACKWARD_KERNEL.load(), di, N)
+
+
+def backward_occupancy(dtype, N: int) -> dict:
+    """What the card makes of the B5' kernel that serves ``dtype`` (f32
+    or bf16) at ``N`` states: registers and local (spill) bytes a
+    thread, shared bytes a block, resident blocks an SM, resident
+    clusters on the card.  Builds the library; launches nothing."""
+    lib = BACKWARD_KERNEL.load()
+    fn = lib.selective_scan_backward_occupancy
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    out = (_I * 5)()
+    rc = fn(N, int(dtype == torch.float32), out)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_backward_occupancy: CUDA error "
+                           f"{rc} ({lib.kernel_error_string(rc).decode()})")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "clusters"), out))
 
 
 def selective_scan_backward(dt, xs, Bc, Cc, A, D, states, dy, dh_last):
@@ -335,9 +404,9 @@ def selective_scan_backward(dt, xs, Bc, Cc, A, D, states, dy, dh_last):
         d_d.zero_()
         dh0.zero_() if dh_last is None else dh0.copy_(dh_last)
         return d_dt, d_x, d_b, d_c, d_a, d_d, dh0
-    # each channel block's partial of d_Bc and d_Cc, and each row's of dA
-    # and dD: summed in a fixed order by the kernel's second pass
-    ws_bc = torch.empty((2, B, T, backward_blocks(di, N), N), **f32)
+    # each cluster's partial of d_Bc and d_Cc, and each row's of dA and
+    # dD: summed in a fixed order by the kernel's second pass
+    ws_bc = torch.empty(backward_workspace_shape(B, T, di, N), **f32)
     ws_a, ws_d = torch.empty((B, di, N), **f32), torch.empty((B, di), **f32)
     BACKWARD_KERNEL.launch(
         f"selective_scan_backward_{_NAMES[dt.dtype]}",

@@ -37,12 +37,6 @@ Where the port differs from the reference's specs:
   give ranks of 9/3 and 6/2, each keeping G = 3.
 - Experts split over ranks unevenly where their count does not divide
   (the reference replicates them then).
-- A plain callable under ``TensorFilter(framework="torch-sharded")``
-  runs once per rank on its slice of the inputs ``in_shardings`` split,
-  as ``shard_map`` would, not on the global array as the reference's
-  ``jit(fn, in_shardings=...)`` does: it must treat the split axis's
-  rows independently, and every output must name the axis its rows
-  join along (the filter refuses the shardings otherwise).
 - Leaves the plan keeps whole on every rank that the reference's specs
   put on "model" (``DIFFERENCES``: the ``"block:path"`` pattern, then
   the reason):

@@ -16,9 +16,9 @@ Run one model with a unified interface, no pipeline required::
 Backends as ``TensorFilter``'s: ``python`` (any callable), ``torch``
 (numpy inputs uploaded to ``device``, ``cuda`` unless named; numpy
 outputs) and ``torch-sharded`` (the same over ``mesh=``: a registry
-model's weights sharded over the ranks, or a callable run per rank on
-the inputs ``in_shardings`` split, its outputs joined as
-``out_shardings`` say).
+model's weights sharded over the ranks; any other callable computes
+what the reference's ``jit(fn, in_shardings, out_shardings)`` does, fn
+of the whole inputs, on the mesh's first device).
 """
 from __future__ import annotations
 

@@ -1212,13 +1212,14 @@ def _scan_grad_errs(got, want):
 
 @pytest.mark.parametrize("B,T,di,N", [
     (2, 37, 200, 16), (1, 64, 256, 16), (3, 16, 203, 8), (2, 5, 96, 3),
-    (4, 300, 512, 16), (8, 512, 1024, 16)])
+    (4, 300, 512, 16), (8, 512, 1024, 16), (2, 64, 1000, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_backward_kernel_matches_plain(cuda, B, T, di, N, dtype):
     """B5' from the checkpointing twin's states against
-    ``selective_scan_backward_plain``: T not a multiple of the 16-step
-    chunk (37, 5, 300), odd di (203), B = 1, N < 16 (the 2- and 1-lane
-    channels), a non-zero h0 with an incoming dh_last and, once, without
+    ``selective_scan_backward_plain``: T not a multiple of the 8-step
+    chunk (37, 5, 300), odd di (203), di over several clusters of 256
+    channels and not a whole number of them (1000), B = 1, N < 16 (the
+    2- and 1-lane channels), a non-zero h0 with an incoming dh_last and, once, without
     one; Bc/Cc as split views; each gradient within the tolerance of its
     largest magnitude, in its input's type; two launches the same bits."""
     ops_in, dy, dh = _scan_grad_case(T + di, B, T, di, N, dtype, cuda)
@@ -1248,7 +1249,7 @@ def test_scan_ckpt_entry_matches_served_entry_bitwise(cuda, B, T, di, N,
                                                       dtype):
     """The checkpointing twin's y and h_last equal the served entry's bit
     for bit; its stored states are h0 and the plain scan's states at
-    steps 16, 32, ... within the scan's tolerance."""
+    steps 8, 16, ... within the scan's tolerance."""
     ops_in, _, _ = _scan_grad_case(T + di + 1, B, T, di, N, dtype, cuda)
     entry = f"selective_scan_ckpt_{sops._NAMES[dtype]}"
     e0 = sops.KERNEL.entry_launches[entry]

@@ -304,27 +304,48 @@ def test_singleshot_and_torch_sharded_equal_unsharded():
 
 
 def test_torch_sharded_callable_equals_unsharded_or_refuses():
-    """A callable under ``torch-sharded`` runs per rank on the rows
-    ``in_shardings`` split (``shard_map``'s semantics): a row-wise
-    function joined along ``out_shardings`` equals the unsharded result
-    over two and four ranks; with nothing split a function that mixes
-    rows runs whole and equals it too; a split input whose outputs name
-    no axis to join along, or name none for one output, is refused."""
+    """A callable under ``torch-sharded`` computes what the reference's
+    ``jit(fn, in_shardings, out_shardings)`` does, ``fn`` of the global
+    arrays: over two and four ranks, functions that mix the rows a spec
+    splits (a centring, a column sum, a product) equal the unsharded
+    ``torch`` backend on the same inputs, with every output named or
+    with ``out_shardings=None`` (a split input and no output axis, which
+    ``jit`` accepts).  Shardings that do not fit the arrays or the mesh,
+    a split dimension that the ranks do not divide included, raise
+    ``ValueError`` as ``jit`` does."""
     rng = np.random.default_rng(59)
-    x = rng.standard_normal((7, 5)).astype(np.float32)
-    w = rng.standard_normal((5, 3)).astype(np.float32)
+    x = rng.standard_normal((8, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 8)).astype(np.float32)
+
+    def fn(a, b):
+        return a - a.mean(0), a.sum(0), a @ b
+    want = SingleShot(fn=fn, framework="torch", device="cpu").invoke(x, w)
     for n in (2, 4):
-        got = SingleShot(fn=lambda a, b: (a @ b, a.sum(1)),
-                         framework="torch-sharded", mesh=_mesh(n),
-                         in_shardings=(("model", None), None),
-                         out_shardings=("model",)).invoke(x, w)
-        np.testing.assert_allclose(got[0], x @ w, rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(got[1], x.sum(1), rtol=1e-6, atol=1e-6)
+        for out in (("model",), None, [("model", None), None,
+                                       ("model",)]):
+            got = SingleShot(fn=fn, framework="torch-sharded",
+                             mesh=_mesh(n),
+                             in_shardings=(("model", None), None),
+                             out_shardings=out).invoke(x, w)
+            for g, v in zip(got, want):
+                np.testing.assert_array_equal(g, v)
     whole = SingleShot(fn=lambda a: a.sum(0), framework="torch-sharded",
                        mesh=_mesh(2)).invoke(x)
-    np.testing.assert_allclose(whole, x.sum(0), rtol=1e-6, atol=1e-6)
-    for out in (None, (None,), [("model",), None]):
-        with pytest.raises(ValueError, match="out_shardings"):
-            SingleShot(fn=lambda a: (a, a.sum(0)),
-                       framework="torch-sharded", mesh=_mesh(2),
-                       in_shardings=("model", None), out_shardings=out)
+    np.testing.assert_array_equal(whole, want[1])
+    for ins, out, match in (
+            ((("model", None),) * 3, None, "3 in_shardings for 2 arrays"),
+            ((("model", None, None), None), None, "rank 2"),
+            (None, [None, None], "2 out_shardings for 3 arrays"),
+            (None, [None, ("model", None), None], "rank 1")):
+        with pytest.raises(ValueError, match=match):
+            SingleShot(fn=fn, framework="torch-sharded", mesh=_mesh(2),
+                       in_shardings=ins, out_shardings=out).invoke(x, w)
+    for ins, out, args in (((("model", None), None), None, (x[:7], w)),
+                           (None, [None, None, (None, "model")],
+                            (x, w[:, :6]))):
+        with pytest.raises(ValueError, match="not divisible by 4"):
+            SingleShot(fn=fn, framework="torch-sharded", mesh=_mesh(4),
+                       in_shardings=ins, out_shardings=out).invoke(*args)
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
+        SingleShot(fn=fn, framework="torch-sharded", mesh=_mesh(2),
+                   in_shardings=(("expert", None), None))

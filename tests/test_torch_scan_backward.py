@@ -20,7 +20,7 @@ from repro_torch.kernels.ssm_scan import ops as sops
 
 RTOL = 1e-5         # x the gradient's largest magnitude
 NAMES = ("d_dt", "d_xs", "d_Bc", "d_Cc", "dA", "dD", "dh0")
-# (B, S, di, N, h0 non-zero): S a multiple of the 16-step chunk and not,
+# (B, S, di, N, h0 non-zero): S a multiple of the 8-step chunk and not,
 # B = 1, N < 16 (the kernel's 1- and 2-lane channels), a carried state
 CASES = [(2, 32, 24, 16, False), (2, 37, 24, 16, True), (1, 21, 16, 8, True),
          (3, 19, 12, 3, True), (2, 5, 8, 1, False)]
@@ -157,3 +157,52 @@ def test_masked_scan_under_autograd_raises():
     wy, wh = sops.selective_scan_plain(dt.detach(), xs, Bc, Cc, A, D, h0,
                                        t_valid)
     assert torch.equal(y, wy) and torch.equal(h, wh)
+
+
+@pytest.mark.parametrize("N,di,n_grp", [
+    (4, 96, 1), (4, 8192, 8), (8, 96, 1), (8, 8192, 16), (16, 96, 1),
+    (16, 8192, 32)])
+def test_backward_workspace_is_one_partial_a_cluster(N, di, n_grp):
+    """B5''s d_Bc/d_Cc partials: 128, 64 or 32 channels a block as N <=
+    4, 8, 16, ``BACKWARD_CLUSTER`` blocks a cluster, one partial a
+    cluster (the grid padded to whole clusters); at jamba's training
+    shape 16.8 MB, 8x below a partial a block."""
+    assert sops.BACKWARD_CLUSTER == 8
+    assert sops.backward_workspace_shape(8, 512, di, N) == (2, 8, 512,
+                                                            n_grp, N)
+    if (N, di) == (16, 8192):
+        blocks = 2 * 8 * 512 * (di // 32) * N * 4
+        assert 4 * 2 * 8 * 512 * n_grp * N == blocks // 8 == 16_777_216
+
+
+def _fake_library(chunk=8, cluster=8, steps=8):
+    """A stand-in for the two built libraries' layout entries, reporting
+    the given chunk, cluster and checkpoint spacing and computing the
+    clusters along di as the kernel does."""
+    import types
+
+    def layout(di, N, out):
+        ch = 128 // (1 if N <= 4 else 2 if N <= 8 else 4)
+        out[0], out[1], out[2], out[3] = chunk, cluster, ch, 4
+        out[4] = -(-(-(-di // ch)) // cluster)
+        return 0
+    return types.SimpleNamespace(selective_scan_backward_layout=layout,
+                                 selective_scan_ckpt_steps=lambda: steps)
+
+
+@pytest.mark.parametrize("kw", [{}, {"chunk": 16}, {"cluster": 4},
+                                 {"steps": 16}])
+def test_loading_checks_the_libraries_layout(kw):
+    """ops.py holds each library's copy of the checkpoint spacing and of
+    B5''s chunk and cluster to its own when the library loads: a kernel
+    built with other values raises there, before any launch could index
+    a workspace of another size."""
+    lib = _fake_library(**kw)
+    if not kw:
+        sops._check_ckpt_steps(lib)
+        sops._check_backward_layout(lib)
+        return
+    check = sops._check_ckpt_steps if "steps" in kw \
+        else sops._check_backward_layout
+    with pytest.raises(RuntimeError, match="expects"):
+        check(lib)

@@ -87,10 +87,11 @@ def test_singleshot_fn_backends_and_refusals():
     assert SingleShot(model="identity").invoke(np.ones(2)).shape == (2,)
     with pytest.raises(ValueError, match="framework 'jax'"):
         SingleShot(fn=lambda x: x, framework="jax")
-    # mesh= and the shardings run on the torch-sharded backend: the rows
-    # split over two CPU ranks and joined give the unsharded result
+    # mesh= and the shardings run on the torch-sharded backend, which
+    # gives jit's result over two CPU ranks (the rows split evenly, as
+    # jit requires): the unsharded one
     mesh = make_serving_mesh(model=2, devices=["cpu", "cpu"])
-    x = np.arange(30, dtype=np.float32).reshape(5, 6)
+    x = np.arange(30, dtype=np.float32).reshape(6, 5)
     sharded = SingleShot(fn=lambda t: t.sum(dim=1), framework="torch-sharded",
                          mesh=mesh, in_shardings=("model", None),
                          out_shardings=("model",))
