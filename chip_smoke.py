@@ -9,10 +9,11 @@ result line):
                  each, in parallel) from the sources in this checkout;
                  log the registers, spills and shared memory of the
                  tensor-core prefill bodies (prefill_mma.cuh, bf16, with
-                 and without the logsumexp; prefill_tf32.cuh, split TF32)
-                 per head_dim and K/V type, of the tensor-core backward
-                 (backward_mma.cuh: delta, dq, dk/dv, rope sum) and of
-                 the split decode body (decode_body.cuh).
+                 and without the logsumexp, at head_dim 64, 128, 192 and
+                 MLA's; prefill_tf32.cuh, split TF32) per head_dim and
+                 K/V type, of the tensor-core backward (backward_mma.cuh:
+                 delta, dq, dk/dv, rope sum; 64, 128, 192 and MLA's) and
+                 of the split decode body (decode_body.cuh).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -74,15 +75,25 @@ result line):
                  smollm heads, B = 8, S = 512, causal, bf16 and f32; jamba
                  heads; a 128-token window; MLA's heads on their own
                  operands; whisper's encoder without the mask (S = T =
-                 1500); 100 queries over 64 keys; each row's entry checked
-                 (bf16: the tensor-core ``*_mma`` ones; f32: the CUDA-core
-                 one), two launches equal bit for bit, the MLA backward's
+                 1500); 100 queries over 64 keys; nemotron-4-340b's heads
+                 (96/8 of 192); each row's entry checked (bf16: the
+                 tensor-core ``*_mma`` ones; f32 and head dim 48: the
+                 CUDA-core one), two launches equal bit for bit, the MLA backward's
                  peak memory (no (B, T, H, 192) tensor); timed against the
                  plain version, SDPA's backward and 2.5x the forward's
                  operations.  Then the ``*_lse`` forward entries (smollm,
-                 jamba, MLA heads): out equal to the served entries' bit
-                 for bit, the logsumexp within 1e-5 of the plain version,
-                 both timed.  Then B5's backward (B5',
+                 jamba, nemotron, MLA heads): out equal to the served
+                 entries' bit for bit, the logsumexp within 1e-5 of the
+                 plain version, both timed.  Then the kernels at
+                 nemotron-4-340b's heads (96/8, head_dim 192 = V, bf16,
+                 G = 12) at phase 19's shapes: B2 at B = 8, S = T = 512
+                 causal and K2 at T = 32 ending at position 512 through
+                 the tensor-core body at 192, K1 and B4 over 544 keys,
+                 each against its plain version and timed; B2 and K2
+                 also through the earlier CUDA-core entries (on K/V
+                 repeated to the 96 query heads: their blocks do not fit
+                 G = 12 at 192) and B2' through its CUDA-core entry, in
+                 the same call.  Then B5's backward (B5',
                  ``selective_scan_backward.cu``; no TPU kernel: the JAX
                  package differentiates its scan through XLA): all seven
                  gradients against ``selective_scan_backward_plain`` at
@@ -325,6 +336,27 @@ result line):
                  rank launches each kernel, C entry by C entry, as often
                  as the engine without a mesh.  Then
                  ``launch.serve --smoke --mesh 1`` on the card.
+ 19. nemotron-4-340b — at full width (d 18432, 96/8 heads of 192,
+                 layernorm, squared ReLU, rotary on half of each head,
+                 d_ff 73728, vocab 256000, untied head; bf16, random
+                 weights from seed 0 made on the card) cut to 4 of its 96
+                 layers (~23.25B parameters, ~46.5 GB): (a) the paged
+                 engine (bf16 pool, batch 8, chunk 32, burst 8) serves 8
+                 requests of 512 tokens, 32 new: K2 only through
+                 ``paged_prefill_attention_bf16_bf16_mma`` (the
+                 tensor-core body at 192) once a layer and mixed step, K1
+                 once a layer and decode step; tok/s, TTFT, peak memory,
+                 a trace; (b) the dense engine, the same prompts: B2
+                 through ``flash_attention_bf16_mma`` once a layer, B4
+                 once a layer and decode step; (c) layer 0's q, k, v from
+                 (b)'s prefill wave through B2 and B2' (the ``*_lse``
+                 forward, then ``flash_attention_backward_bf16_mma``)
+                 against their plain versions; (d) cut to 1 layer
+                 (~12.9B parameters), 3 steps of plain SGD on 4 x 512
+                 ``TokenStream`` tokens (AdamW's moments fit no card):
+                 every loss and gradient finite, B2 through
+                 ``_mma_lse`` and B2' through ``_bf16_mma`` once a step;
+                 training tokens/s, ms a step, peak memory, a trace.
 Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
 forward entry and no checkpointing scan: every reset of the launch counts
 checks it.
@@ -341,13 +373,17 @@ the ``*_lse`` forward rows under ``lse_entries``); B5's backward: its
 launches from phase 17(c), ``training_shapes`` its phase-3 rows and the
 twin's; ``launches_phase17``/``_phase17a``/``_phase17c`` every kernel's
 in 17(b)/(a)/(c); ``launches_phase18`` every kernel's in phase 18's
-mesh runs, ``launches_phase18_by_rank`` the same per rank); then
+mesh runs, ``launches_phase18_by_rank`` the same per rank;
+``launches_phase19`` every kernel's in phase 19's runs;
+``nemotron_heads``: the phase-3 rows at nemotron-4-340b's heads, the
+earlier CUDA-core body's time as ``earlier_ms``); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import importlib
@@ -356,6 +392,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -391,6 +428,10 @@ RUNTIME_CALL = re.compile(r"cu(da)?[A-Z]")
 E4_CHAIN = "typecast:float32,divide:255.0,subtract:0.5,clamp:-0.5:0.5"
 SMOLLM_HEADS = dict(H=15, KV=5, hd=64)   # smollm-360m: 15 query, 5 KV heads
 JAMBA_HEADS = dict(H=32, KV=8, hd=128)   # jamba-v0.1: 32 query, 8 KV heads
+# nemotron-4-340b: 96 query heads, 8 KV heads (G = 12), head_dim 192, V 192
+NEMOTRON_HEADS = dict(H=96, KV=8, hd=192)
+NEMOTRON_CTX = 512      # phase 19's prompts: K2's last chunk ends here
+NEMOTRON_CAP = 544      # and their capacity, 512 + 32 new
 BS, P, MAX_LEN = 16, 40, 600       # block size, pages per slot, lengths
 SPEC_K = 4                         # phase 11's draft tokens per round
 REPLACES = {
@@ -531,8 +572,10 @@ def _log_body_build(name: str, text: str) -> None:
                 hd, vd, stages, warps = map(int, re.findall(r"Li(\d+)E",
                                                             targs))
                 # the ring, and q after it where it does not fit a stage
+                # or is reread at every tile (V 192)
                 stage, q = 64 * ((hd + 8) + (vd + 8)), warps * 16 * (hd + 8)
-                smem = 2 * (stages * stage + (q if q > stage else 0))
+                smem = 2 * (stages * stage
+                            + (q if q > stage or vd > 128 else 0))
                 form = "MLA " if "MlaRows" in targs else ""
                 form += "(+ logsumexp, the *_lse entries) " \
                     if "Lb1E" in targs else ""
@@ -1831,7 +1874,8 @@ def _lse_rows(timer):
         g = torch.Generator(device="cpu").manual_seed(seed)
         return torch.randint(-1, 2, shape, generator=g).to("cuda",
                                                            torch.bfloat16)
-    cases = [("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS), ("mla", None)]
+    cases = [("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS),
+             ("nemotron", NEMOTRON_HEADS), ("mla", None)]
     for geo, heads in cases:
         if heads is None:
             H, (nope, rope, vd) = MLA_HEADS["H"], dops.MLA_DIMS
@@ -1911,7 +1955,8 @@ BACKWARD_CASES = (
     ("smollm", SMOLLM_HEADS, torch.bfloat16, 512, 512, True, 128),
     ("whisper encoder", WHISPER_HEADS, torch.bfloat16, 1500, 1500, False, 0),
     ("cross", WHISPER_HEADS, torch.bfloat16, 100, 64, False, 0),
-    ("smoke", SMOKE48_HEADS, torch.bfloat16, 512, 512, True, 0))
+    ("smoke", SMOKE48_HEADS, torch.bfloat16, 512, 512, True, 0),
+    ("nemotron", NEMOTRON_HEADS, torch.bfloat16, 512, 512, True, 0))
 
 
 def backward_case(geo, heads, dtype, S, T, causal, window, B=8):
@@ -1937,13 +1982,14 @@ def phase_backward_kernels(timer: Timer):
     17(b)'s shape) and f32, jamba's heads causal, a 128-token window,
     DeepSeek-V3's MLA heads on their own operands, whisper-tiny's encoder
     without the mask (S = T = 1500, no multiple of the 64-key tile), and
-    a cross case, 100 queries over 64 keys without the mask, and bf16 at
-    the smoke configs' head dim 48; bf16 rows at head dim 64 or 128 must
-    launch the tensor-core entry, f32 and head dim 48 the CUDA-core entry
-    of their type.  Then the
-    ``*_lse`` forward entries beside the served ones.  Returns the rows
-    by tag (the ``*_lse`` rows under "lse_entries"); the served row is
-    phase 17(b)'s shape."""
+    a cross case, 100 queries over 64 keys without the mask, bf16 at
+    the smoke configs' head dim 48 and at nemotron-4-340b's heads (96/8,
+    192, causal); bf16 rows at a head dim of ``MMA_HEAD_DIMS`` must launch
+    the tensor-core entry, f32 and head dim 48 the CUDA-core entry of
+    their type.  Then the ``*_lse`` forward entries beside the served
+    ones.  Returns the rows by tag (the ``*_lse`` rows under
+    "lse_entries"); the served row is phase 17(b)'s shape."""
+    from repro_torch.kernels.flash_attention import ops as fops
     rows = {}
     for case in BACKWARD_CASES:
         tag, (q, k, v), mask = backward_case(*case)
@@ -1952,7 +1998,8 @@ def phase_backward_kernels(timer: Timer):
                                   window=window, mask=mask)
         bf16 = dtype == torch.bfloat16
         want = (f"flash_attention_backward_{'bf16' if bf16 else 'f32'}"
-                + ("_mma" if bf16 and case[1]["hd"] in (64, 128) else ""))
+                + ("_mma" if bf16 and case[1]["hd"] in fops.MMA_HEAD_DIMS
+                   else ""))
         check(rows[tag]["entry"] == want,
               f"{tag}: served by {rows[tag]['entry']}, not {want}")
     rows["mla"] = _mla_backward_row(timer, 8, 512, MLA_HEADS["H"])
@@ -1964,6 +2011,236 @@ def phase_backward_kernels(timer: Timer):
     served = next(r for t, r in rows.items()
                   if "smollm" in t and "bfloat16" in t and "window" not in t)
     return served, rows
+
+
+
+def _scale_stream(hd: int):
+    return (ctypes.c_float(1.0 / np.sqrt(hd)),
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _core_flash(fops, q, k, v):
+    """The CUDA-core forward (``flash_attention_bf16``, prefill_body.cuh)
+    on K/V repeated to every query head (G = 1): at G = 12 and head_dim
+    192 its block needs 446 KB of shared memory and is refused, so the
+    earlier body is timed on the operands it can take."""
+    B, S, H, hd = q.shape
+    kr, vr = (t.repeat_interleave(H // k.shape[2], dim=2).contiguous()
+              for t in (k, v))
+    out = torch.empty_like(q)
+
+    def run():
+        fops.FLASH_KERNEL.launch(
+            "flash_attention_bf16", q.data_ptr(), kr.data_ptr(),
+            vr.data_ptr(), out.data_ptr(), B, S, k.shape[1], H, H, hd, 1, 0,
+            *_scale_stream(hd))
+        return out
+    return run
+
+
+def _core_paged_prefill(fops, q, k, v, pt, lengths):
+    """K2's CUDA-core entry (``paged_prefill_attention_bf16_bf16``) over
+    pools repeated to every query head (G = 1; at G = 12 its block needs
+    272 KB of shared memory)."""
+    B, T, H, hd = q.shape
+    kr, vr = (t.repeat_interleave(H // k.shape[2], dim=2).contiguous()
+              for t in (k, v))
+    out = torch.empty_like(q)
+
+    def run():
+        fops.KERNEL.launch(
+            "paged_prefill_attention_bf16_bf16", q.data_ptr(), kr.data_ptr(),
+            vr.data_ptr(), pt.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, T, H, H, hd, kr.shape[1], pt.shape[1], *_scale_stream(hd))
+        return out
+    return run
+
+
+def _core_backward(fops, q, k, v, out, dout):
+    """B2''s CUDA-core entry (``flash_attention_backward_bf16``, three
+    passes; it takes G = 12 as it is), causal."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    lse, delta = (torch.empty((B, H, S), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+
+    def run():
+        fops.BACKWARD_KERNEL.launch(
+            "flash_attention_backward_bf16", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            *(g.data_ptr() for g in grads), lse.data_ptr(), delta.data_ptr(),
+            B, S, T, H, KV, hd, hd, 1, 0, *_scale_stream(hd))
+        return grads
+    return run
+
+
+def _earlier(timer, row, run, want, tol, tag, rel=False) -> None:
+    """Check the earlier (CUDA-core) body against the plain version, time
+    it beside the new one's row (``earlier_ms``) and log both."""
+    got = run()
+    torch.cuda.synchronize()
+    err = _grad_err(got, want) if rel else \
+        (got.float() - want.float()).abs().max().item()
+    check(err <= tol, f"{tag}, the earlier body: error {err} > {tol}")
+    row["earlier_ms"] = timer.ms(run)
+    row["earlier_err"] = err
+    log(f"{tag}: the earlier CUDA-core body {row['earlier_ms']:.4f} ms "
+        f"(error {err:.3e}, tol {tol}) against {row['ms']:.4f}: "
+        f"{row['earlier_ms'] / row['ms']:.1f}x; SDPA "
+        f"{row['library_ms']:.4f}, {row['ms'] / row['library_ms']:.2f}x")
+
+
+def phase_nemotron_kernels(timer: Timer, backward_rows: dict):
+    """The kernels at nemotron-4-340b's heads (96/8, head_dim 192 with V
+    192: G = 12), bf16, at phase 19's shapes, each against its plain
+    version, timed beside the plain version, SDPA and the bound: B2
+    contiguous at B = 8, S = T = 512, causal (``flash_attention_bf16_mma``,
+    the tensor-core body at 192); K2 at B = 8, T = 32, the last chunk of
+    512-token prompts (lengths 480; ``paged_prefill_attention_bf16_bf16_
+    mma``); K1 at B = 8 over 544 valid keys of a paged pool; B4 at B = 8
+    over a 544-slot cache, all valid.  B2 and K2 also through the earlier
+    CUDA-core entries on K/V repeated to the 96 query heads (what they can
+    take: their blocks do not fit G = 12 at 192), in the same call, and
+    B2' (``BACKWARD_CASES``' nemotron row, in ``backward_rows``) through
+    its CUDA-core entry, that time added to the row.  Returns {kernel:
+    row}."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    heads, bf16 = NEMOTRON_HEADS, torch.bfloat16
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    B, S, G = 8, NEMOTRON_CTX, heads["H"] // heads["KV"]
+    rows = {}
+    tag0 = f"nemotron heads {H}/{KV} hd {hd} B={B}"
+
+    # B2, contiguous, causal
+    q, k, v = _dense_qkv(S + hd, B, S, S, heads, bf16)
+    entry = fops.flash_entry(bf16, hd)
+    e0 = fops.FLASH_KERNEL.entry_launches[entry]
+    out = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(fops.FLASH_KERNEL.entry_launches[entry] == e0 + 1
+          and entry == "flash_attention_bf16_mma",
+          f"B2 at nemotron heads did not launch {entry}")
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = DENSE_BF16_TOL["flash_attention"]
+    tag = f"[kernels] flash_attention (contiguous) {tag0} S=T={S} causal " \
+          f"bfloat16 [{entry}]"
+    check(torch.isfinite(out.float()).all().item() and err <= tol,
+          f"{tag}: max_abs_err {err} > {tol}")
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
+                    lambda *a: fops.flash_attention_plain(*a, causal=True),
+                    (q, k, v), _sdpa(q, k, v, G, causal=True),
+                    _bound(n_bytes, 4 * B * H * hd * _n_visible(S, S, True, 0),
+                           bf16))
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    _earlier(timer, row, _core_flash(fops, q, k, v), want, tol, tag)
+    rows["flash_attention"] = dict(max_abs_err=err, **row)
+    del q, k, v, out, want
+
+    # K2 (T = 32, the last chunk of a 512-token prompt) and K1 (544 valid)
+    g = torch.Generator(device="cpu").manual_seed(hd + 19)
+    nb = B * P + 7
+    kp, vp = (torch.randn((nb, BS, KV, hd), generator=g).to("cuda", bf16)
+              for _ in range(2))
+    pt = torch.stack([torch.randperm(nb, generator=g)[:P]
+                      for _ in range(B)]).to("cuda", torch.int32)
+    for name, T, n in (("paged_prefill_attention", 32, S - 32),
+                       ("paged_decode_attention", 1, NEMOTRON_CAP)):
+        decode = T == 1
+        lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, T, H, hd), generator=g).to("cuda", bf16)
+        if decode:
+            q = q[:, 0].contiguous()
+            kern, plain, handle = (dops.paged_decode_attention,
+                                   dops.paged_decode_attention_plain,
+                                   dops.KERNEL)
+            entry = "paged_decode_attention_bf16_bf16"
+        else:
+            kern, plain, handle = (fops.paged_prefill_attention,
+                                   fops.paged_prefill_attention_plain,
+                                   fops.KERNEL)
+            entry = fops.paged_prefill_entry(bf16, bf16, hd)
+        args = (q, kp, vp, pt, lengths)
+        e0 = handle.entry_launches[entry]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        check(handle.entry_launches[entry] == e0 + 1,
+              f"{name} at nemotron heads did not launch {entry}")
+        want = plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[bf16]
+        tag = (f"[kernels] {name} {tag0} T={T} "
+               + (f"over {n} valid keys" if decode else
+                  f"at positions {n}..{n + T - 1}") + f" bfloat16 [{entry}]")
+        check(torch.isfinite(got.float()).all().item() and err <= tol,
+              f"{tag}: max_abs_err {err} > {tol}")
+        row = _time_row(timer, kern, plain, args,
+                        _attn_library_call(*args, T, decode, heads),
+                        _attn_bound_ms(q, kp, lengths, T, decode, heads))
+        log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+        if not decode:
+            _earlier(timer, row, _core_paged_prefill(fops, *args), want, tol,
+                     tag)
+        rows[name] = dict(max_abs_err=err, **row)
+    del kp, vp
+
+    # B4 over a 544-slot cache, all valid
+    C = NEMOTRON_CAP
+    q, k, v = _dense_qkv(C + hd, B, 1, C, heads, bf16)
+    q = q[:, 0].contiguous()
+    n0 = dops.DENSE_KERNEL.entry_launches["decode_attention_bf16_bf16"]
+    got = dops.decode_attention(q, k, v, C)
+    torch.cuda.synchronize()
+    check(dops.DENSE_KERNEL.entry_launches["decode_attention_bf16_bf16"]
+          == n0 + 1, "decode_attention at nemotron heads did not launch")
+    want = dops.decode_attention_plain(q, k, v, C)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = DENSE_BF16_TOL["decode_attention"]
+    tag = f"[kernels] decode_attention (dense) {tag0} C={C} n_valid={C} " \
+          f"bfloat16"
+    check(torch.isfinite(got.float()).all().item() and err <= tol,
+          f"{tag}: max_abs_err {err} > {tol}")
+    n_bytes = q.numel() * 4 + 2 * B * C * KV * hd * 2
+    row = _time_row(timer, dops.decode_attention, dops.decode_attention_plain,
+                    (q, k, v, C), _sdpa(q[:, None], k, v, G),
+                    _bound(n_bytes, 4 * B * H * hd * C, bf16))
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    rows["decode_attention"] = dict(max_abs_err=err, **row)
+
+    # B2': the CUDA-core entry on BACKWARD_CASES' nemotron operands, its
+    # time added to that case's row (phase_backward_kernels)
+    case = next(c for c in BACKWARD_CASES if c[0] == "nemotron")
+    tag, (q, k, v), _ = backward_case(*case)
+    gd = torch.Generator(device="cpu").manual_seed(case[3] + case[4])
+    dout = torch.randn(q.shape, generator=gd).to("cuda", bf16)
+    out = fops.flash_attention(q, k, v, causal=True)
+    want = fops.flash_attention_backward_plain(q, k, v, out, dout)
+    row = backward_rows[tag]
+    _earlier(timer, row, _core_backward(fops, q, k, v, out, dout), want,
+             GRAD_TOL[bf16], tag, rel=True)
+    # where the new body's time goes: each kernel's mean over the launches
+    # one trace of 4 calls holds (warm L2; the trace may miss the first)
+    from torch.profiler import ProfilerActivity, profile
+    _, lse = fops._flash_forward(q, k, v, True, 0, lse=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(4):
+            fops.flash_attention_backward(q, k, v, out, dout, lse=lse)
+        torch.cuda.synchronize()
+    got = {n: [(e.self_device_time_total, e.count)
+               for e in prof.key_averages() if n in e.key]
+           for n in ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+    counts = {n: sum(c for _, c in v) for n, v in got.items()}
+    check(all(c >= 2 for c in counts.values()),
+          f"{tag}: the trace holds {counts} launches, want 2 to 4 of each")
+    row["traced_ms"] = {n: sum(us for us, _ in v) / counts[n] / 1e3
+                        for n, v in got.items()}
+    log(f"{tag}: traced (warm L2; launches {counts}) "
+        + ", ".join(f"{n} {ms:.4f} ms" for n, ms in row["traced_ms"].items()))
+    return rows
 
 
 def _quant_pools(k, v):
@@ -4203,24 +4480,11 @@ def jamba_train_step(model, params, leaves, batch, lr: float):
 def jamba_trainer(pkg: str = "repro_torch"):
     """Phase 17(c)'s model from the port package importable as ``pkg``
     (kernel_ab.py builds another checkout's the same way): jamba-v0.1,
-    one period at full width, random bf16 weights made on the card from
-    seed 0, its trainable leaves, and ``JAMBA_TRAIN``'s batches from a
-    seed-0 ``TokenStream``.  Returns (cfg, model, params, leaves,
-    batch), ``batch()`` the next batch on the card."""
-    configs, models, data, trainer, tree = (
-        importlib.import_module(f"{pkg}.{m}") for m in (
-            "configs", "models", "data", "training.trainer", "tree"))
-    B, S = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq"]
-    cfg = configs.get_config("jamba-v0.1-52b").replace(n_layers=8)
-    model = models.build_model(cfg, device="cuda")
-    params = trainer.trainable(model.init(seed=0))
-    leaves = [p for p in tree.tree_leaves(params) if p.requires_grad]
-    stream = data.TokenStream(cfg.vocab_size, S, B, seed=0)
-
-    def batch():
-        return {k: torch.from_numpy(v).to("cuda")
-                for k, v in next(stream).items()}
-    return cfg, model, params, leaves, batch
+    one period at full width, through ``sgd_trainer`` with
+    ``JAMBA_TRAIN``'s batches.  Returns (cfg, model, params, leaves,
+    batch)."""
+    return sgd_trainer("jamba-v0.1-52b", 8, JAMBA_TRAIN["batch"],
+                       JAMBA_TRAIN["seq"], pkg)
 
 
 def train_step_shares(prof) -> tuple:
@@ -4637,6 +4901,292 @@ def phase_mesh(kernels, acc, by_rank, card: str) -> None:
     log("[mesh] launch.serve --smoke --mesh 1 served 4 requests on the card")
 
 
+# -- phase 19 -------------------------------------------------------------------
+
+NEMOTRON_LAYERS = 4     # 19(a)-(c): 4 of 96 layers, ~23.25B parameters
+NEMOTRON_NEW = 32
+# 19(d): 1 of 96 layers (~12.9B), 3 SGD steps of 4 x 512 tokens
+NEMOTRON_TRAIN = dict(layers=1, steps=3, batch=4, seq=512, lr=1e-3)
+
+
+def nemotron_prompts(vocab_size: int):
+    """Phase 19's 8 requests of ``NEMOTRON_CTX`` prompt tokens."""
+    rng = np.random.default_rng(19)
+    return [rng.integers(0, vocab_size, NEMOTRON_CTX).astype(np.int32)
+            for _ in range(8)]
+
+
+def _serve_nemotron(kernels, eng, prompts, tag: str, card: str) -> None:
+    """Serve the prompts (their ``NEMOTRON_NEW`` tokens each, direct):
+    every request ok, its tokens in the vocab; tok/s, TTFT and peak
+    memory logged.  The launch counts are reset before."""
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = eng.serve(prompts, timeout_s=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vocab = eng.model.cfg.vocab_size
+    check(all(r.status == "ok" and len(r.tokens) == NEMOTRON_NEW
+              and 0 <= int(r.tokens.min()) and int(r.tokens.max()) < vocab
+              for r in res),
+          f"[{tag}] {[(r.status, len(r.tokens)) for r in res]}")
+    ttft = sorted(r.ttft_s for r in res)
+    n_tok = sum(len(r.tokens) for r in res)
+    log(f"[{tag}] served {len(res)} x {NEMOTRON_CTX}-token prompts, "
+        f"{NEMOTRON_NEW} new: {n_tok} tokens in {wall:.2f}s = "
+        f"{n_tok / wall:.1f} tok/s (direct); TTFT p50 "
+        f"{1e3 * ttft[len(ttft) // 2]:.1f} ms, max {1e3 * ttft[-1]:.1f} "
+        f"ms; {eng.n_device_steps} device steps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
+
+def phase_nemotron(kernels, acc, card: str) -> None:
+    """Phase 19: nemotron-4-340b at full width (d 18432, 96/8 heads of
+    192, layernorm, squared ReLU, rotary on half of each head, d_ff 73728,
+    vocab 256000 with an untied head; bf16) cut to ``NEMOTRON_LAYERS`` of
+    its 96 layers (random weights made on the card from seed 0).  (a) The
+    paged engine (bf16 pool, batch 8, chunk 32, burst 8) serves 8
+    requests of 512 tokens, 32 new: K2 only through
+    ``paged_prefill_attention_bf16_bf16_mma`` (the tensor-core body at
+    192) once a layer and mixed step, K1 once a layer and decode step;
+    then a trace.  (b) The dense engine on the same prompts: B2 through
+    ``flash_attention_bf16_mma`` once a layer (one prefill wave), B4 once
+    a layer and decode step; layer 0's q, k, v captured from the wave.
+    (c) B2 and B2' on those operands against their plain versions, timed.
+    (d) is ``phase_train_nemotron``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    L = NEMOTRON_LAYERS
+    t0 = time.perf_counter()
+    cfg = get_config("nemotron-4-340b").replace(n_layers=L)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[nemotron] {cfg.arch_id} full width, {L} of 96 layers: d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, {cfg.norm}, {cfg.mlp_act}, rope_pct "
+        f"{cfg.rope_pct}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (head "
+        f"untied: {not cfg.tie_embeddings}), bf16: {n_params / 1e9:.2f}B "
+        f"parameters made on the card in {time.perf_counter() - t0:.1f}s")
+    prompts = nemotron_prompts(cfg.vocab_size)
+    kw = dict(batch_size=8, capacity=NEMOTRON_CAP,
+              max_new_tokens=NEMOTRON_NEW, burst=8, kv_dtype="bf16",
+              device="cuda")
+
+    # (a) paged
+    eng = ServeEngine(model, params, prefill_chunk=32, block_size=16, **kw)
+    check(eng.paged, "[nemotron-paged] the engine is not paged")
+    _serve_nemotron(kernels, eng, prompts, "nemotron-paged", card)
+    check_serving_launches(kernels, "nemotron-paged")
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_bf16_bf16_mma", "nemotron-paged")
+    check_served_by(kernels, "paged_decode_attention",
+                    "paged_decode_attention_bf16_bf16", "nemotron-paged")
+    mixed, steps = eng.n_prefill_chunks, eng.n_device_steps
+    launches = _tally(kernels, acc)
+    want = {"paged_prefill_attention": L * mixed,
+            "paged_decode_attention": L * (steps - mixed)}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"[nemotron-paged] launches {launches}, want {want} ({L} layers, "
+          f"{mixed} mixed and {steps - mixed} decode steps)")
+    log(f"[nemotron-paged] launches {want}: {L} layers x {mixed} mixed "
+        f"steps (K2) and x {steps - mixed} decode steps (K1)")
+    phase_trace(eng, "nemotron-paged", n=8, prompt_len=NEMOTRON_CTX)
+    reset(kernels)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) dense, layer 0's B2 operands captured from the prefill wave
+    eng = ServeEngine(model, params, paged=False, **kw)
+    check(not eng.paged, "[nemotron-dense] the engine is paged")
+    captured = {}
+    served_flash = fops.flash_attention
+
+    def capture(q, k, v, **kwargs):
+        if not captured:
+            captured["qkv"] = (q, k, v)
+        return served_flash(q, k, v, **kwargs)
+    fops.flash_attention = capture
+    try:
+        _serve_nemotron(kernels, eng, prompts, "nemotron-dense", card)
+    finally:
+        fops.flash_attention = served_flash
+    check_serving_launches(kernels, "nemotron-dense")
+    check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
+                    "nemotron-dense")
+    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
+                    "nemotron-dense")
+    launches = _tally(kernels, acc)
+    want = {"flash_attention": L, "decode_attention": L * (NEMOTRON_NEW - 1)}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"[nemotron-dense] launches {launches}, want {want} (one wave)")
+    log(f"[nemotron-dense] launches {want}: B2 once a layer, B4 once a "
+        f"layer and decode step")
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) layer 0's served operands through B2 and B2'
+    # (copies made outside the engine's inference mode, so that autograd
+    # may take them)
+    _nemotron_served_kernels(fops, *(t.clone() for t in captured.pop("qkv")))
+
+
+def _nemotron_served_kernels(fops, q, k, v) -> None:
+    """Phase 19(c): B2 (``flash_attention_bf16_mma``) and B2' (the
+    ``*_lse`` forward, then ``flash_attention_backward_bf16_mma``) on
+    layer 0's q, k, v from 19(b)'s prefill wave (B = 8, S = 512, causal)
+    and a seeded random dout, against their plain versions with phase 3's
+    tolerances, each launch's entry checked, then timed.  These launches
+    are not the main path's (its counts were read)."""
+    B, S, H, hd = q.shape
+    timer = Timer()
+    tag = (f"[nemotron-served] layer 0's operands: heads {H}/{k.shape[2]} "
+           f"hd {hd} B={B} S=T={S} causal {str(q.dtype)[6:]}")
+    e0 = dict(fops.FLASH_KERNEL.entry_launches)
+    out = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(fops.FLASH_KERNEL.entry_launches["flash_attention_bf16_mma"]
+          == e0["flash_attention_bf16_mma"] + 1,
+          f"{tag}: B2 did not launch flash_attention_bf16_mma")
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = DENSE_BF16_TOL["flash_attention"]
+    check(torch.isfinite(out.float()).all().item() and err <= tol,
+          f"{tag}: B2 max_abs_err {err} > {tol} (largest |out| "
+          f"{want.float().abs().max().item():.3f})")
+    ms = timer.ms(lambda: fops.flash_attention(q, k, v, causal=True))
+    log(f"{tag}: B2 max_abs_err={err:.3e} (tol {tol}; largest |out| "
+        f"{want.float().abs().max().item():.3f}), {ms:.4f} ms")
+    g = torch.Generator(device="cpu").manual_seed(19)
+    dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
+    before = dict(fops.BACKWARD_KERNEL.entry_launches)
+    got = fops.flash_attention_backward(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    _check_backward_entry(fops, before, "flash_attention_backward_bf16_mma",
+                          tag)
+    check(all(torch.isfinite(t.float()).all().item() for t in got),
+          f"{tag}: non-finite gradients")
+    rel = _grad_err(got, fops.flash_attention_backward_plain(
+        q, k, v, out, dout))
+    tol = GRAD_TOL[torch.bfloat16]
+    check(rel <= tol, f"{tag}: B2' relative gradient error {rel} > {tol}")
+    _, lse = fops._flash_forward(q, k, v, True, 0, lse=True)
+    ms = timer.ms(lambda: fops.flash_attention_backward(q, k, v, out, dout,
+                                                        lse=lse))
+    log(f"{tag}: B2' relative gradient error {rel:.3e} (tol {tol}), "
+        f"{ms:.4f} ms (given the *_lse forward's logsumexp)")
+
+
+def sgd_trainer(arch: str, n_layers: int, batch_size: int, seq: int,
+                pkg: str = "repro_torch"):
+    """A model of ``arch`` cut to ``n_layers`` at full width from the
+    port package importable as ``pkg``, random bf16 weights made on the
+    card from seed 0, its trainable leaves, and batches of ``batch_size``
+    x ``seq`` tokens from a seed-0 ``TokenStream``.  Returns (cfg, model,
+    params, leaves, batch), ``batch()`` the next batch on the card."""
+    configs, models, data, trainer, tree = (
+        importlib.import_module(f"{pkg}.{m}") for m in (
+            "configs", "models", "data", "training.trainer", "tree"))
+    cfg = configs.get_config(arch).replace(n_layers=n_layers)
+    model = models.build_model(cfg, device="cuda")
+    params = trainer.trainable(model.init(seed=0))
+    leaves = [p for p in tree.tree_leaves(params) if p.requires_grad]
+    stream = data.TokenStream(cfg.vocab_size, seq, batch_size, seed=0)
+
+    def batch():
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in next(stream).items()}
+    return cfg, model, params, leaves, batch
+
+
+def phase_train_nemotron(kernels, acc, card: str) -> None:
+    """Phase 19(d): nemotron-4-340b at full width cut to
+    ``NEMOTRON_TRAIN["layers"]`` of 96 layers (~12.9B bf16 parameters, the
+    untied embedding and head 9.4B of them; random, seed 0, made on the
+    card) trains ``NEMOTRON_TRAIN["steps"]`` steps on 4 x 512-token
+    ``TokenStream`` batches: ``model.loss``, the gradients of every leaf,
+    plain SGD in place (AdamW's moments, ~16 bytes a parameter, fit no
+    card).  Checks: every loss and gradient finite; B2 only through
+    ``flash_attention_bf16_mma_lse`` and B2' only through
+    ``flash_attention_backward_bf16_mma``, once a layer and step, nothing
+    else launched.  Logged: training tokens/s of forward plus backward, ms
+    a step, peak memory, a trace of one more step."""
+    from torch.profiler import ProfilerActivity, profile
+    n_layers, steps, B, S, lr = (NEMOTRON_TRAIN[k] for k in (
+        "layers", "steps", "batch", "seq", "lr"))
+    held = torch.cuda.memory_allocated()
+    log(f"[train-nemotron] {held / 2**30:.2f} GiB held on the card before "
+        f"the model is made")
+    if held > 2**30:   # what an earlier phase left behind, largest first
+        with warnings.catch_warnings():  # isinstance on deprecated names
+            warnings.simplefilter("ignore", FutureWarning)
+            big = sorted(((o.numel() * o.element_size(), tuple(o.shape),
+                           o.dtype) for o in gc.get_objects()
+                          if isinstance(o, torch.Tensor) and o.is_cuda),
+                         key=lambda r: -r[0])[:8]
+        log(f"[train-nemotron] largest live tensors: {big}")
+    t0 = time.perf_counter()
+    cfg, model, params, leaves, batch = sgd_trainer(
+        "nemotron-4-340b", n_layers, B, S)
+    torch.cuda.synchronize()
+    log(f"[train-nemotron] {cfg.arch_id} full width, {n_layers} of 96 "
+        f"layers: {sum(p.numel() for p in leaves) / 1e9:.2f}B bf16 "
+        f"parameters made on the card in {time.perf_counter() - t0:.1f}s; "
+        f"{steps} steps of {B} x {S} tokens, SGD lr {lr}")
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    losses, fb_s, step_s = [], [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        loss, grads, fb = jamba_train_step(model, params, leaves, batch(), lr)
+        # in chunks: a bool copy of the 4.7e9-element embedding's gradient
+        # would take 4.4 GiB
+        finite = torch.stack([torch.isfinite(loss)] + [
+            torch.isfinite(c).all() for g in grads if g is not None
+            for c in g.view(-1).split(1 << 28)]).all()
+        losses.append(loss.item())
+        check(bool(finite.item()), f"[train-nemotron] step {step}: a "
+              f"non-finite loss or gradient (loss {losses[-1]})")
+        unused = sum(g is None for g in grads)
+        del grads
+        torch.cuda.synchronize()
+        fb_s.append(fb)
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served_by(kernels, "flash_attention",
+                    "flash_attention_bf16_mma_lse", "train-nemotron")
+    check_served_by(kernels, "flash_attention_backward",
+                    "flash_attention_backward_bf16_mma", "train-nemotron")
+    launches = _tally(kernels, acc)
+    want = {"flash_attention": n_layers * steps,
+            "flash_attention_backward": n_layers * steps}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"[train-nemotron] launches {launches}, want {want}")
+    tok_s = B * S * (steps - 1) / sum(fb_s[1:])
+    log(f"[train-nemotron] losses {[round(x, 4) for x in losses]} (finite), "
+        f"every gradient finite ({unused} leaves the loss does not reach); "
+        f"forward + backward {[round(x * 1e3, 1) for x in fb_s]} ms = "
+        f"{tok_s:.0f} training tokens/s (steps 1-{steps - 1}), a step with "
+        f"SGD {[round(x * 1e3, 1) for x in step_s]} ms; peak memory "
+        f"{peak:.2f} GiB; launches {want}; {card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads, _ = jamba_train_step(model, params, leaves, batch(), lr)
+        del grads
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _tally(kernels, {})
+    _report_trace(prof, wall, 1, "train-nemotron",
+                  f"one training step of {B} x {S} tokens (SGD)")
+    del params, leaves, model, prof
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4663,6 +5213,9 @@ def main() -> None:
                fops.QUANT_KERNEL, tops.KERNEL, fops.BACKWARD_KERNEL,
                sops.BACKWARD_KERNEL]
     t_start = time.perf_counter()
+
+    def mark(tag: str) -> None:
+        log(f"[time] {tag} done at {time.perf_counter() - t_start:.1f}s")
     card = phase_device()
     phase_build(kernels)
     timer = Timer()
@@ -4677,9 +5230,11 @@ def main() -> None:
     slice_rows = phase_slice_kernels(timer)
     served["flash_attention_backward"], backward_rows = \
         phase_backward_kernels(timer)
+    nemotron_rows = phase_nemotron_kernels(timer, backward_rows)
     served.update(phase_quant_kernels(timer))
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
+    mark("phases 1-3")
     del timer
     reset(kernels)
     SERVING_ONLY["on"] = True
@@ -4708,6 +5263,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     launches9 = phase_preproc(kernels)
+    mark("phases 4-9")
     gc.collect()
     torch.cuda.empty_cache()
     phase_front_door_small(kernels)
@@ -4725,6 +5281,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_mla_small(kernels, {})
     launches13, mla_served = phase_mla(kernels, card)
+    mark("phases 10-13")
     gc.collect()
     torch.cuda.empty_cache()
     launches14: dict = {}
@@ -4735,6 +5292,7 @@ def main() -> None:
     launches17c: dict = {}
     launches18: dict = {}
     launches18r: dict = {}
+    launches19: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
@@ -4748,7 +5306,13 @@ def main() -> None:
                      ("18", lambda: (phase_mesh_small(kernels, launches18,
                                                       launches18r),
                                      phase_mesh(kernels, launches18,
-                                                launches18r, card)))):
+                                                launches18r, card))),
+                     ("19", lambda: (phase_nemotron(kernels, launches19,
+                                                    card),
+                                     gc.collect(), torch.cuda.empty_cache(),
+                                     phase_train_nemotron(kernels,
+                                                          launches19,
+                                                          card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")
@@ -4786,6 +5350,7 @@ def main() -> None:
                  launches_phase17a=launches17a.get(k.name, 0),
                  launches_phase17c=launches17c.get(k.name, 0),
                  launches_phase18=launches18.get(k.name, 0),
+                 launches_phase19=launches19.get(k.name, 0),
                  launches_phase18_by_rank={
                      str(r): n for r, n in launches18r.get(k.name,
                                                            {}).items()},
@@ -4796,6 +5361,8 @@ def main() -> None:
             row["mla_served"] = mla_served[row["name"]]
         if row["name"] in slice_rows:
             row["slice_shapes"] = slice_rows[row["name"]]
+        if row["name"] in nemotron_rows:
+            row["nemotron_heads"] = nemotron_rows[row["name"]]
         if row["name"] == "flash_attention_backward":
             row["training_shapes"] = backward_rows
         if row["name"] == "selective_scan_backward":

@@ -45,9 +45,11 @@ the same turns.
 
 With --backward, the rows are B2's backward (B2′) at chip_smoke.py
 phase 3's backward shapes (``BACKWARD_CASES``: smollm, jamba, the
-128-token window, whisper's encoder, the cross case and the smoke
-configs' head dim 48, bf16, and smollm in f32), each tree's ``flash_attention_backward`` on the same operands
-and its own forward's out; a tree whose wrapper takes the forward's
+128-token window, whisper's encoder, the cross case, the smoke configs'
+head dim 48 and nemotron-4-340b's heads (96/8 of 192; a tree without the
+tensor-core body at 192 runs its CUDA-core entry there), bf16, and
+smollm in f32), each tree's ``flash_attention_backward`` on the same
+operands and this tree's forward's out; a tree whose wrapper takes the forward's
 logsumexp (``lse=``, the tensor-core body) gets the one its ``*_lse``
 entry stores, made before the timing, as its autograd Function saves
 it; an older tree recomputes it inside its backward.  Then MLA's heads
@@ -175,10 +177,12 @@ def backward_rows(cs, trees):
         causal, window = case[5], case[6]
         g = torch.Generator(device="cpu").manual_seed(7)
         dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
+        # this tree's forward out for both (an older tree's forward may
+        # refuse the shape: its CUDA-core body at nemotron's G = 12 and 192)
+        out = trees["this"].flash_attention(q, k, v, causal=causal,
+                                            sliding_window=window)
         fns = {}
         for n, f in trees.items():
-            out = f.flash_attention(q, k, v, causal=causal,
-                                    sliding_window=window)
             kw = dict(causal=causal, sliding_window=window)
             if hasattr(f, "backward_takes_lse") and f.backward_takes_lse(q, v):
                 kw["lse"] = f._flash_forward(q, k, v, causal, window,

@@ -1,6 +1,6 @@
 // B2's backward on Hopper's tensor cores (sm_90a): the bf16 body of
-// flash_backward.cu's *_mma entries, at head_dim 64 and 128 (GQA, V as
-// wide) and at DeepSeek-V3's MLA operands (q/k 192 = 128 + 64 with the
+// flash_backward.cu's *_mma entries, at head_dim 64, 128 and 192 (GQA, V
+// as wide) and at DeepSeek-V3's MLA operands (q/k 192 = 128 + 64 with the
 // rope key shared by every head, V 128).  FlashAttention-2's backward,
 // built from prefill_mma.cuh's pieces: mma.sync.m16n8k16 bf16 products
 // with f32 accumulators, ldmatrix fragments and a cp.async ring of tiles
@@ -16,10 +16,10 @@
 //   delta  rowsum(dout * out) in f32, one row per 8 or 16 lanes: bound by
 //          its bytes.
 //   dq     one block per 16 packed GQA rows a warp and KV head (4 warps;
-//          8 at MLA, as the MLA forward), rows packed as the forward packs
-//          them (row r = t * G + g is token t of head kvh * G + g), so
-//          each K/V tile it loads serves the group's G heads.  Over the
-//          visible 64-key tiles (a K/V ring):
+//          8 at MLA and at 192, as those forwards), rows packed as the
+//          forward packs them (row r = t * G + g is token t of head
+//          kvh * G + g), so each K/V tile it loads serves the group's G
+//          heads.  Over the visible 64-key tiles (a K/V ring):
 //          S = Q K^T rounded to bf16 as the forward rounds it, P =
 //          exp(S - lse), dP = dO V^T, dS = P (dP - delta), dQ += dS K;
 //          P and dS are the accumulators repacked in registers as bf16 A
@@ -31,6 +31,14 @@
 //          and the 64-query tiles that see its keys, Q, dO, lse and delta
 //          streaming through the ring: S^T = K Q^T, so P^T and dS^T land
 //          in the A layout; dV += P^T dO; dP^T = V dO^T; dK += dS^T Q.
+//          At 192/192 (dkdv_halves: 2) a pair of warps shares 16 keys,
+//          each accumulating half of dK's and dV's columns (8 warps: 64
+//          keys): FlashAttention-2's layout for wide heads.  Each warp of
+//          the pair computes S^T and dP^T for half of the 64 queries
+//          (the full head-dim depth), writes its P^T and dS^T in bf16 to
+//          a shared exchange (64 keys x 64 queries each), and after a
+//          barrier of the pair both read the whole 16 x 64 tiles as A
+//          fragments for dV += P^T dO and dK += dS^T Q on their columns.
 //   rope   MLA only: the rope key's gradient, each block's sum over its
 //          heads (accumulated in shared memory at every step, an f32
 //          partial a key and head group) summed over the groups in a
@@ -46,7 +54,8 @@
 //
 // Registers: a warp's accumulators are 16 rows of dq (kHd / 2 f32 a
 // thread), or of dK and dV ((kHd + kVd) / 2; at MLA's 192 and 128 the
-// rope columns of dK go to shared memory every step, 128 remain); the Q,
+// rope columns of dK go to shared memory every step, 128 remain; at
+// 192/192 a warp holds half the columns, 96); the Q,
 // dO, K and V fragments are reread from shared memory at each step (no
 // fragment is held across a tile), the score tile is 32 f32 and P and
 // dS 16 packed registers.  chip_smoke.py phase 2 logs ptxas's registers
@@ -84,6 +93,15 @@ constexpr int kTile = kKeyTile;
 // heads a dk/dv block walks at MLA's operands; the rope key's gradient is
 // summed over them in the block, then over the ceil(H / kMlaHeads) groups
 constexpr int kMlaHeads = 8;
+
+// the dk/dv warps that share a warp's 16 keys, each accumulating its
+// share of dK's and dV's columns: 2 where a warp's (kHd + kVd) / 2 f32
+// would not fit its registers beside the tiles (GQA at 192/192; MLA puts
+// its rope columns in shared memory instead)
+template <int kHd, int kVd, int kRope>
+__host__ __device__ constexpr int dkdv_halves() {
+  return kRope == 0 && kHd + kVd > 256 ? 2 : 1;
+}
 
 // The operands.  GQA (kRope == 0): k (B, T, KV, kHd), v (B, T, KV, kVd).
 // MLA (kRope > 0, KV == H): k the nope keys (B, T, H, kHd - kRope), rope
@@ -141,21 +159,22 @@ __device__ __forceinline__ void frag_b_cols(const bf16* t, int ld, int k0,
                     b);
 }
 
-// c (16 x 64) = A . Y^T: A the rows a_r0 .. a_r0 + 15 of a, Y the 64 rows
+// c (16 x kN) = A . Y^T: A the rows a_r0 .. a_r0 + 15 of a, Y the kN rows
 // of y, both kDepth columns deep.  Accumulator (n, e) is row lane / 4 +
 // 8 * (e / 2), column n * 8 + 2 * (lane % 4) + e % 2.
-template <int kDepth>
-__device__ __forceinline__ void mm_rows(float (&c)[8][4], const bf16* a,
+template <int kDepth, int kN = 64>
+__device__ __forceinline__ void mm_rows(float (&c)[kN / 8][4], const bf16* a,
                                         int lda, int a_r0, const bf16* y,
                                         int ldy) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int n = 0; n < kN / 8; ++n)
+    c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kDepth / 16; ++kk) {
     uint32_t af[4];
     frag_a(a, lda, a_r0, kk * 16, af);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < kN / 16; ++np) {
       uint32_t yb[4];
       frag_b_rows(y, ldy, np * 16, kk * 16, yb);
       mma_bf16(c[2 * np], af, yb[0], yb[1]);
@@ -230,27 +249,40 @@ __device__ __forceinline__ void store_acc(const float (*acc)[4], float mul,
 
 // -- delta = rowsum(dout * out) ---------------------------------------------
 
+// lanes a row of kVd: one 16-byte chunk a lane where a warp holds whole
+// rows (64: 8 lanes, 128: 16), else 8 lanes of kVd / 64 chunks (192: 3)
+template <int kVd>
+__host__ __device__ constexpr int delta_lanes() {
+  return 32 % (kVd / 8) == 0 ? kVd / 8 : 8;
+}
+
 template <int kVd>
 __global__ void __launch_bounds__(256)
 delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
              float* __restrict__ delta, int B, int S, int H) {
-  constexpr int kLanes = kVd / 8;  // one 16-byte chunk a lane
-  static_assert(32 % kLanes == 0, "a row's lanes share a warp");
+  constexpr int kLanes = delta_lanes<kVd>();
+  constexpr int kPer = kVd / 8 / kLanes;  // chunks a lane
+  static_assert(32 % kLanes == 0 && kPer * kLanes * 8 == kVd,
+                "a row's lanes share a warp");
   const size_t row = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
   const int c = threadIdx.x % kLanes;
   const size_t n_rows = (size_t)B * S * H;
   float sum = 0.f;
   if (row < n_rows) {
-    const uint4 o = *reinterpret_cast<const uint4*>(out + row * kVd + c * 8);
-    const uint4 d = *reinterpret_cast<const uint4*>(dout + row * kVd + c * 8);
-    const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&o);
-    const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 of = __bfloat1622float2(oh[e]);
-      const float2 df = __bfloat1622float2(dh[e]);
-      sum = fmaf(of.x, df.x, sum);
-      sum = fmaf(of.y, df.y, sum);
+    for (int i = 0; i < kPer; ++i) {
+      const size_t at = row * kVd + (c + i * kLanes) * 8;
+      const uint4 o = *reinterpret_cast<const uint4*>(out + at);
+      const uint4 d = *reinterpret_cast<const uint4*>(dout + at);
+      const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&o);
+      const __nv_bfloat162* dh = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(oh[e]);
+        const float2 df = __bfloat1622float2(dh[e]);
+        sum = fmaf(of.x, df.x, sum);
+        sum = fmaf(of.y, df.y, sum);
+      }
     }
   }
 #pragma unroll
@@ -463,16 +495,22 @@ __host__ __device__ constexpr int kv_stage_elems() {
   return kTile * ((kHd + 8) + (kVd + 8)) + 2 * kTile * 2;
 }
 
-// kWarps warps a block, 16 keys each (kRows = kWarps * 16 keys)
+// kWarps warps a block, kHalves to each 16 keys (kRows = kWarps / kHalves
+// * 16 keys)
 template <int kHd, int kVd, int kRope, int kStages, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
 dkdv_kernel(Args<kHd, kVd, kRope> p, bf16* __restrict__ dk,
             bf16* __restrict__ dv, float* __restrict__ rope_part) {
   constexpr bool kMla = kRope > 0;
-  constexpr int kThreads = kWarps * 32, kRows = kWarps * 16;
+  constexpr int kHalves = dkdv_halves<kHd, kVd, kRope>();
+  constexpr int kThreads = kWarps * 32, kRows = kWarps / kHalves * 16;
   constexpr int kNope = kHd - kRope;
   // dK's accumulated columns: MLA's rope columns go to rope_s every step
   constexpr int kDk = kMla ? kNope : kHd;
+  // this warp's share of them and of dV's, and of the tile's queries
+  constexpr int kDkW = kDk / kHalves, kVdW = kVd / kHalves;
+  constexpr int kQW = kTile / kHalves;
+  constexpr int kLdX = kTile + 8;  // exchange row stride (kHalves > 1)
   constexpr int kLd = kHd + 8, kLdV = kVd + 8;
   constexpr int kChunks = kHd / 8, kVChunks = kVd / 8;
   constexpr int kStage = kv_stage_elems<kHd, kVd>();
@@ -482,12 +520,19 @@ dkdv_kernel(Args<kHd, kVd, kRope> p, bf16* __restrict__ dk,
   constexpr int kKVLoads = kRows * kVChunks / kThreads;  // V rows
   static_assert(kLoads * kThreads == kTile * kChunks &&
                     kVLoads * kThreads == kTile * kVChunks &&
+                    kKLoads * kThreads == kRows * kChunks &&
+                    kKVLoads * kThreads == kRows * kVChunks &&
                     kThreads >= 2 * kTile && kStages >= 2,
                 "uneven loads");
+  static_assert(kHalves == 1 || (!kMla && kDkW % 16 == 0 && kVdW % 16 == 0),
+                "bad column split");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // this block's K rows
   bf16* v_s = k_s + kRows * kLd;                   // and V rows
   bf16* ring = v_s + kRows * kLdV;   // per stage: q * scale, dout, lse, delta
+  // kHalves > 1: P^T, then dS^T, of the block's keys x the tile's queries
+  bf16* pt_s = ring + kStages * kStage;
+  bf16* dst_s = pt_s + kRows * kLdX;
   float* rope_s = reinterpret_cast<float*>(ring + kStages * kStage);
 
   const int b = blockIdx.x, grp = blockIdx.y, k0 = blockIdx.z * kRows;
@@ -585,15 +630,17 @@ dkdv_kernel(Args<kHd, kVd, kRope> p, bf16* __restrict__ dk,
     cp_async_commit();
   };
 
-  // this warp's 16 keys; this thread's rows lane / 4 and 8 below it
-  const int kw0 = k0 + warp * 16;
-  float dk_acc[kDk / 8][4], dv_acc[kVd / 8][4];
+  // this warp's 16 keys (shared by the kHalves warps kw * kHalves + half)
+  // and its share of the columns; this thread's rows lane / 4 and 8 below
+  const int kw = warp / kHalves, half = warp % kHalves;
+  const int kw0 = k0 + kw * 16;
+  float dk_acc[kDkW / 8][4], dv_acc[kVdW / 8][4];
   auto zero_acc = [&]() {
 #pragma unroll
-    for (int n = 0; n < kDk / 8; ++n)
+    for (int n = 0; n < kDkW / 8; ++n)
       dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
 #pragma unroll
-    for (int n = 0; n < kVd / 8; ++n)
+    for (int n = 0; n < kVdW / 8; ++n)
       dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
   };
   zero_acc();
@@ -657,55 +704,116 @@ dkdv_kernel(Args<kHd, kVd, kRope> p, bf16* __restrict__ dk,
       const bf16* ds = qs + kTile * kLd;
       const float* ls = reinterpret_cast<const float*>(ds + kTile * kLdV);
       const float* dls = ls + kTile;
-
-      // S^T = K Q^T (keys x queries), rounded to bf16; P^T = exp(S^T -
-      // lse), masked pairs 0
-      float x[8][4];
-      mm_rows<kHd>(x, k_s, kLd, warp * 16, qs, kLd);
-      const bool full = (!causal || q0 >= kw0 + 15) &&
-                        (window <= 0 || q0 + kTile - 1 <= kw0 + window - 1) &&
-                        q0 + kTile <= S;
+      if constexpr (kHalves > 1) {
+        // S^T and dP^T of this warp's queries q0 + c0 .. (all of the head
+        // dims deep); P^T and dS^T to the exchange in bf16
+        const int c0 = half * kQW;
+        float x[kQW / 8][4];
+        mm_rows<kHd, kQW>(x, k_s, kLd, kw * 16, qs + c0 * kLd, kLd);
+        const bool full = (!causal || q0 >= kw0 + 15) &&
+                          (window <= 0 || q0 + kTile - 1 <= kw0 + window - 1) &&
+                          q0 + kTile <= S;
+        auto xch = [&](bf16* t, int n, int h) {  // accumulator (n, 2h..)
+          return reinterpret_cast<uint32_t*>(
+              t + (kw * 16 + lane / 4 + 8 * h) * kLdX + c0 + n * 8 +
+              2 * (lane % 4));
+        };
+        uint32_t pk[kQW / 8][2];  // P^T rounded to bf16, row pairs packed
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        round_pair(x[n][0], x[n][1]);
-        round_pair(x[n][2], x[n][3]);
+        for (int n = 0; n < kQW / 8; ++n) {
+          round_pair(x[n][0], x[n][1]);
+          round_pair(x[n][2], x[n][3]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * (lane % 4) + e % 2;  // query q0 + c
-          bool vis = true;
-          if (!full) {
-            const int q = q0 + c, key = kw0 + lane / 4 + 8 * (e / 2);
-            vis = q < S && (!causal || q >= key) &&
-                  (window <= 0 || q < key + window);
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + n * 8 + 2 * (lane % 4) + e % 2;  // q0 + c
+            bool vis = true;
+            if (!full) {
+              const int q = q0 + c, key = kw0 + lane / 4 + 8 * (e / 2);
+              vis = q < S && (!causal || q >= key) &&
+                    (window <= 0 || q < key + window);
+            }
+            x[n][e] = vis ? exp2_ftz(__fmul_rn(x[n][e], kLog2e) - ls[c])
+                          : 0.f;
           }
-          x[n][e] = vis ? exp2_ftz(__fmul_rn(x[n][e], kLog2e) - ls[c]) : 0.f;
+          pk[n][0] = *xch(pt_s, n, 0) = pack_bf16(x[n][0], x[n][1]);
+          pk[n][1] = *xch(pt_s, n, 1) = pack_bf16(x[n][2], x[n][3]);
         }
-      }
-      uint32_t pa[4][4];  // P^T, then dS^T, as bf16 A fragments
-      to_a(x, pa);
-      mm_cols<kVd>(dv_acc, pa, ds, kLdV);  // dV += P^T dO
+        mm_rows<kVd, kQW>(x, v_s, kLdV, kw * 16, ds + c0 * kLdV, kLdV);
+#pragma unroll
+        for (int n = 0; n < kQW / 8; ++n) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t w = pk[n][e / 2];
+            d[e] = __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16) *
+                   (x[n][e] - dls[c0 + n * 8 + 2 * (lane % 4) + e % 2]);
+          }
+          *xch(dst_s, n, 0) = pack_bf16(d[0], d[1]);
+          *xch(dst_s, n, 1) = pack_bf16(d[2], d[3]);
+        }
+        // the pair's halves both in the exchange (its named barrier)
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kw), "n"(kHalves * 32)
+                     : "memory");
+        uint32_t pa[4][4];  // P^T, then dS^T, 16 keys x 64 queries
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          frag_a(pt_s, kLdX, kw * 16, kk * 16, pa[kk]);
+        mm_cols<kVdW>(dv_acc, pa, ds + half * kVdW, kLdV);  // dV += P^T dO
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          frag_a(dst_s, kLdX, kw * 16, kk * 16, pa[kk]);
+        mm_cols<kDkW>(dk_acc, pa, qs + half * kDkW, kLd);  // dK += dS^T Q
+      } else {
+        // S^T = K Q^T (keys x queries), rounded to bf16; P^T = exp(S^T -
+        // lse), masked pairs 0
+        float x[8][4];
+        mm_rows<kHd>(x, k_s, kLd, warp * 16, qs, kLd);
+        const bool full = (!causal || q0 >= kw0 + 15) &&
+                          (window <= 0 || q0 + kTile - 1 <= kw0 + window - 1) &&
+                          q0 + kTile <= S;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          round_pair(x[n][0], x[n][1]);
+          round_pair(x[n][2], x[n][3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + 2 * (lane % 4) + e % 2;  // query q0 + c
+            bool vis = true;
+            if (!full) {
+              const int q = q0 + c, key = kw0 + lane / 4 + 8 * (e / 2);
+              vis = q < S && (!causal || q >= key) &&
+                    (window <= 0 || q < key + window);
+            }
+            x[n][e] = vis ? exp2_ftz(__fmul_rn(x[n][e], kLog2e) - ls[c])
+                          : 0.f;
+          }
+        }
+        uint32_t pa[4][4];  // P^T, then dS^T, as bf16 A fragments
+        to_a(x, pa);
+        mm_cols<kVd>(dv_acc, pa, ds, kLdV);  // dV += P^T dO
 
-      // dP^T = V dO^T; dS^T = P^T (dP^T - delta)
-      mm_rows<kVd>(x, v_s, kLdV, warp * 16, ds, kLdV);
+        // dP^T = V dO^T; dS^T = P^T (dP^T - delta)
+        mm_rows<kVd>(x, v_s, kLdV, warp * 16, ds, kLdV);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[n][e] = a_elem(pa, n, e) *
-                    (x[n][e] - dls[n * 8 + 2 * (lane % 4) + e % 2]);
-      to_a(x, pa);
-      mm_cols<kDk>(dk_acc, pa, qs, kLd);  // dK += dS^T (q * scale)
-      if constexpr (kMla) {
-        // the rope columns: this step's product, added to rope_s
-        float r[kRope / 8][4];
+          for (int e = 0; e < 4; ++e)
+            x[n][e] = a_elem(pa, n, e) *
+                      (x[n][e] - dls[n * 8 + 2 * (lane % 4) + e % 2]);
+        to_a(x, pa);
+        mm_cols<kDk>(dk_acc, pa, qs, kLd);  // dK += dS^T (q * scale)
+        if constexpr (kMla) {
+          // the rope columns: this step's product, added to rope_s
+          float r[kRope / 8][4];
 #pragma unroll
-        for (int n = 0; n < kRope / 8; ++n) r[n][0] = r[n][1] = r[n][2] =
-            r[n][3] = 0.f;
-        mm_cols<kRope>(r, pa, qs + kNope, kLd);
+          for (int n = 0; n < kRope / 8; ++n) r[n][0] = r[n][1] = r[n][2] =
+              r[n][3] = 0.f;
+          mm_cols<kRope>(r, pa, qs + kNope, kLd);
 #pragma unroll
-        for (int n = 0; n < kRope / 8; ++n)
+          for (int n = 0; n < kRope / 8; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) *rope_at(n, e) += r[n][e];
+            for (int e = 0; e < 4; ++e) *rope_at(n, e) += r[n][e];
+        }
       }
     }
     if constexpr (kMla)
@@ -730,17 +838,20 @@ dkdv_kernel(Args<kHd, kVd, kRope> p, bf16* __restrict__ dk,
                                              (warp * 16 + r) * kRope + c);
     }
   } else {
-    // the group's sums, staged in this warp's rows of k_s and v_s
-    auto row_of = [&](bf16* base, int width) {
+    // the group's sums, staged in this warp's rows and columns of k_s and
+    // v_s (read no more: a pair's last barrier follows its last read)
+    auto row_of = [&](bf16* base, int width, int col0) {
       return [=](int r) {
         const int key = kw0 + r;
-        return key < T ? base + (((size_t)b * T + key) * KV + grp) * width
+        return key < T ? base + (((size_t)b * T + key) * KV + grp) * width +
+                             col0
                        : nullptr;
       };
     };
-    store_acc<kHd>(dk_acc, 1.f, k_s + warp * 16 * kLd, kLd, row_of(dk, kHd));
-    store_acc<kVd>(dv_acc, 1.f, v_s + warp * 16 * kLdV, kLdV,
-                   row_of(dv, kVd));
+    store_acc<kDkW>(dk_acc, 1.f, k_s + kw * 16 * kLd + half * kDkW, kLd,
+                    row_of(dk, kHd, half * kDkW));
+    store_acc<kVdW>(dv_acc, 1.f, v_s + kw * 16 * kLdV + half * kVdW, kLdV,
+                    row_of(dv, kVd, half * kVdW));
   }
 }
 
@@ -768,10 +879,14 @@ constexpr size_t dq_smem() {
 }
 template <int kHd, int kVd, int kRope, int kStages, int kWarps>
 constexpr size_t dkdv_smem() {
-  // K and V rows, the ring, MLA's rope accumulator
-  return sizeof(bf16) * (kWarps * 16 * ((kHd + 8) + (kVd + 8)) +
-                         kStages * kv_stage_elems<kHd, kVd>()) +
-         sizeof(float) * kWarps * 16 * kRope;
+  // K and V rows, the ring, the P^T / dS^T exchange (split columns) or
+  // MLA's rope accumulator
+  constexpr int kHalves = dkdv_halves<kHd, kVd, kRope>();
+  constexpr int kKeys = kWarps / kHalves * 16;
+  return sizeof(bf16) * (kKeys * ((kHd + 8) + (kVd + 8)) +
+                         kStages * kv_stage_elems<kHd, kVd>() +
+                         (kHalves > 1 ? 2 * kKeys * (kTile + 8) : 0)) +
+         sizeof(float) * kKeys * kRope;
 }
 
 template <typename K>
@@ -801,7 +916,7 @@ int launch(const Args<kHd, kVd, kRope>& p, int B, const void* out,
   if ((e = allow_smem(dq_k, qs)) != cudaSuccess) return (int)e;
   if ((e = allow_smem(kv_k, ks)) != cudaSuccess) return (int)e;
   const int S = p.S, T = p.T, H = p.H, G = H / p.KV;
-  const size_t lanes = (size_t)B * S * H * (kVd / 8);
+  const size_t lanes = (size_t)B * S * H * delta_lanes<kVd>();
   delta_kernel<kVd><<<(unsigned)((lanes + 255) / 256), 256, 0, st>>>(
       (const bf16*)out, p.dout, delta, B, S, H);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -809,7 +924,8 @@ int launch(const Args<kHd, kVd, kRope>& p, int B, const void* out,
   a.delta = delta;
   // dk/dv and the rope sum before dq: rope_part may lie in dq's storage
   const int n_grp = kRope ? (H + kMlaHeads - 1) / kMlaHeads : p.KV;
-  kv_k<<<dim3(B, n_grp, (T + kRows - 1) / kRows), kWarps * 32, ks, st>>>(
+  constexpr int kKeys = kWarps / dkdv_halves<kHd, kVd, kRope>() * 16;
+  kv_k<<<dim3(B, n_grp, (T + kKeys - 1) / kKeys), kWarps * 32, ks, st>>>(
       a, (bf16*)dk, (bf16*)dv, rope_part);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if constexpr (kRope > 0) {

@@ -20,20 +20,23 @@
 //
 // Two bodies, picked by the wrapper (ops.py::flash_backward_entry) from
 // dtypes and head dims alone, as the forward's are:
-//   flash_attention_backward_bf16_mma (bf16, hd = hdv = 64 or 128) and
+//   flash_attention_backward_bf16_mma (bf16, hd = hdv = 64, 128 or 192)
+//   and
 //   flash_attention_backward_mla_bf16_mma (bf16, DeepSeek-V3's MLA
 //   operands: q/k 192 = 128 + 64 with one rope key a token shared by every
 //   head, V 128) run backward_mma.cuh: FlashAttention-2's backward on the
 //   tensor cores (mma.sync bf16, f32 accumulators, a cp.async ring), from
 //   the row logsumexp that the forward's *_lse entries store.  Four
 //   kernels: delta = rowsum(dout * out); dk/dv per 64-key tile, the
-//   group's heads walked inside the block; MLA's rope key gradient summed
-//   over head groups in a fixed order; dq per 64 packed GQA rows.  MLA's K tile is
+//   group's heads walked inside the block (at 192 a pair of warps to 16
+//   keys, each with half of dK's and dV's columns); MLA's rope key
+//   gradient summed over head groups in a fixed order; dq per 64 packed
+//   GQA rows (128 at 192).  MLA's K tile is
 //   assembled in shared memory from k_nope and the rope key, as the MLA
 //   forward does: no (B, T, H, 192) K or dk is built.  What bounds them is
 //   in backward_mma.cuh.
 //   flash_attention_backward_f32 and _bf16 (f32, and bf16 at any other
-//   head dim: the smoke configs' 16 and 48) run the first design, below,
+//   head dim: the smoke configs' 16 and 48, 192 with V 128) run the first design, below,
 //   on CUDA cores: three passes, each a kernel on the caller's stream,
 //   accumulators in f32:
 //   prep  one block per (64-query tile, head, row): each row's logsumexp
@@ -514,11 +517,12 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 FLASH_BACKWARD_ENTRY(flash_attention_backward_f32, float)
 FLASH_BACKWARD_ENTRY(flash_attention_backward_bf16, __nv_bfloat16)
 
-// bf16 at hd = hdv = 64 or 128 on the tensor cores: the operands as above,
-// lse (B, H, S) the forward's (an input here), delta (B, H, S) f32
+// bf16 at hd = hdv = 64, 128 or 192 on the tensor cores: the operands as
+// above, lse (B, H, S) the forward's (an input here), delta (B, H, S) f32
 // scratch; any other head dim is refused (cudaErrorInvalidValue), the
-// wrapper never sends one.  Blocks of 4 warps; rings of 3 stages at hd
-// 64, 2 at 128.
+// wrapper never sends one.  Blocks of 4 warps, rings of 3 stages at hd
+// 64 and 2 at 128; at 192 blocks of 8 warps (dq: 128 rows, 205 KB of
+// shared memory; dk/dv: 64 keys, two warps to 16 keys, 173 KB), 2 stages.
 extern "C" int flash_attention_backward_bf16_mma(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
@@ -542,6 +546,14 @@ extern "C" int flash_attention_backward_bf16_mma(
                                   (const float*)lse, nullptr, S, T_, H, KV,
                                   causal, window, scale};
     return bm::launch<128, 128, 0, 2, 4>(p, B, out, (float*)delta, dq, dk,
+                                         dv, nullptr, nullptr, st);
+  }
+  if (hd == 192) {
+    const bm::Args<192, 192, 0> p{(const bf16*)q, (const bf16*)k, nullptr,
+                                  (const bf16*)v, (const bf16*)dout,
+                                  (const float*)lse, nullptr, S, T_, H, KV,
+                                  causal, window, scale};
+    return bm::launch<192, 192, 0, 2, 8>(p, B, out, (float*)delta, dq, dk,
                                          dv, nullptr, nullptr, st);
   }
   return (int)cudaErrorInvalidValue;

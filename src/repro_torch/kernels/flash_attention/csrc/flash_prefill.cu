@@ -16,13 +16,13 @@
 // ~4 GFLOP against ~21 MB of q/k/v/out, ~190 operations per byte — below
 // the H100's ~295 bf16 operations per byte, so on paper bytes (~0.006
 // ms); with causal masking about half the score matrix is skipped.
-// Three bodies, chosen by the wrapper from dtype and head_dim alone, at
-// head_dim 64 and 128 on the tensor cores: flash_attention_bf16_mma runs
-// bf16 (prefill_mma.cuh: 64 packed q-head rows a block, cp.async K/V
-// ring), flash_attention_f32_tf32 f32 in split TF32 (prefill_tf32.cuh,
-// the same walk); at any other head_dim flash_attention_f32 and
-// flash_attention_bf16 run prefill_body.cuh on CUDA cores (16 query
-// tokens a block).
+// Three bodies, chosen by the wrapper from dtype and head_dim alone:
+// flash_attention_bf16_mma runs bf16 at head_dim 64, 128 and 192 on the
+// tensor cores (prefill_mma.cuh: 64 packed q-head rows a block, 128 at
+// 192, cp.async K/V ring), flash_attention_f32_tf32 f32 at 64 and 128 in
+// split TF32 (prefill_tf32.cuh, the same walk); everywhere else
+// flash_attention_f32 and flash_attention_bf16 run prefill_body.cuh on
+// CUDA cores (16 query tokens a block).
 // flash_attention_mla_bf16_mma takes DeepSeek-V3's MLA operands as the
 // model makes them (models/attention.py::mla_prefill): q (B, S, H, 192)
 // = [q_nope | q_rope], k_nope (B, T, H, 128), the rope key (B, T, 64)

@@ -17,13 +17,14 @@
 // operations (two products, multiply and add) against its K and V rows of
 // 4 * hd bytes in bf16, i.e. at most G * T = 96 operations per byte for
 // G = 3, T = 32 — below the H100's ~295 bf16 operations per byte.
-// Three bodies, chosen by the wrapper from dtypes and head_dim alone, at
-// head_dim 64 and 128 on the tensor cores: paged_prefill_attention_bf16_
-// bf16_mma runs bf16 q and pools (prefill_mma.cuh: 64 packed q-head rows
-// a block, cp.async K/V ring through the page table), the *_tf32 entries
-// f32 q over f32 or bf16 pools in split TF32 (prefill_tf32.cuh, the same
-// walk); at any other head_dim the other entries run prefill_body.cuh on
-// CUDA cores (8 query tokens a block).  All keep the scores in f32
+// Three bodies, chosen by the wrapper from dtypes and head_dim alone:
+// paged_prefill_attention_bf16_bf16_mma runs bf16 q and pools at
+// head_dim 64, 128 and 192 on the tensor cores (prefill_mma.cuh: 64
+// packed q-head rows a block, 128 at 192, cp.async K/V ring through the
+// page table), the *_tf32 entries f32 q over f32 or bf16 pools at 64 and
+// 128 in split TF32 (prefill_tf32.cuh, the same walk); everywhere else
+// the other entries run prefill_body.cuh on CUDA cores (8 query tokens a
+// block).  All keep the scores in f32
 // (PagedRows::kRoundScores is false).
 
 #include "prefill_body.cuh"

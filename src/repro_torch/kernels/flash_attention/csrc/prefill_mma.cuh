@@ -1,15 +1,16 @@
 // Blockwise attention of a chunk of query tokens over a row's K/V on
 // Hopper's tensor cores (sm_90a): the bf16 body of paged_prefill.cu (K2)
-// and flash_prefill.cu (B2's contiguous entry) at head_dim 64 and 128,
-// and of B2's MLA entry (DeepSeek-V3: q/k 192 = 128 + 64, V 128).
+// and flash_prefill.cu (B2's contiguous entry) at head_dim 64, 128 and
+// 192 (nemotron-4-340b: q/k and V 192), and of B2's MLA entry
+// (DeepSeek-V3: q/k 192 = 128 + 64, V 128).
 // It takes the same row policy as prefill_body.cuh (q_pos0, n_keys, row,
 // kRoundScores), so the paged and contiguous entries plug in unchanged,
 // and computes the same function: query t of row b sits at position
 // q_pos0(b) + t and sees key kpos iff kpos < n_keys(b), kpos <= its
 // position (causal) and kpos > its position - window (window > 0); query
-// head h reads KV head h / G.  f32 q at these head_dims runs its split
-// TF32 twin (prefill_tf32.cuh); bf16 at any other head_dim stays on
-// prefill_body.cuh.
+// head h reads KV head h / G.  f32 q at head_dim 64 and 128 runs its
+// split TF32 twin (prefill_tf32.cuh); f32 at 192 and bf16 at any other
+// head_dim stay on prefill_body.cuh.
 //
 // Replaces, with prefill_body.cuh, src/repro/kernels/flash_attention/
 // kernel.py::flash_attention (body _flash_kernel).
@@ -98,6 +99,18 @@
 // with the head-dim steps outside measured no faster.  mma.sync meets the
 // criteria this body was built for (<= 2.5x SDPA), so it stays on it.
 //
+// Head_dim 192 with V as wide (nemotron-4-340b, 96/8 heads: G = 12).
+// The output accumulators take 96 f32 a thread; q's fragments held
+// beside them (48) and the score tile and P (48) would leave too few of
+// the 255 registers for the addresses, so at V 192 (q_in_regs) q stays
+// in a shared region of its own after the ring and each key tile reads
+// one A fragment of it per head-dim step (the Q.K^T loop runs the
+// head-dim steps outside, so each fragment is read once a tile).  Blocks
+// of 8 warps (128 rows, ~11 tokens of the 12-head group), as MLA's: each
+// 64-key tile serves twice the rows of a 4-warp block; a 2-stage ring
+// of 51 KB stages and q's 51 KB, 154 KB in all, one block an SM.
+// chip_smoke.py phase 2 logs registers and spills.
+//
 // Later work: wgmma and TMA.  wgmma needs 64-row warpgroup tiles and a
 // swizzled shared-memory B operand; TMA needs a tensor map per pool and a
 // box per page.  Both are the next step for this body, now that its
@@ -117,6 +130,14 @@ namespace prefill_mma {
 using bf16 = __nv_bfloat16;
 
 constexpr int kKeyTile = 64;  // keys per K/V tile
+
+// q's A fragments (kHd / 4 registers a thread) are held in registers for
+// the whole key walk where they fit beside the output accumulators (kVd
+// / 2); at V 192 they are reread from shared memory at each key tile
+template <int kHd, int kVd>
+__host__ __device__ constexpr bool q_in_regs() {
+  return kVd <= 128;
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
@@ -166,10 +187,11 @@ __host__ __device__ constexpr int stage_elems() {
 }
 // q (kWarps * 16 rows of kHd + 8) is staged in the ring's last stage
 // until the first tile lands there, or after the ring where it does not
-// fit a stage
+// fit a stage or is read at every tile (q_in_regs false)
 template <int kHd, int kVd, int kWarps>
 __host__ __device__ constexpr bool q_after_ring() {
-  return kWarps * 16 * (kHd + 8) > stage_elems<kHd, kVd>();
+  return !q_in_regs<kHd, kVd>() ||
+         kWarps * 16 * (kHd + 8) > stage_elems<kHd, kVd>();
 }
 template <int kHd, int kVd, int kStages, int kWarps>
 constexpr size_t smem_bytes() {
@@ -211,6 +233,7 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
   constexpr int kLoads = kKeyTile * kChunks / kThreads;
   constexpr int kVLoads = kKeyTile * kVChunks / kThreads;
   constexpr int kQLoads = kRows * kChunks / kThreads;
+  constexpr bool kQRegs = q_in_regs<kHd, kVd>();
   static_assert(kHd % 16 == 0 && kVd % 16 == 0 && kStages >= 2, "bad tile");
   static_assert(kLoads * kThreads == kKeyTile * kChunks &&
                     kVLoads * kThreads == kKeyTile * kVChunks &&
@@ -346,12 +369,15 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
   }
   __syncthreads();  // q_s written
 
-  uint32_t qf[kHd / 16][4];  // A fragments of this warp's 16 rows of q
+  // A fragments of this warp's 16 rows of q, held in registers (kQRegs)
+  uint32_t qf[kQRegs ? kHd / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk)
-    ldmatrix_x4(smem_addr(q_s + (warp * 16 + lane % 16) * kLd + kk * 16 +
-                          (lane / 16) * 8),
-                qf[kk]);
+    for (int kk = 0; kk < kHd / 16; ++kk)
+      ldmatrix_x4(smem_addr(q_s + (warp * 16 + lane % 16) * kLd + kk * 16 +
+                            (lane / 16) * 8),
+                  qf[kk]);
+  }
 
   float o[kVd / 8][4];  // output accumulators: kVd columns in 8-wide tiles
 #pragma unroll
@@ -377,16 +403,38 @@ prefill_mma_kernel(const bf16* __restrict__ q,  // (B, S, H, kHd)
 #pragma unroll
     for (int n = 0; n < kKeyTile / 8; ++n)
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int np = 0; np < kKeyTile / 16; ++np) {
+      for (int np = 0; np < kKeyTile / 16; ++np) {
+#pragma unroll
+        for (int kk = 0; kk < kHd / 16; ++kk) {
+          uint32_t kb[4];  // keys np*16 + 0..7 and + 8..15, hd kk*16 + 0..15
+          ldmatrix_x4(
+              smem_addr(ks + (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                        kk * 16 + (lane / 8 % 2) * 8),
+              kb);
+          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+    } else {
+      // q's fragment kk read once a tile, every key block against it
 #pragma unroll
       for (int kk = 0; kk < kHd / 16; ++kk) {
-        uint32_t kb[4];  // keys np*16 + 0..7 and + 8..15, hd kk*16 + 0..15
-        ldmatrix_x4(smem_addr(ks + (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
-                              kk * 16 + (lane / 8 % 2) * 8),
-                    kb);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        uint32_t qa[4];
+        ldmatrix_x4(smem_addr(q_s + (warp * 16 + lane % 16) * kLd + kk * 16 +
+                              (lane / 16) * 8),
+                    qa);
+#pragma unroll
+        for (int np = 0; np < kKeyTile / 16; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(
+              smem_addr(ks + (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                        kk * 16 + (lane / 8 % 2) * 8),
+              kb);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        }
       }
     }
 
@@ -545,10 +593,11 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
 }
 
 // bf16 q, K, V and output; head_dim 64 (a ring of 3 stages, 54 KB of
-// shared memory) or 128 (2 stages, 68 KB); any other head_dim is refused
-// (cudaErrorInvalidValue), the wrappers never send one.  Deeper rings,
-// 8-warp blocks and 32 rows a warp measured no faster at the served
-// shapes (PERF.md §6).
+// shared memory) or 128 (2 stages, 68 KB), 4 warps a block; 192 (V 192:
+// 8 warps, 2 stages and q after the ring, 154 KB); any other head_dim is
+// refused (cudaErrorInvalidValue), the wrappers never send one.  At 64
+// and 128, deeper rings, 8-warp blocks and 32 rows a warp measured no
+// faster at the served shapes (PERF.md §6).
 // With kLse, each row's logsumexp into lse (B, H, S) besides.
 template <typename Rows, bool kLse = false>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
@@ -559,6 +608,9 @@ int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
         q, k, v, out, rows, B, S, H, KV, causal, window, scale, stream, lse);
   if (hd == 128)
     return launch_hd<Rows, 128, 128, 2, 4, kLse>(
+        q, k, v, out, rows, B, S, H, KV, causal, window, scale, stream, lse);
+  if (hd == 192)
+    return launch_hd<Rows, 192, 192, 2, 8, kLse>(
         q, k, v, out, rows, B, S, H, KV, causal, window, scale, stream, lse);
   return (int)cudaErrorInvalidValue;
 }

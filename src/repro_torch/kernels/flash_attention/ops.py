@@ -14,11 +14,12 @@ engine's mixed steps, which the reference serves without a kernel.
 operands as ``mla_prefill`` makes them: a rope key shared by every head
 and V at its own head dim.
 
-The libraries hold three bodies.  At head_dim 64 or 128 everything
-runs on the tensor cores: bf16 (``csrc/prefill_mma.cuh``, the ``*_mma``
-entries) and f32 q over f32, bf16 or int8 K/V in split TF32
-(``csrc/prefill_tf32.cuh``, the ``*_tf32`` entries); at any other
-head_dim on CUDA cores (``csrc/prefill_body.cuh``).  bf16 MLA operands
+The libraries hold three bodies.  bf16 at head_dim 64, 128 or 192
+runs on the tensor cores (``csrc/prefill_mma.cuh``, the ``*_mma``
+entries; ``MMA_HEAD_DIMS``), and so does f32 q over f32, bf16 or int8
+K/V at 64 or 128, in split TF32 (``csrc/prefill_tf32.cuh``, the
+``*_tf32`` entries; ``TF32_HEAD_DIMS``); everything else on CUDA cores
+(``csrc/prefill_body.cuh``).  bf16 MLA operands
 at ``MLA_DIMS`` run the bf16 tensor-core body with a q/k head of 192
 and a V head of 128 (``flash_attention_mla_bf16_mma``).
 ``paged_prefill_entry``, ``quant_prefill_entry``, ``flash_entry`` and
@@ -30,7 +31,8 @@ tensor with grad on and an operand that requires grad,
 ``torch.autograd.Function``, whose backward is the gradient of B2 (see
 ``csrc/flash_backward.cu``; the JAX package leaves it to XLA).  Where
 ``flash_backward_entry`` picks a tensor-core backward (bf16 at head_dim
-64/128 and at ``MLA_DIMS``), the Function's forward launches the
+64/128/192 with V as wide, and at ``MLA_DIMS``), the Function's forward
+launches the
 forward entry's ``*_lse`` twin, which also stores each row's
 logsumexp, and the backward (``csrc/backward_mma.cuh``) takes it; f32
 and other head dims keep the served forward entry and the CUDA-core
@@ -92,23 +94,24 @@ LSE_ENTRIES = {"flash_attention_bf16_mma": "flash_attention_bf16_mma_lse",
 BACKWARD_MLA_HEADS = 8
 # the backward holds q/k and V tiles of up to this head_dim in shared memory
 BACKWARD_MAX_HEAD_DIM = 192
-# head_dims the GQA tensor-core bodies are instantiated for: smollm-360m's
-# and jamba-v0.1's (and most configs'; 56 takes the CUDA-core body).
-# DeepSeek-V3's MLA (q/k 192, V 128) has its own tensor-core entry
-# (mla_flash_entry); 192 with V as wide takes the CUDA-core body.
-MMA_HEAD_DIMS = (64, 128)
+# head_dims the GQA bf16 tensor-core bodies are instantiated for (V as
+# wide): smollm-360m's and jamba-v0.1's 64 and 128 (and most configs';
+# 56 takes the CUDA-core body) and nemotron-4-340b's 192.  DeepSeek-V3's
+# MLA (q/k 192, V 128) has its own tensor-core entry (mla_flash_entry).
+MMA_HEAD_DIMS = (64, 128, 192)
+# and the split-TF32 bodies (f32 q): f32 at 192 takes the CUDA-core body
+TF32_HEAD_DIMS = (64, 128)
 
 
 def _body(dtypes, hd: int) -> str:
     """Entry suffix of the body that serves these operands (q's type
-    first): at head_dim 64 or 128 ``_mma`` (bf16 tensor cores) for bf16
-    throughout and ``_tf32`` (split TF32 tensor cores) for f32 q, else
-    ``""`` (the CUDA-core body)."""
-    if hd not in MMA_HEAD_DIMS:
-        return ""
+    first): ``_mma`` (bf16 tensor cores) for bf16 throughout at
+    ``MMA_HEAD_DIMS``, ``_tf32`` (split TF32 tensor cores) for f32 q at
+    ``TF32_HEAD_DIMS``, else ``""`` (the CUDA-core body)."""
     if all(d == torch.bfloat16 for d in dtypes):
-        return "_mma"
-    return "_tf32" if dtypes[0] == torch.float32 else ""
+        return "_mma" if hd in MMA_HEAD_DIMS else ""
+    return "_tf32" if dtypes[0] == torch.float32 \
+        and hd in TF32_HEAD_DIMS else ""
 
 
 def paged_prefill_entry(q_dtype, kv_dtype, hd: int) -> str:
@@ -431,12 +434,12 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     incoming dout (B, S, H, hdv) -> (dq, dk, dv) in q's type; scale
     1/sqrt(hd).  GQA's group sum lands in dk/dv.  On a CPU tensor the
     plain version; on a CUDA tensor the entry ``flash_backward_entry``
-    picks, or a raise.  The tensor-core entry (bf16 at hd = hdv = 64 or
-    128: delta = rowsum(dout * out), then dq, then dk/dv) takes each row's
-    logsumexp ``lse`` (B, H, S) f32 as the ``*_lse`` forward entry stores
-    it; without one it launches that entry to get it.  The CUDA-core
-    entry (f32, other head dims) recomputes it in a first pass and ignores
-    ``lse``."""
+    picks, or a raise.  The tensor-core entry (bf16 at hd = hdv in
+    ``MMA_HEAD_DIMS``: delta = rowsum(dout * out), then dk/dv, then dq)
+    takes each row's logsumexp ``lse`` (B, H, S) f32 as the ``*_lse``
+    forward entry stores it; without one it launches that entry to get
+    it.  The CUDA-core entry (f32, other head dims) recomputes it in a
+    first pass and ignores ``lse``."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, out, dout, causal=causal, sliding_window=sliding_window)

@@ -426,9 +426,9 @@ class TransformerLM:
                 for d in self.prefix_descs]
         blocks = {}
         for j, desc in enumerate(self.period_descs):
-            layers = [_sublayer_params(gen, cfg, desc, dtype, cfg.d_ff)
-                      for _ in range(self.n_periods)]
-            blocks[f"s{j}"] = _stack(layers)
+            blocks[f"s{j}"] = _stack_drawn(
+                lambda: _sublayer_params(gen, cfg, desc, dtype, cfg.d_ff),
+                self.n_periods)
         params["blocks"] = blocks
         if cfg.mtp_depth:
             # the multi-token-prediction head's leaves (its forward,
@@ -846,3 +846,31 @@ def _stack(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
     if isinstance(first, dict):
         return {k: _stack([l[k] for l in layers]) for k in first}
     return torch.stack(layers)
+
+
+def _stack_drawn(draw, n: int) -> Dict[str, Any]:
+    """``_stack`` of ``n`` pytrees drawn by ``draw()`` in turn, each copied
+    into the stacked leaves as soon as it is drawn: at most the stack and
+    one drawn tree are held, not every tree twice (4 of nemotron-4-340b's
+    layers are 27.6 GB in bf16)."""
+    out = None
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    def empty(t):
+        if isinstance(t, dict):
+            return {k: empty(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    for i in range(n):
+        tree = draw()
+        if out is None:
+            out = empty(tree)
+        put(out, tree, i)
+        del tree
+    return out

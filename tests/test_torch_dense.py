@@ -332,6 +332,40 @@ def test_generate_batch_matches_reference(name):
     assert te.n_batches == 1 and te.n_requests == 3
 
 
+# nemotron-4-340b's layer at a tiny width: layernorm, squared ReLU, rotary
+# on half of each head, and its head_dim of 192 set explicitly (the smoke
+# configs cap it at 64), which the bf16 tensor-core bodies now take
+NEMOTRON_TINY = TINY_SERVE.replace(
+    arch_id="tiny-nemotron", d_model=64, n_heads=4, n_kv_heads=2,
+    head_dim=192, norm="layernorm", mlp_act="relu2", rope_pct=0.5)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_nemotron_shaped_streams_match_reference(paged):
+    """Four requests on two slots, paged (chunked prefill) and dense: the
+    port's greedy streams equal the JAX engine's, and it picked the mode
+    asked for."""
+    if "nemotron" not in _PAIRS:
+        jm = jax_build_model(NEMOTRON_TINY)
+        jp = jm.init(jax.random.PRNGKey(0))
+        _PAIRS["nemotron"] = (
+            jm, jp, build_model(_port_cfg(NEMOTRON_TINY), device="cpu"),
+            bridge.to_torch(jax.tree.map(np.asarray, jp), "cpu"))
+    jm, jp, tm, tp = _PAIRS["nemotron"]
+    assert tm.cfg.resolved_head_dim == 192
+    prompts = _prompts(19, (9, 12, 5, 14))
+    kw = dict(batch_size=2, capacity=32, max_new_tokens=6, paged=paged)
+    if paged:
+        kw.update(prefill_chunk=4, block_size=4)
+    jr = JaxEngine(jm, jp, **kw).serve(prompts)
+    te = ServeEngine(tm, tp, device="cpu", **kw)
+    tr = te.serve(prompts)
+    assert te.paged == paged
+    assert [r.status for r in tr] == [r.status for r in jr] == ["ok"] * 4
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
 @pytest.mark.parametrize("name", ["transformer", "window", "moe"])
 def test_generate_batch_prompt_longer_than_capacity(name):
     """Prompts of 20 tokens over a 16-slot cache: without a window the

@@ -33,21 +33,29 @@ ATOL = 1e-5         # f32: the same sums in another order
     ((BF16,), 16, 16, False, "flash_attention_backward_bf16"),
     ((BF16,), 48, 48, False, "flash_attention_backward_bf16"),
     ((F32,), 48, 48, False, "flash_attention_backward_f32"),
-    # MLA's dims as GQA operands (broadcast rope key, padded V) are not
-    # MLA's operand form: the CUDA-core body
-    ((BF16,), 192, 192, False, "flash_attention_backward_bf16"),
+    # 192 with V as wide (nemotron-4-340b's heads, or MLA's dims as GQA
+    # operands: broadcast rope key, padded V) runs the tensor-core body
+    # since it has a 192 instantiation (id as when it took the CUDA-core
+    # one); 192 with V 128 as GQA operands is not MLA's operand form: the
+    # CUDA-core body
+    pytest.param((BF16,), 192, 192, False,
+                 "flash_attention_backward_bf16_mma",
+                 id="dtypes8-192-192-False-flash_attention_backward_bf16"),
     ((BF16,), 192, 128, False, "flash_attention_backward_bf16")])
 def test_backward_dispatch(dtypes, hd, hdv, mla, entry):
-    """bf16 at hd = hdv = 64 or 128 and MLA's operands at ``MLA_DIMS``
-    go to the tensor-core body, everything else to the CUDA-core body of
-    q's type; every entry is one of the library's, and each tensor-core
-    entry's forward has a ``*_lse`` twin, which ``backward_takes_lse``
-    makes the autograd Function launch."""
+    """bf16 at hd = hdv = 64, 128 or 192 and MLA's operands at
+    ``MLA_DIMS`` go to the tensor-core body, everything else to the
+    CUDA-core body of q's type; every entry is one of the library's, and
+    each tensor-core entry's forward has a ``*_lse`` twin, which
+    ``backward_takes_lse`` makes the autograd Function launch (a GQA
+    forward has V as wide as q/k: at hd != hdv the forward entry at hd
+    is not this backward's)."""
     assert fops.flash_backward_entry(dtypes, hd, hdv, mla=mla) == entry
     assert entry in fops.BACKWARD_KERNEL.entries
     forward = (fops.mla_flash_entry(dtypes, dops.MLA_DIMS) if mla
                else fops.flash_entry(dtypes[0], hd))
-    assert (forward in fops.LSE_ENTRIES) == entry.endswith("_mma")
+    assert (forward in fops.LSE_ENTRIES and (mla or hd == hdv)) \
+        == entry.endswith("_mma")
     if not mla:
         q, v = torch.empty(1, 1, 1, hd, dtype=dtypes[0]), \
             torch.empty(1, 1, 1, hdv, dtype=dtypes[0])
@@ -176,6 +184,26 @@ def test_backward_formula_matches_jax_vjp(case):
                           window)
     want = _jax_vjp(q, k, v, dout, causal, window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
+def test_backward_plain_matches_jax_grad_at_head_dim_192():
+    """``flash_attention_backward_plain``, the version the tensor-core
+    body at head_dim 192 (nemotron-4-340b's, V as wide) is held to on the
+    card, equals ``jax.grad`` of the JAX package's ``naive_attention``
+    against dout, causal GQA (G = 3) at head_dim 192, f32 within 1e-5 (the
+    same sums in another order)."""
+    B, S, T, H, KV, hd = 2, 21, 21, 6, 2, 192
+    q, k, v, dout = _operands(hd, B, S, T, H, KV, hd)
+    got = fops.flash_attention_backward_plain(
+        *map(torch.from_numpy, (q, k, v)), None, torch.from_numpy(dout),
+        causal=True)
+    want = jax.grad(lambda a, b, c: jnp.sum(
+        ja.naive_attention(a, b, c, causal=True) * dout),
+        argnums=(0, 1, 2))(q, k, v)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=ATOL, err_msg=name)
 

@@ -429,11 +429,15 @@ def _assert_one_launch_of(kernel, before, entry):
 
 _SMOLLM_PAGED = dict(H=15, KV=5, hd=64, bs=16, P=8)
 _JAMBA_PAGED = dict(H=32, KV=8, hd=128, bs=16, P=8)
+# nemotron-4-340b: 96/8 heads of 192 (G = 12), V as wide
+_NEMOTRON = dict(H=96, KV=8, hd=192)
+_NEMOTRON_PAGED = dict(_NEMOTRON, bs=16, P=8)
 
 
 @pytest.mark.parametrize("T", [5, 17, 32])
-@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
-                         ids=["smollm", "jamba"])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED,
+                                   _NEMOTRON_PAGED],
+                         ids=["smollm", "jamba", "nemotron"])
 def test_prefill_mma_kernel_matches_plain(cuda, heads, T):
     """bf16 K2 on the tensor-core body: a slot with nothing cached (every
     prompt's first chunk), a chunk that straddles a page boundary, one
@@ -462,8 +466,8 @@ def test_prefill_mma_kernel_matches_plain(cuda, heads, T):
 
 @pytest.mark.parametrize("S,window", [(77, 0), (77, 16), (77, 128),
                                       (512, 0), (512, 16), (512, 128)])
-@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
-                         ids=["smollm", "jamba"])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS, _NEMOTRON],
+                         ids=["smollm", "jamba", "nemotron"])
 def test_flash_mma_kernel_matches_plain(cuda, heads, S, window):
     """bf16 B2 contiguous on the tensor-core body: causal, with windows
     narrower and wider than a 64-key tile, S no multiple of a tile."""
@@ -990,19 +994,22 @@ def _grad_errs(got, want):
     (_SMOLLM, 64, 130, True, 0), (_JAMBA_HEADS, 130, 130, True, 0),
     (_WHISPER_HEADS, 150, 150, False, 0), (_WHISPER_HEADS, 100, 64, False, 0),
     (dict(H=4, KV=2, hd=16), 37, 37, True, 0),
-    (dict(H=4, KV=4, hd=48), 70, 70, True, 0)],
+    (dict(H=4, KV=4, hd=48), 70, 70, True, 0),
+    (dict(H=12, KV=4, hd=192), 130, 130, True, 0)],
     ids=["smollm", "window", "s_lt_t", "jamba", "bidirectional", "cross",
-         "hd16", "hd48"])
+         "hd16", "hd48", "hd192"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
                                              window, dtype):
     """dq, dk, dv against torch.autograd of the plain version: causal,
     windowed, S < T, GQA and MHA, without the causal mask (S = T and the
     cross case S > T), T no multiple of the 64-key tile, head dims 16 to
-    128 (bf16 at 16 and 48 over the CUDA-core forward body); through the
-    autograd Function around B2's forward.  bf16 at 64 and 128 runs the
-    tensor-core backward from the ``*_lse`` forward's logsumexp, f32 and
-    the other head dims the CUDA-core one after the served forward."""
+    192 (bf16 at 16 and 48 over the CUDA-core forward body); through the
+    autograd Function around B2's forward.  bf16 at 64, 128 and 192 runs
+    the tensor-core backward from the ``*_lse`` forward's logsumexp, f32
+    and the other head dims the CUDA-core one after the served
+    forward (f32 at 192 at G = 3: the CUDA-core forward's block does not
+    fit nemotron's G = 12 at 192)."""
     q, k, v = _dense_qkv(S + T + window, 2, S, T, heads, dtype, cuda)
     dout = _t(np.random.default_rng(S + 2).standard_normal(
         q.shape).astype(np.float32), cuda, dtype)
@@ -1025,6 +1032,37 @@ def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
           f"{dtype}: relative errors dq/dk/dv {errs}")
     assert all(torch.isfinite(g.float()).all().item() for g in got)
     assert max(errs) <= _GRAD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("S,T,causal", [(130, 130, True), (512, 512, True),
+                                        (100, 64, False)])
+def test_flash_backward_kernel_matches_plain_at_nemotron_heads(cuda, S, T,
+                                                               causal):
+    """bf16 at nemotron-4-340b's heads (96/8, 192): the ``*_lse`` forward
+    and the tensor-core backward at 192 (a pair of warps to 16 keys in
+    dk/dv), causal at S no multiple of a tile and at phase 19's 512, and
+    without the mask at S > T."""
+    q, k, v = _dense_qkv(S + T + 192, 2, S, T, _NEMOTRON, torch.bfloat16,
+                         cuda)
+    dout = _t(np.random.default_rng(S).standard_normal(
+        q.shape).astype(np.float32), cuda, torch.bfloat16)
+    want = fops.flash_attention_backward_plain(q, k, v, None, dout,
+                                               causal=causal)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (_entry_counts(fops.FLASH_KERNEL),
+              _entry_counts(fops.BACKWARD_KERNEL))
+    out = fops.flash_attention(*qkv, causal=causal)
+    got = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before[0],
+                          "flash_attention_bf16_mma_lse")
+    _assert_one_launch_of(fops.BACKWARD_KERNEL, before[1],
+                          "flash_attention_backward_bf16_mma")
+    errs = _grad_errs(got, want)
+    print(f"backward nemotron heads S={S} T={T} causal={causal}: relative "
+          f"errors dq/dk/dv {errs}")
+    assert all(torch.isfinite(g.float()).all().item() for g in got)
+    assert max(errs) <= _GRAD_TOL[torch.bfloat16], errs
 
 
 @pytest.mark.parametrize("B,S,H", [(2, 77, 8), (1, 128, 128)])
@@ -1098,8 +1136,9 @@ def _signs(rng, shape, device):
 
 @pytest.mark.parametrize("heads,S,T,causal,window", [
     (_SMOLLM, 200, 200, True, 0), (_SMOLLM, 200, 200, True, 48),
-    (_JAMBA_HEADS, 130, 130, True, 0), (_WHISPER_HEADS, 100, 64, False, 0)],
-    ids=["smollm", "window", "jamba", "cross"])
+    (_JAMBA_HEADS, 130, 130, True, 0), (_WHISPER_HEADS, 100, 64, False, 0),
+    (_NEMOTRON, 130, 130, True, 0)],
+    ids=["smollm", "window", "jamba", "cross", "nemotron"])
 def test_lse_entry_matches_served_entry(cuda, heads, S, T, causal, window):
     """``flash_attention_bf16_mma_lse``: its out equals the served entry's
     bit for bit (random normal operands), its logsumexp the plain
