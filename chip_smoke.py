@@ -10,10 +10,13 @@ result line):
                  log the registers, spills and shared memory of the
                  tensor-core prefill bodies (prefill_mma.cuh, bf16, with
                  and without the logsumexp, at head_dim 64, 128, 192 and
-                 MLA's; prefill_tf32.cuh, split TF32) per head_dim and
-                 K/V type, of the tensor-core backward (backward_mma.cuh:
-                 delta, dq, dk/dv, rope sum; 64, 128, 192 and MLA's) and
-                 of the split decode body (decode_body.cuh).
+                 MLA's; prefill_tf32.cuh, split TF32, 64, 128 and 192,
+                 with and without the logsumexp) per head_dim and K/V
+                 type, of the tensor-core backwards (backward_mma.cuh:
+                 delta, dq, dk/dv, rope sum; 64, 128, 192 and MLA's;
+                 backward_tf32.cuh, f32 in split TF32: delta, dk/dv, dq
+                 at 64 and 128) and of the split decode body
+                 (decode_body.cuh).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -75,16 +78,20 @@ result line):
                  smollm heads, B = 8, S = 512, causal, bf16 and f32; jamba
                  heads; a 128-token window; MLA's heads on their own
                  operands; whisper's encoder without the mask (S = T =
-                 1500); 100 queries over 64 keys; nemotron-4-340b's heads
-                 (96/8 of 192); each row's entry checked (bf16: the
-                 tensor-core ``*_mma`` ones; f32 and head dim 48: the
-                 CUDA-core one), two launches equal bit for bit, the MLA backward's
-                 peak memory (no (B, T, H, 192) tensor); timed against the
-                 plain version, SDPA's backward and 2.5x the forward's
-                 operations.  Then the ``*_lse`` forward entries (smollm,
-                 jamba, nemotron, MLA heads): out equal to the served
-                 entries' bit for bit, the logsumexp within 1e-5 of the
-                 plain version, both timed.  Then the kernels at
+                 1500); 100 queries over 64 keys (each of those in bf16
+                 and f32); nemotron-4-340b's heads (96/8 of 192); each
+                 row's entry checked (bf16: the tensor-core ``*_mma``
+                 ones; f32 at 64 and 128: the split-TF32
+                 ``flash_attention_backward_f32_tf32``, each timed beside
+                 the CUDA-core f32 entry it replaces; head dim 48: the
+                 CUDA-core one), two launches equal bit for bit, the MLA
+                 backward's peak memory (no (B, T, H, 192) tensor); timed
+                 against the plain version, SDPA's backward and 2.5x the
+                 forward's operations.  Then the ``*_lse`` forward
+                 entries (smollm, jamba, nemotron heads in bf16 and f32;
+                 MLA heads): out equal to the served entries' bit for
+                 bit, the logsumexp within 1e-5 of the plain version,
+                 both timed.  Then the kernels at
                  nemotron-4-340b's heads (96/8, head_dim 192 = V, bf16,
                  G = 12) at phase 19's shapes: B2 at B = 8, S = T = 512
                  causal and K2 at T = 32 ending at position 512 through
@@ -93,7 +100,13 @@ result line):
                  also through the earlier CUDA-core entries (on K/V
                  repeated to the 96 query heads: their blocks do not fit
                  G = 12 at 192) and B2' through its CUDA-core entry, in
-                 the same call.  Then B5's backward (B5',
+                 the same call; then the same kernels in f32 (phase
+                 20(b)'s types): B2 through ``flash_attention_f32_tf32``
+                 (the split-TF32 body in 8-warp blocks at 192) beside the
+                 CUDA-core f32 entry on K/V repeated to 96 heads, K2 with
+                 f32 q over f32 and over bf16 pools and K2q over int8
+                 pools (the ``_tf32`` entries), K1 and B4 over 544 keys.
+                 Then B5's backward (B5',
                  ``selective_scan_backward.cu``; no TPU kernel: the JAX
                  package differentiates its scan through XLA): all seven
                  gradients against ``selective_scan_backward_plain`` at
@@ -277,8 +290,11 @@ result line):
                  CPU port from the same weights and ``TokenStream`` batches:
                  loss and grad norm per step within 1e-4 relative; B2's
                  forward and backward launch (B6 for the MoE configs,
-                 nothing for xLSTM), the backward only through its
-                 CUDA-core f32 entry, no ``*_lse`` forward; so does the
+                 nothing for xLSTM) through the entries the head dim
+                 picks (64: ``flash_attention_f32_tf32_lse`` and
+                 ``flash_attention_backward_f32_tf32``; deepseek's GQA
+                 form at 48: the served forward and the CUDA-core
+                 backward); so does the
                  jamba smoke stack (8 layers, 7 mamba), B5 only through
                  its checkpointing twin and B5' once a mamba layer and
                  step, each card step held to the CPU port at the card's
@@ -357,6 +373,27 @@ result line):
                  every loss and gradient finite, B2 through
                  ``_mma_lse`` and B2' through ``_bf16_mma`` once a step;
                  training tokens/s, ms a step, peak memory, a trace.
+ 20. f32       — (a) smollm-360m at full width and depth in f32 (32
+                 layers, no cut; f32 weights from seed 0, GEMMs in plain
+                 f32) trains 10 steps of 8 x 512 tokens with AdamW: B2
+                 only through ``flash_attention_f32_tf32_lse`` and B2'
+                 only through ``flash_attention_backward_f32_tf32`` (split
+                 TF32 at head dim 64), once a layer and step; every loss
+                 finite, the last 3 steps' mean below the first 3's; ms a
+                 step, tokens/s, peak memory, a trace of one more step
+                 (B2''s device time and share, the busy share); then 3
+                 steps from the same weights with ``remat=True``: the
+                 forward twice a layer and step, the losses equal the
+                 plain run's bit for bit.  (b) nemotron-4-340b at full
+                 width in f32 cut to 1 of 96 layers (~12.9B parameters,
+                 51.6 GB, drawn on the card from seed 0): 4 prompts of 512
+                 tokens, 16 new, over f32 pools, paged (K2 only through
+                 ``paged_prefill_attention_f32_f32_tf32``, K1 through
+                 ``paged_decode_attention_f32_f32``) and dense (B2 through
+                 ``flash_attention_f32_tf32``, B4 through
+                 ``decode_attention_f32_f32``), launches against layers x
+                 steps; layer 0's q, k, v from the dense prefill through
+                 B2 against its plain version; tok/s, TTFT, peak memory.
 Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
 forward entry and no checkpointing scan: every reset of the launch counts
 checks it.
@@ -374,9 +411,10 @@ launches from phase 17(c), ``training_shapes`` its phase-3 rows and the
 twin's; ``launches_phase17``/``_phase17a``/``_phase17c`` every kernel's
 in 17(b)/(a)/(c); ``launches_phase18`` every kernel's in phase 18's
 mesh runs, ``launches_phase18_by_rank`` the same per rank;
-``launches_phase19`` every kernel's in phase 19's runs;
-``nemotron_heads``: the phase-3 rows at nemotron-4-340b's heads, the
-earlier CUDA-core body's time as ``earlier_ms``); then
+``launches_phase19`` every kernel's in phase 19's runs,
+``launches_phase20`` in phase 20's; ``nemotron_heads``: the phase-3
+rows at nemotron-4-340b's heads, the earlier CUDA-core body's time as
+``earlier_ms``, the f32 rows under ``float32``); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
@@ -588,14 +626,23 @@ def _log_body_build(name: str, text: str) -> None:
                 kv = next(t for t in ("13__nv_bfloat16", "f", "a")
                           if targs.startswith("I" + t))
                 quant = "RowScales" in targs
-                # the ring, and q (64 rows x hd + 4 f32) at hd 128
+                warps = 8 if hd > 128 else 4
+                # the ring, and q (16 rows a warp x hd + 4 f32) at hd 128
+                # and 192
                 smem = stages * (2 * 32 * (hd * elt[kv] + 16)
                                  + (2 * 32 * 4 if quant else 0)) \
-                    + (4 * 64 * (hd + 4) if hd > 64 else 0)
-                log(f"[build] {name} split-TF32 body kv "
+                    + (4 * warps * 16 * (hd + 4) if hd > 64 else 0)
+                form = "(+ logsumexp, the *_lse entry) " \
+                    if "Lb1E" in targs else ""
+                log(f"[build] {name} split-TF32 body {form}kv "
                     f"{ {'f': 'f32', 'a': 'int8'}.get(kv, 'bf16')} hd {hd}: "
-                    f"{stages} ring stages, {smem} bytes of dynamic shared "
-                    f"memory; " + " | ".join(props))
+                    f"{warps} warps, {stages} ring stages, {smem} bytes of "
+                    f"dynamic shared memory; " + " | ".join(props))
+            elif fn and "bwd_tf32" in fn:
+                kind = next(k for k in BWD_MMA_KERNELS if k in fn)
+                hd = re.findall(r"Li(\d+)E", fn.split(kind, 1)[1])[0]
+                log(f"[build] {name} split-TF32 backward {kind} hd {hd}: "
+                    + " | ".join(props))
             elif fn and "bwd_mma" in fn:
                 kind = next(k for k in BWD_MMA_KERNELS if k in fn)
                 args = re.findall(r"Li(\d+)E", fn.split(kind, 1)[1])
@@ -1858,25 +1905,28 @@ def _mla_backward_row(timer, B, S, H):
 
 def _lse_rows(timer):
     """The ``*_lse`` forward entries beside the served ones at phase 3's
-    backward shapes (smollm and jamba heads, B = 8, S = 512, causal; MLA's
-    heads on their own operands): the same out bit for bit (random normal
-    operands); the logsumexp within 1e-5 of ``flash_attention_lse_plain``
-    on operands in {-1, 0, 1} (every score exact in f32 in any summation
-    order, so both round the same scores); timed beside the served entry,
-    the plain version, SDPA's forward and the bound (the served entry's
-    plus the logsumexp's bytes)."""
+    backward shapes (smollm, jamba and nemotron heads, B = 8, S = 512,
+    causal, bf16 and f32; MLA's heads on their own operands): the same
+    out bit for bit (random normal operands); the logsumexp within 1e-5
+    of ``flash_attention_lse_plain`` on operands in {-1, 0, 1} (bf16:
+    every score exact in f32 in any summation order, so both round the
+    same scores; f32: sums of +-scale, each to f32 rounding); timed beside
+    the served entry, the plain version, SDPA's forward and the bound (the
+    served entry's plus the logsumexp's bytes)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     B, S = 8, 512
     rows = {}
 
-    def signs(seed, shape):
+    def signs(seed, shape, dtype=torch.bfloat16):
         g = torch.Generator(device="cpu").manual_seed(seed)
-        return torch.randint(-1, 2, shape, generator=g).to("cuda",
-                                                           torch.bfloat16)
-    cases = [("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS),
-             ("nemotron", NEMOTRON_HEADS), ("mla", None)]
-    for geo, heads in cases:
+        return torch.randint(-1, 2, shape, generator=g).to("cuda", dtype)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("smollm", SMOLLM_HEADS, bf16), ("jamba", JAMBA_HEADS, bf16),
+             ("nemotron", NEMOTRON_HEADS, bf16), ("mla", None, bf16),
+             ("smollm", SMOLLM_HEADS, f32), ("jamba", JAMBA_HEADS, f32),
+             ("nemotron", NEMOTRON_HEADS, f32)]
+    for geo, heads, dtype in cases:
         if heads is None:
             H, (nope, rope, vd) = MLA_HEADS["H"], dops.MLA_DIMS
             shapes = ((B, S, H, nope + rope), (B, S, H, nope), (B, S, rope),
@@ -1902,15 +1952,15 @@ def _lse_rows(timer):
             ops = 2 * B * H * _n_visible(S, S, True, 0) * (nope + rope + vd)
         else:
             H, KV, hd = heads["H"], heads["KV"], heads["hd"]
-            ins = list(_dense_qkv(hd, B, S, S, heads, torch.bfloat16))
+            ins = list(_dense_qkv(hd, B, S, S, heads, dtype))
             shapes = ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))
-            ones = [signs(i, sh) for i, sh in enumerate(shapes)]
+            ones = [signs(i, sh, dtype) for i, sh in enumerate(shapes)]
 
             def fwd(*a, lse=False):
                 return fops._flash_forward(*a, True, 0, lse=lse)
-            served = fops.flash_entry(torch.bfloat16, hd)
+            served = fops.flash_entry(dtype, hd)
             plain = ones
-            tag = f"{geo} heads {H}/{KV} hd {hd}"
+            tag = f"{geo} heads {H}/{KV} hd {hd} {str(dtype)[6:]}"
             library = _sdpa(*ins, H // KV, causal=True)
 
             def plain_call():
@@ -1930,9 +1980,9 @@ def _lse_rows(timer):
         err = (lse - lse_want).abs().max().item()
         check(err <= 1e-5, f"{lse_entry} {tag}: logsumexp error {err}")
         # operands read once, out and the logsumexp written once
-        n_bytes = (sum(t.numel() for t in ins) + got.numel()) * 2 \
-            + lse.numel() * 4
-        bound = _bound(n_bytes, ops, torch.bfloat16)
+        n_bytes = (sum(t.numel() for t in ins) + got.numel()) \
+            * got.element_size() + lse.numel() * 4
+        bound = _bound(n_bytes, ops, dtype)
         served_ms = timer.ms(lambda: fwd(*ins))
         row = dict(served_ms=served_ms, lse_max_abs_err=err,
                    **_time_row(timer, lambda: fwd(*ins, lse=True),
@@ -1944,17 +1994,22 @@ def _lse_rows(timer):
     return rows
 
 
-# the smoke configs' 4 heads of 48: outside the tensor-core head dims
+# 4 heads of 48 (a head dim outside the tensor-core bodies')
 SMOKE48_HEADS = dict(H=4, KV=4, hd=48)
 # phase 3's backward rows (geometry, heads, dtype, S, T, causal, window),
-# B = 8; kernel_ab.py --backward times the same
+# B = 8; kernel_ab.py --backward times the same.  f32 at 64 and 128 runs
+# the split-TF32 body, each of those rows timed beside the CUDA-core one
 BACKWARD_CASES = (
     ("smollm", SMOLLM_HEADS, torch.bfloat16, 512, 512, True, 0),
     ("smollm", SMOLLM_HEADS, torch.float32, 512, 512, True, 0),
     ("jamba", JAMBA_HEADS, torch.bfloat16, 512, 512, True, 0),
+    ("jamba", JAMBA_HEADS, torch.float32, 512, 512, True, 0),
     ("smollm", SMOLLM_HEADS, torch.bfloat16, 512, 512, True, 128),
+    ("smollm", SMOLLM_HEADS, torch.float32, 512, 512, True, 128),
     ("whisper encoder", WHISPER_HEADS, torch.bfloat16, 1500, 1500, False, 0),
+    ("whisper encoder", WHISPER_HEADS, torch.float32, 1500, 1500, False, 0),
     ("cross", WHISPER_HEADS, torch.bfloat16, 100, 64, False, 0),
+    ("cross", WHISPER_HEADS, torch.float32, 100, 64, False, 0),
     ("smoke", SMOKE48_HEADS, torch.bfloat16, 512, 512, True, 0),
     ("nemotron", NEMOTRON_HEADS, torch.bfloat16, 512, 512, True, 0))
 
@@ -1979,16 +2034,18 @@ def phase_backward_kernels(timer: Timer):
     """B2's backward (``flash_backward.cu``; the JAX package has no TPU
     kernel for it) against its plain version at the shapes training
     gives it: smollm-360m's heads at B = 8, S = 512 causal in bf16 (phase
-    17(b)'s shape) and f32, jamba's heads causal, a 128-token window,
-    DeepSeek-V3's MLA heads on their own operands, whisper-tiny's encoder
-    without the mask (S = T = 1500, no multiple of the 64-key tile), and
-    a cross case, 100 queries over 64 keys without the mask, bf16 at
-    the smoke configs' head dim 48 and at nemotron-4-340b's heads (96/8,
-    192, causal); bf16 rows at a head dim of ``MMA_HEAD_DIMS`` must launch
-    the tensor-core entry, f32 and head dim 48 the CUDA-core entry of
-    their type.  Then the ``*_lse`` forward entries beside the served
-    ones.  Returns the rows by tag (the ``*_lse`` rows under
-    "lse_entries"); the served row is phase 17(b)'s shape."""
+    17(b)'s shape) and f32 (phase 20(a)'s), jamba's heads causal, a
+    128-token window, DeepSeek-V3's MLA heads on their own operands,
+    whisper-tiny's encoder without the mask (S = T = 1500, no multiple of
+    the 64-key tile), and a cross case, 100 queries over 64 keys without
+    the mask (each of those in bf16 and f32), bf16 at head dim 48 and at
+    nemotron-4-340b's heads (96/8, 192, causal); bf16 rows at a head dim
+    of ``MMA_HEAD_DIMS`` must launch the bf16 tensor-core entry, f32 rows
+    at ``TF32_BACKWARD_HEAD_DIMS`` the split-TF32 one (each timed beside
+    the CUDA-core f32 entry it replaces, as ``earlier_ms``), head dim 48
+    the CUDA-core entry of its type.  Then the ``*_lse`` forward entries
+    beside the served ones.  Returns the rows by tag (the ``*_lse`` rows
+    under "lse_entries"); the served row is phase 17(b)'s shape."""
     from repro_torch.kernels.flash_attention import ops as fops
     rows = {}
     for case in BACKWARD_CASES:
@@ -1996,12 +2053,24 @@ def phase_backward_kernels(timer: Timer):
         dtype, causal, window = case[2], case[5], case[6]
         rows[tag] = _backward_row(timer, q, k, v, tag, causal=causal,
                                   window=window, mask=mask)
-        bf16 = dtype == torch.bfloat16
-        want = (f"flash_attention_backward_{'bf16' if bf16 else 'f32'}"
-                + ("_mma" if bf16 and case[1]["hd"] in fops.MMA_HEAD_DIMS
-                   else ""))
+        bf16, hd = dtype == torch.bfloat16, case[1]["hd"]
+        want = ("flash_attention_backward_bf16"
+                + ("_mma" if hd in fops.MMA_HEAD_DIMS else "")) if bf16 \
+            else ("flash_attention_backward_f32"
+                  + ("_tf32" if hd in fops.TF32_BACKWARD_HEAD_DIMS else ""))
         check(rows[tag]["entry"] == want,
               f"{tag}: served by {rows[tag]['entry']}, not {want}")
+        if want == "flash_attention_backward_f32_tf32":
+            # the CUDA-core f32 body it replaces, on the same operands
+            g = torch.Generator(device="cpu").manual_seed(case[3] + case[4])
+            dout = torch.randn(q.shape, generator=g).to("cuda", dtype)
+            kw = dict(causal=causal, sliding_window=window)
+            out = fops.flash_attention(q, k, v, **kw)
+            _earlier(timer, rows[tag],
+                     _core_backward(fops, q, k, v, out, dout, causal, window),
+                     fops.flash_attention_backward_plain(q, k, v, out, dout,
+                                                         **kw),
+                     GRAD_TOL[dtype], tag, rel=True)
     rows["mla"] = _mla_backward_row(timer, 8, 512, MLA_HEADS["H"])
     rows["lse_entries"] = _lse_rows(timer)
     log(f"[kernels] backward tolerance: {GRAD_TOL} of each gradient's "
@@ -2020,18 +2089,21 @@ def _scale_stream(hd: int):
 
 
 def _core_flash(fops, q, k, v):
-    """The CUDA-core forward (``flash_attention_bf16``, prefill_body.cuh)
-    on K/V repeated to every query head (G = 1): at G = 12 and head_dim
-    192 its block needs 446 KB of shared memory and is refused, so the
-    earlier body is timed on the operands it can take."""
+    """The CUDA-core forward of q's type (``flash_attention_bf16`` or
+    ``_f32``, prefill_body.cuh) on K/V repeated to every query head (G =
+    1): at G = 12 and head_dim 192 its block needs 446 KB of shared
+    memory and is refused, so the earlier body is timed on the operands
+    it can take."""
     B, S, H, hd = q.shape
     kr, vr = (t.repeat_interleave(H // k.shape[2], dim=2).contiguous()
               for t in (k, v))
     out = torch.empty_like(q)
+    entry = "flash_attention_" + \
+        ("bf16" if q.dtype == torch.bfloat16 else "f32")
 
     def run():
         fops.FLASH_KERNEL.launch(
-            "flash_attention_bf16", q.data_ptr(), kr.data_ptr(),
+            entry, q.data_ptr(), kr.data_ptr(),
             vr.data_ptr(), out.data_ptr(), B, S, k.shape[1], H, H, hd, 1, 0,
             *_scale_stream(hd))
         return out
@@ -2056,21 +2128,24 @@ def _core_paged_prefill(fops, q, k, v, pt, lengths):
     return run
 
 
-def _core_backward(fops, q, k, v, out, dout):
-    """B2''s CUDA-core entry (``flash_attention_backward_bf16``, three
-    passes; it takes G = 12 as it is), causal."""
+def _core_backward(fops, q, k, v, out, dout, causal=True, window=0):
+    """B2''s CUDA-core entry of q's type (``flash_attention_backward_bf16``
+    or ``_f32``, three passes; it takes G = 12 as it is)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     lse, delta = (torch.empty((B, H, S), dtype=torch.float32,
                               device=q.device) for _ in range(2))
     grads = [torch.empty_like(t) for t in (q, k, v)]
+    entry = "flash_attention_backward_" + \
+        ("bf16" if q.dtype == torch.bfloat16 else "f32")
 
     def run():
         fops.BACKWARD_KERNEL.launch(
-            "flash_attention_backward_bf16", q.data_ptr(), k.data_ptr(),
+            entry, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             *(g.data_ptr() for g in grads), lse.data_ptr(), delta.data_ptr(),
-            B, S, T, H, KV, hd, hd, 1, 0, *_scale_stream(hd))
+            B, S, T, H, KV, hd, hd, int(causal), int(window),
+            *_scale_stream(hd))
         return grads
     return run
 
@@ -2240,7 +2315,150 @@ def phase_nemotron_kernels(timer: Timer, backward_rows: dict):
                         for n, v in got.items()}
     log(f"{tag}: traced (warm L2; launches {counts}) "
         + ", ".join(f"{n} {ms:.4f} ms" for n, ms in row["traced_ms"].items()))
+    del q, k, v, out, dout, want, lse
+    _nemotron_f32_rows(timer, rows)
     return rows
+
+
+def _nemotron_f32_rows(timer: Timer, rows: dict) -> None:
+    """The same kernels in f32 at nemotron-4-340b's heads (phase 20(b)'s
+    types): B2 contiguous at B = 8, S = T = 512, causal
+    (``flash_attention_f32_tf32``: the split-TF32 body in 8-warp blocks
+    at 192) beside the earlier CUDA-core f32 entry on K/V repeated to the
+    96 query heads; K2 at T = 32 ending at position 512 with f32 q over
+    f32 pools (``paged_prefill_attention_f32_f32_tf32``) and over bf16
+    pools (``_f32_bf16_tf32``); K2q over int8 pools made from the f32
+    ones (``paged_prefill_attention_quant_f32_tf32``); K1 over 544 keys
+    of the f32 pools; B4 over a 544-slot f32 cache.  Each launch's entry
+    checked, each against its plain version (``TOL`` of its output
+    type), timed beside it, one library call and the bound; added to
+    ``rows`` under "float32" ("float32_bf16_pools" for K2 over bf16
+    pools; K2q under its own kernel)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.attention import dequantize_kv
+    heads, f32, bf16 = NEMOTRON_HEADS, torch.float32, torch.bfloat16
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    B, S, G = 8, NEMOTRON_CTX, heads["H"] // heads["KV"]
+    tag0 = f"nemotron heads {H}/{KV} hd {hd} B={B}"
+
+    def launched(handle, entry, run):
+        e0 = handle.entry_launches[entry]
+        got = run()
+        torch.cuda.synchronize()
+        check(handle.entry_launches[entry] == e0 + 1,
+              f"{entry} did not launch at nemotron heads")
+        return got
+
+    # B2, contiguous, causal
+    q, k, v = _dense_qkv(S + hd + 1, B, S, S, heads, f32)
+    entry = fops.flash_entry(f32, hd)
+    check(entry == "flash_attention_f32_tf32",
+          f"B2 in f32 at nemotron heads picks {entry}")
+    out = launched(fops.FLASH_KERNEL, entry,
+                   lambda: fops.flash_attention(q, k, v, causal=True))
+    want = fops.flash_attention_plain(q, k, v, causal=True)
+    err = (out - want).abs().max().item()
+    tol = TOL[f32]
+    tag = f"[kernels] flash_attention (contiguous) {tag0} S=T={S} causal " \
+          f"float32 [{entry}]"
+    check(torch.isfinite(out).all().item() and err <= tol,
+          f"{tag}: max_abs_err {err} > {tol}")
+    row = _time_row(timer, lambda *a: fops.flash_attention(*a, causal=True),
+                    lambda *a: fops.flash_attention_plain(*a, causal=True),
+                    (q, k, v), _sdpa(q, k, v, G, causal=True),
+                    _bound((2 * q.numel() + k.numel() + v.numel()) * 4,
+                           4 * B * H * hd * _n_visible(S, S, True, 0), f32))
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    _earlier(timer, row, _core_flash(fops, q, k, v), want, tol, tag)
+    rows["flash_attention"]["float32"] = dict(entry=entry, max_abs_err=err,
+                                              **row)
+    del q, k, v, out, want
+
+    # K2 (T = 32 ending at 512) over f32, bf16 and int8 pools; K1 (544)
+    g = torch.Generator(device="cpu").manual_seed(hd + 20)
+    nb = B * P + 7
+    kp, vp = (torch.randn((nb, BS, KV, hd), generator=g).to("cuda", f32)
+              for _ in range(2))
+    pt = torch.stack([torch.randperm(nb, generator=g)[:P]
+                      for _ in range(B)]).to("cuda", torch.int32)
+    for name, T, n, kvdt, key in (
+            ("paged_prefill_attention", 32, S - 32, f32, "float32"),
+            ("paged_prefill_attention", 32, S - 32, bf16,
+             "float32_bf16_pools"),
+            ("paged_prefill_attention_quant", 32, S - 32, torch.int8,
+             "float32"),
+            ("paged_decode_attention", 1, NEMOTRON_CAP, f32, "float32")):
+        decode = T == 1
+        lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, T, H, hd), generator=g).to("cuda", f32)
+        if decode:
+            q = q[:, 0].contiguous()
+        if kvdt == torch.int8:
+            kq, vq, ks, vs = _quant_pools(kp, vp)
+            args = (q, kq, vq, ks, vs, pt, lengths)
+            kern, plain, handle = (fops.paged_prefill_attention_quant,
+                                   fops.paged_prefill_attention_quant_plain,
+                                   fops.QUANT_KERNEL)
+            entry = fops.quant_prefill_entry(hd)
+            library = _attn_library_call(
+                q, dequantize_kv(kq, ks), dequantize_kv(vq, vs), pt, lengths,
+                T, decode, heads)
+            bound = _quant_bound_ms(q, lengths, T, decode, heads)
+        else:
+            args = (q, kp.to(kvdt), vp.to(kvdt), pt, lengths)
+            if decode:
+                kern, plain, handle = (dops.paged_decode_attention,
+                                       dops.paged_decode_attention_plain,
+                                       dops.KERNEL)
+                entry = "paged_decode_attention_f32_f32"
+            else:
+                kern, plain, handle = (fops.paged_prefill_attention,
+                                       fops.paged_prefill_attention_plain,
+                                       fops.KERNEL)
+                entry = fops.paged_prefill_entry(f32, kvdt, hd)
+            library = _attn_library_call(*args, T, decode, heads)
+            bound = _attn_bound_ms(q, args[1], lengths, T, decode, heads)
+        check(decode or entry.endswith("_tf32"),
+              f"{name} f32 q at nemotron heads picks {entry}")
+        got = launched(handle, entry, lambda: kern(*args))
+        want = plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[bf16 if kvdt == bf16 else f32]
+        tag = (f"[kernels] {name} {tag0} T={T} "
+               + (f"over {n} valid keys" if decode else
+                  f"at positions {n}..{n + T - 1}")
+               + f" q=float32 kv={str(kvdt)[6:]} [{entry}]")
+        check(torch.isfinite(got.float()).all().item() and err <= tol,
+              f"{tag}: max_abs_err {err} > {tol}")
+        row = _time_row(timer, kern, plain, args, library, bound)
+        log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+        rows.setdefault(name, {})[key] = dict(entry=entry, max_abs_err=err,
+                                              **row)
+        del args, got, want
+    del kp, vp
+
+    # B4 over a 544-slot f32 cache, all valid
+    C = NEMOTRON_CAP
+    q, k, v = _dense_qkv(C + hd + 1, B, 1, C, heads, f32)
+    q = q[:, 0].contiguous()
+    entry = "decode_attention_f32_f32"
+    got = launched(dops.DENSE_KERNEL, entry,
+                   lambda: dops.decode_attention(q, k, v, C))
+    want = dops.decode_attention_plain(q, k, v, C)
+    err = (got - want).abs().max().item()
+    tol = TOL[f32]
+    tag = f"[kernels] decode_attention (dense) {tag0} C={C} n_valid={C} " \
+          f"float32 [{entry}]"
+    check(torch.isfinite(got).all().item() and err <= tol,
+          f"{tag}: max_abs_err {err} > {tol}")
+    row = _time_row(timer, dops.decode_attention, dops.decode_attention_plain,
+                    (q, k, v, C), _sdpa(q[:, None], k, v, G),
+                    _bound(q.numel() * 8 + 2 * B * C * KV * hd * 4,
+                           4 * B * H * hd * C, f32))
+    log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    rows["decode_attention"]["float32"] = dict(entry=entry, max_abs_err=err,
+                                               **row)
 
 
 def _quant_pools(k, v):
@@ -4250,10 +4468,14 @@ def phase_train_small(kernels, acc) -> None:
     the CPU port at the card's weights of that step); on the card B2's
     forward and backward launch (B6 too for the MoE configs, nothing for
     xLSTM; for jamba also B5, only through its checkpointing twin, and
-    B5' once a mamba layer and step).  Then the jamba stack again with
+    B5' once a mamba layer and step), each through the entries its head
+    dim picks (64: ``flash_attention_f32_tf32_lse`` and the split-TF32
+    backward; deepseek's GQA form at 48: the served forward and the
+    CUDA-core backward).  Then the jamba stack again with
     ``build_model(cfg, remat=True)``: the twin twice a layer and step,
     every loss equal to the plain card run's bit for bit."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import build_model
     from repro_torch.training import Trainer
     kw = dict(peak_lr=1e-3, warmup=1, total_steps=TRAIN_STEPS)
@@ -4284,12 +4506,19 @@ def phase_train_small(kernels, acc) -> None:
                    for k in kernels if k.name in ("flash_attention",
                                                   "flash_attention_backward",
                                                   "selective_scan")}
-        # f32: the CUDA-core backward after the served forward, no *_lse
-        check(set(entries["flash_attention_backward"])
-              <= {"flash_attention_backward_f32"}
-              and not any(e.endswith("_lse")
-                          for e in entries["flash_attention"]),
-              f"[train] {arch} smoke: entries {entries}")
+        # f32 at the split-TF32 backward's head dims: its entry after the
+        # *_lse forward; elsewhere the CUDA-core backward after the served
+        # forward (the GQA head dim: MLA's nope + rope, V padded to it)
+        hd = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+              if cfg.mla else cfg.resolved_head_dim)
+        bwd = fops.flash_backward_entry((torch.float32,), hd, hd)
+        fwd = fops.flash_entry(torch.float32, hd)
+        fwd = fops.LSE_ENTRIES[fwd] if bwd in fops.LSE_BACKWARDS else fwd
+        check(not entries["flash_attention_backward"] or (
+            set(entries["flash_attention_backward"]) == {bwd}
+            and set(entries["flash_attention"]) == {fwd}),
+              f"[train] {arch} smoke (head dim {hd}): entries {entries}, "
+              f"want {bwd} after {fwd}")
         check(entries["selective_scan"] == (
             {"selective_scan_ckpt_f32": n_mamba * TRAIN_STEPS}
             if n_mamba else {}), f"[train] {arch} smoke: B5 entries {entries}")
@@ -4916,10 +5145,11 @@ def nemotron_prompts(vocab_size: int):
             for _ in range(8)]
 
 
-def _serve_nemotron(kernels, eng, prompts, tag: str, card: str) -> None:
-    """Serve the prompts (their ``NEMOTRON_NEW`` tokens each, direct):
-    every request ok, its tokens in the vocab; tok/s, TTFT and peak
-    memory logged.  The launch counts are reset before."""
+def _serve_nemotron(kernels, eng, prompts, tag: str, card: str,
+                    new: int = NEMOTRON_NEW) -> None:
+    """Serve the prompts (their ``new`` tokens each, direct): every
+    request ok, its tokens in the vocab; tok/s, TTFT and peak memory
+    logged.  The launch counts are reset before."""
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     t0 = time.perf_counter()
@@ -4927,14 +5157,14 @@ def _serve_nemotron(kernels, eng, prompts, tag: str, card: str) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     vocab = eng.model.cfg.vocab_size
-    check(all(r.status == "ok" and len(r.tokens) == NEMOTRON_NEW
+    check(all(r.status == "ok" and len(r.tokens) == new
               and 0 <= int(r.tokens.min()) and int(r.tokens.max()) < vocab
               for r in res),
           f"[{tag}] {[(r.status, len(r.tokens)) for r in res]}")
     ttft = sorted(r.ttft_s for r in res)
     n_tok = sum(len(r.tokens) for r in res)
     log(f"[{tag}] served {len(res)} x {NEMOTRON_CTX}-token prompts, "
-        f"{NEMOTRON_NEW} new: {n_tok} tokens in {wall:.2f}s = "
+        f"{new} new: {n_tok} tokens in {wall:.2f}s = "
         f"{n_tok / wall:.1f} tok/s (direct); TTFT p50 "
         f"{1e3 * ttft[len(ttft) // 2]:.1f} ms, max {1e3 * ttft[-1]:.1f} "
         f"ms; {eng.n_device_steps} device steps; peak memory "
@@ -5187,6 +5417,227 @@ def phase_train_nemotron(kernels, acc, card: str) -> None:
     del params, leaves, model, prof
 
 
+# -- phase 20 -------------------------------------------------------------------
+
+F32_TRAIN = dict(steps=10, remat_steps=3, batch=8, seq=512)   # phase 20(a)
+# 20(b): nemotron-4-340b in f32, 1 of 96 layers (~12.9B, 51.6 GB), 4
+# prompts of NEMOTRON_CTX tokens, 16 new
+NEMOTRON_F32 = dict(layers=1, prompts=4, new=16)
+
+
+def phase_train_f32(kernels, acc, card: str) -> None:
+    """Phase 20(a): smollm-360m at full width and depth (32 layers, no
+    cut) in f32 (``get_config("smollm-360m")`` with f32 parameters and
+    compute; GEMMs in plain f32, TF32 off), random weights from seed 0, a
+    ``Trainer`` with AdamW, ``F32_TRAIN["steps"]`` steps of 8 x 512
+    ``TokenStream`` tokens.  Checks: B2 only through
+    ``flash_attention_f32_tf32_lse`` and B2' only through
+    ``flash_attention_backward_f32_tf32`` (the split-TF32 bodies at head
+    dim 64), once a layer and step, nothing else launched; every loss
+    finite, the last 3 steps' mean below the first 3's.  Logged: ms a
+    step, training tokens/s, peak memory, and from a trace of one more
+    step B2''s device time and the device's busy share.  Then
+    ``F32_TRAIN["remat_steps"]`` steps from the same weights with
+    ``remat=True``: the forward twice a layer and step, the losses equal
+    the plain run's first ones bit for bit (no atomics in either
+    body)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_leaves
+    steps, n_remat, B, S = (F32_TRAIN[k] for k in ("steps", "remat_steps",
+                                                   "batch", "seq"))
+    cfg = get_config("smollm-360m").replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=steps)
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    trainer = Trainer(model, params=params, **kw)
+    t0 = time.perf_counter()
+    hist = trainer.fit(TokenStream(cfg.vocab_size, S, B, seed=0), steps,
+                       log_fn=None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_served_by(kernels, "flash_attention",
+                    "flash_attention_f32_tf32_lse", "train-f32")
+    check_served_by(kernels, "flash_attention_backward",
+                    "flash_attention_backward_f32_tf32", "train-f32")
+    launches = _tally(kernels, acc)
+    want = {"flash_attention": L * steps,
+            "flash_attention_backward": L * steps}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"[train-f32] launches {launches}, want {want}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses))
+          and np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"[train-f32] losses {losses}")
+    times = [h["step_time_s"] for h in hist[1:]]
+    log(f"[train-f32] smollm-360m full width and depth ({L} layers, "
+        f"{n_params / 1e6:.1f}M f32 parameters, AdamW), {steps} steps of "
+        f"{B} x {S} tokens in {wall:.1f}s: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 3 mean {np.mean(losses[:3]):.4f}, last 3 "
+        f"{np.mean(losses[-3:]):.4f}); {B * S * len(times) / sum(times):.0f} "
+        f"training tokens/s (steps 1-{steps - 1}), per step median "
+        f"{np.median(times) * 1e3:.2f} ms (step 0 "
+        f"{hist[0]['step_time_s'] * 1e3:.1f} ms); peak memory {peak:.2f} "
+        f"GiB; launches {want}: B2 through `_f32_tf32_lse`, B2' through "
+        f"`_f32_tf32`; {card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(TokenStream(cfg.vocab_size, S, B, seed=1), 1,
+                    log_fn=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _tally(kernels, {})
+    _report_trace(prof, wall, 1, "train-f32", f"one f32 training step of "
+                  f"{B} x {S} tokens")
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    busy = sum(us for _, us in rows)
+    bwd = {kind: sum(us for key, us in rows
+                     if "bwd_tf32" in key and kind in key)
+           for kind in ("delta_kernel", "dkdv_kernel", "dq_kernel")}
+    fwd = sum(us for key, us in rows if "prefill_tf32" in key)
+    check(all(bwd.values()) and not any("flash_bwd" in key
+                                        for key, _ in rows),
+          f"[train-f32] the trace's backward kernels {bwd}, or the "
+          f"CUDA-core backward ran")
+    log(f"[train-f32] B2's backward (bwd_tf32::delta/dkdv/dq) "
+        f"{sum(bwd.values()) / 1e3:.2f} ms = "
+        f"{100 * sum(bwd.values()) / busy:.1f}% of the step's device time "
+        f"({busy / 1e3:.1f} ms, busy {busy / 1e4 / wall:.1f}% of "
+        f"{wall * 1e3:.1f} ms; "
+        + ", ".join(f"{k} {us / 1e3:.2f}" for k, us in bwd.items())
+        + f"), its forward (the *_lse twin) {fwd / 1e3:.2f} ms = "
+        f"{100 * fwd / busy:.1f}%; {card}")
+    del trainer, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = Trainer(build_model(cfg, device="cuda", remat=True),
+                    params=params, **kw).fit(
+        TokenStream(cfg.vocab_size, S, B, seed=0), n_remat, log_fn=None)
+    check_served_by(kernels, "flash_attention",
+                    "flash_attention_f32_tf32_lse", "train-f32 remat")
+    check_served_by(kernels, "flash_attention_backward",
+                    "flash_attention_backward_f32_tf32", "train-f32 remat")
+    launches = _tally(kernels, acc)
+    check(launches["flash_attention"] == 2 * L * n_remat
+          and launches["flash_attention_backward"] == L * n_remat,
+          f"[train-f32] remat launches {launches}")
+    losses_r = [h["loss"] for h in remat]
+    check(losses_r == losses[:n_remat],
+          f"[train-f32] remat losses {losses_r} against {losses[:n_remat]}")
+    log(f"[train-f32] with remat ({n_remat} steps from the same weights): "
+        f"losses equal the plain run's bit for bit; B2 "
+        f"{launches['flash_attention']} forward launches (twice a layer "
+        f"and step), B2' {launches['flash_attention_backward']}")
+
+
+def phase_nemotron_f32(kernels, acc, card: str) -> None:
+    """Phase 20(b): nemotron-4-340b at full width in f32 (f32 parameters
+    and compute, random weights drawn on the card from seed 0) cut to
+    ``NEMOTRON_F32["layers"]`` of its 96 layers (~12.9B parameters, 51.6
+    GB): 4 of phase 19's 512-token prompts, 16 new tokens each, over f32
+    pools.  (a) The paged engine (batch 4, chunk 32, burst 8): K2 only
+    through ``paged_prefill_attention_f32_f32_tf32`` (the split-TF32 body
+    in 8-warp blocks at 192, G = 12) once a layer and mixed step, K1
+    (``paged_decode_attention_f32_f32``) once a layer and decode step.
+    (b) The dense engine (``paged=False``) on the same prompts: B2 through
+    ``flash_attention_f32_tf32`` once a layer, B4
+    (``decode_attention_f32_f32``) once a layer and decode step; layer
+    0's q, k, v from the prefill wave through B2 against its plain
+    version, within ``TOL[f32]`` of the largest |out| (at least 1).
+    tok/s, TTFT and peak memory of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    L, n, new = (NEMOTRON_F32[k] for k in ("layers", "prompts", "new"))
+    t0 = time.perf_counter()
+    cfg = get_config("nemotron-4-340b").replace(
+        n_layers=L, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    n_bytes = sum(p.numel() * p.element_size() for p in _leaves(params))
+    log(f"[nemotron-f32] {cfg.arch_id} full width, {L} of 96 layers, f32: "
+        f"{n_params / 1e9:.2f}B parameters ({n_bytes / 1e9:.1f} GB) made "
+        f"on the card in {time.perf_counter() - t0:.1f}s")
+    prompts = nemotron_prompts(cfg.vocab_size)[:n]
+    kw = dict(batch_size=n, capacity=NEMOTRON_CTX + new, max_new_tokens=new,
+              burst=8, kv_dtype="f32", device="cuda")
+
+    # (a) paged
+    eng = ServeEngine(model, params, prefill_chunk=32, block_size=16, **kw)
+    check(eng.paged, "[nemotron-f32-paged] the engine is not paged")
+    _serve_nemotron(kernels, eng, prompts, "nemotron-f32-paged", card, new)
+    check_served_by(kernels, "paged_prefill_attention",
+                    "paged_prefill_attention_f32_f32_tf32",
+                    "nemotron-f32-paged")
+    check_served_by(kernels, "paged_decode_attention",
+                    "paged_decode_attention_f32_f32", "nemotron-f32-paged")
+    mixed, steps = eng.n_prefill_chunks, eng.n_device_steps
+    launches = _tally(kernels, acc)
+    want = {"paged_prefill_attention": L * mixed,
+            "paged_decode_attention": L * (steps - mixed)}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"[nemotron-f32-paged] launches {launches}, want {want}")
+    log(f"[nemotron-f32-paged] launches {want}: {L} layer x {mixed} mixed "
+        f"steps (K2) and x {steps - mixed} decode steps (K1)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) dense, layer 0's B2 operands captured from the prefill wave
+    eng = ServeEngine(model, params, paged=False, **kw)
+    check(not eng.paged, "[nemotron-f32-dense] the engine is paged")
+    captured = {}
+    served_flash = fops.flash_attention
+
+    def capture(q, k, v, **kwargs):
+        if not captured:
+            captured["qkv"] = tuple(t.clone() for t in (q, k, v))
+        return served_flash(q, k, v, **kwargs)
+    fops.flash_attention = capture
+    try:
+        _serve_nemotron(kernels, eng, prompts, "nemotron-f32-dense", card,
+                        new)
+    finally:
+        fops.flash_attention = served_flash
+    check_served_by(kernels, "flash_attention", "flash_attention_f32_tf32",
+                    "nemotron-f32-dense")
+    check_served_by(kernels, "decode_attention", "decode_attention_f32_f32",
+                    "nemotron-f32-dense")
+    launches = _tally(kernels, acc)
+    want = {"flash_attention": L, "decode_attention": L * (new - 1)}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"[nemotron-f32-dense] launches {launches}, want {want}")
+    del eng, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    q, k, v = captured.pop("qkv")
+    out = fops.flash_attention(q, k, v, causal=True)
+    want_out = fops.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _tally(kernels, {})
+    big = max(1.0, want_out.abs().max().item())
+    err = (out - want_out).abs().max().item()
+    tol = TOL[torch.float32] * big
+    check(torch.isfinite(out).all().item() and err <= tol,
+          f"[nemotron-f32] layer 0's B2 max_abs_err {err} > {tol}")
+    log(f"[nemotron-f32] layer 0's served operands ({tuple(q.shape)}, "
+        f"causal): B2 (flash_attention_f32_tf32) against its plain version "
+        f"max_abs_err {err:.3e} (tol {TOL[torch.float32]} x {big:.3f}, the "
+        f"largest |out|); launches {want}; {card}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5293,6 +5744,7 @@ def main() -> None:
     launches18: dict = {}
     launches18r: dict = {}
     launches19: dict = {}
+    launches20: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
@@ -5312,7 +5764,12 @@ def main() -> None:
                                      gc.collect(), torch.cuda.empty_cache(),
                                      phase_train_nemotron(kernels,
                                                           launches19,
-                                                          card)))):
+                                                          card))),
+                     ("20", lambda: (phase_train_f32(kernels, launches20,
+                                                     card),
+                                     gc.collect(), torch.cuda.empty_cache(),
+                                     phase_nemotron_f32(kernels, launches20,
+                                                        card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")
@@ -5351,6 +5808,7 @@ def main() -> None:
                  launches_phase17c=launches17c.get(k.name, 0),
                  launches_phase18=launches18.get(k.name, 0),
                  launches_phase19=launches19.get(k.name, 0),
+                 launches_phase20=launches20.get(k.name, 0),
                  launches_phase18_by_rank={
                      str(r): n for r, n in launches18r.get(k.name,
                                                            {}).items()},

@@ -47,8 +47,11 @@ With --backward, the rows are B2's backward (B2′) at chip_smoke.py
 phase 3's backward shapes (``BACKWARD_CASES``: smollm, jamba, the
 128-token window, whisper's encoder, the cross case, the smoke configs'
 head dim 48 and nemotron-4-340b's heads (96/8 of 192; a tree without the
-tensor-core body at 192 runs its CUDA-core entry there), bf16, and
-smollm in f32), each tree's ``flash_attention_backward`` on the same
+tensor-core body at 192 runs its CUDA-core entry there), bf16, and the
+f32 rows: smollm's and jamba's heads, the window, whisper's encoder and
+the cross case; a tree without the split-TF32 backward runs its
+CUDA-core f32 entry there), each tree's ``flash_attention_backward`` on
+the same
 operands and this tree's forward's out; a tree whose wrapper takes the forward's
 logsumexp (``lse=``, the tensor-core body) gets the one its ``*_lse``
 entry stores, made before the timing, as its autograd Function saves

@@ -1,16 +1,19 @@
-"""Where the tensor-core prefill bodies' time goes, on one GPU.
+"""Where the tensor-core attention bodies' time goes, on one GPU.
 
-    python3 prefill_ablations.py [--body mma|tf32|all]
+    python3 prefill_ablations.py [--body mma|tf32|bwd32|all]
 
-Builds the prefill entries of a body from the sources in this checkout
-and from copies of it with one part cut out, under ``build/ablations/``,
-and times each with ``chip_smoke.py``'s Timer (cold L2, device time) at
-its phase-3 shapes.  The bodies: ``mma`` (``csrc/prefill_mma.cuh``,
-bf16: B2 contiguous and K2 paged, and B2's MLA instantiation at
-DeepSeek-V3's heads, q/k 192 with a shared rope key and V 128, at
-phase 3's S = 512 and phase 13(b)'s S = 128) and ``tf32``
-(``csrc/prefill_tf32.cuh``, split TF32: f32 B2 contiguous, f32 K2 and
-K2q over int8 pools).
+Builds the entries of a body from the sources in this checkout and from
+copies of it with one part cut out or changed, under
+``build/ablations/``, and times each with ``chip_smoke.py``'s Timer
+(cold L2, device time) at its phase-3 shapes.  The bodies: ``mma``
+(``csrc/prefill_mma.cuh``, bf16: B2 contiguous and K2 paged, and B2's
+MLA instantiation at DeepSeek-V3's heads, q/k 192 with a shared rope key
+and V 128, at phase 3's S = 512 and phase 13(b)'s S = 128), ``tf32``
+(``csrc/prefill_tf32.cuh``, split TF32: f32 B2 contiguous at smollm,
+jamba and nemotron-4-340b heads, f32 K2 and K2q over int8 pools) and
+``bwd32`` (``csrc/backward_tf32.cuh``, B2's f32 backward in split TF32
+at smollm's and jamba's heads, B = 8, S = 512, causal, given the
+``*_lse`` forward's logsumexp).
 
   body       the body as it is (its output checked against the plain
              version, within chip_smoke's tolerance)
@@ -29,6 +32,12 @@ K2q over int8 pools).
              registers there without it)
   q_regs     (tf32) q's fragments in registers at head_dim 128 too (the
              body stages them in shared memory there)
+  cvt_split  (tf32, bwd32) the operands split with cvt.rna.tf32.f32
+             where the body rounds in integer arithmetic
+             (split_tf32_int: head_dim 192 and the backward); the same
+             bits, other instructions
+  no_fold    (bwd32) the gradients' products accumulated on the tensor
+             cores, k8 step after k8 step, not summed apart and added
 
 The cut copies compute wrong outputs; only their times mean anything.
 Each variant is timed twice, in the order given and then reversed, and
@@ -53,6 +62,10 @@ _CUTS = {
     "math": [("      load_tile(it + kStages - 1, (it + kStages - 1) % kStages);",
               "      ;")],
 }
+# an edit of another header than the body's: (path, old, new)
+_CVT = ("flash_attention/csrc/prefill_tf32.cuh",
+        "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+        "  return to_tf32(x);")
 BODIES = {
     "mma": ("flash_attention/csrc/prefill_mma.cuh", dict(
         body=[], **_CUTS,
@@ -71,9 +84,14 @@ BODIES = {
     "tf32": ("flash_attention/csrc/prefill_tf32.cuh", dict(
         body=[], **_CUTS,
         loads=[("    if (!warp_active) continue;", "    continue;")],
-        min1=[("kMinBlocks = kHd > 64 ? 3 : 1;", "kMinBlocks = 1;")],
-        min3=[("kMinBlocks = kHd > 64 ? 3 : 1;", "kMinBlocks = 3;")],
-        q_regs=[("  return kHd > 64;", "  return false;")])),
+        min1=[("kMinBlocks = kHd == 128 ? 3 : 1;", "kMinBlocks = 1;")],
+        min3=[("kMinBlocks = kHd == 128 ? 3 : 1;", "kMinBlocks = 3;")],
+        q_regs=[("  return kHd > 64;", "  return false;")],
+        cvt_split=[_CVT])),
+    "bwd32": ("flash_attention/csrc/backward_tf32.cuh", dict(
+        body=[], cvt_split=[_CVT],
+        no_fold=[("      mma3<true, kGroup>(c + n0, ah, al, bh, bl);",
+                  "      mma3<false, kGroup>(c + n0, ah, al, bh, bl);")])),
 }
 
 
@@ -88,22 +106,24 @@ def build_variants(body: str, fops, CudaKernel):
         shutil.rmtree(tree, ignore_errors=True)
         for sub in ("csrc", "flash_attention/csrc"):
             shutil.copytree(src / sub, tree / sub)
-        header = tree / path
-        text = header.read_text()
-        for old, new in edits:
+        for edit in edits:
+            where, old, new = edit if len(edit) == 3 else (path, *edit)
+            header = tree / where
+            text = header.read_text()
             if text.count(old) != 1:
-                raise RuntimeError(f"{body}/{name}: the body no longer holds "
+                raise RuntimeError(f"{body}/{name}: {where} no longer holds "
                                    f"{old!r}")
-            text = text.replace(old, new)
-        header.write_text(text)
+            header.write_text(text.replace(old, new))
         csrc = tree / "flash_attention" / "csrc"
-        libs[name] = {
-            which: CudaKernel(f"ablate_{body}_{name}_{which}", csrc / source,
-                              handle.entries)
-            for which, source, handle in (
+        sources = (("backward", "flash_backward.cu", fops.BACKWARD_KERNEL),) \
+            if body == "bwd32" else (
                 ("paged", "paged_prefill.cu", fops.KERNEL),
                 ("flash", "flash_prefill.cu", fops.FLASH_KERNEL),
                 ("quant", "paged_prefill_quant.cu", fops.QUANT_KERNEL))
+        libs[name] = {
+            which: CudaKernel(f"ablate_{body}_{name}_{which}", csrc / source,
+                              handle.entries)
+            for which, source, handle in sources
             if which != "quant" or body == "tf32"}
     return libs
 
@@ -152,15 +172,49 @@ def quant_call(kernel, entry, q, kq, vq, ks, vs, pt, lengths):
     return out
 
 
+def backward_call(kernel, entry, q, k, v, out, dout, lse):
+    B, S, H, hd = q.shape
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kernel.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), dout.data_ptr(),
+                  *(g.data_ptr() for g in grads), lse.data_ptr(),
+                  delta.data_ptr(), B, S, k.shape[1], H, k.shape[2], hd, hd,
+                  1, 0, ctypes.c_float(1 / np.sqrt(hd)), _stream())
+    return grads
+
+
 def cases(body: str, cs, fops):
     """(tag, which, entry, args, plain output, library call) at phase 3's
     shapes and seeds: B2 contiguous causal (and windowed, for mma) and K2
     at smollm and jamba heads; for mma B2's MLA entry at S = 512 and 128
     (random operands; ``which`` "mla", the flash library); K2q at smollm
-    heads for tf32."""
+    heads and B2 at nemotron-4-340b's (96/8 of 192) for tf32; for bwd32
+    B2's f32 backward at phase 3's smollm and jamba rows (its plain
+    output the gradients of ``flash_attention_backward_plain``, the
+    library call SDPA's backward: its forward and backward less its
+    forward)."""
     from repro_torch.models.attention import dequantize_kv
     dtype = torch.bfloat16 if body == "mma" else torch.float32
     out = []
+    if body == "bwd32":
+        for case in cs.BACKWARD_CASES:
+            geo, heads, dt, S, T, causal, window = case
+            if dt != dtype or not causal or window or geo not in (
+                    "smollm", "jamba"):
+                continue
+            _, (q, k, v), _ = cs.backward_case(*case)
+            g = torch.Generator(device="cpu").manual_seed(S + T)
+            dout = torch.randn(q.shape, generator=g).to("cuda", dtype)
+            o, lse = fops._flash_forward(q, k, v, True, 0, lse=True)
+            out.append((f"B2' {geo} B=8 S={S} causal", "backward",
+                        fops.flash_backward_entry((dtype,), heads["hd"],
+                                                  heads["hd"]),
+                        (q, k, v, o, dout, lse),
+                        fops.flash_attention_backward_plain(q, k, v, o, dout),
+                        ("sdpa_backward", q, k, v, dout,
+                         heads["H"] // heads["KV"])))
+        return out
     for geo, heads in (("smollm", cs.SMOLLM_HEADS), ("jamba", cs.JAMBA_HEADS)):
         G, hd = heads["H"] // heads["KV"], heads["hd"]
         for window in (0, 128) if body == "mma" else (0,):
@@ -195,6 +249,14 @@ def cases(body: str, cs, fops):
                         fops.mla_flash_attention_plain(q, kn, kr, v),
                         cs._sdpa(q, k, v, 1, causal=True)))
     if body == "tf32":
+        heads = cs.NEMOTRON_HEADS
+        q, k, v = cs._dense_qkv(cs.NEMOTRON_CTX + heads["hd"] + 1, 8,
+                                cs.NEMOTRON_CTX, cs.NEMOTRON_CTX, heads, dtype)
+        out.append((f"B2 nemotron B=8 S={cs.NEMOTRON_CTX} causal", "flash",
+                    fops.flash_entry(dtype, heads["hd"]), (q, k, v, 0),
+                    fops.flash_attention_plain(q, k, v, causal=True),
+                    cs._sdpa(q, k, v, heads["H"] // heads["KV"],
+                             causal=True)))
         heads = cs.SMOLLM_HEADS
         q, k, v, pt, lengths = cs._attn_case(8 * 7 + 32 + 1, 8, 32, dtype,
                                              dtype, heads)
@@ -211,8 +273,10 @@ def cases(body: str, cs, fops):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--body", choices=("mma", "tf32", "all"), default="all")
-    bodies = ("mma", "tf32") if (b := ap.parse_args().body) == "all" else (b,)
+    ap.add_argument("--body", choices=("mma", "tf32", "bwd32", "all"),
+                    default="all")
+    bodies = ("mma", "tf32", "bwd32") if (b := ap.parse_args().body) == "all" \
+        else (b,)
     if not torch.cuda.is_available():
         print("prefill_ablations: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -225,9 +289,9 @@ def main() -> None:
     load_all([k for body in libs.values() for v in body.values()
               for k in v.values()])
     calls = {"flash": flash_call, "paged": paged_call, "quant": quant_call,
-             "mla": mla_call}
+             "mla": mla_call, "backward": backward_call}
     libraries = {"flash": "flash", "paged": "paged", "quant": "quant",
-                 "mla": "flash"}
+                 "mla": "flash", "backward": "backward"}
     timer = cs.Timer()
     for body in bodies:
         variants = libs[body]
@@ -240,7 +304,16 @@ def main() -> None:
                       a=args: c(kk, e, *a))
                 got = fn()
                 torch.cuda.synchronize()
-                if name == "body":
+                if which == "backward":
+                    # every variant's error logged: no_fold's is the drift
+                    # of the unfolded sums
+                    err = cs._grad_err(got, want)
+                    print(f"{body} {name} {tag}: relative gradient error "
+                          f"{err:.3e}", flush=True)
+                    tol = cs.GRAD_TOL[got[0].dtype]
+                    cs.check(name != "body" or err <= tol,
+                             f"{body} {tag}: relative gradient error {err}")
+                elif name == "body":
                     err = (got.float() - want.float()).abs().max().item()
                     # the MLA rows: one bf16 ulp of the largest output
                     tol = cs.TOL[want.dtype] if which != "mla" else \
@@ -252,9 +325,11 @@ def main() -> None:
               .ljust(36) + "".join(n.rjust(16) for n in variants)
               + "SDPA".rjust(10))
         for tag, *_, library in rows:
+            lib_ms = cs._sdpa_backward_ms(timer, *library[1:]) \
+                if isinstance(library, tuple) else timer.ms(library)
             print(tag.ljust(36) + "".join(
                 " ".join(f"{t:.4f}" for t in times[(tag, n)]).rjust(16)
-                for n in variants) + f"{timer.ms(library):10.4f}")
+                for n in variants) + f"{lib_ms:10.4f}")
 
 
 if __name__ == "__main__":

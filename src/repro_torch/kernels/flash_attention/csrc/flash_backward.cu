@@ -18,7 +18,7 @@
 // has a zero output and gets zero gradients.  GQA: query head h reads KV
 // head h / G, and dk/dv sum the group's heads inside the kernel.
 //
-// Two bodies, picked by the wrapper (ops.py::flash_backward_entry) from
+// Three bodies, picked by the wrapper (ops.py::flash_backward_entry) from
 // dtypes and head dims alone, as the forward's are:
 //   flash_attention_backward_bf16_mma (bf16, hd = hdv = 64, 128 or 192)
 //   and
@@ -35,9 +35,17 @@
 //   assembled in shared memory from k_nope and the rope key, as the MLA
 //   forward does: no (B, T, H, 192) K or dk is built.  What bounds them is
 //   in backward_mma.cuh.
-//   flash_attention_backward_f32 and _bf16 (f32, and bf16 at any other
-//   head dim: the smoke configs' 16 and 48, 192 with V 128) run the first design, below,
-//   on CUDA cores: three passes, each a kernel on the caller's stream,
+//   flash_attention_backward_f32_tf32 (f32, hd = hdv = 64 or 128) runs
+//   backward_tf32.cuh: the same three passes (delta; dk/dv per 128 keys,
+//   the group's heads walked inside the block; dq per 128 packed GQA
+//   rows), every product in split TF32 on the tensor cores (three
+//   mma.sync tf32 products per f32 product, both operands split), from
+//   the logsumexp flash_attention_f32_tf32_lse stores.  What bounds it is
+//   in backward_tf32.cuh.
+//   flash_attention_backward_f32 and _bf16 (f32 at any head dim but 64
+//   and 128: 16, 48, 192 among them; bf16 where the tensor-core body does
+//   not take the head dims: 16, 48, 192 with V 128) run the first design,
+//   below, on CUDA cores: three passes, each a kernel on the caller's stream,
 //   accumulators in f32:
 //   prep  one block per (64-query tile, head, row): each row's logsumexp
 //         lse over its visible keys (recomputed: the CUDA-core forward
@@ -48,7 +56,7 @@
 //   dk/dv one block per (64-key tile, KV head, row): over the group's
 //         heads and the query tiles that see the key tile, dv += P^T dout
 //         and dk += dS^T (scale * q).
-// No atomics in either body: every output element is written by one
+// No atomics in any body: every output element is written by one
 // block, so the result is deterministic (training's --remat run gives the
 // plain run's losses bit for bit).
 //
@@ -59,16 +67,18 @@
 // TFLOP/s).  It runs its f32 products from shared memory, 4 x 4 register
 // tiles a thread (two 16-byte shared loads per 16 multiply-adds), one
 // block of 256 threads per tile, at ~10 TFLOP/s; split TF32 on the tensor
-// cores is its redesign.
+// cores (backward_tf32.cuh) is its redesign at 64 and 128.  Its blocks do
+// not grow with G, so f32 at 192 (nemotron-4-340b's heads) stays on it.
 //
-// Rounding (both bodies) follows B2's forward: q * scale rounded to the
+// Rounding (every body) follows B2's forward: q * scale rounded to the
 // input type and the scores rounded to it before the exponent; the CUDA-
-// core body keeps everything after in f32, the tensor-core body rounds P
-// and dS to bf16 as operands of its products; the gradients are rounded
-// to the input type once, at the end.
+// core and split-TF32 bodies keep everything after in f32, the bf16
+// tensor-core body rounds P and dS to bf16 as operands of its products;
+// the gradients are rounded to the input type once, at the end.
 
 #include "../../csrc/common.cuh"
 #include "backward_mma.cuh"
+#include "backward_tf32.cuh"
 
 namespace kern {
 namespace flash_bwd {
@@ -556,6 +566,32 @@ extern "C" int flash_attention_backward_bf16_mma(
     return bm::launch<192, 192, 0, 2, 8>(p, B, out, (float*)delta, dq, dk,
                                          dv, nullptr, nullptr, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// f32 at hd = hdv = 64 or 128 in split TF32 on the tensor cores: the
+// operands as above, lse (B, H, S) the forward's (an input here, from
+// flash_attention_f32_tf32_lse), delta (B, H, S) f32 scratch; any other
+// head dim is refused (cudaErrorInvalidValue), the wrapper never sends
+// one.  Blocks of 8 warps (dk/dv: 128 keys; dq: 128 packed rows), 2-stage
+// rings of 32-row tiles: 198 KB of shared memory at 128, 103 KB at 64.
+extern "C" int flash_attention_backward_f32_tf32(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    int B, int S, int T_, int H, int KV, int hd, int hdv, int causal,
+    int window, float scale, void* stream) {
+  namespace bt = kern::bwd_tf32;
+  auto st = (cudaStream_t)stream;
+  const bt::Args p{(const float*)q, (const float*)k,    (const float*)v,
+                   (const float*)dout, (const float*)lse, nullptr,
+                   S, T_, H, KV, causal, window, scale};
+  if (hd != hdv) return (int)cudaErrorInvalidValue;
+  if (hd == 64)
+    return bt::launch<64>(p, B, (const float*)out, (float*)delta,
+                          (float*)dq, (float*)dk, (float*)dv, st);
+  if (hd == 128)
+    return bt::launch<128>(p, B, (const float*)out, (float*)delta,
+                           (float*)dq, (float*)dk, (float*)dv, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,8 +19,8 @@
 // Three bodies, chosen by the wrapper from dtype and head_dim alone:
 // flash_attention_bf16_mma runs bf16 at head_dim 64, 128 and 192 on the
 // tensor cores (prefill_mma.cuh: 64 packed q-head rows a block, 128 at
-// 192, cp.async K/V ring), flash_attention_f32_tf32 f32 at 64 and 128 in
-// split TF32 (prefill_tf32.cuh, the same walk); everywhere else
+// 192, cp.async K/V ring), flash_attention_f32_tf32 f32 at 64, 128 and
+// 192 in split TF32 (prefill_tf32.cuh, the same walk); everywhere else
 // flash_attention_f32 and flash_attention_bf16 run prefill_body.cuh on
 // CUDA cores (16 query tokens a block).
 // flash_attention_mla_bf16_mma takes DeepSeek-V3's MLA operands as the
@@ -32,12 +32,13 @@
 // shared memory from k_nope and the rope key (no broadcast, no padded V;
 // the plain version is flash_attention/ops.py::mla_flash_attention_plain,
 // which builds those operands and calls naive_attention).
-// flash_attention_bf16_mma_lse and flash_attention_mla_bf16_mma_lse are
-// the two tensor-core entries with the body's kLse flag set: the same
-// output bit for bit, and each row's logsumexp (natural log, f32, (B, H,
-// S)) stored beside it for B2's backward (flash_backward.cu), so the
-// backward does not recompute the scores to find it.  Only training's
-// autograd Functions launch them; serving keeps the entries above.
+// flash_attention_bf16_mma_lse, flash_attention_mla_bf16_mma_lse and
+// flash_attention_f32_tf32_lse are the tensor-core entries with their
+// body's kLse flag set: the same output bit for bit, and each row's
+// logsumexp (natural log, f32, (B, H, S)) stored beside it for B2's
+// backward (flash_backward.cu), so the backward does not recompute the
+// scores to find it.  Only training's autograd Functions launch them;
+// serving keeps the entries above.
 // Rounding: K2's, and scores rounded to the input type, as
 // naive_attention does.
 
@@ -108,6 +109,18 @@ extern "C" int flash_attention_f32_tf32(const void* q, const void* k,
   return kern::prefill_tf32::launch<float>(q, k, v, out, ContiguousRows{T_len},
                                            B, S, H, KV, hd, causal, window,
                                            scale, stream);
+}
+
+extern "C" int flash_attention_f32_tf32_lse(const void* q, const void* k,
+                                            const void* v, void* out,
+                                            void* lse, int B, int S,
+                                            int T_len, int H, int KV, int hd,
+                                            int causal, int window,
+                                            float scale, void* stream) {
+  return kern::prefill_tf32::launch<float, ContiguousRows, kern::NoScales,
+                                    true>(
+      q, k, v, out, ContiguousRows{T_len}, B, S, H, KV, hd, causal, window,
+      scale, stream, kern::NoScales(), static_cast<float*>(lse));
 }
 
 extern "C" int flash_attention_mla_bf16_mma(const void* q, const void* k_nope,

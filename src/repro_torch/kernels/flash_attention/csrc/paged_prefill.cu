@@ -21,8 +21,9 @@
 // paged_prefill_attention_bf16_bf16_mma runs bf16 q and pools at
 // head_dim 64, 128 and 192 on the tensor cores (prefill_mma.cuh: 64
 // packed q-head rows a block, 128 at 192, cp.async K/V ring through the
-// page table), the *_tf32 entries f32 q over f32 or bf16 pools at 64 and
-// 128 in split TF32 (prefill_tf32.cuh, the same walk); everywhere else
+// page table), the *_tf32 entries f32 q over f32 or bf16 pools at 64,
+// 128 and 192 in split TF32 (prefill_tf32.cuh, the same walk; 8-warp
+// blocks at 192, whose shared memory does not grow with G); everywhere else
 // the other entries run prefill_body.cuh on CUDA cores (8 query tokens a
 // block).  All keep the scores in f32
 // (PagedRows::kRoundScores is false).

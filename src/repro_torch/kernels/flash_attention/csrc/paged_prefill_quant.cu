@@ -19,8 +19,8 @@
 // int8 bytes and 8 scale bytes, ~180 operations per byte for G = 3,
 // T = 32, hd = 64, above the H100's ~20 f32 operations per byte of
 // device memory (67 TFLOP/s outside the tensor cores over 3.35 TB/s).
-// Two bodies, chosen by the wrapper from head_dim alone: at head_dim 64
-// and 128 paged_prefill_attention_quant_f32_tf32 runs prefill_tf32.cuh
+// Two bodies, chosen by the wrapper from head_dim alone: at head_dim 64,
+// 128 and 192 paged_prefill_attention_quant_f32_tf32 runs prefill_tf32.cuh
 // (tensor cores in split TF32, int8 tiles in the ring, the row scales
 // folded into the scores and probabilities); at any other head_dim
 // paged_prefill_attention_quant_f32 runs prefill_body.cuh (CUDA cores, 8

@@ -17,7 +17,7 @@ and V at its own head dim.
 The libraries hold three bodies.  bf16 at head_dim 64, 128 or 192
 runs on the tensor cores (``csrc/prefill_mma.cuh``, the ``*_mma``
 entries; ``MMA_HEAD_DIMS``), and so does f32 q over f32, bf16 or int8
-K/V at 64 or 128, in split TF32 (``csrc/prefill_tf32.cuh``, the
+K/V at 64, 128 or 192, in split TF32 (``csrc/prefill_tf32.cuh``, the
 ``*_tf32`` entries; ``TF32_HEAD_DIMS``); everything else on CUDA cores
 (``csrc/prefill_body.cuh``).  bf16 MLA operands
 at ``MLA_DIMS`` run the bf16 tensor-core body with a q/k head of 192
@@ -31,12 +31,13 @@ tensor with grad on and an operand that requires grad,
 ``torch.autograd.Function``, whose backward is the gradient of B2 (see
 ``csrc/flash_backward.cu``; the JAX package leaves it to XLA).  Where
 ``flash_backward_entry`` picks a tensor-core backward (bf16 at head_dim
-64/128/192 with V as wide, and at ``MLA_DIMS``), the Function's forward
-launches the
+64/128/192 with V as wide, and at ``MLA_DIMS``: ``csrc/backward_mma.cuh``;
+f32 at ``TF32_BACKWARD_HEAD_DIMS``, 64/128, in split TF32:
+``csrc/backward_tf32.cuh``), the Function's forward launches the
 forward entry's ``*_lse`` twin, which also stores each row's
-logsumexp, and the backward (``csrc/backward_mma.cuh``) takes it; f32
-and other head dims keep the served forward entry and the CUDA-core
-backward, which recomputes it.  Serving (no grad) launches the served
+logsumexp, and the backward takes it (``backward_takes_lse``); other
+head dims (f32 at 192 among them) keep the served forward entry and the
+CUDA-core backward, which recomputes it.  Serving (no grad) launches the served
 entries only.  On a CPU tensor the plain versions are differentiated by
 torch itself.
 """
@@ -74,19 +75,21 @@ FLASH_KERNEL = CudaKernel(
      "flash_attention_mla_bf16_mma": [_P] * 5 + [_I] * 4
      + [ctypes.c_float, _P],
      # the tensor-core entries that also store the row logsumexp
-     "flash_attention_bf16_mma_lse": [_P] * 5 + [_I] * 8
-     + [ctypes.c_float, _P],
+     **{f"flash_attention_{t}_lse": [_P] * 5 + [_I] * 8
+        + [ctypes.c_float, _P] for t in ("bf16_mma", "f32_tf32")},
      "flash_attention_mla_bf16_mma_lse": [_P] * 6 + [_I] * 4
      + [ctypes.c_float, _P]})
 BACKWARD_KERNEL = CudaKernel(
     "flash_attention_backward",
     Path(__file__).parent / "csrc" / "flash_backward.cu",
     {**{f"flash_attention_backward_{t}": [_P] * 10 + [_I] * 9
-        + [ctypes.c_float, _P] for t in ("f32", "bf16", "bf16_mma")},
+        + [ctypes.c_float, _P]
+        for t in ("f32", "bf16", "bf16_mma", "f32_tf32")},
      "flash_attention_backward_mla_bf16_mma": [_P] * 13 + [_I] * 4
      + [ctypes.c_float, _P]})
 # the forward entries that also store the row logsumexp, by served entry
 LSE_ENTRIES = {"flash_attention_bf16_mma": "flash_attention_bf16_mma_lse",
+               "flash_attention_f32_tf32": "flash_attention_f32_tf32_lse",
                "flash_attention_mla_bf16_mma":
                "flash_attention_mla_bf16_mma_lse"}
 # heads a block of the MLA backward walks (csrc/backward_mma.cuh's
@@ -99,8 +102,16 @@ BACKWARD_MAX_HEAD_DIM = 192
 # 56 takes the CUDA-core body) and nemotron-4-340b's 192.  DeepSeek-V3's
 # MLA (q/k 192, V 128) has its own tensor-core entry (mla_flash_entry).
 MMA_HEAD_DIMS = (64, 128, 192)
-# and the split-TF32 bodies (f32 q): f32 at 192 takes the CUDA-core body
-TF32_HEAD_DIMS = (64, 128)
+# and the split-TF32 forward bodies (f32 q), 8-warp blocks at 192 whose
+# shared memory does not grow with G (the CUDA-core body's does)
+TF32_HEAD_DIMS = (64, 128, 192)
+# the split-TF32 backward's head dims (hd = hdv): f32 at 192 (nemotron's
+# heads) and elsewhere keeps the CUDA-core backward
+TF32_BACKWARD_HEAD_DIMS = (64, 128)
+# the backward entries that take the forward's logsumexp (tensor cores)
+LSE_BACKWARDS = ("flash_attention_backward_bf16_mma",
+                 "flash_attention_backward_f32_tf32",
+                 "flash_attention_backward_mla_bf16_mma")
 
 
 def _body(dtypes, hd: int) -> str:
@@ -133,31 +144,38 @@ def flash_entry(dtype, hd: int) -> str:
 def flash_backward_entry(dtypes, hd: int, hdv: int, *,
                          mla: bool = False) -> str:
     """The C entry of ``BACKWARD_KERNEL`` that serves these operands (q's
-    type first): ``_mma`` (the tensor-core body) for bf16 throughout at
-    hd = hdv where the forward entry has a ``*_lse`` twin in
-    ``LSE_ENTRIES`` (the tensor-core body's head dims); with ``mla``
-    (MLA's own operands: q/k ``hd`` = nope + rope, V ``hdv``)
-    ``_mla_bf16_mma`` for bf16 at ``MLA_DIMS``; else the CUDA-core body
-    for q's type.  From dtypes and dims alone, never from a failed build
-    or launch."""
+    type first): ``_bf16_mma`` (the bf16 tensor-core body) for bf16
+    throughout at hd = hdv in ``MMA_HEAD_DIMS``; ``_f32_tf32`` (split TF32
+    on the tensor cores) for f32 at hd = hdv in
+    ``TF32_BACKWARD_HEAD_DIMS``; with ``mla`` (MLA's own operands: q/k
+    ``hd`` = nope + rope, V ``hdv``) ``_mla_bf16_mma`` for bf16 at
+    ``MLA_DIMS``; else the CUDA-core body for q's type.  Each
+    tensor-core entry (``LSE_BACKWARDS``) takes the logsumexp of its
+    forward entry's ``*_lse`` twin.  From dtypes and dims alone, never
+    from a failed build or launch."""
     bf16 = all(d == torch.bfloat16 for d in dtypes)
     if mla:
         if not bf16 or (hd, hdv) != (MLA_DIMS[0] + MLA_DIMS[1], MLA_DIMS[2]):
             raise ValueError(f"MLA backward at {hd}/{hdv}, {dtypes}: the "
                              f"MLA entry takes bf16 at {MLA_DIMS}")
         return "flash_attention_backward_mla_bf16_mma"
-    if bf16 and hd == hdv and flash_entry(dtypes[0], hd) in LSE_ENTRIES:
-        return "flash_attention_backward_bf16_mma"
+    if hd == hdv:
+        # the head dim tested here, not the forward's entry: f32 at 192
+        # has a split-TF32 forward (and its *_lse twin) but no backward
+        if bf16 and hd in MMA_HEAD_DIMS:
+            return "flash_attention_backward_bf16_mma"
+        if all(d == torch.float32 for d in dtypes) \
+                and hd in TF32_BACKWARD_HEAD_DIMS:
+            return "flash_attention_backward_f32_tf32"
     return f"flash_attention_backward_{_NAMES[dtypes[0]]}"
 
 
 def backward_takes_lse(q, v) -> bool:
-    """Whether B2's gradient at GQA operands q, v runs the tensor-core
-    backward, which takes each row's logsumexp from the forward's
-    ``*_lse`` twin (the CUDA-core one recomputes it)."""
+    """Whether B2's gradient at GQA operands q, v runs a tensor-core
+    backward (``LSE_BACKWARDS``), which takes each row's logsumexp from
+    the forward's ``*_lse`` twin (the CUDA-core one recomputes it)."""
     return flash_backward_entry((q.dtype, v.dtype), q.shape[-1],
-                                v.shape[-1]) == \
-        "flash_attention_backward_bf16_mma"
+                                v.shape[-1]) in LSE_BACKWARDS
 
 
 def prefill_positions(lengths, T: int):
@@ -328,8 +346,9 @@ def _flash_forward(q, k, v, causal: bool, sliding_window: int,
                             out.data_ptr(), *args)
         return out
     if entry not in LSE_ENTRIES:
-        raise ValueError(f"{entry} stores no logsumexp: only the bf16 "
-                         f"tensor-core entries at head_dim {MMA_HEAD_DIMS}")
+        raise ValueError(f"{entry} stores no logsumexp: only the tensor-"
+                         f"core entries, bf16 at head_dim {MMA_HEAD_DIMS} "
+                         f"and f32 at {TF32_HEAD_DIMS}")
     rows = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     FLASH_KERNEL.launch(LSE_ENTRIES[entry], q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), out.data_ptr(), rows.data_ptr(), *args)
@@ -434,12 +453,13 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     incoming dout (B, S, H, hdv) -> (dq, dk, dv) in q's type; scale
     1/sqrt(hd).  GQA's group sum lands in dk/dv.  On a CPU tensor the
     plain version; on a CUDA tensor the entry ``flash_backward_entry``
-    picks, or a raise.  The tensor-core entry (bf16 at hd = hdv in
-    ``MMA_HEAD_DIMS``: delta = rowsum(dout * out), then dk/dv, then dq)
-    takes each row's logsumexp ``lse`` (B, H, S) f32 as the ``*_lse``
-    forward entry stores it; without one it launches that entry to get
-    it.  The CUDA-core entry (f32, other head dims) recomputes it in a
-    first pass and ignores ``lse``."""
+    picks, or a raise.  The tensor-core entries (bf16 at hd = hdv in
+    ``MMA_HEAD_DIMS``, f32 at hd = hdv in ``TF32_BACKWARD_HEAD_DIMS``:
+    delta = rowsum(dout * out), then dk/dv, then dq) take each row's
+    logsumexp ``lse`` (B, H, S) f32 as the ``*_lse`` forward entry stores
+    it; without one they launch that entry to get it.  The CUDA-core
+    entry (other head dims) recomputes it in a first pass and ignores
+    ``lse``."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(
             q, k, v, out, dout, causal=causal, sliding_window=sliding_window)

@@ -28,8 +28,13 @@ ATOL = 1e-5         # f32: the same sums in another order
     ((BF16,), 64, 64, False, "flash_attention_backward_bf16_mma"),
     ((BF16,), 128, 128, False, "flash_attention_backward_bf16_mma"),
     ((BF16,) * 4, 192, 128, True, "flash_attention_backward_mla_bf16_mma"),
-    ((F32,), 64, 64, False, "flash_attention_backward_f32"),
-    ((F32,), 128, 128, False, "flash_attention_backward_f32"),
+    # f32 at 64 and 128 runs the split-TF32 tensor-core body (ids as when
+    # it took the CUDA-core one)
+    pytest.param((F32,), 64, 64, False, "flash_attention_backward_f32_tf32",
+                 id="dtypes3-64-64-False-flash_attention_backward_f32"),
+    pytest.param((F32,), 128, 128, False,
+                 "flash_attention_backward_f32_tf32",
+                 id="dtypes4-128-128-False-flash_attention_backward_f32"),
     ((BF16,), 16, 16, False, "flash_attention_backward_bf16"),
     ((BF16,), 48, 48, False, "flash_attention_backward_bf16"),
     ((F32,), 48, 48, False, "flash_attention_backward_f32"),
@@ -41,27 +46,69 @@ ATOL = 1e-5         # f32: the same sums in another order
     pytest.param((BF16,), 192, 192, False,
                  "flash_attention_backward_bf16_mma",
                  id="dtypes8-192-192-False-flash_attention_backward_bf16"),
-    ((BF16,), 192, 128, False, "flash_attention_backward_bf16")])
+    ((BF16,), 192, 128, False, "flash_attention_backward_bf16"),
+    # f32 at 192: the split-TF32 forward (and its *_lse twin) exists, the
+    # backward stays on the CUDA-core body; so do f32 at 16 and at 192
+    # with V 128
+    ((F32,), 192, 192, False, "flash_attention_backward_f32"),
+    ((F32,), 16, 16, False, "flash_attention_backward_f32"),
+    ((F32,), 192, 128, False, "flash_attention_backward_f32")])
 def test_backward_dispatch(dtypes, hd, hdv, mla, entry):
-    """bf16 at hd = hdv = 64, 128 or 192 and MLA's operands at
-    ``MLA_DIMS`` go to the tensor-core body, everything else to the
-    CUDA-core body of q's type; every entry is one of the library's, and
-    each tensor-core entry's forward has a ``*_lse`` twin, which
-    ``backward_takes_lse`` makes the autograd Function launch (a GQA
-    forward has V as wide as q/k: at hd != hdv the forward entry at hd
-    is not this backward's)."""
+    """bf16 at hd = hdv = 64, 128 or 192, f32 at hd = hdv = 64 or 128
+    (``TF32_BACKWARD_HEAD_DIMS``) and MLA's operands at ``MLA_DIMS`` go
+    to a tensor-core body, everything else to the CUDA-core body of q's
+    type; every entry is one of the library's; a backward is a
+    tensor-core entry (``LSE_BACKWARDS``) iff its forward entry has a
+    ``*_lse`` twin that ``backward_takes_lse`` makes the autograd Function
+    launch (a GQA forward has V as wide as q/k: at hd != hdv the forward
+    entry at hd is not this backward's; f32 at 192 has a twin but not
+    this backward)."""
     assert fops.flash_backward_entry(dtypes, hd, hdv, mla=mla) == entry
     assert entry in fops.BACKWARD_KERNEL.entries
+    tensor_cores = entry.endswith(("_mma", "_tf32"))
+    assert (entry in fops.LSE_BACKWARDS) == tensor_cores
     forward = (fops.mla_flash_entry(dtypes, dops.MLA_DIMS) if mla
                else fops.flash_entry(dtypes[0], hd))
-    assert (forward in fops.LSE_ENTRIES and (mla or hd == hdv)) \
-        == entry.endswith("_mma")
+    if tensor_cores:
+        assert forward in fops.LSE_ENTRIES and (mla or hd == hdv)
     if not mla:
         q, v = torch.empty(1, 1, 1, hd, dtype=dtypes[0]), \
             torch.empty(1, 1, 1, hdv, dtype=dtypes[0])
-        assert fops.backward_takes_lse(q, v) == entry.endswith("_mma")
+        assert fops.backward_takes_lse(q, v) == tensor_cores
     for e in fops.LSE_ENTRIES.values():
         assert e in fops.FLASH_KERNEL.entries
+
+
+@pytest.mark.parametrize("dtype,hd,takes", [
+    (F32, 64, True), (F32, 128, True), (F32, 192, False), (F32, 48, False),
+    (F32, 16, False), (BF16, 64, True), (BF16, 192, True), (BF16, 48, False)])
+def test_backward_takes_lse_by_dtype_and_head_dim(dtype, hd, takes):
+    """The autograd Function launches the forward's ``*_lse`` twin exactly
+    where the backward is a tensor-core entry: f32 at 64 and 128 (the
+    split-TF32 backward) and bf16 at 64, 128 and 192; not f32 at 192,
+    whose forward has a twin but whose backward recomputes the logsumexp
+    on CUDA cores."""
+    q = torch.empty(1, 1, 1, hd, dtype=dtype)
+    assert fops.backward_takes_lse(q, q) is takes
+    if takes:
+        assert fops.LSE_ENTRIES[fops.flash_entry(dtype, hd)] in \
+            fops.FLASH_KERNEL.entries
+
+
+@pytest.mark.parametrize("served,twin", [
+    ("flash_attention_bf16_mma", "flash_attention_bf16_mma_lse"),
+    ("flash_attention_f32_tf32", "flash_attention_f32_tf32_lse"),
+    ("flash_attention_mla_bf16_mma", "flash_attention_mla_bf16_mma_lse")])
+def test_lse_entries_are_the_tensor_core_twins(served, twin):
+    """Each tensor-core forward entry has its ``*_lse`` twin in the
+    library, with the served entry's arguments and the logsumexp's
+    pointer after out; no CUDA-core entry has one."""
+    assert fops.LSE_ENTRIES[served] == twin
+    args = fops.FLASH_KERNEL.entries
+    assert served in args and twin in args
+    assert len(args[twin]) == len(args[served]) + 1
+    assert set(fops.LSE_ENTRIES) == {
+        e for e in args if e.endswith(("_mma", "_tf32"))}
 
 
 @pytest.mark.parametrize("dtypes,dims", [((F32,) * 4, dops.MLA_DIMS),
@@ -74,13 +121,14 @@ def test_mla_backward_dispatch_refuses_what_the_entry_does_not_take(dtypes,
 
 
 def test_library_hash_covers_the_backward_bodies():
-    """The backward library is built from both bodies' headers (and the
-    forward's, whose fragments the tensor-core body uses), so an edit of
-    any of them rebuilds it."""
+    """The backward library is built from its tensor-core bodies' headers
+    (bf16 and split TF32, and the forwards', whose fragments and splits
+    they use), so an edit of any of them rebuilds it."""
     names = [f.name for f in build.source_files(fops.BACKWARD_KERNEL.source)]
     assert names[0] == "flash_backward.cu"
-    assert sorted(names[1:]) == ["backward_mma.cuh", "common.cuh",
-                                 "prefill_mma.cuh"]
+    assert sorted(names[1:]) == ["backward_mma.cuh", "backward_tf32.cuh",
+                                 "common.cuh", "prefill_mma.cuh",
+                                 "prefill_tf32.cuh"]
 
 
 def _operands(seed, B, S, T, H, KV, hd, hdv=None):

@@ -618,7 +618,8 @@ def test_mla_wrappers_reject_unsupported_operands():
         dops.check_mla_operands(q, kn, kr, v, 4)
 
 
-# -- the split-TF32 prefill body (prefill_tf32.cuh): f32 q at hd 64 / 128 ---
+# -- the split-TF32 prefill body (prefill_tf32.cuh): f32 q at hd 64, 128 and
+#    192 (nemotron-4-340b's heads, G = 12: 8-warp blocks) -------------------
 
 def _paged_straddle_lengths(c, T, heads):
     """A slot with nothing cached, a chunk straddling a page boundary and
@@ -632,8 +633,9 @@ def _paged_straddle_lengths(c, T, heads):
 
 @pytest.mark.parametrize("T", [5, 17, 32])
 @pytest.mark.parametrize("kvdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
-                         ids=["smollm", "jamba"])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED,
+                                   _NEMOTRON_PAGED],
+                         ids=["smollm", "jamba", "nemotron"])
 def test_prefill_tf32_kernel_matches_plain(cuda, heads, kvdt, T):
     """f32 K2 over f32 and bf16 pools on the split-TF32 body: lengths 0,
     page straddles, T * G rows that are no multiple of a warp's 16."""
@@ -655,8 +657,9 @@ def test_prefill_tf32_kernel_matches_plain(cuda, heads, kvdt, T):
 
 
 @pytest.mark.parametrize("T", [5, 17, 32])
-@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED],
-                         ids=["smollm", "jamba"])
+@pytest.mark.parametrize("heads", [_SMOLLM_PAGED, _JAMBA_PAGED,
+                                   _NEMOTRON_PAGED],
+                         ids=["smollm", "jamba", "nemotron"])
 def test_prefill_quant_tf32_kernel_matches_plain(cuda, heads, T):
     """K2q on the split-TF32 body (int8 tiles, row scales folded into the
     scores and probabilities) within f32's 1e-5 of the plain version's
@@ -677,8 +680,8 @@ def test_prefill_quant_tf32_kernel_matches_plain(cuda, heads, T):
 
 @pytest.mark.parametrize("S,window", [(77, 0), (77, 16), (77, 128),
                                       (512, 0), (512, 16), (512, 128)])
-@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
-                         ids=["smollm", "jamba"])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS, _NEMOTRON],
+                         ids=["smollm", "jamba", "nemotron"])
 def test_flash_tf32_kernel_matches_plain(cuda, heads, S, window):
     """f32 B2 contiguous on the split-TF32 body: causal, with windows
     narrower and wider than a 32-key tile, S no multiple of a tile."""
@@ -1005,11 +1008,11 @@ def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
     windowed, S < T, GQA and MHA, without the causal mask (S = T and the
     cross case S > T), T no multiple of the 64-key tile, head dims 16 to
     192 (bf16 at 16 and 48 over the CUDA-core forward body); through the
-    autograd Function around B2's forward.  bf16 at 64, 128 and 192 runs
-    the tensor-core backward from the ``*_lse`` forward's logsumexp, f32
-    and the other head dims the CUDA-core one after the served
-    forward (f32 at 192 at G = 3: the CUDA-core forward's block does not
-    fit nemotron's G = 12 at 192)."""
+    autograd Function around B2's forward.  bf16 at 64, 128 and 192 and
+    f32 at 64 and 128 run a tensor-core backward (bf16 mma, split TF32)
+    from the ``*_lse`` forward's logsumexp; the other head dims (f32 at
+    192 among them, over the split-TF32 forward) the CUDA-core one after
+    the served forward."""
     q, k, v = _dense_qkv(S + T + window, 2, S, T, heads, dtype, cuda)
     dout = _t(np.random.default_rng(S + 2).standard_normal(
         q.shape).astype(np.float32), cuda, dtype)
@@ -1018,8 +1021,11 @@ def test_flash_backward_kernel_matches_plain(cuda, heads, S, T, causal,
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
     entry = fops.flash_backward_entry((dtype,), heads["hd"], heads["hd"])
     forward = fops.flash_entry(dtype, heads["hd"])
-    forward = fops.LSE_ENTRIES.get(forward, forward)
-    assert entry.endswith("_mma") == forward.endswith("_lse")
+    if fops.backward_takes_lse(q, v):
+        forward = fops.LSE_ENTRIES[forward]
+    # the backward is a tensor-core entry iff the forward is an _lse twin
+    assert (entry in fops.LSE_BACKWARDS) == forward.endswith("_lse")
+    assert entry.endswith(("_mma", "_tf32")) == forward.endswith("_lse")
     before = (_entry_counts(fops.FLASH_KERNEL),
               _entry_counts(fops.BACKWARD_KERNEL))
     out = fops.flash_attention(*qkv, causal=causal, sliding_window=window)
@@ -1063,6 +1069,79 @@ def test_flash_backward_kernel_matches_plain_at_nemotron_heads(cuda, S, T,
           f"errors dq/dk/dv {errs}")
     assert all(torch.isfinite(g.float()).all().item() for g in got)
     assert max(errs) <= _GRAD_TOL[torch.bfloat16], errs
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (512, 512, True, 0), (130, 130, True, 0), (200, 200, True, 48),
+    (100, 64, False, 0)], ids=["causal512", "causal130", "window", "cross"])
+@pytest.mark.parametrize("heads", [_SMOLLM, _JAMBA_HEADS],
+                         ids=["smollm", "jamba"])
+def test_flash_backward_f32_tf32_matches_plain(cuda, heads, S, T, causal,
+                                               window):
+    """f32 B2' on the split-TF32 tensor-core body at smollm-360m's (15/5
+    of 64) and jamba-v0.1's (32/8 of 128) heads: through the autograd
+    Function, the ``flash_attention_f32_tf32_lse`` forward, then
+    ``flash_attention_backward_f32_tf32``; dq, dk, dv within f32's
+    gradient tolerance of torch.autograd of the plain version, causal at
+    phase 17's S = 512 and at S no multiple of a tile, windowed, and
+    without the mask at S > T; two launches the same bits."""
+    q, k, v = _dense_qkv(S + T + heads["hd"], 2, S, T, heads, torch.float32,
+                         cuda)
+    dout = _t(np.random.default_rng(S + 5).standard_normal(
+        q.shape).astype(np.float32), cuda)
+    want = fops.flash_attention_backward_plain(
+        q, k, v, None, dout, causal=causal, sliding_window=window)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (_entry_counts(fops.FLASH_KERNEL),
+              _entry_counts(fops.BACKWARD_KERNEL))
+    out = fops.flash_attention(*qkv, causal=causal, sliding_window=window)
+    got = torch.autograd.grad(out, qkv, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before[0],
+                          "flash_attention_f32_tf32_lse")
+    _assert_one_launch_of(fops.BACKWARD_KERNEL, before[1],
+                          "flash_attention_backward_f32_tf32")
+    errs = _grad_errs(got, want)
+    print(f"f32 split-TF32 backward {heads} S={S} T={T} causal={causal} "
+          f"window={window}: relative errors dq/dk/dv {errs}")
+    assert all(torch.isfinite(g).all().item() for g in got)
+    assert max(errs) <= _GRAD_TOL[torch.float32], errs
+    again = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("heads,S,T,causal,window", [
+    (_SMOLLM, 200, 200, True, 0), (_SMOLLM, 200, 200, True, 48),
+    (_JAMBA_HEADS, 130, 130, True, 0), (_WHISPER_HEADS, 100, 64, False, 0),
+    (_NEMOTRON, 130, 130, True, 0)],
+    ids=["smollm", "window", "jamba", "cross", "nemotron"])
+def test_f32_lse_entry_matches_served_entry(cuda, heads, S, T, causal,
+                                            window):
+    """``flash_attention_f32_tf32_lse``: its out equals
+    ``flash_attention_f32_tf32``'s bit for bit (random normal operands;
+    at nemotron's 192 too, where the 8-warp body runs), its logsumexp
+    the plain version's within 1e-5 (operands in {-1, 0, 1}: the scores
+    are sums of +-scale, which both compute to f32 rounding)."""
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    q, k, v = _dense_qkv(S + T + 3, 2, S, T, heads, torch.float32, cuda)
+    served = fops._flash_forward(q, k, v, causal, window)
+    out, _ = fops._flash_forward(q, k, v, causal, window, lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), served.view(torch.int32))
+    rng = np.random.default_rng(S + 1)
+    q, k, v = (_t(rng.integers(-1, 2, (2, n, h, hd)).astype(np.float32),
+                  cuda) for n, h in ((S, H), (T, KV), (T, KV)))
+    before = _entry_counts(fops.FLASH_KERNEL)
+    _, lse = fops._flash_forward(q, k, v, causal, window, lse=True)
+    _, want = fops.flash_attention_lse_plain(q, k, v, causal=causal,
+                                             sliding_window=window)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(fops.FLASH_KERNEL, before,
+                          "flash_attention_f32_tf32_lse")
+    err = (lse - want).abs().max().item()
+    assert err <= ATOL_F32, err
 
 
 @pytest.mark.parametrize("B,S,H", [(2, 77, 8), (1, 128, 128)])

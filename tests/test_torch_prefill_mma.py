@@ -35,15 +35,19 @@ F32, BF16 = torch.float32, torch.bfloat16
                  id="q_dtype5-kv_dtype5-128-paged_prefill_attention_f32_f32"),
     (F32, F32, 96, "paged_prefill_attention_f32_f32"),
     (F32, BF16, 32, "paged_prefill_attention_f32_bf16"),
-    # nemotron-4-340b's 192: bf16 on the tensor cores, f32 q (no split-
-    # TF32 instantiation there) on CUDA cores
+    # nemotron-4-340b's 192: bf16 on the tensor cores, f32 q in split TF32
+    # (8-warp blocks, whose shared memory does not grow with G; ids as
+    # when f32 q took the CUDA-core body there)
     (BF16, BF16, 192, "paged_prefill_attention_bf16_bf16_mma"),
-    (F32, F32, 192, "paged_prefill_attention_f32_f32"),
-    (F32, BF16, 192, "paged_prefill_attention_f32_bf16")])
+    pytest.param(F32, F32, 192, "paged_prefill_attention_f32_f32_tf32",
+                 id="q_dtype9-kv_dtype9-192-paged_prefill_attention_f32_f32"),
+    pytest.param(F32, BF16, 192, "paged_prefill_attention_f32_bf16_tf32",
+                 id="q_dtype10-kv_dtype10-192-"
+                    "paged_prefill_attention_f32_bf16")])
 def test_paged_prefill_dispatch(q_dtype, kv_dtype, hd, entry):
     """bf16 q and pools at head_dim 64, 128 or 192 go to the bf16
-    tensor-core body, f32 q at 64 or 128 to the split-TF32 body; the rest
-    to the CUDA-core body."""
+    tensor-core body, f32 q at 64, 128 or 192 to the split-TF32 body; the
+    rest to the CUDA-core body."""
     assert fops.paged_prefill_entry(q_dtype, kv_dtype, hd) == entry
     assert entry in fops.KERNEL.entries
 
@@ -58,7 +62,8 @@ def test_paged_prefill_dispatch(q_dtype, kv_dtype, hd, entry):
                  id="dtype4-128-flash_attention_f32"),
     (F32, 96, "flash_attention_f32"),
     (BF16, 192, "flash_attention_bf16_mma"),
-    (F32, 192, "flash_attention_f32")])
+    pytest.param(F32, 192, "flash_attention_f32_tf32",
+                 id="dtype7-192-flash_attention_f32")])
 def test_flash_dispatch(dtype, hd, entry):
     assert fops.flash_entry(dtype, hd) == entry
     assert entry in fops.FLASH_KERNEL.entries
@@ -69,11 +74,11 @@ def test_flash_dispatch(dtype, hd, entry):
     (128, "paged_prefill_attention_quant_f32_tf32"),
     (16, "paged_prefill_attention_quant_f32"),
     (96, "paged_prefill_attention_quant_f32"),
-    (192, "paged_prefill_attention_quant_f32")])
+    pytest.param(192, "paged_prefill_attention_quant_f32_tf32",
+                 id="192-paged_prefill_attention_quant_f32")])
 def test_quant_prefill_dispatch(hd, entry):
-    """K2q at head_dim 64 or 128 runs the split-TF32 body (int8 tiles,
-    folded row scales), elsewhere the CUDA-core body (192 too: only bf16
-    has a tensor-core body there)."""
+    """K2q at head_dim 64, 128 or 192 runs the split-TF32 body (int8
+    tiles, folded row scales), elsewhere the CUDA-core body."""
     assert fops.quant_prefill_entry(hd) == entry
     assert entry in fops.QUANT_KERNEL.entries
 
@@ -156,13 +161,20 @@ SMOKE = (32, 16, 32)        # the deepseek-v3 smoke config's
 @pytest.mark.parametrize("dtypes,dims,flash,decode", [
     ((BF16,) * 4, MLA, "flash_attention_mla_bf16_mma",
      "decode_attention_mla_bf16"),
-    ((F32,) * 4, MLA, "flash_attention_f32", "decode_attention_f32_f32"),
+    # f32 at MLA's dims: the GQA operands at q/k 192, the split-TF32 body
+    # (ids as when it was the CUDA-core one)
+    pytest.param((F32,) * 4, MLA, "flash_attention_f32_tf32",
+                 "decode_attention_f32_f32",
+                 id="dtypes1-dims1-flash_attention_f32-"
+                    "decode_attention_f32_f32"),
     ((F32,) * 4, SMOKE, "flash_attention_f32", "decode_attention_f32_f32"),
     ((BF16,) * 4, SMOKE, "flash_attention_bf16", "decode_attention_bf16_bf16"),
     ((BF16,) * 4, (64, 64, 128), "flash_attention_bf16_mma",
      "decode_attention_bf16_bf16"),
-    ((F32, BF16, BF16, BF16), MLA, "flash_attention_f32",
-     "decode_attention_f32_bf16")])
+    pytest.param((F32, BF16, BF16, BF16), MLA, "flash_attention_f32_tf32",
+                 "decode_attention_f32_bf16",
+                 id="dtypes5-dims5-flash_attention_f32-"
+                    "decode_attention_f32_bf16")])
 def test_mla_dispatch(dtypes, dims, flash, decode):
     """bf16 throughout at DeepSeek-V3's dims goes to the MLA entries;
     other types or dims (the f32 smoke model's) to the GQA entries over
