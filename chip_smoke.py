@@ -15,8 +15,9 @@ result line):
                  type, of the tensor-core backwards (backward_mma.cuh:
                  delta, dq, dk/dv, rope sum; 64, 128, 192 and MLA's;
                  backward_tf32.cuh, f32 in split TF32: delta, dk/dv, dq
-                 at 64 and 128) and of the split decode body
-                 (decode_body.cuh).
+                 at 64 and 128), of the split decode body
+                 (decode_body.cuh) and of the MLA decode body
+                 (decode_mla.cuh).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -599,8 +600,8 @@ def _log_body_build(name: str, text: str) -> None:
     arguments and the
     dynamic shared memory the launch asks for (K and V tiles x stages x
     keys x padded rows, plus the int8 row scales, and q at head_dim 128
-    in the TF32 body), and the split decode body (decode_body.cuh) by its
-    types and row policy."""
+    in the TF32 body), the split decode body (decode_body.cuh) by its
+    types and row policy, and the MLA decode body (decode_mla.cuh)."""
     elt = {"f": 4, "13__nv_bfloat16": 2, "a": 1}
     fn, props = None, []
     for ln in text.splitlines() + ["Compiling entry function 'end'"]:
@@ -658,13 +659,15 @@ def _log_body_build(name: str, text: str) -> None:
                 lanes = re.findall(r"Li(\d+)E", targs)[0]
                 log(f"[build] {name} B5' scan kernel {kind}, {lanes} lanes "
                     f"a channel: " + " | ".join(props))
+            elif fn and "mla_decode_kernel" in fn:
+                log(f"[build] {name} MLA decode body (decode_mla.cuh): "
+                    + " | ".join(props))
             elif fn and "decode_kernel" in fn:
                 targs = fn.split("decode_kernel", 1)[1]
                 names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
                 qt, kvt = re.match(r"I(13__nv_bfloat16|f)(S2_|13__nv_bfloat16"
                                    r"|f|a)", targs).groups()
-                rows = ("paged" if "PagedRows" in targs else "MLA"
-                        if "MlaRows" in targs else "contiguous")
+                rows = "paged" if "PagedRows" in targs else "contiguous"
                 log(f"[build] {name} split decode body q {names[qt]} kv "
                     f"{names.get(kvt, names[qt])} {rows}: "
                     + " | ".join(props))
@@ -1523,8 +1526,14 @@ def _mla_decode_row(timer, q, k_nope, kr_cache, v, n_valid, tag, padded):
     version and SDPA (K with the rope key broadcast beforehand, V
     unpadded, a mask only where slots past ``n_valid`` exist: the padded
     form's yardstick calls).  Bounds and ``padded`` as
-    ``_mla_flash_row``'s."""
+    ``_mla_flash_row``'s.  The body's registers, spills, shared memory and
+    resident blocks an SM (``mla_decode_occupancy``) are logged and
+    returned; a spill fails the row."""
     from repro_torch.kernels.decode_attention import ops as dops
+    occ = dops.mla_decode_occupancy()
+    check(occ["spill_bytes"] == 0,
+          f"{tag}: decode_attention_mla_bf16 spills {occ['spill_bytes']} "
+          f"bytes a thread")
     B, H, hd = q.shape
     T, rope, vd = k_nope.shape[1], kr_cache.shape[-1], v.shape[-1]
     entry = "decode_attention_mla_bf16"
@@ -1555,8 +1564,13 @@ def _mla_decode_row(timer, q, k_nope, kr_cache, v, n_valid, tag, padded):
                     _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid, rope))
     old = _mla_bound(H, B * n_valid, hd, vd, B, B * n_valid)[0]
     log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row)
-        + f"; bound with the rope key per head {old:.5f}; padded operands: {padded}")
-    return dict(max_abs_err=err, bound_ms_padded=old, **row)
+        + f"; bound with the rope key per head {old:.5f}; padded operands: "
+        f"{padded}; decode_mla.cuh: {occ['registers']} registers and "
+        f"{occ['spill_bytes']} spill bytes a thread, {occ['smem_bytes']} "
+        f"bytes of shared memory a block of {occ['warps']} warps, "
+        f"{occ['blocks_per_sm']} blocks resident an SM, {occ['stages']} "
+        f"stages of {occ['tile_keys']}-key tiles a warp")
+    return dict(max_abs_err=err, bound_ms_padded=old, body=occ, **row)
 
 
 def phase_mla_kernels(timer: Timer):
@@ -1566,9 +1580,10 @@ def phase_mla_kernels(timer: Timer):
     head.  B2 at B = 8, S = T = 512, causal, through
     ``flash_attention_mla_bf16_mma`` (the tensor-core body at q/k 192, V
     128); B4 at B = 8 over a 640-slot latent cache, 576 valid, through
-    ``decode_attention_mla_bf16`` (the split decode body, the rope key read
-    in place).  SDPA, the yardstick, takes K with the rope key broadcast
-    and the unpadded V, as for the padded operands."""
+    ``decode_attention_mla_bf16`` (decode_mla.cuh, every warp on its own
+    keys, the rope key read in place).  SDPA, the yardstick, takes K with
+    the rope key broadcast and the unpadded V, as for the padded
+    operands."""
     H, hd, vd = MLA_HEADS["H"], MLA_HEADS["hd"], MLA_HEADS["v_hd"]
     rope = hd - vd
     g = torch.Generator(device="cpu").manual_seed(192)

@@ -27,11 +27,12 @@ differs most between the two trees.
 With --mla, the rows are B2 and B4 at the MLA heads instead (128 heads,
 q/k 128 + 64, V 128, bf16; random operands from seed 192): B2 causal at
 B = 8, S = T = 512 (phase 3's) and 128 (phase 13(b)'s served prompts),
-B4 at B = 8 over 576 of 640 slots (phase 3's) and 129 and 144 of 144
-(the served decode's first and last step).  A tree whose ops have the
-MLA wrappers (``mla_flash_attention``, ``mla_decode_attention``) gets
-MLA's own operands: the rope key (B, T, 64) shared by every head, V
-unpadded.  An older tree gets what its model built for its kernels,
+B4 at B = 8 over 576 of 640 slots (phase 3's), 129 and 144 of 144
+(the served decode's first and last step) and at B = 2 over 576 of 640
+(two splits a (row, head) pair, combined in the launch).  A tree whose
+ops have the MLA wrappers (``mla_flash_attention``,
+``mla_decode_attention``) gets MLA's own operands: the rope key (B, T,
+64) shared by every head, V unpadded.  An older tree gets what its model built for its kernels,
 made before the timing: K with the rope key broadcast to every head and
 V zero-padded to 192.  Only the kernel calls are timed; the two trees'
 outputs (cut to V's head dim) are compared and the largest difference
@@ -162,7 +163,7 @@ def mla_rows(trees):
                      {n: _mla_call(f, d, *args) for n, (f, d) in
                       trees.items()}))
     for B, T, C, n_valid in ((8, 640, 640, 576), (8, 129, 144, 129),
-                             (8, 144, 144, 144)):
+                             (8, 144, 144, 144), (2, 640, 640, 576)):
         args = (rand(B, H, nope + rope), rand(B, T, H, nope),
                 rand(B, C, rope), rand(B, T, H, vd))
         rows.append((f"B4 MLA B={B} {n_valid} of {T} slots (latent cache "

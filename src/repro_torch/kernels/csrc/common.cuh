@@ -147,9 +147,9 @@ __device__ __forceinline__ size_t paged_row(const int* pt, int bs, int pos) {
 // slab for the head and kRope columns of a rope key that every head of
 // the token shares (one row per token, read in place, never broadcast),
 // and V rows and the output are kVd wide.
-// DeepSeek-V3's MLA head dims, stated once for the MLA row policies of
-// flash_prefill.cu and dense_decode.cu (decode_attention/ops.py::MLA_DIMS
-// mirrors them)
+// DeepSeek-V3's MLA head dims, stated once for flash_prefill.cu's MLA row
+// policy, the MLA backward and the MLA decode body (decode_mla.cuh;
+// decode_attention/ops.py::MLA_DIMS mirrors them)
 struct MlaDims {
   static constexpr int kNope = 128, kRope = 64, kVd = 128;
 };

@@ -9,14 +9,13 @@
 //                                        // q/K type, as the reference's
 //                                        // dense path does
 // and in a scales policy (common.cuh: NoScales, or RowScales for int8
-// pools).  A policy may also carry MLA's operand form (common.cuh's
-// SplitK: kNope, kRope, kVd and rope(b, pos)): each K row is then
-// assembled in shared memory from kNope columns of the head's slab and
-// the token's rope key, read in place from the latent cache, and V rows,
-// the accumulators and the output are kVd wide; without it K and V rows
-// are both hd wide.  Query head h reads KV head h / G; softmax with an
-// online (m, l, acc) in f32, the reference's -1e30 masking and a
-// max(l, 1e-30) denominator.
+// pools).  K and V rows are both hd wide.  Query head h reads KV head
+// h / G; softmax with an online (m, l, acc) in f32, the reference's -1e30
+// masking and a max(l, 1e-30) denominator.  MLA's decode
+// (decode_attention_mla_bf16: one query head per K/V head, K rows
+// assembled from k_nope and a rope key every head shares, V 128 wide)
+// runs a body of its own, decode_mla.cuh, since at G = 1 this one would
+// score with one warp of four.
 //
 // What bounds it on the card: bytes.  Every valid key costs one K row and
 // one V row of hd elements, against 2 * G * hd multiply-adds for the G
@@ -70,19 +69,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKeyTile = 32;  // keys per tile: one per lane
 constexpr int kStages = 3;
 
-// bytes of one ring stage: K and V tiles (rows of hd and vd values, each
-// with a 16-byte pad), then the tile's K and V row scales for int8 pools
-__host__ __device__ inline int stage_bytes(int hd, int vd, int elt,
-                                           bool quant) {
-  return kKeyTile * (hd * elt + 16) + kKeyTile * (vd * elt + 16) +
-         (quant ? 2 * kKeyTile * 4 : 0);
+// bytes of one ring stage: K and V tiles (rows of hd values, each with a
+// 16-byte pad), then the tile's K and V row scales for int8 pools
+__host__ __device__ inline int stage_bytes(int hd, int elt, bool quant) {
+  return 2 * kKeyTile * (hd * elt + 16) + (quant ? 2 * kKeyTile * 4 : 0);
 }
 
-inline size_t smem_bytes(int G, int hd, int vd, int elt, bool quant) {
-  // the ring; q: G*hd; acc: G*vd; probabilities: G*kKeyTile; m, l,
+inline size_t smem_bytes(int G, int hd, int elt, bool quant) {
+  // the ring; q: G*hd; acc: G*hd; probabilities: G*kKeyTile; m, l,
   // correction: 3*G; the last-block flag
-  return (size_t)kStages * stage_bytes(hd, vd, elt, quant) +
-         sizeof(float) * (size_t)(G * hd + G * vd + G * kKeyTile + 3 * G) +
+  return (size_t)kStages * stage_bytes(hd, elt, quant) +
+         sizeof(float) * (size_t)(2 * G * hd + G * kKeyTile + 3 * G) +
          sizeof(int);
 }
 
@@ -104,31 +101,27 @@ struct PagedRows {
 template <typename Tq, typename Tkv, typename Rows, typename Scales>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
-              // slabs of (KV, hd), or (H, kNope) for MLA; see Rows
-              const Tkv* __restrict__ k,
-              const Tkv* __restrict__ v,   // slabs of (KV, vd)
-              typename Compute<Tkv>::type* __restrict__ out,  // (B, H, vd)
+              const Tkv* __restrict__ k,   // slabs of (KV, hd); see Rows
+              const Tkv* __restrict__ v,
+              typename Compute<Tkv>::type* __restrict__ out,  // (B, H, hd)
               Rows rows, Scales scales, int H, int KV, int hd, float scale,
               int split_keys,
-              float* __restrict__ ws,  // (B*KV, n_split, G*(vd+2)) partials
+              float* __restrict__ ws,  // (B*KV, n_split, G*(hd+2)) partials
               int* __restrict__ counters) {  // (B*KV,) zero between calls
   using Tv = typename Compute<Tkv>::type;
   using Ts = typename Promote<Tq, Tv>::type;
   constexpr int N = Chunk<Tkv>::N;  // values per 16-byte chunk
-  constexpr int kRope = SplitK<Rows>::kRope;  // K columns from rows.rope
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
   const int n_split = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = H / KV;
-  const int vd = kRope ? SplitK<Rows>::kVd : hd;  // V and output head dim
-  const int ld = hd * (int)sizeof(Tkv) + 16;  // shared K row stride, bytes
-  const int ldv = vd * (int)sizeof(Tkv) + 16;  // and V's
+  const int ld = hd * (int)sizeof(Tkv) + 16;  // shared row stride, bytes
   const int tile_bytes = kKeyTile * ld;
-  const int stage = stage_bytes(hd, vd, (int)sizeof(Tkv), Scales::kQuant);
+  const int stage = stage_bytes(hd, (int)sizeof(Tkv), Scales::kQuant);
   float* q_s = reinterpret_cast<float*>(smem + kStages * stage);
   float* acc = q_s + G * hd;
-  float* p_s = acc + G * vd;
+  float* p_s = acc + G * hd;
   float* m_s = p_s + G * kKeyTile;
   float* l_s = m_s + G;
   float* c_s = l_s + G;
@@ -145,36 +138,13 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
     const int k0 = k_begin + tile * kKeyTile;
     unsigned char* ks = smem + st * stage;
     unsigned char* vs = ks + tile_bytes;
-    if constexpr (kRope == 0) {
-      for (int i = tid; i < kKeyTile * cpr; i += kThreads) {
-        const int j = i / cpr, c = i - j * cpr;
-        const bool in = k0 + j < k_end;
-        const size_t off =
-            in ? (rows.row(b, k0 + j) * KV + kvh) * hd + c * N : 0;
-        cp_async16(smem_addr(ks + j * ld + c * 16), k + off, in);
-        cp_async16(smem_addr(vs + j * ld + c * 16), v + off, in);
-      }
-    } else {
-      // K rows from two sources (kNope columns of the head's slab, then
-      // the token's rope key); V rows vd wide
-      constexpr int kNope = SplitK<Rows>::kNope, kVd = SplitK<Rows>::kVd;
-      constexpr int kc = (kNope + kRope) / N, nc = kNope / N, vc = kVd / N;
-      for (int i = tid; i < kKeyTile * kc; i += kThreads) {
-        const int j = i / kc, c = i - j * kc;
-        const bool in = k0 + j < k_end;
-        const int pos = in ? k0 + j : 0;
-        const Tkv* src = c < nc
-                             ? k + (rows.row(b, pos) * KV + kvh) * kNope + c * N
-                             : rows.rope(b, pos) + (c - nc) * N;
-        cp_async16(smem_addr(ks + j * ld + c * 16), src, in);
-      }
-      for (int i = tid; i < kKeyTile * vc; i += kThreads) {
-        const int j = i / vc, c = i - j * vc;
-        const bool in = k0 + j < k_end;
-        const size_t off =
-            in ? (rows.row(b, k0 + j) * KV + kvh) * kVd + c * N : 0;
-        cp_async16(smem_addr(vs + j * ldv + c * 16), v + off, in);
-      }
+    for (int i = tid; i < kKeyTile * cpr; i += kThreads) {
+      const int j = i / cpr, c = i - j * cpr;
+      const bool in = k0 + j < k_end;
+      const size_t off =
+          in ? (rows.row(b, k0 + j) * KV + kvh) * hd + c * N : 0;
+      cp_async16(smem_addr(ks + j * ld + c * 16), k + off, in);
+      cp_async16(smem_addr(vs + j * ld + c * 16), v + off, in);
     }
     if constexpr (Scales::kQuant) {
       // threads 0..31 the K scales of the tile's keys, 32..63 the V ones
@@ -182,7 +152,7 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
         const int j = tid % kKeyTile;
         const bool in = k0 + j < k_end;
         const size_t slab = in ? rows.row(b, k0 + j) * KV + kvh : 0;
-        cp_async4(smem_addr(vs + kKeyTile * ldv + 4 * tid),
+        cp_async4(smem_addr(vs + kKeyTile * ld + 4 * tid),
                   (tid < kKeyTile ? scales.ks : scales.vs) + slab, in);
       }
     }
@@ -193,11 +163,11 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
     if (st < n_tiles) load_tile(st, st);
     cp_async_commit();
   }
-  const size_t q_base = ((size_t)b * H + (size_t)kvh * G) * hd;
-  const size_t o_base = ((size_t)b * H + (size_t)kvh * G) * vd;
+  // the group's rows of q and of the output
+  const size_t base = ((size_t)b * H + (size_t)kvh * G) * hd;
   for (int i = tid; i < G * hd; i += kThreads)
-    q_s[i] = round_to<Tq>(to_f32(q[q_base + i]) * scale);
-  for (int i = tid; i < G * vd; i += kThreads) acc[i] = 0.f;
+    q_s[i] = round_to<Tq>(to_f32(q[base + i]) * scale);
+  for (int i = tid; i < G * hd; i += kThreads) acc[i] = 0.f;
   for (int g = tid; g < G; g += kThreads) {
     m_s[g] = kNeg;
     l_s[g] = 0.f;
@@ -212,7 +182,7 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
     const unsigned char* ks = smem + (it % kStages) * stage;
     const unsigned char* vs = ks + tile_bytes;
     const float* k_scale =
-        reinterpret_cast<const float*>(vs + kKeyTile * ldv);
+        reinterpret_cast<const float*>(vs + kKeyTile * ld);
     const float* v_scale = k_scale + kKeyTile;
     const int nk = min(kKeyTile, k_end - (k_begin + it * kKeyTile));
 
@@ -255,13 +225,13 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
     }
     __syncthreads();
 
-    for (int i = tid; i < G * vd; i += kThreads) {
-      const int g = i / vd, d = i - g * vd;
+    for (int i = tid; i < G * hd; i += kThreads) {
+      const int g = i / hd, d = i - g * hd;
       const float* pr = p_s + g * kKeyTile;
       float a = acc[i] * c_s[g];
       for (int j = 0; j < nk; ++j)
         a = fmaf(pr[j],
-                 to_f32(reinterpret_cast<const Tkv*>(vs + j * ldv)[d]), a);
+                 to_f32(reinterpret_cast<const Tkv*>(vs + j * ld)[d]), a);
       acc[i] = a;
     }
   }
@@ -269,20 +239,20 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
   __syncthreads();  // acc, m_s, l_s final (and q_s, m_s set: no tiles)
 
   if (n_split == 1) {
-    for (int i = tid; i < G * vd; i += kThreads)
-      out[o_base + i] = from_f32<Tv>(acc[i] / fmaxf(l_s[i / vd], 1e-30f));
+    for (int i = tid; i < G * hd; i += kThreads)
+      out[base + i] = from_f32<Tv>(acc[i] / fmaxf(l_s[i / hd], 1e-30f));
     return;
   }
 
-  // this split's partial: m[G], l[G], acc[G*vd]
+  // this split's partial: m[G], l[G], acc[G*hd]
   const size_t pair = (size_t)b * KV + kvh;
-  const int rec = G * (vd + 2);
+  const int rec = G * (hd + 2);
   float* part = ws + (pair * n_split + split) * rec;
   for (int g = tid; g < G; g += kThreads) {
     part[g] = m_s[g];
     part[G + g] = l_s[g];
   }
-  for (int i = tid; i < G * vd; i += kThreads) part[2 * G + i] = acc[i];
+  for (int i = tid; i < G * hd; i += kThreads) part[2 * G + i] = acc[i];
   __threadfence();  // the partial is visible before the count says so
   __syncthreads();
   if (tid == 0) *last_s = atomicAdd(counters + pair, 1) == n_split - 1;
@@ -293,8 +263,8 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
   // the last block: out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),
   // w_s = exp(m_s - max_s m_s), summed in split order
   const float* first = ws + pair * n_split * rec;
-  for (int i = tid; i < G * vd; i += kThreads) {
-    const int g = i / vd;
+  for (int i = tid; i < G * hd; i += kThreads) {
+    const int g = i / hd;
     float mmax = kNeg;
     for (int s = 0; s < n_split; ++s)
       mmax = fmaxf(mmax, __ldcg(first + s * rec + g));
@@ -305,15 +275,14 @@ decode_kernel(const Tq* __restrict__ q,    // (B, H, hd)
       den = fmaf(w, __ldcg(ps + G + g), den);
       o = fmaf(w, __ldcg(ps + 2 * G + i), o);
     }
-    out[o_base + i] = from_f32<Tv>(o / fmaxf(den, 1e-30f));
+    out[base + i] = from_f32<Tv>(o / fmaxf(den, 1e-30f));
   }
   if (tid == 0) counters[pair] = 0;  // ready for the next call
 }
 
 // Launch (B, KV, n_split) blocks, split_keys keys a split (a multiple of
-// kKeyTile); ws holds B*KV*n_split*G*(vd+2) floats (vd = hd, or the MLA
-// policy's kVd) and counters B*KV zeroed ints when n_split > 1.  Returns
-// cudaGetLastError().
+// kKeyTile); ws holds B*KV*n_split*G*(hd+2) floats and counters B*KV
+// zeroed ints when n_split > 1.  Returns cudaGetLastError().
 template <typename Tq, typename Tkv, typename Rows,
           typename Scales = NoScales>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
@@ -323,9 +292,7 @@ int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
   using Tv = typename Compute<Tkv>::type;
   if (split_keys < kKeyTile || split_keys % kKeyTile || n_split < 1)
     return (int)cudaErrorInvalidValue;
-  const int vd = SplitK<Rows>::kRope ? SplitK<Rows>::kVd : hd;
-  const size_t smem =
-      smem_bytes(H / KV, hd, vd, (int)sizeof(Tkv), Scales::kQuant);
+  const size_t smem = smem_bytes(H / KV, hd, (int)sizeof(Tkv), Scales::kQuant);
   auto kernel = decode_kernel<Tq, Tkv, Rows, Scales>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

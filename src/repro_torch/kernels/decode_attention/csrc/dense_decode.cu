@@ -24,13 +24,15 @@
 // q (B, H, 192) = [q_nope | q_rope], k_nope and V (B, T, H, 128)
 // expanded for the T = n_valid visible slots, and the rope key read in
 // place from the latent cache kr_cache (B, C, 64), one row per token
-// shared by every head -> (B, H, 128).  The same body, whose MLA row
-// policy assembles each K row from k_nope and the rope key in shared
-// memory: no broadcast rope key, no zero-padded V, no cut output (a
-// third fewer bytes than the padded operands).  The plain version is
-// decode_attention/ops.py::mla_decode_attention_plain.
+// shared by every head -> (B, H, 128): no broadcast rope key, no
+// zero-padded V, no cut output (a third fewer bytes than the padded
+// operands).  Its body is decode_mla.cuh, built for MLA's one query head
+// per K/V head: every warp of a block walks its own keys, 8 lanes to a
+// key.  The same split plan and workspace as the GQA entries.  The plain
+// version is decode_attention/ops.py::mla_decode_attention_plain.
 
 #include "decode_body.cuh"
+#include "decode_mla.cuh"
 
 namespace {
 
@@ -41,16 +43,6 @@ struct ContiguousRows {
   __device__ int n_keys(int) const { return n_valid; }
   __device__ size_t row(int b, int pos) const {
     return (size_t)b * C + pos;
-  }
-};
-
-// MLA's operands: k_nope/V rows as ContiguousRows (C = T, their rows per
-// batch row), the rope key in place in the latent cache
-struct MlaRows : ContiguousRows, kern::MlaDims {
-  const __nv_bfloat16* kr_cache;  // (B, C_kr, kRope)
-  int C_kr;                       // latent cache slots per batch row
-  __device__ const __nv_bfloat16* rope(int b, int pos) const {
-    return kr_cache + ((size_t)b * C_kr + pos) * kRope;
   }
 };
 
@@ -78,10 +70,13 @@ extern "C" int decode_attention_mla_bf16(const void* q, const void* k_nope,
                                          int split_keys, int n_split,
                                          void* ws, void* counters,
                                          void* stream) {
-  using bf16 = __nv_bfloat16;
-  const MlaRows rows{
-      {T, n_valid}, {}, static_cast<const bf16*>(kr_cache), C_kr};
-  return kern::decode::launch<bf16, bf16>(
-      q, k_nope, v, out, rows, B, H, H, MlaRows::kNope + MlaRows::kRope,
-      scale, split_keys, n_split, ws, counters, stream);
+  return kern::mla_decode::launch(q, k_nope, kr_cache, v, out, B, T, C_kr, H,
+                                  n_valid, scale, split_keys, n_split, ws,
+                                  counters, stream);
+}
+
+// registers, spills, shared memory, residency and layout of
+// decode_attention_mla_bf16's kernel: see decode_mla.cuh's occupancy()
+extern "C" int decode_attention_mla_bf16_occupancy(int* out) {
+  return kern::mla_decode::occupancy(out);
 }

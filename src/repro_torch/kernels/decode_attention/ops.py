@@ -11,12 +11,14 @@ of ``paged_decode_attention_quant`` there, the paged step over int8
 pools with per-row f32 scales (see ``csrc/paged_decode_quant.cu``).
 ``mla_decode_attention`` is ``decode_attention`` on DeepSeek-V3's MLA
 operands as the expanded decode makes them: the rope key shared by every
-head, read in place from the latent cache, and V at its own head dim.  On
-a CPU tensor each runs its plain version; on a CUDA tensor it launches
-its kernel or raises.
+head, read in place from the latent cache, and V at its own head dim (its
+bf16 body, ``csrc/decode_mla.cuh``, is built for one query head per K/V
+head).  On a CPU tensor each runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 
-All three split each row's key range over ``n_split`` blocks and combine
-the partial softmaxes in the same launch (``csrc/decode_body.cuh``).
+All of them split each row's key range over ``n_split`` blocks and
+combine the partial softmaxes in the same launch
+(``csrc/decode_body.cuh``, ``csrc/decode_mla.cuh``).
 ``split_plan`` picks the split from host-known values only (shapes,
 ``P * bs``, ``n_valid``), never from ``lengths``, so a call reads no
 device tensor on the host; the f32 partials and the per-pair counters
@@ -367,6 +369,24 @@ def check_mla_operands(q, k_nope, k_rope, v, n_q_dims: int):
         raise ValueError(f"q {tuple(q.shape)}, v {tuple(v.shape)} and rope "
                          f"key {tuple(k_rope.shape)} do not fit k_nope "
                          f"{tuple(k_nope.shape)}")
+
+
+def mla_decode_occupancy() -> dict:
+    """What the card makes of ``decode_attention_mla_bf16``'s kernel
+    (``csrc/decode_mla.cuh``): registers and local (spill) bytes a
+    thread, dynamic shared bytes a block, resident blocks an SM, and its
+    layout (warps a block, keys a warp tile, ring stages).  Builds the
+    library; launches nothing."""
+    lib = DENSE_KERNEL.load()
+    fn = lib.decode_attention_mla_bf16_occupancy
+    fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+    out = (_I * 7)()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_mla_bf16_occupancy: CUDA error "
+                           f"{rc} ({lib.kernel_error_string(rc).decode()})")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "warps", "tile_keys", "stages"), out))
 
 
 def mla_decode_attention_plain(q, k_nope, kr_cache, v, n_valid: int):

@@ -187,7 +187,7 @@ _PREFILL_BODIES = ["prefill_tf32.cuh", "common.cuh", "prefill_mma.cuh",
 
 @pytest.mark.parametrize("kernel,bodies", [
     (dops.KERNEL, ["decode_body.cuh", "common.cuh"]),
-    (dops.DENSE_KERNEL, ["decode_body.cuh", "common.cuh"]),
+    (dops.DENSE_KERNEL, ["decode_mla.cuh", "common.cuh", "decode_body.cuh"]),
     (dops.QUANT_KERNEL, ["decode_body.cuh", "common.cuh"]),
     (fops.KERNEL, _PREFILL_BODIES), (fops.FLASH_KERNEL, _PREFILL_BODIES),
     (fops.QUANT_KERNEL, ["prefill_tf32.cuh", "common.cuh",
@@ -196,7 +196,8 @@ def test_attention_kernels_share_their_family_body(kernel, bodies):
     """The paged and contiguous entries of each attention family are
     built from shared bodies and the shared helpers: the paged and
     contiguous prefill entries also from the two tensor-core bodies, the
-    int8 prefill from the split-TF32 one."""
+    int8 prefill from the split-TF32 one, the dense decode also from the
+    MLA body."""
     from repro_torch.kernels import build
     names = [f.name for f in build.source_files(kernel.source)]
     assert names == [kernel.source.name] + bodies
@@ -552,23 +553,47 @@ def test_mla_flash_kernel_matches_plain(cuda, B, S, H):
     assert err <= max(_TOL[torch.bfloat16], _bf16_ulp(want)), err
 
 
-@pytest.mark.parametrize("B,H", [(8, 128), (2, 8)], ids=["one_split",
-                                                          "splits"])
-@pytest.mark.parametrize("n_valid", [1, 129, 576])
-def test_mla_decode_kernel_matches_plain(cuda, B, H, n_valid):
-    """B4's MLA entry: k_nope/V for 576 slots, the rope keys read in place
-    from a 640-slot latent cache; one split per pair at 128 heads, the
-    split-and-combine path at 8 (its partials V-wide); within phase 3's
-    tolerance (two bf16 ulps of the largest output, at least 6e-3)."""
-    q, kn, kr, v = _mla_operands(n_valid + H, B, 1, 576, 640, H, cuda)
+# B4's MLA entry: (B, H, T, C, n_valid), n_valid "warp" the keys of one
+# tile for each warp of the body's block (read from the built kernel), so
+# each warp's run ends on a tile edge, "warp+1" one key more
+_MLA_DECODE_CASES = {
+    "one_split-1": (8, 128, 576, 640, 1),
+    "one_split-warp": (8, 128, 576, 640, "warp"),
+    "one_split-warp+1": (8, 128, 576, 640, "warp+1"),
+    "one_split-129": (8, 128, 576, 640, 129),
+    "one_split-576": (8, 128, 576, 640, 576),
+    "served-144": (8, 128, 144, 144, 144),
+    "splits-1": (2, 8, 576, 640, 1),
+    "splits-129": (2, 8, 576, 640, 129),
+    "splits-576": (2, 8, 576, 640, 576),
+    "splits_128_heads-576": (2, 128, 576, 640, 576)}
+
+
+@pytest.mark.parametrize("case", list(_MLA_DECODE_CASES))
+def test_mla_decode_kernel_matches_plain(cuda, case):
+    """B4's MLA entry (``csrc/decode_mla.cuh``): k_nope/V for T slots, the
+    rope keys read in place from a C-slot latent cache; one split per
+    pair at 128 heads and B = 8, the split-and-combine path at B = 2
+    (its partials V-wide); one key, each warp's run ending on a tile edge
+    and one key past it, a ragged last tile (129), the served 144 of 144;
+    within phase 3's tolerance (two bf16 ulps of the largest output, at
+    least 6e-3), and two launches give the same bits."""
+    B, H, T, C, n_valid = _MLA_DECODE_CASES[case]
+    if isinstance(n_valid, str):
+        occ = dops.mla_decode_occupancy()
+        n_valid = occ["warps"] * occ["tile_keys"] + (n_valid == "warp+1")
+    q, kn, kr, v = _mla_operands(n_valid + H, B, 1, T, C, H, cuda)
     q = q[:, 0].contiguous()
     before = _entry_counts(dops.DENSE_KERNEL)
     got = dops.mla_decode_attention(q, kn, kr, v, n_valid)
+    again = dops.mla_decode_attention(q, kn, kr, v, n_valid)
     want = dops.mla_decode_attention_plain(q, kn, kr, v, n_valid)
     torch.cuda.synchronize()
-    _assert_one_launch_of(dops.DENSE_KERNEL, before,
-                          "decode_attention_mla_bf16")
+    after = _entry_counts(dops.DENSE_KERNEL)
+    assert {e: after[e] - before[e] for e in after} == \
+        {e: 2 * (e == "decode_attention_mla_bf16") for e in after}
     assert got.shape == want.shape == (B, H, 128)
+    assert torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= max(6e-3, 2 * _bf16_ulp(want)), err
 
