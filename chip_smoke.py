@@ -390,11 +390,33 @@ result line):
                  51.6 GB, drawn on the card from seed 0): 4 prompts of 512
                  tokens, 16 new, over f32 pools, paged (K2 only through
                  ``paged_prefill_attention_f32_f32_tf32``, K1 through
-                 ``paged_decode_attention_f32_f32``) and dense (B2 through
-                 ``flash_attention_f32_tf32``, B4 through
-                 ``decode_attention_f32_f32``), launches against layers x
-                 steps; layer 0's q, k, v from the dense prefill through
-                 B2 against its plain version; tok/s, TTFT, peak memory.
+                 ``paged_decode_attention_f32_f32_tf32``) and dense (B2
+                 through ``flash_attention_f32_tf32``, B4 through
+                 ``decode_attention_f32_f32_tf32``), launches against
+                 layers x steps; layer 0's q, k, v from the dense prefill
+                 through B2 against its plain version; tok/s, TTFT, peak
+                 memory.
+ 21. glm4-9b   — (a) glm4-9b's heads (32/2, G = 16, head_dim 64, QKV
+                 bias, half rotary) at d 256, 2 layers, f32: the card's
+                 greedy tokens equal the CPU port's, paged and dense, K1
+                 and B4 through the ``*_f32_f32_tf32`` entries.  (b)/(c)
+                 glm4-9b at full width and depth (40 layers, ~9.4B random
+                 bf16 parameters, no cut): 8 requests of 4096-token
+                 prompts, 32 new, batch 8, paged (chunk 256: K2 through
+                 ``_mma`` at G = 16, K1 through
+                 ``paged_decode_attention_bf16_bf16_mma``) and dense (B2
+                 through ``flash_attention_bf16_mma``, B4 through
+                 ``decode_attention_bf16_bf16_mma``), launches against
+                 layers x steps; tok/s, TTFT, peak memory, a trace each
+                 (busy share, K1/K2 and B2/B4 device time).
+Phase 3 also times K1 and B4 through both decode bodies
+(``decode_body.cuh`` and the tensor-core ``decode_gqa_mma.cuh``) at G = 1,
+3, 4, 8, 12 and 16 (whisper-tiny's, smollm-360m's, jamba's, qwen2-vl's,
+nemotron's and glm4's heads; B = 8, 544 keys, bf16 and f32), and at
+nemotron's heads over 8192 keys and glm4's over 4160 and 8192 (bf16),
+each against its plain version, SDPA and the bound: the rows that set
+the dispatch's rule; wherever the dispatch now picks the tensor-core
+body, the earlier body is timed beside it (``earlier_ms``).
 Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
 forward entry and no checkpointing scan: every reset of the launch counts
 checks it.
@@ -413,9 +435,12 @@ twin's; ``launches_phase17``/``_phase17a``/``_phase17c`` every kernel's
 in 17(b)/(a)/(c); ``launches_phase18`` every kernel's in phase 18's
 mesh runs, ``launches_phase18_by_rank`` the same per rank;
 ``launches_phase19`` every kernel's in phase 19's runs,
-``launches_phase20`` in phase 20's; ``nemotron_heads``: the phase-3
-rows at nemotron-4-340b's heads, the earlier CUDA-core body's time as
-``earlier_ms``, the f32 rows under ``float32``); then
+``launches_phase20`` in phase 20's, ``launches_phase21`` in phase 21's;
+``entries``: every C entry's launches summed over phases 4-21 (which body
+served); ``nemotron_heads``: the phase-3 rows at nemotron-4-340b's heads,
+the earlier CUDA-core body's time as ``earlier_ms``, the f32 rows under
+``float32``; ``gqa_heads``: K1's and B4's rows by group size, the other
+body's time as ``other_ms``); then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
 build included.
@@ -533,11 +558,21 @@ def check_serving_launches(kernels, tag: str) -> None:
         check(not bad, f"[{tag}] serving launched training entries {bad}")
 
 
+# every C entry's launches summed over phases 4-21, each run's added at
+# the reset after it (the JSON line's ``entries``: which body served)
+ENTRY_TOTALS: dict = {}
+COUNT_ENTRIES = {"on": False}
+
+
 def reset(kernels) -> None:
     if SERVING_ONLY["on"]:
         check_serving_launches(kernels, "serving")
         SERVING_ONLY["resets"] += 1
     for k in kernels:
+        if COUNT_ENTRIES["on"]:
+            tot = ENTRY_TOTALS.setdefault(k.name, dict.fromkeys(k.entries, 0))
+            for e, n in k.entry_launches.items():
+                tot[e] += n
         k.reset_launches()
 
 
@@ -582,6 +617,14 @@ def phase_build(kernels) -> None:
         log(f"[build] {k.name}: {p.relative_to(ROOT)}; "
             + " | ".join(report[:6]))
         _log_body_build(k.name, text)
+    # what the card makes of the tensor-core decode body
+    from repro_torch.kernels.decode_attention import ops as dops
+    for k in (dops.KERNEL, dops.DENSE_KERNEL):
+        for dt, hd in ((dt, hd) for dt in ("bf16", "f32")
+                       for hd in dops.MMA_HEAD_DIMS):
+            occ = dops.gqa_decode_occupancy(k, dt, hd)
+            log(f"[build] {k.name} tensor-core decode body {dt} hd {hd}: "
+                f"{occ}")
 
 
 # the tensor-core backward's kernels (backward_mma.cuh)
@@ -662,6 +705,15 @@ def _log_body_build(name: str, text: str) -> None:
             elif fn and "mla_decode_kernel" in fn:
                 log(f"[build] {name} MLA decode body (decode_mla.cuh): "
                     + " | ".join(props))
+            elif fn and "decode_gqa_kernel" in fn:
+                targs = fn.split("decode_gqa_kernel", 1)[1]
+                kind = "bf16" if targs.startswith("I13__nv_bfloat16") \
+                    else "f32"
+                hd = re.findall(r"Li(\d+)E", targs)[-1]
+                rows = "paged" if "PagedRows" in targs else "contiguous"
+                log(f"[build] {name} tensor-core decode body "
+                    f"(decode_gqa_mma.cuh) {kind} hd {hd} {rows}: "
+                    + " | ".join(props))
             elif fn and "decode_kernel" in fn:
                 targs = fn.split("decode_kernel", 1)[1]
                 names = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
@@ -709,16 +761,17 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def _attn_case(seed, B, T, qdt, kvdt, heads):
-    """Served-shape inputs: shuffled page tables over a pool with spare
-    blocks, cached lengths spread from one page up to MAX_LEN."""
+def _attn_case(seed, B, T, qdt, kvdt, heads, pages=P):
+    """Served-shape inputs: shuffled page tables of ``pages`` pages over a
+    pool with spare blocks, cached lengths spread from one page up to
+    MAX_LEN."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     H, KV, hd = heads["H"], heads["KV"], heads["hd"]
-    nb = B * P + 7
+    nb = B * pages + 7
     q = torch.randn((B, T, H, hd), generator=g).to("cuda", qdt)
     k = torch.randn((nb, BS, KV, hd), generator=g).to("cuda", kvdt)
     v = torch.randn((nb, BS, KV, hd), generator=g).to("cuda", kvdt)
-    pt = torch.stack([torch.randperm(nb, generator=g)[:P]
+    pt = torch.stack([torch.randperm(nb, generator=g)[:pages]
                       for _ in range(B)]).to("cuda", torch.int32)
     # at least one page per slot: a slot with two or three keys outputs
     # nearly one V row, where one bf16 ulp of |v| ~ 4 exceeds the tolerance
@@ -815,13 +868,14 @@ def phase_attention(timer: Timer):
             q = q[:, 0].contiguous()
         args = (q, k, v, pt, lengths)
         n0 = handle.launches
-        entry = None if decode else \
-            fops.paged_prefill_entry(qdt, kvdt, heads["hd"])
+        entry = dops.decode_entry(name, qdt, kvdt,
+                                  heads["H"] // heads["KV"], heads["hd"]) \
+            if decode else fops.paged_prefill_entry(qdt, kvdt, heads["hd"])
         e0 = handle.entry_launches.get(entry, 0)
         out = kern(*args)
         torch.cuda.synchronize()
         check(handle.launches == n0 + 1, f"{name} did not launch")
-        check(entry is None or handle.entry_launches[entry] == e0 + 1,
+        check(handle.entry_launches[entry] == e0 + 1,
               f"{name} did not launch {entry}")
         want = plain(*args)
         check(torch.isfinite(out.float()).all().item(),
@@ -830,8 +884,7 @@ def phase_attention(timer: Timer):
         tol = TOL[kvdt]
         tag = (f"{name} {geo} heads {heads['H']}/{heads['KV']} "
                f"hd {heads['hd']} B={B} T={T} q={str(qdt)[6:]} "
-               f"kv={str(kvdt)[6:]}"
-               + ("" if entry is None else f" [{entry}]"))
+               f"kv={str(kvdt)[6:]} [{entry}]")
         check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
         line = f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
         row = None
@@ -841,6 +894,11 @@ def phase_attention(timer: Timer):
                             _attn_bound_ms(q, k, lengths, T, decode, heads))
             line += _fmt(row)
         log(line)
+        if row is not None and entry.endswith(("_mma", "_tf32")) and decode:
+            # decode_body.cuh's entry on the same operands
+            _earlier(timer, row, _decode_entry_run(
+                dops, f"{name}_{dops._NAMES[qdt]}_{dops._NAMES[kvdt]}",
+                args), want, tol, f"[kernels] {tag}")
         return err, row
 
     served = {}
@@ -1427,6 +1485,15 @@ def phase_dense_kernels(timer: Timer):
                                        dtype))
                 log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
                     + _fmt(row))
+                entry = dops.decode_entry("decode_attention", dtype, dtype,
+                                          H // KV, hd)
+                if entry.endswith(("_mma", "_tf32")):
+                    # decode_body.cuh's entry on the same operands
+                    _earlier(timer, row, _decode_entry_run(
+                        dops, f"decode_attention_{dops._NAMES[dtype]}_"
+                        f"{dops._NAMES[dtype]}", (q, k, v, n_valid)), want,
+                        tol, f"[kernels] {tag} [{entry}]")
+                    row["entry"] = entry
                 if geo == "smollm" and n_valid == 544 \
                         and dtype == torch.bfloat16:
                     served["decode_attention"] = dict(max_abs_err=err, **row)
@@ -1681,21 +1748,26 @@ def phase_slice_kernels(timer: Timer):
         for dtype in (f32, bf16):
             q, k, v = _dense_qkv(C + n_valid, B, 1, C, heads, dtype)
             q = q[:, 0].contiguous()
-            n0 = dops.DENSE_KERNEL.launches
+            entry = dops.decode_entry("decode_attention", dtype, dtype,
+                                      H // KV, hd)
+            e0 = dict(dops.DENSE_KERNEL.entry_launches)
             out = dops.decode_attention(q, k, v, n_valid)
             torch.cuda.synchronize()
-            check(dops.DENSE_KERNEL.launches == n0 + 1,
-                  "decode_attention did not launch")
+            e1 = dops.DENSE_KERNEL.entry_launches
+            check({e: e1[e] - e0[e] for e in e1} == {e: int(e == entry)
+                                                     for e in e1},
+                  f"decode_attention {tag}: launched {e1}, not one {entry}")
             want = dops.decode_attention_plain(q, k, v, n_valid)
             check(torch.isfinite(out.float()).all().item(),
                   f"decode_attention {tag}: non-finite output")
             err = (out.float() - want.float()).abs().max().item()
             tol = TOL[f32] if dtype == f32 \
                 else DENSE_BF16_TOL["decode_attention"]
-            line = (f"decode_attention (dense) {tag}: heads {H}/{KV} hd {hd} "
-                    f"B={B} C={C} n_valid={n_valid} {str(dtype)[6:]}")
-            check(err <= tol, f"{line}: max_abs_err {err} > {tol}")
-            line = f"[kernels] {line}: max_abs_err={err:.3e} (tol {tol})"
+            label = (f"decode_attention (dense) {tag}: heads {H}/{KV} hd "
+                     f"{hd} B={B} C={C} n_valid={n_valid} {str(dtype)[6:]} "
+                     f"[{entry}]")
+            check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
+            line = f"[kernels] {label}: max_abs_err={err:.3e} (tol {tol})"
             if dtype == bf16:
                 es = k.element_size()
                 n_bytes = (q.numel() * (q.element_size() + es)
@@ -1709,9 +1781,13 @@ def phase_slice_kernels(timer: Timer):
                                 _bound(n_bytes, 4 * B * H * hd * n_valid,
                                        dtype))
                 line += _fmt(row)
+                if entry.endswith("_mma"):     # decode_body.cuh's entry
+                    _earlier(timer, row, _decode_entry_run(
+                        dops, "decode_attention_bf16_bf16",
+                        (q, k, v, n_valid)), want, tol, f"[kernels] {label}")
                 rows["decode_attention"][f"{tag} B={B} C={C} "
                                          f"n_valid={n_valid}"] = dict(
-                    max_abs_err=err, **row)
+                    entry=entry, max_abs_err=err, **row)
             log(line)
     return rows
 
@@ -2247,7 +2323,8 @@ def phase_nemotron_kernels(timer: Timer, backward_rows: dict):
             kern, plain, handle = (dops.paged_decode_attention,
                                    dops.paged_decode_attention_plain,
                                    dops.KERNEL)
-            entry = "paged_decode_attention_bf16_bf16"
+            entry = dops.decode_entry("paged_decode_attention", bf16, bf16,
+                                      G, hd)
         else:
             kern, plain, handle = (fops.paged_prefill_attention,
                                    fops.paged_prefill_attention_plain,
@@ -2274,23 +2351,28 @@ def phase_nemotron_kernels(timer: Timer, backward_rows: dict):
         if not decode:
             _earlier(timer, row, _core_paged_prefill(fops, *args), want, tol,
                      tag)
-        rows[name] = dict(max_abs_err=err, **row)
+        else:   # decode_body.cuh's entry
+            _earlier(timer, row, _decode_entry_run(
+                dops, "paged_decode_attention_bf16_bf16", args), want, tol,
+                tag)
+        rows[name] = dict(entry=entry, max_abs_err=err, **row)
     del kp, vp
 
     # B4 over a 544-slot cache, all valid
     C = NEMOTRON_CAP
     q, k, v = _dense_qkv(C + hd, B, 1, C, heads, bf16)
     q = q[:, 0].contiguous()
-    n0 = dops.DENSE_KERNEL.entry_launches["decode_attention_bf16_bf16"]
+    entry = dops.decode_entry("decode_attention", bf16, bf16, G, hd)
+    n0 = dops.DENSE_KERNEL.entry_launches[entry]
     got = dops.decode_attention(q, k, v, C)
     torch.cuda.synchronize()
-    check(dops.DENSE_KERNEL.entry_launches["decode_attention_bf16_bf16"]
-          == n0 + 1, "decode_attention at nemotron heads did not launch")
+    check(dops.DENSE_KERNEL.entry_launches[entry] == n0 + 1,
+          f"decode_attention at nemotron heads did not launch {entry}")
     want = dops.decode_attention_plain(q, k, v, C)
     err = (got.float() - want.float()).abs().max().item()
     tol = DENSE_BF16_TOL["decode_attention"]
     tag = f"[kernels] decode_attention (dense) {tag0} C={C} n_valid={C} " \
-          f"bfloat16"
+          f"bfloat16 [{entry}]"
     check(torch.isfinite(got.float()).all().item() and err <= tol,
           f"{tag}: max_abs_err {err} > {tol}")
     n_bytes = q.numel() * 4 + 2 * B * C * KV * hd * 2
@@ -2298,7 +2380,9 @@ def phase_nemotron_kernels(timer: Timer, backward_rows: dict):
                     (q, k, v, C), _sdpa(q[:, None], k, v, G),
                     _bound(n_bytes, 4 * B * H * hd * C, bf16))
     log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
-    rows["decode_attention"] = dict(max_abs_err=err, **row)
+    _earlier(timer, row, _decode_entry_run(
+        dops, "decode_attention_bf16_bf16", (q, k, v, C)), want, tol, tag)
+    rows["decode_attention"] = dict(entry=entry, max_abs_err=err, **row)
 
     # B2': the CUDA-core entry on BACKWARD_CASES' nemotron operands, its
     # time added to that case's row (phase_backward_kernels)
@@ -2426,7 +2510,8 @@ def _nemotron_f32_rows(timer: Timer, rows: dict) -> None:
                 kern, plain, handle = (dops.paged_decode_attention,
                                        dops.paged_decode_attention_plain,
                                        dops.KERNEL)
-                entry = "paged_decode_attention_f32_f32"
+                entry = dops.decode_entry("paged_decode_attention", f32, f32,
+                                          G, hd)
             else:
                 kern, plain, handle = (fops.paged_prefill_attention,
                                        fops.paged_prefill_attention_plain,
@@ -2448,6 +2533,10 @@ def _nemotron_f32_rows(timer: Timer, rows: dict) -> None:
               f"{tag}: max_abs_err {err} > {tol}")
         row = _time_row(timer, kern, plain, args, library, bound)
         log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+        if decode:      # decode_body.cuh's entry
+            _earlier(timer, row, _decode_entry_run(
+                dops, "paged_decode_attention_f32_f32", args), want, tol,
+                tag)
         rows.setdefault(name, {})[key] = dict(entry=entry, max_abs_err=err,
                                               **row)
         del args, got, want
@@ -2457,7 +2546,7 @@ def _nemotron_f32_rows(timer: Timer, rows: dict) -> None:
     C = NEMOTRON_CAP
     q, k, v = _dense_qkv(C + hd + 1, B, 1, C, heads, f32)
     q = q[:, 0].contiguous()
-    entry = "decode_attention_f32_f32"
+    entry = dops.decode_entry("decode_attention", f32, f32, G, hd)
     got = launched(dops.DENSE_KERNEL, entry,
                    lambda: dops.decode_attention(q, k, v, C))
     want = dops.decode_attention_plain(q, k, v, C)
@@ -2472,8 +2561,183 @@ def _nemotron_f32_rows(timer: Timer, rows: dict) -> None:
                     _bound(q.numel() * 8 + 2 * B * C * KV * hd * 4,
                            4 * B * H * hd * C, f32))
     log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+    _earlier(timer, row, _decode_entry_run(
+        dops, "decode_attention_f32_f32", (q, k, v, C)), want, tol, tag)
     rows["decode_attention"]["float32"] = dict(entry=entry, max_abs_err=err,
                                                **row)
+
+
+# the group sizes phase 3 times both decode bodies at (G = 1, 3, 4, 8,
+# 12, 16), B = 8 over 544 valid keys: whisper-tiny, smollm-360m,
+# jamba-v0.1, qwen2-vl-72b, nemotron-4-340b and glm4-9b's heads
+GLM4_HEADS = dict(H=32, KV=2, hd=128)        # glm4-9b: 32 query, 2 KV
+GQA_GEOMETRIES = (("whisper", dict(H=6, KV=6, hd=64)),
+                  ("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS),
+                  ("qwen2-vl", dict(H=64, KV=8, hd=128)),
+                  ("nemotron", NEMOTRON_HEADS), ("glm4", GLM4_HEADS))
+# the long-context rows: (tag, heads, keys), B = 8, bf16
+GQA_LONG = (("nemotron", NEMOTRON_HEADS, 8192), ("glm4", GLM4_HEADS, 4160),
+            ("glm4", GLM4_HEADS, 8192))
+# phase_gqa_decode's bf16 rows are held within this many bf16 ulps of the
+# plain version's largest |out| as well as phase 3's tolerance: randn
+# operands average out to |out| ~ sqrt(e / keys) (0.018 at 8192 keys,
+# under the fixed 2e-2), and the largest error seen on the card was
+# three ulps (K1 at nemotron's heads over 544 keys, whose plain version
+# rounds the normalized probabilities)
+GQA_BF16_ULPS = 4
+
+
+def _decode_entry_run(dops, entry, args, split=None):
+    """A callable that launches C entry ``entry`` of K1 (args q, pools,
+    page table, lengths) or B4 (args q, caches, n_valid) on ``args``, with
+    the split plan that entry's wrapper would give it (or ``split``, a
+    (split_keys, n_split) pair): the body the dispatch did not pick, timed
+    on the same operands."""
+    q = args[0]
+    B, H, hd = q.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = ctypes.c_float(1.0 / np.sqrt(hd))
+    out = torch.empty(q.shape, dtype=args[1].dtype, device=q.device)
+    KV = args[1].shape[2]
+    max_keys = args[1].shape[1] * args[3].shape[1] if len(args) == 5 \
+        else args[3]
+
+    def split_args():
+        if split is None:
+            return dops._split_args(q, max_keys, KV, entry=entry)
+        ws, cnt = dops.workspace(q.device, B * KV * split[1] * (H // KV)
+                                 * (hd + 2), B * KV)
+        return (*split, ws.data_ptr(), cnt.data_ptr())
+    if len(args) == 5:
+        _, kp, vp, pt, lengths = args
+        bs, P = kp.shape[1], pt.shape[1]
+
+        def run():
+            dops.KERNEL.launch(
+                entry, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                pt.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KV,
+                hd, bs, P, scale, *split_args(), stream)
+            return out
+    else:
+        _, k, v, n_valid = args
+        C = k.shape[1]
+
+        def run():
+            dops.DENSE_KERNEL.launch(
+                entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), B, C, H, KV, hd, n_valid, scale,
+                *split_args(), stream)
+            return out
+    return run
+
+
+def _decode_bound(q, kv_dtype, KV, n_keys, paged: bool):
+    """Least time of one decode call: q read, the output written, n_keys
+    K and V rows of each (row, KV head), the page-table entries they sit
+    in and the lengths (paged); 4 * H * hd operations a key and row."""
+    B, H, hd = q.shape
+    es = torch.empty((), dtype=kv_dtype).element_size()
+    n_bytes = q.numel() * (q.element_size() + es) \
+        + 2 * B * n_keys * KV * hd * es
+    if paged:
+        n_bytes += B * (-(-n_keys // BS)) * 4 + B * 4
+    return _bound(n_bytes, 4 * B * H * hd * n_keys, kv_dtype)
+
+
+def _gqa_decode_case(dops, paged, heads, B, n_keys, dtype, seed):
+    """K1's (paged: a shuffled page table over a pool with spare blocks,
+    every row n_keys long) or B4's (a cache of n_keys slots, all valid)
+    operands, with their kernel, plain version, kernel handle and one
+    library call (SDPA over K/V expanded to the query heads)."""
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+    if paged:
+        pages = -(-n_keys // BS)
+        nb = B * pages + 7
+        kp, vp = (torch.randn((nb, BS, KV, hd), generator=g).to("cuda", dtype)
+                  for _ in range(2))
+        pt = torch.stack([torch.randperm(nb, generator=g)[:pages]
+                          for _ in range(B)]).to("cuda", torch.int32)
+        lengths = torch.full((B,), n_keys, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, pt, lengths)
+        return (args, dops.paged_decode_attention,
+                dops.paged_decode_attention_plain, dops.KERNEL,
+                _attn_library_call(*args, 1, True, heads))
+    k, v = (torch.randn((B, n_keys, KV, hd), generator=g).to("cuda", dtype)
+            for _ in range(2))
+    args = (q, k, v, n_keys)
+    return (args, dops.decode_attention, dops.decode_attention_plain,
+            dops.DENSE_KERNEL, _sdpa(q[:, None], k, v, H // KV))
+
+
+def phase_gqa_decode(timer: Timer) -> dict:
+    """K1 and B4 by group size: at each of ``GQA_GEOMETRIES`` (G = 1, 3,
+    4, 8, 12, 16), B = 8 over 544 valid keys, bf16 and f32, the entry the
+    dispatch picks (``decode_entry``) against its plain version (phase
+    3's tolerances), launched once and checked, twice the same bits, then
+    timed beside the other body's entry on the same operands (both
+    checked against the plain version), SDPA and the bound: the rows that
+    set the dispatch's rule.  bf16 rows are also held within
+    ``GQA_BF16_ULPS`` bf16 ulps of the plain version's largest.  Then
+    the long-context rows (``GQA_LONG``:
+    nemotron's heads over 8192 keys, glm4's over 4160 and 8192; B = 8,
+    bf16), each body timed.  Returns {kernel: {shape: row}}."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {"paged_decode_attention": {}, "decode_attention": {}}
+    B = 8
+    cases = [(geo, heads, 544, dt) for geo, heads in GQA_GEOMETRIES
+             for dt in (bf16, f32)] + \
+        [(geo, heads, n, bf16) for geo, heads, n in GQA_LONG]
+    for geo, heads, n_keys, dtype in cases:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        G = H // KV
+        for paged in (True, False):
+            name = "paged_decode_attention" if paged else "decode_attention"
+            args, kern, plain, handle, library = _gqa_decode_case(
+                dops, paged, heads, B, n_keys, dtype, seed=n_keys + G + hd)
+            entry = dops.decode_entry(name, dtype, dtype, G, hd)
+            other = (f"{name}_{dops._NAMES[dtype]}_{dops._NAMES[dtype]}"
+                     if entry.endswith(("_mma", "_tf32")) else
+                     f"{name}_{dops._NAMES[dtype]}_{dops._NAMES[dtype]}"
+                     + ("_mma" if dtype == bf16 else "_tf32"))
+            e0 = dict(handle.entry_launches)
+            got = kern(*args)
+            again = kern(*args)
+            torch.cuda.synchronize()
+            e1 = handle.entry_launches
+            check({e: e1[e] - e0[e] for e in e1} == {e: 2 * (e == entry)
+                                                     for e in e1},
+                  f"{name} {geo}: launched {e1}, not twice {entry}")
+            want = plain(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[f32] if dtype == f32 else min(
+                TOL[bf16] if paged else DENSE_BF16_TOL["decode_attention"],
+                GQA_BF16_ULPS * _bf16_ulp(want))
+            tag = (f"[kernels] {name} {geo} heads {H}/{KV} (G = {G}) hd {hd} "
+                   f"B={B} over {n_keys} keys {str(dtype)[6:]} [{entry}]")
+            check(torch.isfinite(got.float()).all().item() and err <= tol,
+                  f"{tag}: max_abs_err {err} > {tol}")
+            check(torch.equal(got, again), f"{tag}: two launches differ")
+            row = _time_row(timer, kern, plain, args, library,
+                            _decode_bound(args[0], dtype, KV, n_keys, paged))
+            log(f"{tag}: max_abs_err={err:.3e} (tol {tol})" + _fmt(row))
+            run = _decode_entry_run(dops, other, args)
+            got = run()
+            torch.cuda.synchronize()
+            err_o = (got.float() - want.float()).abs().max().item()
+            check(err_o <= tol, f"{tag}: {other} error {err_o} > {tol}")
+            row.update(entry=entry, max_abs_err=err, other_entry=other,
+                       other_ms=timer.ms(run), other_err=err_o)
+            log(f"{tag}: {other} {row['other_ms']:.4f} ms (error "
+                f"{err_o:.3e}): {entry} takes "
+                f"{row['ms'] / row['other_ms']:.2f}x its time; "
+                f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound")
+            rows[name][f"{geo} G={G} hd={hd} B={B} keys={n_keys} "
+                       f"{str(dtype)[6:]}"] = row
+            del args, got, again, want, library
+    return rows
 
 
 def _quant_pools(k, v):
@@ -2558,12 +2822,27 @@ def phase_quant_kernels(timer: Timer):
     return served
 
 
+def _split_pages(entry: str, hd: int, dtype) -> int:
+    """Pages of BS keys a row takes for ``entry``'s plan to split it: P
+    for decode_body.cuh's entries, three of the tensor-core body's splits
+    (``MMA_SPLIT_BYTES`` of K/V each) for its own."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    if not entry.endswith(("_mma", "_tf32")):
+        return P
+    return -(-3 * dops.MMA_SPLIT_BYTES[dtype] //
+             (BS * 2 * hd * dtype.itemsize))
+
+
 def phase_splits() -> None:
-    """The split decode body at its split boundaries and the split-TF32
-    prefill body at its edges, each against its plain version: K1 and B3
-    with rows of 0, 1, one split's keys, one more and all P * bs keys in
-    one batch (a row with no keys outputs 0), B4 at n_valid 1, one split,
-    one more and the whole cache (its MLA entry at B = 2, 128 heads, too);
+    """The split decode bodies at their split boundaries and the split-TF32
+    prefill body at its edges, each against its plain version: K1 (each
+    entry at the boundaries of its own split plan) and B3
+    with rows of 0, 1, one split's keys, one more and the whole page table
+    in one batch (a row with no keys outputs 0; the tensor-core entries'
+    page tables hold three of their splits, ``_split_pages``), B4 at
+    n_valid 1, one split, one more and the whole cache (a cache of three
+    splits of the tensor-core body's; its MLA entry at B = 2, 128 heads,
+    too); every entry runs more than one split there;
     two launches of each decode entry must give the same bits.  f32 K2 and K2q with a slot that has nothing
     cached, a chunk straddling a page and T = 5 and 17; f32 B2 with 16-
     and 128-token windows and S = 77."""
@@ -2571,14 +2850,24 @@ def phase_splits() -> None:
     from repro_torch.kernels.flash_attention import ops as fops
     f32, bf16 = torch.float32, torch.bfloat16
     B = 8
+    sms = dops.sm_count(torch.device("cuda"))
     for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
-        KV = heads["KV"]
-        n_split, split_keys = dops.split_plan(P * BS, B * KV)
-        edge = torch.tensor([0, 1, split_keys, split_keys + 1, P * BS, 7,
-                             300, 555], dtype=torch.int32, device="cuda")
+        KV, G, hd = heads["KV"], heads["H"] // heads["KV"], heads["hd"]
         for qdt, kvdt in ((f32, f32), (f32, bf16), (bf16, bf16), ("q8", f32)):
+            # the boundaries of the split plan this entry runs with
+            entry = "paged_decode_attention_quant_f32" if qdt == "q8" else \
+                dops.decode_entry("paged_decode_attention", qdt, kvdt, G, hd)
+            pages = _split_pages(entry, hd, f32 if qdt == "q8" else qdt)
+            n_split, split_keys = dops.entry_split_plan(
+                entry, pages * BS, B * KV, f32 if qdt == "q8" else qdt, hd,
+                sms)
+            check(n_split > 1, f"[splits] {entry} {geo} over {pages} pages: "
+                  f"one split")
+            edge = torch.tensor([0, 1, split_keys, split_keys + 1,
+                                 pages * BS, 7, 300, 555], dtype=torch.int32,
+                                device="cuda")
             q, k, v, pt, _ = _attn_case(17 + KV, B, 1, f32 if qdt == "q8"
-                                        else qdt, kvdt, heads)
+                                        else qdt, kvdt, heads, pages)
             q = q[:, 0].contiguous()
             if qdt == "q8":
                 kern, plain = (dops.paged_decode_attention_quant,
@@ -2601,11 +2890,19 @@ def phase_splits() -> None:
             check(err <= tol, f"{what} {geo} split boundaries: max_abs_err "
                   f"{err} > {tol}")
             log(f"[splits] {what} {geo} B={B} lengths {edge.tolist()} "
-                f"({n_split} splits of {split_keys}): max_abs_err={err:.3e} "
-                f"(tol {tol}); bitwise repeatable; empty row 0")
-        C = 584
-        n_split, split_keys = dops.split_plan(C, B * KV)
+                f"({n_split} splits of {split_keys}, [{entry}]): "
+                f"max_abs_err={err:.3e} (tol {tol}); bitwise repeatable; "
+                f"empty row 0")
         for dtype in (f32, bf16):
+            # a cache the entry's plan splits: the tensor-core body's
+            # splits move ~MMA_SPLIT_BYTES of K/V, so three of them
+            entry = dops.decode_entry("decode_attention", dtype, dtype, G,
+                                      hd)
+            C = 3 * dops.MMA_SPLIT_BYTES[dtype] // (2 * hd * dtype.itemsize) \
+                if entry.endswith(("_mma", "_tf32")) else 584
+            n_split, split_keys = dops.entry_split_plan(entry, C, B * KV,
+                                                        dtype, hd, sms)
+            check(n_split > 1, f"[splits] {entry} at C = {C}: one split")
             tol = TOL[f32] if dtype == f32 \
                 else DENSE_BF16_TOL["decode_attention"]
             errs = []
@@ -2623,7 +2920,7 @@ def phase_splits() -> None:
                       f"n_valid {n_valid}: max_abs_err {errs[-1]} > {tol}")
             log(f"[splits] decode_attention (B4) {geo} {str(dtype)[6:]} "
                 f"n_valid 1/{split_keys}/{split_keys + 1}/{C} ({n_split} "
-                f"splits of {split_keys} at C): max_abs_err "
+                f"splits of {split_keys} at C, [{entry}]): max_abs_err "
                 f"{max(errs):.3e} (tol {tol}); bitwise repeatable")
     # B4's MLA entry where its 128 heads leave splits (B = 2: 256 pairs):
     # partials V-wide (128) beside a 192-wide q, the rope key in place
@@ -2835,6 +3132,8 @@ def phase_main_path(kernels):
           f"the paged bf16 path launched another path's kernel: {launches}")
     check_served_by(kernels, "paged_prefill_attention",
                     "paged_prefill_attention_bf16_bf16_mma", "main")
+    check_served_by(kernels, "paged_decode_attention",
+                    "paged_decode_attention_bf16_bf16_mma", "main")
     decoded = eng.n_device_steps
     log(f"[main] smollm-360m full width (32 layers, d 960, 15/5 heads, "
         f"vocab 49152, bf16): {out['total_tokens'] / out['wall_s']:.1f} tok/s "
@@ -4241,8 +4540,9 @@ def phase_whisper(kernels, acc, card: str) -> None:
     ``generate_batch`` of 8 prompts of 4 tokens with (8, 1500, 384) frames
     from numpy seed 0, 64 new tokens.  B2 (``_mma``) launches 3 times a
     layer: the encoder's bidirectional self-attention, the decoder's
-    causal one and its cross-attention (no mask); B4 twice a layer and
-    decode step (self, and cross over all 1500 slots).  Then the smoke
+    causal one and its cross-attention (no mask); B4 (``_mma``, G = 1)
+    twice a layer and decode step (self, and cross over all 1500 slots).
+    Then the smoke
     config in f32: the card's tokens equal the CPU port's.  Then a trace
     of the full-width run."""
     from repro_torch import bridge
@@ -4267,8 +4567,8 @@ def phase_whisper(kernels, acc, card: str) -> None:
     wall = time.perf_counter() - t0
     check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
                     "whisper")
-    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
-                    "whisper")
+    check_served_by(kernels, "decode_attention",
+                    "decode_attention_bf16_bf16_mma", "whisper")
     launches = _tally(kernels, acc)
     L = cfg.n_layers
     check(gen.shape == (8, WHISPER_NEW) and 0 <= int(gen.min())
@@ -4361,8 +4661,8 @@ def phase_vlm(kernels, acc, card: str) -> None:
     wall = time.perf_counter() - t0
     check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
                     "vlm")
-    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
-                    "vlm")
+    check_served_by(kernels, "decode_attention",
+                    "decode_attention_bf16_bf16_mma", "vlm")
     launches = _tally(kernels, acc)
     check(gen.shape == (8, VLM_NEW) and 0 <= int(gen.min())
           and int(gen.max()) < cfg.vocab_size,
@@ -4984,6 +5284,7 @@ def phase_mesh(kernels, acc, by_rank, card: str) -> None:
     jamba-v0.1 period, each over a two-rank mesh on the card against
     the engine without a mesh."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import build_model
@@ -5017,10 +5318,13 @@ def phase_mesh(kernels, acc, by_rank, card: str) -> None:
         ranks = _check_each_rank(kernels, PAGED_KERNELS, 2, tag)
         _check_as_one_device(ranks, one, tag)
         if dt == "bf16":
+            # each rank's group (9/3 and 6/2 heads) is the model's (15/5)
+            k1 = dops.decode_entry(
+                "paged_decode_attention", torch.bfloat16, torch.bfloat16,
+                cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim)
             for name, entry in (("paged_prefill_attention",
                                  "paged_prefill_attention_bf16_bf16_mma"),
-                                ("paged_decode_attention",
-                                 "paged_decode_attention_bf16_bf16")):
+                                ("paged_decode_attention", k1)):
                 check(all(set(ranks[name][r]) == {entry} for r in (0, 1)),
                       f"[{tag}] {name} entries {ranks[name]}")
         _tally_ranks(kernels, acc, by_rank)
@@ -5178,7 +5482,7 @@ def _serve_nemotron(kernels, eng, prompts, tag: str, card: str,
           f"[{tag}] {[(r.status, len(r.tokens)) for r in res]}")
     ttft = sorted(r.ttft_s for r in res)
     n_tok = sum(len(r.tokens) for r in res)
-    log(f"[{tag}] served {len(res)} x {NEMOTRON_CTX}-token prompts, "
+    log(f"[{tag}] served {len(res)} x {len(prompts[0])}-token prompts, "
         f"{new} new: {n_tok} tokens in {wall:.2f}s = "
         f"{n_tok / wall:.1f} tok/s (direct); TTFT p50 "
         f"{1e3 * ttft[len(ttft) // 2]:.1f} ms, max {1e3 * ttft[-1]:.1f} "
@@ -5230,7 +5534,7 @@ def phase_nemotron(kernels, acc, card: str) -> None:
     check_served_by(kernels, "paged_prefill_attention",
                     "paged_prefill_attention_bf16_bf16_mma", "nemotron-paged")
     check_served_by(kernels, "paged_decode_attention",
-                    "paged_decode_attention_bf16_bf16", "nemotron-paged")
+                    "paged_decode_attention_bf16_bf16_mma", "nemotron-paged")
     mixed, steps = eng.n_prefill_chunks, eng.n_device_steps
     launches = _tally(kernels, acc)
     want = {"paged_prefill_attention": L * mixed,
@@ -5264,8 +5568,8 @@ def phase_nemotron(kernels, acc, card: str) -> None:
     check_serving_launches(kernels, "nemotron-dense")
     check_served_by(kernels, "flash_attention", "flash_attention_bf16_mma",
                     "nemotron-dense")
-    check_served_by(kernels, "decode_attention", "decode_attention_bf16_bf16",
-                    "nemotron-dense")
+    check_served_by(kernels, "decode_attention",
+                    "decode_attention_bf16_bf16_mma", "nemotron-dense")
     launches = _tally(kernels, acc)
     want = {"flash_attention": L, "decode_attention": L * (NEMOTRON_NEW - 1)}
     check(all(launches[n] == want.get(n, 0) for n in launches),
@@ -5562,10 +5866,11 @@ def phase_nemotron_f32(kernels, acc, card: str) -> None:
     pools.  (a) The paged engine (batch 4, chunk 32, burst 8): K2 only
     through ``paged_prefill_attention_f32_f32_tf32`` (the split-TF32 body
     in 8-warp blocks at 192, G = 12) once a layer and mixed step, K1
-    (``paged_decode_attention_f32_f32``) once a layer and decode step.
+    (``paged_decode_attention_f32_f32_tf32``, the split-TF32 decode body)
+    once a layer and decode step.
     (b) The dense engine (``paged=False``) on the same prompts: B2 through
     ``flash_attention_f32_tf32`` once a layer, B4
-    (``decode_attention_f32_f32``) once a layer and decode step; layer
+    (``decode_attention_f32_f32_tf32``) once a layer and decode step; layer
     0's q, k, v from the prefill wave through B2 against its plain
     version, within ``TOL[f32]`` of the largest |out| (at least 1).
     tok/s, TTFT and peak memory of each."""
@@ -5597,7 +5902,8 @@ def phase_nemotron_f32(kernels, acc, card: str) -> None:
                     "paged_prefill_attention_f32_f32_tf32",
                     "nemotron-f32-paged")
     check_served_by(kernels, "paged_decode_attention",
-                    "paged_decode_attention_f32_f32", "nemotron-f32-paged")
+                    "paged_decode_attention_f32_f32_tf32",
+                    "nemotron-f32-paged")
     mixed, steps = eng.n_prefill_chunks, eng.n_device_steps
     launches = _tally(kernels, acc)
     want = {"paged_prefill_attention": L * mixed,
@@ -5628,7 +5934,8 @@ def phase_nemotron_f32(kernels, acc, card: str) -> None:
         fops.flash_attention = served_flash
     check_served_by(kernels, "flash_attention", "flash_attention_f32_tf32",
                     "nemotron-f32-dense")
-    check_served_by(kernels, "decode_attention", "decode_attention_f32_f32",
+    check_served_by(kernels, "decode_attention",
+                    "decode_attention_f32_f32_tf32",
                     "nemotron-f32-dense")
     launches = _tally(kernels, acc)
     want = {"flash_attention": L, "decode_attention": L * (new - 1)}
@@ -5651,6 +5958,146 @@ def phase_nemotron_f32(kernels, acc, card: str) -> None:
         f"causal): B2 (flash_attention_f32_tf32) against its plain version "
         f"max_abs_err {err:.3e} (tol {TOL[torch.float32]} x {big:.3f}, the "
         f"largest |out|); launches {want}; {card}")
+
+
+# -- phase 21 -------------------------------------------------------------------
+
+GLM4_CTX, GLM4_NEW = 4096, 32    # 21(b)/(c): 8 prompts of 4096 tokens, 32 new
+GLM4_CHUNK = 256                 # paged prefill chunk: 16 mixed steps a prompt
+# 21(a): glm4-9b's heads (32/2, G = 16) at a tiny width, f32
+GLM4_SMALL = dict(n_layers=2, d_model=256, n_heads=32, n_kv_heads=2,
+                  head_dim=64)
+
+
+def glm4_prompts(vocab_size: int, n: int = 8, length: int = GLM4_CTX):
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab_size, length).astype(np.int32)
+            for _ in range(n)]
+
+
+def phase_glm4_small(kernels, acc) -> None:
+    """Phase 21(a): glm4-9b's smoke config widened to its own heads (32/2,
+    G = 16, head_dim 64, QKV bias, half rotary; 2 layers, d 256, f32, TF32
+    off), paged and dense: the card's greedy tokens equal the CPU port's;
+    decode through the split-TF32 tensor-core entries
+    (``*_f32_f32_tf32``), prefill through K2's and B2's ``_tf32``
+    entries."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("glm4-9b", smoke=True).replace(**GLM4_SMALL)
+    prompts = _small_prompts(cfg.vocab_size)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cpu_model.init(seed=0)
+    gpu_model = build_model(cfg, device="cuda")
+    gpu_params = bridge.to_torch(cpu_params, "cuda")
+    for paged in (True, False):
+        kw = dict(batch_size=4, capacity=128, max_new_tokens=8, burst=4,
+                  paged=paged)
+        if paged:
+            kw.update(prefill_chunk=32, block_size=16)
+        want = ServeEngine(cpu_model, cpu_params, device="cpu",
+                           **kw).serve(prompts)
+        reset(kernels)
+        eng = ServeEngine(gpu_model, gpu_params, device="cuda", **kw)
+        got = eng.serve(prompts)
+        torch.cuda.synchronize()
+        tag = (f"glm4-9b heads 32/2 of 64 (G = 16), 2 layers, d 256, f32, "
+               f"paged={paged}")
+        check(eng.paged == paged, f"[glm4] {tag}: ran paged={eng.paged}")
+        for a, b in zip(want, got):
+            check(a.status == b.status == "ok",
+                  f"[glm4] {tag} request {b.request_id}: {b.status}")
+            check(np.array_equal(a.tokens, b.tokens),
+                  f"[glm4] {tag} request {a.request_id}: cpu {a.tokens} != "
+                  f"cuda {b.tokens}")
+        if paged:
+            check_served_by(kernels, "paged_prefill_attention",
+                            "paged_prefill_attention_f32_f32_tf32", "glm4")
+            check_served_by(kernels, "paged_decode_attention",
+                            "paged_decode_attention_f32_f32_tf32", "glm4")
+        else:
+            check_served_by(kernels, "flash_attention",
+                            "flash_attention_f32_tf32", "glm4")
+            check_served_by(kernels, "decode_attention",
+                            "decode_attention_f32_f32_tf32", "glm4")
+        launches = _tally(kernels, acc)
+        log(f"[glm4] {tag}: {len(prompts)} requests, greedy tokens on cuda "
+            f"== cpu ({sum(len(r.tokens) for r in got)} tokens); launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+
+
+def phase_glm4(kernels, acc, card: str) -> None:
+    """Phase 21(b)/(c): glm4-9b at full width and depth, no cut (40
+    layers, d 4096, 32/2 heads of 128: G = 16, QKV bias, half rotary,
+    d_ff 13696, vocab 151552; random bf16 weights made on the card from
+    seed 0): 8 requests of ``GLM4_CTX`` prompt tokens, ``GLM4_NEW`` new,
+    batch 8.  (b) The paged engine (bf16 pool, chunk ``GLM4_CHUNK``,
+    burst 8): K2 through ``paged_prefill_attention_bf16_bf16_mma`` once a
+    layer and mixed step, K1 through ``paged_decode_attention_bf16_bf16_
+    mma`` (the tensor-core decode body) once a layer and decode step; then
+    a trace.  (c) The dense engine on the same prompts: B2 through
+    ``flash_attention_bf16_mma`` once a layer (one prefill wave of 8 x
+    4096), B4 through ``decode_attention_bf16_bf16_mma`` once a layer and
+    decode step; then a trace.  tok/s, TTFT, peak memory and the device's
+    busy share of each; the device is freed before the next phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    t0 = time.perf_counter()
+    cfg = get_config("glm4-9b")
+    L = cfg.n_layers
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[glm4] {cfg.arch_id} full width and depth ({L} layers, no cut): d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim} (G = {cfg.n_heads // cfg.n_kv_heads}), "
+        f"qkv_bias {cfg.qkv_bias}, rope_pct {cfg.rope_pct}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, bf16: {n_params / 1e9:.2f}B "
+        f"parameters made on the card in {time.perf_counter() - t0:.1f}s")
+    prompts = glm4_prompts(cfg.vocab_size)
+    kw = dict(batch_size=8, capacity=GLM4_CTX + GLM4_NEW,
+              max_new_tokens=GLM4_NEW, burst=8, kv_dtype="bf16",
+              device="cuda")
+    for paged in (True, False):
+        tag = "glm4-paged" if paged else "glm4-dense"
+        eng = ServeEngine(model, params, paged=paged,
+                          **(dict(prefill_chunk=GLM4_CHUNK, block_size=16)
+                             if paged else {}), **kw)
+        check(eng.paged == paged, f"[{tag}] ran paged={eng.paged}")
+        _serve_nemotron(kernels, eng, prompts, tag, card, GLM4_NEW)
+        check_serving_launches(kernels, tag)
+        steps = eng.n_device_steps
+        if paged:
+            check_served_by(kernels, "paged_prefill_attention",
+                            "paged_prefill_attention_bf16_bf16_mma", tag)
+            check_served_by(kernels, "paged_decode_attention",
+                            "paged_decode_attention_bf16_bf16_mma", tag)
+            mixed = eng.n_prefill_chunks
+            want = {"paged_prefill_attention": L * mixed,
+                    "paged_decode_attention": L * (steps - mixed)}
+        else:
+            check_served_by(kernels, "flash_attention",
+                            "flash_attention_bf16_mma", tag)
+            check_served_by(kernels, "decode_attention",
+                            "decode_attention_bf16_bf16_mma", tag)
+            want = {"flash_attention": L,
+                    "decode_attention": L * (GLM4_NEW - 1)}
+        launches = _tally(kernels, acc)
+        check(all(launches[n] == want.get(n, 0) for n in launches),
+              f"[{tag}] launches {launches}, want {want}")
+        log(f"[{tag}] launches {want} ({L} layers, {steps} device steps)")
+        phase_trace(eng, tag, n=8, prompt_len=GLM4_CTX)
+        reset(kernels)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -5697,12 +6144,14 @@ def main() -> None:
     served["flash_attention_backward"], backward_rows = \
         phase_backward_kernels(timer)
     nemotron_rows = phase_nemotron_kernels(timer, backward_rows)
+    gqa_rows = phase_gqa_decode(timer)
     served.update(phase_quant_kernels(timer))
     phase_splits()
     served["fused_transform"] = phase_transform(timer)
     mark("phases 1-3")
     del timer
     reset(kernels)
+    COUNT_ENTRIES["on"] = True
     SERVING_ONLY["on"] = True
     phase_engine(kernels)
     launches5, eng, tok_s5 = phase_main_path(kernels)
@@ -5760,6 +6209,7 @@ def main() -> None:
     launches18r: dict = {}
     launches19: dict = {}
     launches20: dict = {}
+    launches21: dict = {}
     for tag, run in (("14", lambda: (phase_forward_small(kernels, launches14),
                                      phase_forward(kernels, launches14,
                                                    card))),
@@ -5784,7 +6234,10 @@ def main() -> None:
                                                      card),
                                      gc.collect(), torch.cuda.empty_cache(),
                                      phase_nemotron_f32(kernels, launches20,
-                                                        card)))):
+                                                        card))),
+                     ("21", lambda: (phase_glm4_small(kernels, launches21),
+                                     phase_glm4(kernels, launches21,
+                                                card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")
@@ -5809,6 +6262,7 @@ def main() -> None:
                 "selective_scan_backward":
                     launches17c["selective_scan_backward"]}
     launches.update({n: launches8[n] for n in QUANT_KERNELS})
+    reset(kernels)      # the last run's entries into ENTRY_TOTALS
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     rows = [dict(name=k.name, route="cuda",
                  source=str(k.source.relative_to(ROOT)),
@@ -5824,6 +6278,9 @@ def main() -> None:
                  launches_phase18=launches18.get(k.name, 0),
                  launches_phase19=launches19.get(k.name, 0),
                  launches_phase20=launches20.get(k.name, 0),
+                 launches_phase21=launches21.get(k.name, 0),
+                 entries=ENTRY_TOTALS.get(k.name,
+                                          dict.fromkeys(k.entries, 0)),
                  launches_phase18_by_rank={
                      str(r): n for r, n in launches18r.get(k.name,
                                                            {}).items()},
@@ -5836,6 +6293,8 @@ def main() -> None:
             row["slice_shapes"] = slice_rows[row["name"]]
         if row["name"] in nemotron_rows:
             row["nemotron_heads"] = nemotron_rows[row["name"]]
+        if row["name"] in gqa_rows:
+            row["gqa_heads"] = gqa_rows[row["name"]]
         if row["name"] == "flash_attention_backward":
             row["training_shapes"] = backward_rows
         if row["name"] == "selective_scan_backward":

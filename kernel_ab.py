@@ -5,6 +5,7 @@ one GPU.
 
     python3 kernel_ab.py OTHER [--jamba | --mla | --backward |
                                 --scan-backward]
+    python3 kernel_ab.py --decode-splits
 
 OTHER is the root of another checkout of the repository, for example
 the parent commit unpacked with ``git archive`` into a directory that
@@ -72,6 +73,18 @@ largest difference logged.  Then each tree trains chip_smoke.py phase
 batches) one step and traces a second, in turns other, this, this,
 other: the step's device time, B5''s scan and sum and the twin's, and
 the wall time of forward and backward.
+
+With --decode-splits (no OTHER: this tree alone), the rows are the
+tensor-core decode body's (K1's ``paged_decode_attention_*_mma`` /
+``_tf32`` and B4's ``decode_attention_*``) at chip_smoke.py phase 3's
+group sizes (``DECODE_SPLIT_ROWS``: whisper-tiny's, smollm-360m's,
+jamba's, qwen2-vl's, nemotron-4-340b's and glm4-9b's heads at their
+phase-3 key counts, and nemotron's and glm4's long rows), B = 8, bf16,
+and f32 at 544 keys (qwen2-vl's 1183), each launched with n_split from 1
+up to four blocks an SM (the split keys whole 16-key tiles); ``*`` marks
+the plan ``ops.entry_split_plan`` picks.  Every launch's output is held
+against the plain version within chip_smoke.py phase 3's tolerance.
+Each plan is timed twice, in the order given and then reversed.
 
 Needs one CUDA device and nvcc, as chip_smoke.py does; the jamba, the
 MLA and the scan-backward parts ~30-60 GB of device memory.
@@ -276,6 +289,71 @@ def trace_train_jamba(cs, pkgs) -> None:
         torch.cuda.empty_cache()
 
 
+# (heads, keys, dtype) of --decode-splits
+DECODE_SPLIT_ROWS = (
+    ("whisper", 1500, "bf16"), ("smollm", 544, "bf16"),
+    ("jamba", 544, "bf16"), ("qwen2-vl", 1183, "bf16"),
+    ("nemotron", 544, "bf16"), ("nemotron", 8192, "bf16"),
+    ("glm4", 544, "bf16"), ("glm4", 4160, "bf16"), ("glm4", 8192, "bf16"),
+    ("whisper", 544, "f32"), ("smollm", 544, "f32"), ("jamba", 544, "f32"),
+    ("qwen2-vl", 1183, "f32"), ("nemotron", 544, "f32"),
+    ("glm4", 544, "f32"))
+
+
+def decode_split_rows(cs) -> None:
+    """The tensor-core decode body's time at each split count of
+    ``DECODE_SPLIT_ROWS``, both K1 and B4, each plan's output checked."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    timer = cs.Timer()
+    sms = dops.sm_count(torch.device("cuda"))
+    heads_of = dict(cs.GQA_GEOMETRIES)
+    B = 8
+    for geo, n_keys, dt in DECODE_SPLIT_ROWS:
+        heads = heads_of[geo]
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        KV, hd, G = heads["KV"], heads["hd"], heads["H"] // heads["KV"]
+        for paged in (True, False):
+            name = "paged_decode_attention" if paged else "decode_attention"
+            args, _, plain, _, _ = cs._gqa_decode_case(
+                dops, paged, heads, B, n_keys, dtype, seed=n_keys + G + hd)
+            entry = dops.decode_entry(name, dtype, dtype, G, hd)
+            max_keys = args[1].shape[1] * args[3].shape[1] if paged \
+                else n_keys
+            chosen = dops.entry_split_plan(entry, max_keys, B * KV, dtype,
+                                           hd, sms)
+            cap = min(4 * sms // (B * KV), -(-max_keys // dops.MMA_KEY_TILE))
+            plans = {}
+            for n in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, 32, chosen[0],
+                             cap}):
+                if n <= cap:
+                    plans[dops._whole_tiles(max_keys, n,
+                                            dops.MMA_KEY_TILE)] = None
+            want = plain(*args)
+            tol = cs.TOL[dtype] if paged or dt == "f32" else \
+                cs.DENSE_BF16_TOL["decode_attention"]
+            runs = {}
+            for n_split, split_keys in plans:
+                run = cs._decode_entry_run(dops, entry, args,
+                                           split=(split_keys, n_split))
+                got = run()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                cs.check(err <= tol, f"{name} {geo} {n_keys} keys, "
+                         f"{n_split} splits: max_abs_err {err} > {tol}")
+                runs[n_split, split_keys] = run
+            times = {p: [] for p in runs}
+            for p in list(runs) + list(runs)[::-1]:
+                times[p].append(timer.ms(runs[p]))
+            bound = cs._decode_bound(args[0], dtype, KV, n_keys, paged)[0]
+            for (n_split, split_keys), t in times.items():
+                mark = "*" if (n_split, split_keys) == chosen else " "
+                print(f"[splits] {name} {geo} heads {heads['H']}/{KV} hd "
+                      f"{hd} B={B} {dt} {n_keys} keys{mark} n_split "
+                      f"{n_split:3d} x {split_keys:5d} keys "
+                      f"({B * KV * n_split} blocks): {sum(t) / len(t):.4f} "
+                      f"ms (bound {bound:.5f})", flush=True)
+
+
 def time_kernels(cs, trees, rows, compare: bool = False) -> None:
     """Each row timed other, this, this, other; with ``compare`` the two
     trees' outputs (each tensor of a tuple), cut to the narrower last
@@ -337,7 +415,8 @@ def trace_engines(cs, pkgs, make, prompts, tag: str, **trace) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("other", type=Path, nargs="?",
+                    help="root of the other checkout")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--jamba", action="store_true",
                       help="also trace phase 6's jamba period on each tree")
@@ -351,7 +430,12 @@ def main() -> None:
                       help="time B5's backward at phase 3's rows instead "
                       "of B5/B6, then trace phase 17(c)'s step on each "
                       "tree")
+    mode.add_argument("--decode-splits", action="store_true",
+                      help="time this tree's tensor-core decode body at "
+                      "every split count (no OTHER)")
     a = ap.parse_args()
+    if (a.other is None) != a.decode_splits:
+        ap.error("OTHER is needed, except with --decode-splits")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -361,9 +445,16 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if a.decode_splits:
+        print(f"[ab] {smi.stdout.strip()}", flush=True)
+        from repro_torch.kernels.build import load_all
+        from repro_torch.kernels.decode_attention import ops as dops
+        load_all([dops.KERNEL, dops.DENSE_KERNEL])
+        decode_split_rows(cs)
+        return
     print(f"[ab] {smi.stdout.strip()}; other tree {a.other.resolve()}",
           flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
     pkgs = {"this": "repro_torch", "other": "other_repro_torch"}
     import repro_torch  # noqa: F401  (this tree, from ROOT/src)
     load_tree(a.other.resolve(), pkgs["other"])

@@ -15,15 +15,20 @@
 // (decode_attention_mla_bf16: one query head per K/V head, K rows
 // assembled from k_nope and a rope key every head shares, V 128 wide)
 // runs a body of its own, decode_mla.cuh, since at G = 1 this one would
-// score with one warp of four.
+// score with one warp of four.  bf16 and f32 GQA at G <= 16 and head_dim
+// 64, 128 or 192 run the tensor-core body decode_gqa_mma.cuh, which
+// measured faster at every such shape phase 3 times (ops.py's
+// decode_entry); this body serves f32 q over bf16 K/V, int8 pools (B3),
+// other head dims and G > 16.
 //
-// What bounds it on the card: bytes.  Every valid key costs one K row and
-// one V row of hd elements, against 2 * G * hd multiply-adds for the G
-// query heads of its KV head: a few operations per byte, far below the
-// H100's ~295 bf16 operations per byte of device memory.  At the served
-// shapes (~300-550 keys a row, B = 8) the bytes take ~1-2 us, so what
-// sets the time is how many loads are in flight and how long each block's
-// chain of dependent steps is.  The design:
+// What bounds it on the card: at small G, bytes.  Every valid key costs
+// one K row and one V row of hd elements, against 2 * G * hd
+// multiply-adds for the G query heads of its KV head on the CUDA cores,
+// one lane a key in a serial hd-long chain: at G >= 8 that arithmetic,
+// not the bytes, sets its time.  At the served shapes (~300-550 keys a
+// row, B = 8) the bytes take ~1-2 us, so what sets the time is how many
+// loads are in flight and how long each block's chain of dependent steps
+// is.  The design:
 //   * one thread block per (row, KV head, split of the key range) holds
 //     all G query heads of that KV head, so each K/V row leaves device
 //     memory once per group; the split spreads a row's keys over

@@ -30,8 +30,16 @@
 // per K/V head: every warp of a block walks its own keys, 8 lanes to a
 // key.  The same split plan and workspace as the GQA entries.  The plain
 // version is decode_attention/ops.py::mla_decode_attention_plain.
+//
+// Every group of up to 16 query heads a KV head at head_dim 64, 128 or
+// 192 (whisper-tiny's 6/6 up to glm4-9b's 32/2) takes the tensor-core
+// body decode_gqa_mma.cuh:
+// decode_attention_bf16_bf16_mma (bf16 mma.sync, scores rounded to bf16)
+// and decode_attention_f32_f32_tf32 (split TF32), the GQA entries'
+// arguments, split_keys a multiple of its 16-key tiles.
 
 #include "decode_body.cuh"
+#include "decode_gqa_mma.cuh"
 #include "decode_mla.cuh"
 
 namespace {
@@ -62,6 +70,29 @@ struct ContiguousRows {
 DENSE_DECODE_ENTRY(decode_attention_f32_f32, float, float)
 DENSE_DECODE_ENTRY(decode_attention_f32_bf16, float, __nv_bfloat16)
 DENSE_DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+
+#define DENSE_DECODE_GQA_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const void* q, const void* k_cache,                    \
+                      const void* v_cache, void* out, int B, int C, int H,   \
+                      int KV, int hd, int n_valid, float scale,              \
+                      int split_keys, int n_split, void* ws, void* counters, \
+                      void* stream) {                                         \
+    return kern::decode_gqa::launch<T>(                                       \
+        q, k_cache, v_cache, out, ContiguousRows{C, n_valid}, B, H, KV, hd,   \
+        scale, split_keys, n_split, ws, counters, stream);                    \
+  }
+
+DENSE_DECODE_GQA_ENTRY(decode_attention_bf16_bf16_mma, __nv_bfloat16)
+DENSE_DECODE_GQA_ENTRY(decode_attention_f32_f32_tf32, float)
+
+// registers, spills, shared memory, residency and layout of the
+// tensor-core body's kernel for bf16 (bf16 = 1) or f32 operands at
+// head_dim hd: see decode_gqa_mma.cuh's occupancy()
+extern "C" int decode_attention_gqa_occupancy(int bf16, int hd, int* out) {
+  return bf16 ? kern::decode_gqa::occupancy<__nv_bfloat16, ContiguousRows>(
+                    hd, out)
+              : kern::decode_gqa::occupancy<float, ContiguousRows>(hd, out);
+}
 
 extern "C" int decode_attention_mla_bf16(const void* q, const void* k_nope,
                                          const void* kr_cache, const void* v,

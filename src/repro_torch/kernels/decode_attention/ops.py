@@ -18,16 +18,23 @@ launches its kernel or raises.
 
 All of them split each row's key range over ``n_split`` blocks and
 combine the partial softmaxes in the same launch
-(``csrc/decode_body.cuh``, ``csrc/decode_mla.cuh``).
-``split_plan`` picks the split from host-known values only (shapes,
-``P * bs``, ``n_valid``), never from ``lengths``, so a call reads no
-device tensor on the host; the f32 partials and the per-pair counters
-live in one workspace per device (``workspace``), grown when a shape
-needs more and used on the current stream.
+(``csrc/decode_body.cuh``, ``csrc/decode_mla.cuh``,
+``csrc/decode_gqa_mma.cuh``).  ``decode_entry`` picks K1's and B4's C
+entry from dtypes, the group size G = H / KV and head_dim alone: bf16
+and f32 at ``G <= MMA_MAX_GROUP`` and ``MMA_HEAD_DIMS`` go to the
+tensor-core body (``*_bf16_bf16_mma``, ``*_f32_f32_tf32``),
+everything else (and B3) to ``decode_body.cuh``.  ``split_plan`` (and
+``mma_split_plan`` for the tensor-core body) picks the split from
+host-known values only (shapes, ``P * bs``, ``n_valid``), never from
+``lengths``, so a call reads no device tensor on the host; the f32
+partials and the per-pair counters live in one workspace per device
+(``workspace``), grown when a shape needs more and used on the current
+stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -39,11 +46,32 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # every entry ends in: scale, split_keys, n_split, workspace, counters,
 # stream
 _SPLIT = [ctypes.c_float, _I, _I, _P, _P, _P]
+# the GQA entries' type suffixes: decode_body.cuh's (q, K/V) pairs, then
+# the tensor-core body's (csrc/decode_gqa_mma.cuh)
+_PAIRS = ("f32_f32", "f32_bf16", "bf16_bf16")
+_MMA_SUFFIXES = ("bf16_bf16_mma", "f32_f32_tf32")
+# the tensor-core body: head dims it is built for, and the largest group
+# G = H / KV (its 16 MMA rows).  The dispatch sends it every G up to that:
+# chip_smoke.py phase 3 times both bodies at G = 1, 3, 4, 8, 12 and 16,
+# and decode_body.cuh was the faster at none (PERF.md §6)
+MMA_HEAD_DIMS = (64, 128, 192)
+MMA_MAX_GROUP = 16
+MMA_KEY_TILE = 16        # its splits are multiples of its 16-key tiles
+# a split of the tensor-core body moves about this many K/V bytes, and no
+# plan gives an SM more than one block: at phase 3's shapes smaller
+# splits and more blocks than SMs measured slower (kernel_ab.py
+# --decode-splits; merging the splits costs more than spreading them
+# gains).  Split TF32 does about four times bf16's work on each byte
+# (three products and their splits), and its best splits held a quarter
+# of the bytes
+MMA_SPLIT_BYTES = {torch.bfloat16: 512 << 10, torch.float32: 128 << 10}
+
+
 KERNEL = CudaKernel(
     "paged_decode_attention",
     Path(__file__).parent / "csrc" / "paged_decode.cu",
-    {f"paged_decode_attention_{q}_{kv}": [_P] * 6 + [_I] * 6 + _SPLIT
-     for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))})
+    {f"paged_decode_attention_{s}": [_P] * 6 + [_I] * 6 + _SPLIT
+     for s in _PAIRS + _MMA_SUFFIXES})
 
 QUANT_KERNEL = CudaKernel(
     "paged_decode_attention_quant",
@@ -53,8 +81,8 @@ QUANT_KERNEL = CudaKernel(
 DENSE_KERNEL = CudaKernel(
     "decode_attention",
     Path(__file__).parent / "csrc" / "dense_decode.cu",
-    {**{f"decode_attention_{q}_{kv}": [_P] * 4 + [_I] * 6 + _SPLIT
-        for q, kv in (("f32", "f32"), ("f32", "bf16"), ("bf16", "bf16"))},
+    {**{f"decode_attention_{s}": [_P] * 4 + [_I] * 6 + _SPLIT
+        for s in _PAIRS + _MMA_SUFFIXES},
      "decode_attention_mla_bf16": [_P] * 5 + [_I] * 5 + _SPLIT})
 # (qk_nope_head_dim, qk_rope_head_dim, v_head_dim) the MLA entries are
 # built for: DeepSeek-V3's, as csrc/common.cuh's MlaDims states them
@@ -65,23 +93,96 @@ MIN_SPLIT_KEYS = 64    # no split takes fewer keys
 TARGET_BLOCKS = 264    # two blocks for each of an H100's 132 SMs
 
 
+def _host_ints(name, *xs):
+    if any(isinstance(x, torch.Tensor) for x in xs):
+        raise TypeError(f"{name} takes host ints: reading a tensor would "
+                        "sync the device")
+    xs = tuple(int(x) for x in xs)
+    if min(xs) < 1:
+        raise ValueError(f"{name}{xs}: all must be >= 1")
+    return xs
+
+
 def split_plan(max_keys: int, pairs: int):
     """(n_split, split_keys) for ``pairs`` (row, KV head) pairs whose rows
     hold at most ``max_keys`` keys: enough splits that ``pairs * n_split``
     reaches ``TARGET_BLOCKS``, none shorter than ``MIN_SPLIT_KEYS``, each
     a whole number of key tiles.  Host ints in, host ints out: the plan
     never depends on what a device tensor holds."""
-    if isinstance(max_keys, torch.Tensor) or isinstance(pairs, torch.Tensor):
-        raise TypeError("split_plan takes host ints: reading a tensor would "
-                        "sync the device")
-    max_keys, pairs = int(max_keys), int(pairs)
-    if max_keys < 1 or pairs < 1:
-        raise ValueError(f"split_plan({max_keys}, {pairs}): both must be >= 1")
+    max_keys, pairs = _host_ints("split_plan", max_keys, pairs)
     n_split = max(1, min(-(-max_keys // MIN_SPLIT_KEYS),
                          -(-TARGET_BLOCKS // pairs)))
+    return _whole_tiles(max_keys, n_split, KEY_TILE)
+
+
+def _whole_tiles(max_keys: int, n_split: int, tile: int):
+    """(n_split, split_keys): about ``n_split`` splits of whole tiles."""
     split_keys = -(-max_keys // n_split)
-    split_keys = -(-split_keys // KEY_TILE) * KEY_TILE
+    split_keys = -(-split_keys // tile) * tile
     return -(-max_keys // split_keys), split_keys
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, from its
+    properties (a host read: no device sync), once a device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mma_split_plan(max_keys: int, pairs: int, key_bytes: int,
+                   split_bytes: int, sms: int):
+    """(n_split, split_keys) of the tensor-core body
+    (``csrc/decode_gqa_mma.cuh``) for ``pairs`` (row, KV head) pairs of at
+    most ``max_keys`` keys, each key ``key_bytes`` of K and V, on a device
+    of ``sms`` SMs: as many splits as a row's K/V bytes hold
+    ``split_bytes`` (rounded up), but no more blocks than SMs
+    (``pairs * n_split <= sms`` unless the pairs alone are more), each a
+    whole number of ``MMA_KEY_TILE`` tiles.  Host ints in, host ints
+    out."""
+    max_keys, pairs, key_bytes, split_bytes, sms = _host_ints(
+        "mma_split_plan", max_keys, pairs, key_bytes, split_bytes, sms)
+    n_split = max(1, min(-(-max_keys * key_bytes // split_bytes),
+                         sms // pairs))
+    return _whole_tiles(max_keys, n_split, MMA_KEY_TILE)
+
+
+def decode_entry(prefix: str, qdt, kvdt, G: int, hd: int) -> str:
+    """The C entry ``prefix`` (``paged_decode_attention`` or
+    ``decode_attention``) launches for q of type ``qdt`` over K/V of type
+    ``kvdt``, ``G`` query heads a KV head, head_dim ``hd``: the
+    tensor-core body (``_bf16_bf16_mma``, ``_f32_f32_tf32``) for one type
+    throughout at ``G <= MMA_MAX_GROUP`` and
+    ``MMA_HEAD_DIMS``, else decode_body.cuh's ``_{q}_{kv}``.  From dtypes
+    and shapes alone, never from a failed build or launch."""
+    name = f"{prefix}_{_NAMES[qdt]}_{_NAMES[kvdt]}"
+    if qdt == kvdt and G <= MMA_MAX_GROUP \
+            and hd in MMA_HEAD_DIMS:
+        return name + ("_mma" if qdt == torch.bfloat16 else "_tf32")
+    return name
+
+
+def _occupancy(lib, prefix: str, dt: str, hd: int) -> dict:
+    fn = getattr(lib, f"{prefix}_gqa_occupancy")
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    out = (_I * 7)()
+    rc = fn(int(dt == "bf16"), hd, out)
+    if rc != 0:
+        raise RuntimeError(f"{prefix}_gqa_occupancy: CUDA error {rc} "
+                           f"({lib.kernel_error_string(rc).decode()})")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "warps", "tile_keys", "stages"), out))
+
+
+def gqa_decode_occupancy(kernel, dt: str, hd: int) -> dict:
+    """What the card makes of the tensor-core body in ``kernel``
+    (``KERNEL`` or ``DENSE_KERNEL``) for ``dt`` ("bf16" or "f32")
+    operands at head_dim ``hd``: registers and local (spill) bytes a
+    thread, dynamic shared bytes a block, resident blocks an SM, warps a
+    block, keys a warp tile, ring stages.  Builds the library; launches
+    nothing."""
+    prefix = "decode_attention" if kernel is DENSE_KERNEL \
+        else "paged_decode_attention"
+    return _occupancy(kernel.load(), prefix, dt, hd)
 
 
 _WORKSPACE = {}
@@ -104,12 +205,31 @@ def workspace(device, n_floats: int, n_pairs: int):
     return ws, cnt
 
 
-def _split_args(q, max_keys: int, KV: int, vd: int = 0):
+def _is_mma(entry: str) -> bool:
+    return entry.endswith(("_mma", "_tf32"))
+
+
+def entry_split_plan(entry: str, max_keys: int, pairs: int, dtype,
+                     hd: int, sms: int):
+    """(n_split, split_keys) that C entry ``entry`` runs with for
+    ``pairs`` (row, KV head) pairs of at most ``max_keys`` keys, q of
+    ``dtype`` at head_dim ``hd``, on a device of ``sms`` SMs:
+    ``mma_split_plan`` for the tensor-core body's entries, ``split_plan``
+    for the others."""
+    if _is_mma(entry):                        # K and V of q's type
+        return mma_split_plan(max_keys, pairs, 2 * hd * dtype.itemsize,
+                              MMA_SPLIT_BYTES[dtype], sms)
+    return split_plan(max_keys, pairs)
+
+
+def _split_args(q, max_keys: int, KV: int, vd: int = 0, entry: str = ""):
     """The kernels' trailing split arguments for q (B, H, hd) over rows of
-    at most ``max_keys`` keys, output rows ``vd`` wide (default hd):
-    split_keys, n_split and the workspace."""
+    at most ``max_keys`` keys, output rows ``vd`` wide (default hd), for
+    C entry ``entry``: split_keys, n_split and the workspace."""
     B, H, hd = q.shape
-    n_split, split_keys = split_plan(max_keys, B * KV)
+    n_split, split_keys = entry_split_plan(
+        entry, max_keys, B * KV, q.dtype, hd,
+        sm_count(q.device) if _is_mma(entry) else 1)
     G = H // KV
     ws, cnt = workspace(q.device, B * KV * n_split * G * ((vd or hd) + 2),
                         B * KV)
@@ -198,12 +318,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths):
     # the kernel launches on the runtime's current device: one card
     stream = torch.cuda.current_stream(q.device).cuda_stream
     P = page_table.shape[1]
+    entry = decode_entry("paged_decode_attention", q.dtype, k_pool.dtype,
+                         H // KV, hd)
     KERNEL.launch(
-        f"paged_decode_attention_{_NAMES[q.dtype]}_{_NAMES[k_pool.dtype]}",
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        entry, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, H, KV, hd, bs, P, ctypes.c_float(1.0 / np.sqrt(hd)),
-        *_split_args(q, P * bs, KV), stream)
+        *_split_args(q, P * bs, KV, entry=entry), stream)
     return out
 
 
@@ -300,11 +421,13 @@ def decode_attention(q, k_cache, v_cache, n_valid: int):
     C, KV = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty(q.shape, dtype=k_cache.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    entry = decode_entry("decode_attention", q.dtype, k_cache.dtype,
+                         H // KV, hd)
     DENSE_KERNEL.launch(
-        f"decode_attention_{_NAMES[q.dtype]}_{_NAMES[k_cache.dtype]}",
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, C, H, KV, hd, n_valid, ctypes.c_float(1.0 / np.sqrt(hd)),
-        *_split_args(q, n_valid, KV), stream)
+        entry, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        out.data_ptr(), B, C, H, KV, hd, n_valid,
+        ctypes.c_float(1.0 / np.sqrt(hd)),
+        *_split_args(q, n_valid, KV, entry=entry), stream)
     return out
 
 
@@ -314,12 +437,15 @@ def mla_entry(dtypes, dims) -> str:
     """The C entry of ``DENSE_KERNEL`` that serves MLA's operands of these
     types (q, k_nope, rope key, V) and ``dims`` (nope, rope, v head dims):
     ``decode_attention_mla_bf16`` for bf16 throughout at ``MLA_DIMS``,
-    else the GQA entry that ``mla_gqa_operands``' concatenation goes
-    to.  From dtypes and dims alone, never from a failed build or launch."""
+    else the GQA entry (``decode_entry`` at G = 1, head_dim nope + rope)
+    that ``mla_gqa_operands``' concatenation goes to.  From dtypes and
+    dims alone, never from a failed build or launch."""
     if tuple(dims) == MLA_DIMS and all(d == torch.bfloat16 for d in dtypes):
         return "decode_attention_mla_bf16"
     kv = torch.promote_types(dtypes[1], dtypes[2])
-    return f"decode_attention_{_NAMES[dtypes[0]]}_{_NAMES[kv]}"
+    # the padded operands: one K/V head a query head, head_dim nope + rope
+    return decode_entry("decode_attention", dtypes[0], kv, 1,
+                        dims[0] + dims[1])
 
 
 def mla_gqa_operands(k_nope, k_rope, v):

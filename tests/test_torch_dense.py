@@ -142,6 +142,8 @@ def test_plain_naive_attention_options_match_reference():
     (2, 6, 2, 40, 16, 22, 0),      # partly filled cache
     (3, 4, 4, 32, 8, 0, 0),        # the first token only
     (2, 6, 3, 24, 16, 57, 24),     # a wrapped ring: every slot valid
+    (2, 16, 1, 24, 16, 20, 0),     # G = 16 (glm4-9b's group)
+    (2, 24, 2, 32, 8, 31, 0),      # G = 12 (nemotron-4-340b's), all valid
 ])
 def test_plain_decode_matches_pallas_and_reference(B, H, KV, C, hd, pos,
                                                    window):

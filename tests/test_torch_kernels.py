@@ -9,6 +9,7 @@ a CUDA device and skip without one; on a card, run this file with
 ``JAX_PLATFORMS=cpu`` and ``--noconftest`` (the shared conftest imports
 the JAX package, which a GPU machine may lack).
 """
+import ctypes
 from functools import partial
 from types import SimpleNamespace
 
@@ -78,7 +79,9 @@ def _t(a, device="cpu", dtype=None):
 
 @pytest.mark.parametrize("B,H,KV,hd,bs,P", [(3, 4, 2, 16, 4, 4),
                                             (2, 6, 2, 8, 8, 3),
-                                            (2, 3, 3, 16, 4, 5)])
+                                            (2, 3, 3, 16, 4, 5),
+                                            (2, 16, 1, 16, 4, 4),   # G = 16
+                                            (2, 24, 2, 8, 4, 3)])   # G = 12
 def test_plain_paged_decode_matches_pallas_and_reference(ref, B, H, KV, hd,
                                                          bs, P):
     c = _case(B * 100 + H, B=B, T=1, H=H, KV=KV, hd=hd, bs=bs, P=P,
@@ -186,8 +189,11 @@ _PREFILL_BODIES = ["prefill_tf32.cuh", "common.cuh", "prefill_mma.cuh",
 
 
 @pytest.mark.parametrize("kernel,bodies", [
-    (dops.KERNEL, ["decode_body.cuh", "common.cuh"]),
-    (dops.DENSE_KERNEL, ["decode_mla.cuh", "common.cuh", "decode_body.cuh"]),
+    (dops.KERNEL, ["decode_gqa_mma.cuh", "prefill_tf32.cuh", "common.cuh",
+                   "prefill_mma.cuh", "decode_body.cuh"]),
+    (dops.DENSE_KERNEL, ["decode_mla.cuh", "common.cuh", "decode_gqa_mma.cuh",
+                         "prefill_tf32.cuh", "prefill_mma.cuh",
+                         "decode_body.cuh"]),
     (dops.QUANT_KERNEL, ["decode_body.cuh", "common.cuh"]),
     (fops.KERNEL, _PREFILL_BODIES), (fops.FLASH_KERNEL, _PREFILL_BODIES),
     (fops.QUANT_KERNEL, ["prefill_tf32.cuh", "common.cuh",
@@ -196,8 +202,10 @@ def test_attention_kernels_share_their_family_body(kernel, bodies):
     """The paged and contiguous entries of each attention family are
     built from shared bodies and the shared helpers: the paged and
     contiguous prefill entries also from the two tensor-core bodies, the
-    int8 prefill from the split-TF32 one, the dense decode also from the
-    MLA body."""
+    int8 prefill from the split-TF32 one, the paged and dense decode also
+    from the tensor-core decode body (which takes the prefill bodies'
+    mma.sync and split-TF32 helpers), the dense decode also from the MLA
+    body."""
     from repro_torch.kernels import build
     names = [f.name for f in build.source_files(kernel.source)]
     assert names == [kernel.source.name] + bodies
@@ -724,15 +732,26 @@ def test_flash_tf32_kernel_matches_plain(cuda, heads, S, window):
 
 # -- the split decode body (decode_body.cuh): K1, B4, B3 ---------------------
 
-def _split_lengths(B, P, bs, KV):
-    """Lengths at the split planner's boundaries for B slots of P pages:
-    0, 1, exactly one split, one split + 1, the whole page table, and
-    ragged rows between."""
-    _, split_keys = dops.split_plan(P * bs, B * KV)
+def _split_lengths(B, P, bs, KV, plan=None):
+    """Lengths at the split planner's boundaries for B slots of P pages
+    (``plan``, default ``split_plan``'s for B * KV pairs): 0, 1, exactly
+    one split, one split + 1, the whole page table, and ragged rows
+    between."""
+    _, split_keys = plan or dops.split_plan(P * bs, B * KV)
     edge = [0, 1, split_keys, split_keys + 1, P * bs]
     rng = np.random.default_rng(B + P)
     return np.array(edge + list(rng.integers(1, P * bs + 1, B - len(edge))),
                     np.int32)
+
+
+def _split_pages(entry, bs, hd, dtype, pages):
+    """Pages of ``bs`` keys a row takes for ``entry``'s plan to split it:
+    ``pages`` for decode_body.cuh's entries, three of the tensor-core
+    body's splits (``MMA_SPLIT_BYTES`` of K/V each) for its own."""
+    if not entry.endswith(("_mma", "_tf32")):
+        return pages
+    return -(-3 * dops.MMA_SPLIT_BYTES[dtype] //
+             (bs * 2 * hd * dtype.itemsize))
 
 
 def _check_decode_rows(got, want, lengths, tol):
@@ -787,14 +806,19 @@ def test_decode_split_args_come_from_shapes(monkeypatch):
                          ids=["smollm", "jamba"])
 def test_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
     """K1 with rows of 0, 1, one split's keys, one more, and all P * bs
-    in one batch; two launches give the same bits."""
-    B, P, bs = 8, 40, heads["bs"]
-    c = _case(P + heads["hd"], B=B, T=1, max_len=P * bs,
-              **dict(heads, P=P))
-    lengths = _split_lengths(B, P, bs, heads["KV"])
+    in one batch, at the boundaries of the split plan of the entry the
+    dispatch picks; two launches give the same bits."""
+    B, bs, hd = 8, heads["bs"], heads["hd"]
+    entry = dops.decode_entry("paged_decode_attention", qdt, kvdt,
+                              heads["H"] // heads["KV"], hd)
+    P = _split_pages(entry, bs, hd, qdt, 40)
+    c = _case(P + hd, B=B, T=1, max_len=P * bs, **dict(heads, P=P))
+    plan = dops.entry_split_plan(entry, P * bs, B * heads["KV"], qdt, hd,
+                                 dops.sm_count(cuda))
+    lengths = _split_lengths(B, P, bs, heads["KV"], plan)
     args = (_t(c["q"][:, 0], cuda, qdt), _t(c["k"], cuda, kvdt),
             _t(c["v"], cuda, kvdt), _t(c["pt"], cuda), _t(lengths, cuda))
-    assert dops.split_plan(P * bs, B * heads["KV"])[0] > 1
+    assert plan[0] > 1
     n0 = dops.KERNEL.launches
     got = dops.paged_decode_attention(*args)
     again = dops.paged_decode_attention(*args)
@@ -828,9 +852,14 @@ def test_decode_quant_split_boundaries_match_plain(cuda, heads):
                          ids=["smollm", "jamba"])
 def test_dense_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
     """B4 with n_valid at 1, one split's keys, one more, and the whole
-    cache; bitwise repeatable."""
-    C, B = 584, 8
-    n_split, split_keys = dops.split_plan(C, B * heads["KV"])
+    cache (the split plan of the entry the dispatch picks); bitwise
+    repeatable."""
+    B, hd = 8, heads["hd"]
+    entry = dops.decode_entry("decode_attention", qdt, kvdt,
+                              heads["H"] // heads["KV"], hd)
+    C = 16 * _split_pages(entry, 16, hd, qdt, 584 // 16) + 584 % 16
+    n_split, split_keys = dops.entry_split_plan(entry, C, B * heads["KV"],
+                                                qdt, hd, dops.sm_count(cuda))
     assert n_split > 1
     for n_valid in (1, split_keys, split_keys + 1, C):
         q, k, v = _dense_qkv(n_valid + 7, B, 1, C, heads, qdt, cuda)
@@ -842,6 +871,163 @@ def test_dense_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
         assert torch.equal(got, again), n_valid
         err = (got.float() - want.float()).abs().max().item()
         assert err <= _TOL[kvdt], (n_valid, err)
+
+
+# -- the tensor-core decode body (decode_gqa_mma.cuh): K1 and B4 at grouped
+#    heads, bf16 (mma.sync) and f32 (split TF32) -----------------------------
+
+_QWEN2VL_HEADS = dict(H=64, KV=8, hd=128)    # qwen2-vl-72b, G = 8
+_GLM4_HEADS = dict(H=32, KV=2, hd=128)       # glm4-9b, G = 16
+_H100_SMS = 132                              # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("sms", [_H100_SMS, 114], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("max_keys,pairs,dtype,hd", [
+    (544, 64, torch.bfloat16, 192), (544, 64, torch.float32, 192),
+    (4128, 16, torch.bfloat16, 128), (8192, 64, torch.bfloat16, 192),
+    (1184, 64, torch.float32, 128), (1, 1, torch.bfloat16, 64),
+    (100, 300, torch.float32, 128), (5000, 1, torch.float32, 64)])
+def test_mma_split_plan_from_host_ints(max_keys, pairs, dtype, hd, sms):
+    """The tensor-core body's plan (CPU): whole 16-key tiles, every key in
+    exactly one split, no more splits than a row's K/V bytes hold the
+    type's MMA_SPLIT_BYTES (rounded up), no more blocks than the device's
+    SMs (an H100 SXM's 132, a PCIe card's 114) unless the pairs alone are
+    more; host ints only."""
+    key_bytes, split_bytes = 2 * hd * dtype.itemsize, \
+        dops.MMA_SPLIT_BYTES[dtype]
+    n_split, split_keys = dops.entry_split_plan(
+        "decode_attention_x_mma", max_keys, pairs, dtype, hd, sms)
+    assert (n_split, split_keys) == dops.mma_split_plan(
+        max_keys, pairs, key_bytes, split_bytes, sms)
+    assert split_keys % dops.MMA_KEY_TILE == 0
+    assert (n_split - 1) * split_keys < max_keys <= n_split * split_keys
+    assert (n_split - 1) * split_bytes < max_keys * key_bytes
+    assert n_split == 1 or pairs * n_split <= sms
+    with pytest.raises(TypeError, match="host ints"):
+        dops.mma_split_plan(max_keys, torch.tensor(pairs), key_bytes,
+                            split_bytes, sms)
+
+
+def test_decode_entry_picks_the_body_from_dtypes_and_shapes(monkeypatch):
+    """K1 and B4 at G <= MMA_MAX_GROUP = 16 (whisper-tiny's 1 up to
+    glm4-9b's 16) and a tensor-core head dim go to the tensor-core body in
+    bf16 and f32; every other shape (head dims 48 and 32, G = 24), the
+    mixed f32-q-over-bf16 pair and B3 stay on decode_body.cuh; the split
+    arguments follow the entry, the tensor-core body's planned for the
+    device's SMs (``sm_count``, stubbed here)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for prefix in ("paged_decode_attention", "decode_attention"):
+        assert dops.decode_entry(prefix, bf16, bf16, 12, 192) == \
+            f"{prefix}_bf16_bf16_mma"
+        assert dops.decode_entry(prefix, f32, f32, 16, 128) == \
+            f"{prefix}_f32_f32_tf32"
+        # whisper-tiny, smollm-360m, jamba, qwen2-vl
+        for G, hd in ((1, 64), (3, 64), (4, 128), (8, 128)):
+            assert dops.decode_entry(prefix, bf16, bf16, G, hd) == \
+                f"{prefix}_bf16_bf16_mma"
+        for G, hd in ((12, 48), (4, 32), (24, 128)):
+            assert dops.decode_entry(prefix, bf16, bf16, G, hd) == \
+                f"{prefix}_bf16_bf16"
+        assert dops.decode_entry(prefix, f32, bf16, 16, 128) == \
+            f"{prefix}_f32_bf16"
+        handle = dops.KERNEL if prefix.startswith("paged") \
+            else dops.DENSE_KERNEL
+        assert {f"{prefix}_bf16_bf16_mma", f"{prefix}_f32_f32_tf32"} \
+            <= set(handle.entries)
+    q = torch.zeros((8, 96, 192), dtype=bf16)
+    monkeypatch.setattr(dops, "sm_count", lambda device: _H100_SMS)
+    args = dops._split_args(q, 544, 8, entry="decode_attention_bf16_bf16_mma")
+    assert args[:2] == dops.mma_split_plan(
+        544, 64, 2 * 192 * 2, dops.MMA_SPLIT_BYTES[bf16], _H100_SMS)[::-1]
+    assert dops._split_args(q, 544, 8, entry="decode_attention_bf16_bf16")[
+        :2] == dops.split_plan(544, 64)[::-1]
+
+
+def _gqa_lengths(B, P, bs):
+    """Rows of 1 key, one straddling a page boundary, a whole number of
+    pages, all P * bs, and ragged rows between (B = 1: the straddling
+    row)."""
+    edge = [bs + 3, 1, 2 * bs, P * bs]
+    rng = np.random.default_rng(B + P + bs)
+    return np.array((edge + list(rng.integers(1, P * bs + 1, B)))[:B],
+                    np.int32)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [_NEMOTRON, _QWEN2VL_HEADS, _GLM4_HEADS],
+                         ids=["nemotron", "qwen2vl", "glm4"])
+def test_gqa_decode_kernels_match_plain(cuda, heads, dtype, B):
+    """K1 and B4 at nemotron-4-340b's (G = 12, hd 192), qwen2-vl-72b's (8,
+    128) and glm4-9b's (16, 128) heads each launch exactly their
+    tensor-core entry and equal the plain version: K1 over rows of 1 key,
+    one straddling a page, whole pages and a full page table; B4 at
+    n_valid 1, 37 and the whole cache.  Two launches, the same bits."""
+    P, bs = 40, 16
+    c = _case(B + heads["H"], B=B, T=1, bs=bs, P=P, max_len=P * bs,
+              **heads)
+    lengths = _gqa_lengths(B, P, bs)
+    args = (_t(c["q"][:, 0], cuda, dtype), _t(c["k"], cuda, dtype),
+            _t(c["v"], cuda, dtype), _t(c["pt"], cuda), _t(lengths, cuda))
+    G, hd = heads["H"] // heads["KV"], heads["hd"]
+    entry = dops.decode_entry("paged_decode_attention", dtype, dtype, G, hd)
+    assert entry.endswith("_mma" if dtype == torch.bfloat16 else "_tf32")
+    before = _entry_counts(dops.KERNEL)
+    got = dops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.KERNEL, before, entry)
+    again = dops.paged_decode_attention(*args)
+    want = dops.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and torch.equal(got, again)
+    _check_decode_rows(got, want, lengths, _TOL[dtype])
+    C = 600
+    entry = dops.decode_entry("decode_attention", dtype, dtype, G, hd)
+    for n_valid in (1, 37, C):
+        q, k, v = _dense_qkv(n_valid + B, B, 1, C, heads, dtype, cuda)
+        q = q[:, 0].contiguous()
+        before = _entry_counts(dops.DENSE_KERNEL)
+        got = dops.decode_attention(q, k, v, n_valid)
+        torch.cuda.synchronize()
+        _assert_one_launch_of(dops.DENSE_KERNEL, before, entry)
+        again = dops.decode_attention(q, k, v, n_valid)
+        want = dops.decode_attention_plain(q, k, v, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), n_valid
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _TOL[dtype], (n_valid, err)
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_decode_entries_take_any_group_and_head_dim(cuda, G, dtype):
+    """The tensor-core entries, launched by name, are right at every group
+    size up to 16 (rows G..15 padded) and head_dim 64 and 192, rows long
+    enough to split (B = 2): the rows chip_smoke.py phase 3
+    times against decode_body.cuh to set the dispatch's rule."""
+    suffix = "bf16_bf16_mma" if dtype == torch.bfloat16 else "f32_f32_tf32"
+    entry = f"paged_decode_attention_{suffix}"
+    for hd in (64, 192):
+        heads = dict(H=2 * G, KV=2, hd=hd)
+        P = _split_pages(entry, 16, hd, dtype, 40)
+        c = _case(G + hd, B=2, T=1, bs=16, P=P, max_len=P * 16, min_len=16,
+                  **heads)
+        args = (_t(c["q"][:, 0], cuda, dtype), _t(c["k"], cuda, dtype),
+                _t(c["v"], cuda, dtype), _t(c["pt"], cuda),
+                _t(c["lengths"], cuda))
+        q, kp, vp, pt, ln = args
+        out = torch.empty_like(q)
+        split = dops._split_args(q, P * 16, 2, entry=entry)
+        assert split[1] > 1
+        dops.KERNEL.launch(
+            entry, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
+            ln.data_ptr(), out.data_ptr(), 2, 2 * G, 2, hd, 16, P,
+            ctypes.c_float(1.0 / np.sqrt(hd)), *split,
+            torch.cuda.current_stream().cuda_stream)
+        want = dops.paged_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= _TOL[dtype], (hd, err)
 
 
 # -- int8 pools: B3 (decode) and the int8 paged prefill (K2q) ----------------

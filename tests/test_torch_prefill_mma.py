@@ -161,16 +161,19 @@ SMOKE = (32, 16, 32)        # the deepseek-v3 smoke config's
 @pytest.mark.parametrize("dtypes,dims,flash,decode", [
     ((BF16,) * 4, MLA, "flash_attention_mla_bf16_mma",
      "decode_attention_mla_bf16"),
-    # f32 at MLA's dims: the GQA operands at q/k 192, the split-TF32 body
-    # (ids as when it was the CUDA-core one)
+    # f32 at MLA's dims: the GQA operands at q/k 192, the split-TF32
+    # bodies (ids as when they were the CUDA-core ones)
     pytest.param((F32,) * 4, MLA, "flash_attention_f32_tf32",
-                 "decode_attention_f32_f32",
+                 "decode_attention_f32_f32_tf32",
                  id="dtypes1-dims1-flash_attention_f32-"
                     "decode_attention_f32_f32"),
     ((F32,) * 4, SMOKE, "flash_attention_f32", "decode_attention_f32_f32"),
     ((BF16,) * 4, SMOKE, "flash_attention_bf16", "decode_attention_bf16_bf16"),
-    ((BF16,) * 4, (64, 64, 128), "flash_attention_bf16_mma",
-     "decode_attention_bf16_bf16"),
+    # q/k 128: the tensor-core decode body at G = 1 (id as before it)
+    pytest.param((BF16,) * 4, (64, 64, 128), "flash_attention_bf16_mma",
+                 "decode_attention_bf16_bf16_mma",
+                 id="dtypes4-dims4-flash_attention_bf16_mma-"
+                    "decode_attention_bf16_bf16"),
     pytest.param((F32, BF16, BF16, BF16), MLA, "flash_attention_f32_tf32",
                  "decode_attention_f32_bf16",
                  id="dtypes5-dims5-flash_attention_f32-"
