@@ -1,6 +1,6 @@
 """Where the tensor-core attention bodies' time goes, on one GPU.
 
-    python3 prefill_ablations.py [--body mma|tf32|bwd32|all]
+    python3 ablations.py [--body mma|tf32|bwd32|dec8|all]
 
 Builds the entries of a body from the sources in this checkout and from
 copies of it with one part cut out or changed, under
@@ -13,7 +13,11 @@ and V 128, at phase 3's S = 512 and phase 13(b)'s S = 128), ``tf32``
 jamba and nemotron-4-340b heads, f32 K2 and K2q over int8 pools) and
 ``bwd32`` (``csrc/backward_tf32.cuh``, B2's f32 backward in split TF32
 at smollm's and jamba's heads, B = 8, S = 512, causal, given the
-``*_lse`` forward's logsumexp).
+``*_lse`` forward's logsumexp) and ``dec8`` (``decode_attention/csrc/
+decode_gqa_mma.cuh`` over int8 pools: B3's
+``paged_decode_attention_quant_f32_tf32`` at phase 3's smollm rows and
+at jamba's, nemotron-4-340b's and glm4-9b's heads, B = 8, each at the
+split plan ``ops.entry_split_plan`` gives it).
 
   body       the body as it is (its output checked against the plain
              version, within chip_smoke's tolerance)
@@ -38,6 +42,21 @@ at smollm's and jamba's heads, B = 8, S = 512, causal, given the
              bits, other instructions
   no_fold    (bwd32) the gradients' products accumulated on the tensor
              cores, k8 step after k8 step, not summed apart and added
+  warps4     (dec8) blocks of 4 warps (8 in the body: two a
+             sub-partition)
+  stages2    (dec8) 2 ring stages at head_dim 64 (4 in the body)
+  stages3    (dec8) 3 ring stages at head_dim 128 and 192 (2 in the body)
+  no_cluster (dec8) the splits merged through the workspace by the last
+             block (the merge where the clusters cannot all be resident),
+             not in a cluster's distributed shared memory
+  chain      (dec8) Q.K's and P.V's products accumulated on the tensor
+             cores, k8 step after k8 step, not summed apart and added
+  no_merge   (dec8) the splits' merge cut out (each block writes its own
+             partial output; still launched as clusters)
+  no_qk      (dec8) no Q.K products (the scores zero; loads, softmax and
+             P.V run)
+  no_pv      (dec8) no P.V products (V widened and folded in without
+             them)
 
 The cut copies compute wrong outputs; only their times mean anything.
 Each variant is timed twice, in the order given and then reversed, and
@@ -66,6 +85,26 @@ _CUTS = {
 _CVT = ("flash_attention/csrc/prefill_tf32.cuh",
         "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
         "  return to_tf32(x);")
+# the int8 decode body's edits (dec8)
+_W4 = ("kInt8Warps = 8;", "kInt8Warps = 4;")
+_S2 = ("kInt8Stages = kHd <= 64 ? 4 : 2;", "kInt8Stages = 2;")
+_S3 = ("kInt8Stages = kHd <= 64 ? 4 : 2;", "kInt8Stages = kHd <= 64 ? 4 : 3;")
+_NO_CLUSTER = ("  if (n_split > 1 && n_split <= kClusterMax) {",
+               "  if (false) {")
+_NULL8 = ("      k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;",
+          "      0;")
+_NO_MERGE = ("  if (n_split == 1) {", "  if (true) {")
+_NO_QK = ("      scores_int8<kHd>(s, q_s, ks, gr, tc);",
+          "      for (int n = 0; n < kNT; ++n)\n"
+          "        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;")
+_NO_PV = ("            t32::mma2<true, kGv>(o + 4 * w + e0, ph, pl, vb);",
+          "            for (int e = 0; e < kGv; ++e)\n"
+          "              o[4 * w + e0 + e][0] += __uint_as_float(\n"
+          "                  vb[e][0] ^ vb[e][1] ^ ph[e] ^ pl[e]);")
+_QK_CHAIN = ("      t32::mma2<true, kNT>(s, qh, ql, kb);",
+             "      t32::mma2<false, kNT>(s, qh, ql, kb);")
+_PV_CHAIN = ("            t32::mma2<true, kGv>(o + 4 * w + e0, ph, pl, vb);",
+             "            t32::mma2<false, kGv>(o + 4 * w + e0, ph, pl, vb);")
 BODIES = {
     "mma": ("flash_attention/csrc/prefill_mma.cuh", dict(
         body=[], **_CUTS,
@@ -92,19 +131,26 @@ BODIES = {
         body=[], cvt_split=[_CVT],
         no_fold=[("      mma3<true, kGroup>(c + n0, ah, al, bh, bl);",
                   "      mma3<false, kGroup>(c + n0, ah, al, bh, bl);")])),
+    "dec8": ("decode_attention/csrc/decode_gqa_mma.cuh", dict(
+        body=[], warps4=[_W4], stages2=[_S2], stages3=[_S3],
+        no_cluster=[_NO_CLUSTER], chain=[_QK_CHAIN, _PV_CHAIN],
+        null=[_NULL8], no_merge=[_NO_MERGE], no_qk=[_NO_QK],
+        no_pv=[_NO_PV])),
 }
 
 
 def build_variants(body: str, fops, CudaKernel):
     """One {"paged", "flash", "quant"} set of CudaKernels per variant of
-    ``body``, built from a copy of the kernel sources with its edits."""
+    ``body`` ({"decode8"} for dec8), built from a copy of the kernel
+    sources with its edits."""
+    from repro_torch.kernels.decode_attention import ops as dops
     path, variants = BODIES[body]
     src = ROOT / "src" / "repro_torch" / "kernels"
     libs = {}
     for name, edits in variants.items():
         tree = ROOT / "build" / "ablations" / body / name / "kernels"
         shutil.rmtree(tree, ignore_errors=True)
-        for sub in ("csrc", "flash_attention/csrc"):
+        for sub in ("csrc", "flash_attention/csrc", "decode_attention/csrc"):
             shutil.copytree(src / sub, tree / sub)
         for edit in edits:
             where, old, new = edit if len(edit) == 3 else (path, *edit)
@@ -115,6 +161,11 @@ def build_variants(body: str, fops, CudaKernel):
                                    f"{old!r}")
             header.write_text(text.replace(old, new))
         csrc = tree / "flash_attention" / "csrc"
+        if body == "dec8":
+            libs[name] = {"decode8": CudaKernel(
+                f"ablate_{body}_{name}", tree / "decode_attention" / "csrc"
+                / "paged_decode_quant.cu", dops.QUANT_KERNEL.entries)}
+            continue
         sources = (("backward", "flash_backward.cu", fops.BACKWARD_KERNEL),) \
             if body == "bwd32" else (
                 ("paged", "paged_prefill.cu", fops.KERNEL),
@@ -172,6 +223,20 @@ def quant_call(kernel, entry, q, kq, vq, ks, vs, pt, lengths):
     return out
 
 
+def decode8_call(kernel, entry, q, kq, vq, ks, vs, pt, lengths):
+    from repro_torch.kernels.decode_attention import ops as dops
+    B, H, hd = q.shape
+    out = torch.empty_like(q)
+    kernel.launch(entry, q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                  ks.data_ptr(), vs.data_ptr(), pt.data_ptr(),
+                  lengths.data_ptr(), out.data_ptr(), B, H, kq.shape[2], hd,
+                  kq.shape[1], pt.shape[1], ctypes.c_float(1 / np.sqrt(hd)),
+                  *dops._split_args(q, kq.shape[1] * pt.shape[1],
+                                    kq.shape[2], entry=entry,
+                                    kv_dtype=torch.int8), _stream())
+    return out
+
+
 def backward_call(kernel, entry, q, k, v, out, dout, lse):
     B, S, H, hd = q.shape
     grads = [torch.empty_like(t) for t in (q, k, v)]
@@ -197,6 +262,31 @@ def cases(body: str, cs, fops):
     from repro_torch.models.attention import dequantize_kv
     dtype = torch.bfloat16 if body == "mma" else torch.float32
     out = []
+    if body == "dec8":
+        from repro_torch.kernels.decode_attention import ops as dops
+        q, k, v, pt, lengths = cs._attn_case(8 * 7 + 2, 8, 1, dtype, dtype,
+                                             cs.SMOLLM_HEADS)
+        shapes = [("smollm phase 3", cs.SMOLLM_HEADS,
+                   (q[:, 0].contiguous(), k, v, pt, lengths))]
+        for geo, heads, n_keys in (("jamba", cs.JAMBA_HEADS, 544),
+                                   ("nemotron", cs.NEMOTRON_HEADS, 544),
+                                   ("glm4", cs.GLM4_HEADS, 4160),
+                                   ("glm4", cs.GLM4_HEADS, 8192)):
+            args, *_ = cs._gqa_decode_case(dops, True, heads, 8, n_keys,
+                                           dtype, seed=n_keys + heads["hd"])
+            shapes.append((f"{geo} {n_keys} keys", heads, args))
+        for tag, heads, (q, k, v, pt, lengths) in shapes:
+            kq, vq, ks, vs = cs._quant_pools(k, v)
+            args = (q, kq, vq, ks, vs, pt, lengths)
+            out.append((f"B3 {tag} B=8", "decode8",
+                        dops.quant_decode_entry(heads["H"] // heads["KV"],
+                                                heads["hd"]), args,
+                        dops.paged_decode_attention_quant_plain(*args),
+                        cs._attn_library_call(
+                            q[:, None], dequantize_kv(kq, ks),
+                            dequantize_kv(vq, vs), pt, lengths, 1, True,
+                            heads)))
+        return out
     if body == "bwd32":
         for case in cs.BACKWARD_CASES:
             geo, heads, dt, S, T, causal, window = case
@@ -273,12 +363,12 @@ def cases(body: str, cs, fops):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--body", choices=("mma", "tf32", "bwd32", "all"),
+    ap.add_argument("--body", choices=("mma", "tf32", "bwd32", "dec8", "all"),
                     default="all")
-    bodies = ("mma", "tf32", "bwd32") if (b := ap.parse_args().body) == "all" \
-        else (b,)
+    bodies = ("mma", "tf32", "bwd32", "dec8") \
+        if (b := ap.parse_args().body) == "all" else (b,)
     if not torch.cuda.is_available():
-        print("prefill_ablations: no CUDA device", file=sys.stderr)
+        print("ablations: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
@@ -289,9 +379,10 @@ def main() -> None:
     load_all([k for body in libs.values() for v in body.values()
               for k in v.values()])
     calls = {"flash": flash_call, "paged": paged_call, "quant": quant_call,
-             "mla": mla_call, "backward": backward_call}
+             "mla": mla_call, "backward": backward_call,
+             "decode8": decode8_call}
     libraries = {"flash": "flash", "paged": "paged", "quant": "quant",
-                 "mla": "flash", "backward": "backward"}
+                 "mla": "flash", "backward": "backward", "decode8": "decode8"}
     timer = cs.Timer()
     for body in bodies:
         variants = libs[body]
@@ -313,6 +404,14 @@ def main() -> None:
                     tol = cs.GRAD_TOL[got[0].dtype]
                     cs.check(name != "body" or err <= tol,
                              f"{body} {tag}: relative gradient error {err}")
+                elif which == "decode8":
+                    # every variant's error logged: the _chain variants
+                    # sum in another order
+                    err = (got.float() - want.float()).abs().max().item()
+                    print(f"{body} {name} {tag}: max_abs_err {err:.3e}",
+                          flush=True)
+                    cs.check(name != "body" or err <= cs.TOL[want.dtype],
+                             f"{body} {tag}: max_abs_err {err}")
                 elif name == "body":
                     err = (got.float() - want.float()).abs().max().item()
                     # the MLA rows: one bf16 ulp of the largest output

@@ -16,8 +16,11 @@ result line):
                  delta, dq, dk/dv, rope sum; 64, 128, 192 and MLA's;
                  backward_tf32.cuh, f32 in split TF32: delta, dk/dv, dq
                  at 64 and 128), of the split decode body
-                 (decode_body.cuh) and of the MLA decode body
-                 (decode_mla.cuh).
+                 (decode_body.cuh), of the MLA decode body
+                 (decode_mla.cuh) and of the tensor-core decode body
+                 (decode_gqa_mma.cuh: bf16, f32 and f32 q over int8 K/V
+                 at 64, 128 and 192, its layout and residency as the
+                 card reports them; none may spill).
   3. kernels   — each kernel against its plain PyTorch version at the
                  served shapes, with its time beside the plain version's,
                  one library call's (where one exists) and its bound:
@@ -44,7 +47,9 @@ result line):
                  partly filled cache and a full (wrapped) ring; the int8
                  paged decode (B3) and int8 paged prefill (K2q) at smollm
                  heads, f32 q over int8 pools with per-row scales (batch 4
-                 and 8; T = 32 for K2q, on its ``_tf32`` entry); the fused
+                 and 8; B3 on its tensor-core entry
+                 ``paged_decode_attention_quant_f32_tf32``, decode_body.cuh's
+                 timed beside it; T = 32 for K2q, on its ``_tf32`` entry); the fused
                  transform (B7) at e4's (64, 224, 224, 3) uint8 -> f32 and
                  uint8 -> uint8, bit-exact.  Then the split decode body at
                  its split boundaries (K1, B3: rows of 0, 1, one split, one
@@ -167,7 +172,8 @@ result line):
   8. int8      — smollm-360m at full width and depth with f32 weights
                  (random, seed 0) serves phase 5's 16 requests through the
                  pipeline over an int8 pool (batch 8, chunk 32, burst 8);
-                 B3 and K2q (only through its ``_tf32`` entry) must have
+                 B3 (only through ``paged_decode_attention_quant_f32_tf32``)
+                 and K2q (only through its ``_tf32`` entry) must have
                  launched and K1/K2 must not.  Then
                  the same model over an f32 pool (K2 only through
                  ``paged_prefill_attention_f32_f32_tf32``): greedy-token agreement
@@ -408,7 +414,18 @@ result line):
                  through ``flash_attention_bf16_mma``, B4 through
                  ``decode_attention_bf16_bf16_mma``), launches against
                  layers x steps; tok/s, TTFT, peak memory, a trace each
-                 (busy share, K1/K2 and B2/B4 device time).
+                 (busy share, K1/K2 and B2/B4 device time).  (d)
+                 glm4-9b at full width and depth in f32 (~9.4B
+                 parameters, 37.6 GB, no cut) serves the same 8 requests
+                 paged over an int8 pool, then over an f32 pool: B3 40 x
+                 31 times, all through
+                 ``paged_decode_attention_quant_f32_tf32``, K2q 40 x 16
+                 through its ``_tf32`` entry, no other attention kernel
+                 (f32 pool: K1/K2's ``_f32_f32_tf32``); tok/s, TTFT, peak
+                 memory, a trace each (busy share, B3's device time
+                 against f32 K1's), the greedy tokens' agreement with the
+                 f32 pool logged (not gated), bytes per block f32/int8 =
+                 1024/264.
 Phase 3 also times K1 and B4 through both decode bodies
 (``decode_body.cuh`` and the tensor-core ``decode_gqa_mma.cuh``) at G = 1,
 3, 4, 8, 12 and 16 (whisper-tiny's, smollm-360m's, jamba's, qwen2-vl's,
@@ -416,7 +433,13 @@ nemotron's and glm4's heads; B = 8, 544 keys, bf16 and f32), and at
 nemotron's heads over 8192 keys and glm4's over 4160 and 8192 (bf16),
 each against its plain version, SDPA and the bound: the rows that set
 the dispatch's rule; wherever the dispatch now picks the tensor-core
-body, the earlier body is timed beside it (``earlier_ms``).
+body, the earlier body is timed beside it (``earlier_ms``).  B3 the same
+way over int8 pools quantized from the f32 rows' pools (G = 1 to 16 over
+544 keys, glm4's heads over 4160 and 8192; a row with no keys 0, two
+launches the same bits), with f32 K1 on the keys it was quantized from
+(``f32_k1_ms``).  And K2 (B = 8, T = 256 at positions 3840-4095) and B2
+(B = 8, S = T = 4096, causal; its plain version at B = 1, whose f32
+scores take 17.2 GB at B = 8) at glm4's heads, bf16.
 Phases 4-16 (serving) must launch no backward entry, no ``*_lse``
 forward entry and no checkpointing scan: every reset of the launch counts
 checks it.
@@ -439,10 +462,11 @@ mesh runs, ``launches_phase18_by_rank`` the same per rank;
 ``entries``: every C entry's launches summed over phases 4-21 (which body
 served); ``nemotron_heads``: the phase-3 rows at nemotron-4-340b's heads,
 the earlier CUDA-core body's time as ``earlier_ms``, the f32 rows under
-``float32``; ``gqa_heads``: K1's and B4's rows by group size, the other
-body's time as ``other_ms``); then
+``float32``; ``gqa_heads``: K1's, B4's and B3's rows by group size, the
+other body's time as ``other_ms``, B3's with f32 K1's as ``f32_k1_ms``;
+``slice_shapes`` also holds K2's and B2's rows at glm4's heads); then
 the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.  The whole run takes ~6-10 minutes on one H100, the
+"device": {...}}``.  The whole run takes ~14 minutes on one H100, the
 build included.
 """
 from __future__ import annotations
@@ -619,10 +643,13 @@ def phase_build(kernels) -> None:
         _log_body_build(k.name, text)
     # what the card makes of the tensor-core decode body
     from repro_torch.kernels.decode_attention import ops as dops
-    for k in (dops.KERNEL, dops.DENSE_KERNEL):
-        for dt, hd in ((dt, hd) for dt in ("bf16", "f32")
-                       for hd in dops.MMA_HEAD_DIMS):
+    for k in (dops.KERNEL, dops.DENSE_KERNEL, dops.QUANT_KERNEL):
+        for dt, hd in ((dt, hd) for dt in (
+                ("int8",) if k is dops.QUANT_KERNEL else ("bf16", "f32"))
+                for hd in dops.MMA_HEAD_DIMS):
             occ = dops.gqa_decode_occupancy(k, dt, hd)
+            check(occ["spill_bytes"] == 0,
+                  f"{k.name} tensor-core decode body {dt} hd {hd} spills")
             log(f"[build] {k.name} tensor-core decode body {dt} hd {hd}: "
                 f"{occ}")
 
@@ -708,6 +735,7 @@ def _log_body_build(name: str, text: str) -> None:
             elif fn and "decode_gqa_kernel" in fn:
                 targs = fn.split("decode_gqa_kernel", 1)[1]
                 kind = "bf16" if targs.startswith("I13__nv_bfloat16") \
+                    else "f32 q over int8" if "RowScales" in targs \
                     else "f32"
                 hd = re.findall(r"Li(\d+)E", targs)[-1]
                 rows = "paged" if "PagedRows" in targs else "contiguous"
@@ -1789,7 +1817,90 @@ def phase_slice_kernels(timer: Timer):
                                          f"n_valid={n_valid}"] = dict(
                     entry=entry, max_abs_err=err, **row)
             log(line)
+    _glm4_prefill_rows(timer, rows)
     return rows
+
+
+def _glm4_prefill_rows(timer: Timer, rows: dict) -> None:
+    """K2 and B2 at glm4-9b's heads (32/2, G = 16, hd 128, bf16) at phase
+    21's shapes, each against its plain version, timed beside it, SDPA
+    and the bound: K2's last prefill chunk of a 4096-token prompt (B = 8,
+    T = 256 at positions 3840-4095, over a shuffled page table) and B2
+    causal over the whole prompt (B = 8, S = T = 4096).  B2's plain
+    version runs at B = 1 only (``plain_batch``): its f32 scores alone
+    take B * 32 * 4096^2 * 4 bytes, 17.2 GB at B = 8."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    bf16, B, heads = torch.bfloat16, 8, GLM4_HEADS
+    H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+    T, ctx = GLM4_CHUNK, GLM4_CTX
+    g = torch.Generator(device="cpu").manual_seed(ctx + T)
+    pages = ctx // BS
+    nb = B * pages + 7
+    q = torch.randn((B, T, H, hd), generator=g).to("cuda", bf16)
+    kp, vp = (torch.randn((nb, BS, KV, hd), generator=g).to("cuda", bf16)
+              for _ in range(2))
+    pt = torch.stack([torch.randperm(nb, generator=g)[:pages]
+                      for _ in range(B)]).to("cuda", torch.int32)
+    lengths = torch.full((B,), ctx - T, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, pt, lengths)
+    entry = fops.paged_prefill_entry(bf16, bf16, hd)
+    tag = (f"paged_prefill_attention (K2) glm4 heads {H}/{KV} (G = "
+           f"{H // KV}) hd {hd} B={B} T={T} at positions {ctx - T}-"
+           f"{ctx - 1} bfloat16 [{entry}]")
+    e0 = dict(fops.KERNEL.entry_launches)
+    out = fops.paged_prefill_attention(*args)
+    torch.cuda.synchronize()
+    e1 = fops.KERNEL.entry_launches
+    check({e: e1[e] - e0[e] for e in e1} == {e: int(e == entry) for e in e1},
+          f"{tag}: launched {e1}, not one {entry}")
+    err = (out.float() - fops.paged_prefill_attention_plain(*args).float()
+           ).abs().max().item()
+    check(torch.isfinite(out.float()).all().item() and err <= TOL[bf16],
+          f"{tag}: max_abs_err {err} > {TOL[bf16]}")
+    n_vis = B * (T * (ctx - T) + T * (T + 1) // 2)
+    row = _time_row(timer, fops.paged_prefill_attention,
+                    fops.paged_prefill_attention_plain, args,
+                    _attn_library_call(*args, T, False, heads),
+                    _bound(2 * q.numel() * 2 + 2 * B * ctx * KV * hd * 2
+                           + B * pages * 4 + B * 4, 4 * H * hd * n_vis, bf16))
+    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {TOL[bf16]})"
+        + _fmt(row))
+    rows["paged_prefill_attention"] = {
+        f"glm4 B={B} T={T} at {ctx - T}-{ctx - 1}": dict(
+            entry=entry, max_abs_err=err, **row)}
+    del args, q, kp, vp, out
+    S = ctx
+    q, k, v = _dense_qkv(S + hd + 1, B, S, S, heads, bf16)
+    entry = fops.flash_entry(bf16, hd)
+    tag = (f"flash_attention (B2, contiguous) glm4 heads {H}/{KV} hd {hd} "
+           f"B={B} S=T={S} causal bfloat16 [{entry}]")
+    e0 = dict(fops.FLASH_KERNEL.entry_launches)
+    out = fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e1 = fops.FLASH_KERNEL.entry_launches
+    check({e: e1[e] - e0[e] for e in e1} == {e: int(e == entry) for e in e1},
+          f"{tag}: launched {e1}, not one {entry}")
+    one = (q[:1], k[:1], v[:1])
+    want = fops.flash_attention_plain(*one, causal=True)
+    err = (out[:1].float() - want.float()).abs().max().item()
+    tol = DENSE_BF16_TOL["flash_attention"]
+    check(torch.isfinite(out.float()).all().item() and err <= tol,
+          f"{tag}: max_abs_err {err} > {tol} (row 0)")
+    del want
+    n_scores = B * H * S * (S + 1) // 2
+    bound = _bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                   4 * hd * n_scores, bf16)
+    row = dict(ms=timer.ms(lambda: fops.flash_attention(q, k, v,
+                                                        causal=True)),
+               plain_ms=timer.ms(lambda: fops.flash_attention_plain(
+                   *one, causal=True), iters=5, warmup=1),
+               plain_batch=1, bound_ms=bound[0], bound_by=bound[1],
+               library_ms=timer.ms(_sdpa(q, k, v, H // KV, causal=True)))
+    log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol}; row 0 against "
+        f"the plain version at B = 1, whose f32 scores take 17.2 GB at B = "
+        f"8)" + _fmt(row) + " (plain_ms at B = 1)")
+    rows["flash_attention"][f"glm4 causal B={B} S=T={S}"] = dict(
+        entry=entry, max_abs_err=err, **row)
 
 
 # B2's backward against torch.autograd of its plain version: each
@@ -2631,17 +2742,52 @@ def _decode_entry_run(dops, entry, args, split=None):
     return run
 
 
+def _quant_entry_run(dops, entry, args, split=None):
+    """A callable that launches B3's C entry ``entry`` on ``args`` (q,
+    int8 pools, their scales, page table, lengths) with the split plan
+    that entry's wrapper would give it (or ``split``, a (split_keys,
+    n_split) pair): the body the dispatch did not pick, or another plan,
+    timed on the same operands."""
+    q, kq, vq, ks, vs, pt, lengths = args
+    B, H, hd = q.shape
+    KV, bs, P = kq.shape[2], kq.shape[1], pt.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(q)
+
+    def split_args():
+        if split is None:
+            return dops._split_args(q, P * bs, KV, entry=entry,
+                                    kv_dtype=torch.int8)
+        ws, cnt = dops.workspace(q.device, B * KV * split[1] * (H // KV)
+                                 * (hd + 2), B * KV)
+        return (*split, ws.data_ptr(), cnt.data_ptr())
+
+    def run():
+        dops.QUANT_KERNEL.launch(
+            entry, q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), pt.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, H, KV, hd, bs, P, ctypes.c_float(1.0 / np.sqrt(hd)),
+            *split_args(), stream)
+        return out
+    return run
+
+
 def _decode_bound(q, kv_dtype, KV, n_keys, paged: bool):
     """Least time of one decode call: q read, the output written, n_keys
     K and V rows of each (row, KV head), the page-table entries they sit
-    in and the lengths (paged); 4 * H * hd operations a key and row."""
+    in and the lengths (paged); 4 * H * hd operations a key and row.  Over
+    int8 pools (B3) each key's K and V rows also carry two f32 scales, and
+    the output and the operations are f32's (the reference dequantizes to
+    f32 and computes in f32)."""
     B, H, hd = q.shape
+    quant = kv_dtype == torch.int8
     es = torch.empty((), dtype=kv_dtype).element_size()
-    n_bytes = q.numel() * (q.element_size() + es) \
-        + 2 * B * n_keys * KV * hd * es
+    n_bytes = q.numel() * (q.element_size() + (4 if quant else es)) \
+        + B * n_keys * KV * (2 * hd * es + (8 if quant else 0))
     if paged:
         n_bytes += B * (-(-n_keys // BS)) * 4 + B * 4
-    return _bound(n_bytes, 4 * B * H * hd * n_keys, kv_dtype)
+    return _bound(n_bytes, 4 * B * H * hd * n_keys,
+                  torch.float32 if quant else kv_dtype)
 
 
 def _gqa_decode_case(dops, paged, heads, B, n_keys, dtype, seed):
@@ -2737,6 +2883,84 @@ def phase_gqa_decode(timer: Timer) -> dict:
             rows[name][f"{geo} G={G} hd={hd} B={B} keys={n_keys} "
                        f"{str(dtype)[6:]}"] = row
             del args, got, again, want, library
+    rows["paged_decode_attention_quant"] = _quant_gqa_rows(timer)
+    return rows
+
+
+# B3's phase-3 rows over int8 pools: (tag, heads, keys), B = 8
+QUANT_GQA = tuple((geo, heads, 544) for geo, heads in GQA_GEOMETRIES) + (
+    ("glm4", GLM4_HEADS, 4160), ("glm4", GLM4_HEADS, 8192))
+
+
+def _quant_gqa_rows(timer: Timer) -> dict:
+    """B3 by group size: at each of ``QUANT_GQA`` (G = 1, 3, 4, 8, 12 and
+    16 over 544 keys, glm4-9b's heads over 4160 and 8192; B = 8, f32 q),
+    over int8 pools quantized from ``_gqa_decode_case``'s f32 pools, the
+    entry ``quant_decode_entry`` picks against the plain version (1e-5),
+    launched once, twice the same bits, a row with no keys 0; timed beside
+    decode_body.cuh's entry (``other_ms``), f32 K1 over the f32 pools it
+    was quantized from (``f32_k1_ms``: the same keys, four times the
+    bytes), SDPA over the dequantized cache and the bound."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models.attention import dequantize_kv
+    f32, B, rows = torch.float32, 8, {}
+    other = "paged_decode_attention_quant_f32"
+    for geo, heads, n_keys in QUANT_GQA:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        G = H // KV
+        f32_args, *_ = _gqa_decode_case(dops, True, heads, B, n_keys, f32,
+                                        seed=n_keys + G + hd + 1)
+        q, kp, vp, pt, lengths = f32_args
+        kq, vq, ks, vs = _quant_pools(kp, vp)
+        args = (q, kq, vq, ks, vs, pt, lengths)
+        entry = dops.quant_decode_entry(G, hd)
+        tag = (f"[kernels] paged_decode_attention_quant (B3) {geo} heads "
+               f"{H}/{KV} (G = {G}) hd {hd} B={B} over {n_keys} keys, f32 "
+               f"q over int8 [{entry}]")
+        e0 = dict(dops.QUANT_KERNEL.entry_launches)
+        got = dops.paged_decode_attention_quant(*args)
+        torch.cuda.synchronize()
+        e1 = dops.QUANT_KERNEL.entry_launches
+        check({e: e1[e] - e0[e] for e in e1} == {e: int(e == entry)
+                                                 for e in e1},
+              f"{tag}: launched {e1}, not one {entry}")
+        again = dops.paged_decode_attention_quant(*args)
+        want = dops.paged_decode_attention_quant_plain(*args)
+        empty = lengths.clone()
+        empty[0] = 0
+        zero = dops.paged_decode_attention_quant(*args[:-1], empty)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.isfinite(got).all().item() and err <= TOL[f32],
+              f"{tag}: max_abs_err {err} > {TOL[f32]}")
+        check(torch.equal(got, again), f"{tag}: two launches differ")
+        check(not zero[0].any().item() and torch.equal(zero[1:], got[1:]),
+              f"{tag}: a row with no keys is not 0")
+        row = _time_row(timer, dops.paged_decode_attention_quant,
+                        dops.paged_decode_attention_quant_plain, args,
+                        _attn_library_call(q, dequantize_kv(kq, ks),
+                                           dequantize_kv(vq, vs), pt,
+                                           lengths, 1, True, heads),
+                        _decode_bound(q, torch.int8, KV, n_keys, True))
+        log(f"{tag}: max_abs_err={err:.3e} (tol {TOL[f32]}); bitwise "
+            f"repeatable; empty row 0;" + _fmt(row))
+        run = _quant_entry_run(dops, other, args)
+        got_o = run()
+        torch.cuda.synchronize()
+        err_o = (got_o - want).abs().max().item()
+        check(err_o <= TOL[f32], f"{tag}: {other} error {err_o}")
+        row.update(entry=entry, max_abs_err=err, other_entry=other,
+                   other_ms=timer.ms(run), other_err=err_o,
+                   f32_k1_ms=timer.ms(
+                       lambda: dops.paged_decode_attention(*f32_args)))
+        log(f"{tag}: {other} {row['other_ms']:.4f} ms (error {err_o:.3e}), "
+            f"f32 K1 over the f32 pools {row['f32_k1_ms']:.4f} ms: {entry} "
+            f"takes {row['ms'] / row['other_ms']:.2f}x and "
+            f"{row['ms'] / row['f32_k1_ms']:.2f}x their times, "
+            f"{row['ms'] / row['library_ms']:.2f}x SDPA's; "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound")
+        rows[f"{geo} G={G} hd={hd} B={B} keys={n_keys} int8"] = row
+        del args, f32_args, got, again, want, zero, kq, vq, kp, vp
     return rows
 
 
@@ -2790,12 +3014,14 @@ def phase_quant_kernels(timer: Timer):
             kq, vq, ks, vs = _quant_pools(k, v)
             args = (q, kq, vq, ks, vs, pt, lengths)
             n0 = handle.launches
-            entry = None if decode else fops.quant_prefill_entry(heads["hd"])
+            entry = dops.quant_decode_entry(
+                heads["H"] // heads["KV"], heads["hd"]) if decode \
+                else fops.quant_prefill_entry(heads["hd"])
             e0 = handle.entry_launches.get(entry, 0)
             out = kern(*args)
             torch.cuda.synchronize()
             check(handle.launches == n0 + 1, f"{name} did not launch")
-            check(entry is None or handle.entry_launches[entry] == e0 + 1,
+            check(handle.entry_launches[entry] == e0 + 1,
                   f"{name} did not launch {entry}")
             want = plain(*args)
             check(out.dtype == f32 and torch.isfinite(out).all().item(),
@@ -2803,8 +3029,7 @@ def phase_quant_kernels(timer: Timer):
             err = (out - want).abs().max().item()
             tol = TOL[f32]
             tag = (f"{name} smollm heads 15/5 hd 64 B={B} T={T} q=float32 "
-                   f"kv=int8 (+f32 row scales)"
-                   + ("" if entry is None else f" [{entry}]"))
+                   f"kv=int8 (+f32 row scales) [{entry}]")
             check(err <= tol, f"{tag}: max_abs_err {err} > {tol}")
             row = _time_row(
                 timer, kern, plain, args,
@@ -2814,29 +3039,35 @@ def phase_quant_kernels(timer: Timer):
                 _quant_bound_ms(q, lengths, T, decode, heads))
             log(f"[kernels] {tag}: max_abs_err={err:.3e} (tol {tol})"
                 + _fmt(row))
+            if decode:       # decode_body.cuh's entry on the same operands
+                _earlier(timer, row, _quant_entry_run(
+                    dops, "paged_decode_attention_quant_f32", args), want,
+                    tol, f"[kernels] {tag}")
             if B == 8:
-                served[name] = dict(max_abs_err=err, **row)
+                served[name] = dict(max_abs_err=err, entry=entry, **row)
     log("[kernels] int8 attention tolerance: 1e-5 (f32 outputs; the "
         "kernels dequantize each row with one f32 product, as the plain "
         "version does, and sum in another order)")
     return served
 
 
-def _split_pages(entry: str, hd: int, dtype) -> int:
+def _split_pages(entry: str, hd: int, kv_dtype) -> int:
     """Pages of BS keys a row takes for ``entry``'s plan to split it: P
     for decode_body.cuh's entries, three of the tensor-core body's splits
-    (``MMA_SPLIT_BYTES`` of K/V each) for its own."""
+    (``MMA_SPLIT_BYTES`` of K/V of ``kv_dtype`` each) for its own."""
     from repro_torch.kernels.decode_attention import ops as dops
     if not entry.endswith(("_mma", "_tf32")):
         return P
-    return -(-3 * dops.MMA_SPLIT_BYTES[dtype] //
-             (BS * 2 * hd * dtype.itemsize))
+    return -(-3 * dops.MMA_SPLIT_BYTES[kv_dtype] //
+             (BS * dops.key_bytes(kv_dtype, hd)))
 
 
 def phase_splits() -> None:
     """The split decode bodies at their split boundaries and the split-TF32
-    prefill body at its edges, each against its plain version: K1 (each
-    entry at the boundaries of its own split plan) and B3
+    prefill body at its edges, each against its plain version: K1 (the
+    entry the dispatch picks) and B3 (both bodies: the tensor-core entry
+    the dispatch picks here, and decode_body.cuh's, launched directly),
+    each at the boundaries of its own split plan,
     with rows of 0, 1, one split's keys, one more and the whole page table
     in one batch (a row with no keys outputs 0; the tensor-core entries'
     page tables hold three of their splits, ``_split_pages``), B4 at
@@ -2853,14 +3084,17 @@ def phase_splits() -> None:
     sms = dops.sm_count(torch.device("cuda"))
     for geo, heads in (("smollm", SMOLLM_HEADS), ("jamba", JAMBA_HEADS)):
         KV, G, hd = heads["KV"], heads["H"] // heads["KV"], heads["hd"]
-        for qdt, kvdt in ((f32, f32), (f32, bf16), (bf16, bf16), ("q8", f32)):
+        cases = [(qdt, kvdt, dops.decode_entry("paged_decode_attention",
+                                               qdt, kvdt, G, hd))
+                 for qdt, kvdt in ((f32, f32), (f32, bf16), (bf16, bf16))]
+        cases += [("q8", f32, dops.quant_decode_entry(G, hd)),
+                  ("q8", f32, "paged_decode_attention_quant_f32")]
+        for qdt, kvdt, entry in cases:
             # the boundaries of the split plan this entry runs with
-            entry = "paged_decode_attention_quant_f32" if qdt == "q8" else \
-                dops.decode_entry("paged_decode_attention", qdt, kvdt, G, hd)
-            pages = _split_pages(entry, hd, f32 if qdt == "q8" else qdt)
+            plan_dt = torch.int8 if qdt == "q8" else kvdt
+            pages = _split_pages(entry, hd, plan_dt)
             n_split, split_keys = dops.entry_split_plan(
-                entry, pages * BS, B * KV, f32 if qdt == "q8" else qdt, hd,
-                sms)
+                entry, pages * BS, B * KV, plan_dt, hd, sms)
             check(n_split > 1, f"[splits] {entry} {geo} over {pages} pages: "
                   f"one split")
             edge = torch.tensor([0, 1, split_keys, split_keys + 1,
@@ -2869,12 +3103,16 @@ def phase_splits() -> None:
             q, k, v, pt, _ = _attn_case(17 + KV, B, 1, f32 if qdt == "q8"
                                         else qdt, kvdt, heads, pages)
             q = q[:, 0].contiguous()
+            handle = dops.QUANT_KERNEL if qdt == "q8" else dops.KERNEL
+            e0 = handle.entry_launches[entry]
             if qdt == "q8":
-                kern, plain = (dops.paged_decode_attention_quant,
-                               dops.paged_decode_attention_quant_plain)
+                plain = dops.paged_decode_attention_quant_plain
                 kq, vq, ks, vs = _quant_pools(k, v)
                 args, tol, what = (q, kq, vq, ks, vs, pt, edge), TOL[f32], \
                     "paged_decode_attention_quant (B3) f32/int8"
+                kern = dops.paged_decode_attention_quant \
+                    if entry == dops.quant_decode_entry(G, hd) else \
+                    lambda *a: _quant_entry_run(dops, entry, a)()
             else:
                 kern, plain = (dops.paged_decode_attention,
                                dops.paged_decode_attention_plain)
@@ -2883,6 +3121,8 @@ def phase_splits() -> None:
             out, again = kern(*args), kern(*args)
             want = plain(*args)
             torch.cuda.synchronize()
+            check(handle.entry_launches[entry] == e0 + 2,
+                  f"{what}: {entry} did not launch")
             check(torch.equal(out, again), f"{what}: two launches differ")
             check(not out[0].any().item(), f"{what}: a row with no keys "
                   "is not 0")
@@ -3152,8 +3392,7 @@ def phase_trace(eng, tag: str, n: int = 8, prompt_len: int = 512):
     (``prompt_len``-token prompts, its max_new_tokens each, direct) under
     a CUDA-only profiler trace; device busy share = summed kernel time
     over the wall time of the serve (one stream: kernels do not
-    overlap).  Returns (device-to-host copies per device step, {device
-    operation: calls per device step})."""
+    overlap).  Returns ``_report_trace``'s triple."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, eng.model.cfg.vocab_size,
@@ -3180,7 +3419,8 @@ def _report_trace(prof, wall: float, steps: int, tag: str, what: str,
     busy share, the kernels that take the device time, the operand
     copies, the hand-written kernels, device-to-host copies and device
     operations per step.  Returns (device-to-host copies per step,
-    {device operation: calls per step})."""
+    {device operation: calls per step}, {device operation: (device ms,
+    calls)})."""
     rows = sorted(((e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
@@ -3218,7 +3458,8 @@ def _report_trace(prof, wall: float, steps: int, tag: str, what: str,
     n_ops = sum(ops.values())
     log(f"[{tag}] device operations (kernels, copies, fills): {n_ops} = "
         f"{n_ops / steps:.1f} per device step")
-    return d2h / steps, {key: cnt / steps for key, cnt in ops.items()}
+    return (d2h / steps, {key: cnt / steps for key, cnt in ops.items()},
+            {key: (us / 1e3, cnt) for key, us, cnt in rows})
 
 
 # -- phase 6 --------------------------------------------------------------------
@@ -3400,6 +3641,8 @@ def phase_int8(kernels):
         else:
             check_served_by(kernels, "paged_prefill_attention_quant",
                             "paged_prefill_attention_quant_f32_tf32", "int8")
+            check_served_by(kernels, "paged_decode_attention_quant",
+                            "paged_decode_attention_quant_f32_tf32", "int8")
         ls, ps = eng.loop_stats(), eng.pool_stats()
         per_tok = {n: round(c / total, 3) for n, c in launches.items()}
         log(f"[int8] smollm-360m full width (32 layers, d 960, 15/5 heads, "
@@ -5465,10 +5708,10 @@ def nemotron_prompts(vocab_size: int):
 
 
 def _serve_nemotron(kernels, eng, prompts, tag: str, card: str,
-                    new: int = NEMOTRON_NEW) -> None:
+                    new: int = NEMOTRON_NEW):
     """Serve the prompts (their ``new`` tokens each, direct): every
     request ok, its tokens in the vocab; tok/s, TTFT and peak memory
-    logged.  The launch counts are reset before."""
+    logged.  The launch counts are reset before.  Returns the results."""
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     t0 = time.perf_counter()
@@ -5488,6 +5731,7 @@ def _serve_nemotron(kernels, eng, prompts, tag: str, card: str,
         f"{1e3 * ttft[len(ttft) // 2]:.1f} ms, max {1e3 * ttft[-1]:.1f} "
         f"ms; {eng.n_device_steps} device steps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    return res
 
 
 def phase_nemotron(kernels, acc, card: str) -> None:
@@ -6100,6 +6344,109 @@ def phase_glm4(kernels, acc, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_glm4_int8(kernels, acc, card: str) -> None:
+    """Phase 21(d): glm4-9b at full width and depth in f32 (40 layers, no
+    cut; ~9.4B random f32 parameters, 37.6 GB, made on the card from seed
+    0: the reference serves an f32 model, not a bf16 one, over an int8
+    pool) serves 21(b)'s 8 requests of ``GLM4_CTX`` prompt tokens,
+    ``GLM4_NEW`` new (batch 8, paged, chunk ``GLM4_CHUNK``, block 16,
+    burst 8), first over an int8 pool, then over an f32 pool.  int8: B3
+    exactly once a layer and decode step (40 x 31), all through
+    ``paged_decode_attention_quant_f32_tf32`` (the tensor-core body over
+    int8 tiles), K2q once a layer and mixed step through its ``_tf32``
+    entry, no other attention kernel; f32: K1 and K2 the same through
+    their ``_f32_f32_tf32`` entries.  Per pool tok/s, TTFT, peak memory
+    and a trace (busy share; B3's device time against f32 K1's, the same
+    serve's shapes); the greedy tokens' agreement with the f32 pool
+    logged, not gated (int8 KV is a bounded drift, not identity); bytes
+    per block f32/int8 = (2 x 128 x 4)/(2 x 128 + 2 x 4) checked.  The
+    device is freed before and after."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config("glm4-9b").replace(param_dtype="float32",
+                                        compute_dtype="float32")
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"[glm4-int8] {cfg.arch_id} full width and depth ({L} layers, no "
+        f"cut), f32 weights and compute: {n_params / 1e9:.2f}B parameters "
+        f"({4 * n_params / 1e9:.1f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    prompts = glm4_prompts(cfg.vocab_size)
+    kw = dict(batch_size=8, capacity=GLM4_CTX + GLM4_NEW,
+              max_new_tokens=GLM4_NEW, burst=8, paged=True,
+              prefill_chunk=GLM4_CHUNK, block_size=16, device="cuda")
+    tokens, per_block, decode_ms = {}, {}, {}
+    for kv_dtype in ("int8", "f32"):
+        tag = f"glm4-f32-{kv_dtype}"
+        eng = ServeEngine(model, params, kv_dtype=kv_dtype, **kw)
+        check(eng.paged, f"[{tag}] ran paged={eng.paged}")
+        res = _serve_nemotron(kernels, eng, prompts, tag, card, GLM4_NEW)
+        check_serving_launches(kernels, tag)
+        tokens[kv_dtype] = [np.asarray(r.tokens) for r in res]
+        steps, mixed = eng.n_device_steps, eng.n_prefill_chunks
+        if kv_dtype == "int8":
+            decode, prefill = ("paged_decode_attention_quant",
+                               "paged_prefill_attention_quant")
+            check_served_by(kernels, decode,
+                            "paged_decode_attention_quant_f32_tf32", tag)
+            check_served_by(kernels, prefill,
+                            "paged_prefill_attention_quant_f32_tf32", tag)
+        else:
+            decode, prefill = ("paged_decode_attention",
+                               "paged_prefill_attention")
+            check_served_by(kernels, decode,
+                            "paged_decode_attention_f32_f32_tf32", tag)
+            check_served_by(kernels, prefill,
+                            "paged_prefill_attention_f32_f32_tf32", tag)
+        want = {decode: L * (steps - mixed), prefill: L * mixed}
+        launches = _tally(kernels, acc)
+        check(all(launches[n] == want.get(n, 0) for n in launches)
+              and want[decode] == L * (GLM4_NEW - 1),
+              f"[{tag}] launches {launches}, want {want}")
+        log(f"[{tag}] launches {want} ({L} layers, {steps} device steps, "
+            f"{mixed} mixed); {eng.pool_stats()['pool_bytes'] / 1e9:.2f} GB "
+            f"pool")
+        per_block[kv_dtype] = eng.kv_bytes_per_block()
+        *_, times = phase_trace(eng, tag, n=8, prompt_len=GLM4_CTX)
+        body = [(ms, n) for key, (ms, n) in times.items()
+                if "decode_gqa_kernel" in key]
+        check(len(body) == 1, f"[{tag}] decode kernels traced: {body}")
+        decode_ms[kv_dtype] = body[0]
+        reset(kernels)
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    (b3_ms, b3_n), (k1_ms, k1_n) = decode_ms["int8"], decode_ms["f32"]
+    log(f"[glm4-int8] traced decode attention: B3 (int8 pool) {b3_ms:.2f} "
+        f"ms over {b3_n} calls = {b3_ms / b3_n:.4f} ms a call; f32 K1 (f32 "
+        f"pool) {k1_ms:.2f} ms over {k1_n} = {k1_ms / k1_n:.4f}; B3 takes "
+        f"{b3_ms / k1_ms:.2f}x f32 K1's device time; {card}")
+    n_tok = sum(len(t) for t in tokens["f32"])
+    agree = sum(int((a == b).sum())
+                for a, b in zip(tokens["int8"], tokens["f32"]))
+    first = sum(int(a[0] == b[0])
+                for a, b in zip(tokens["int8"], tokens["f32"]))
+    log(f"[glm4-int8] greedy tokens equal to the f32 pool's: {agree}/{n_tok} "
+        f"({100 * agree / n_tok:.1f}%); first tokens {first}/{len(prompts)} "
+        f"(logged, not gated: int8 KV is a bounded drift, not identity)")
+    b8, b32 = per_block["int8"], per_block["f32"]
+    check(b32 * (2 * hd + 2 * 4) == b8 * (2 * hd * 4),
+          f"bytes per block f32/int8 = {b32}/{b8}, not 1024/264")
+    log(f"[glm4-int8] bytes per block f32/int8 = {b32}/{b8} = "
+        f"{b32 / b8:.4f} (= 1024/264: 2 x 128 x 4 bytes against 2 x 128 + "
+        f"2 x 4)")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6155,7 +6502,7 @@ def main() -> None:
     SERVING_ONLY["on"] = True
     phase_engine(kernels)
     launches5, eng, tok_s5 = phase_main_path(kernels)
-    d2h, _ = phase_trace(eng, "main")
+    d2h, *_ = phase_trace(eng, "main")
     # the split decode reads no device tensor on the host: 2.22 copies per
     # step before and after it (a read per decode call would add 32)
     check(d2h < 2.5, f"[main] {d2h:.3f} device-to-host copies per step")
@@ -6236,8 +6583,9 @@ def main() -> None:
                                      phase_nemotron_f32(kernels, launches20,
                                                         card))),
                      ("21", lambda: (phase_glm4_small(kernels, launches21),
-                                     phase_glm4(kernels, launches21,
-                                                card)))):
+                                     phase_glm4(kernels, launches21, card),
+                                     phase_glm4_int8(kernels, launches21,
+                                                     card)))):
         t0 = time.perf_counter()
         if tag == "17":
             check_serving_launches(kernels, "phase 16")

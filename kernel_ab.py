@@ -289,7 +289,8 @@ def trace_train_jamba(cs, pkgs) -> None:
         torch.cuda.empty_cache()
 
 
-# (heads, keys, dtype) of --decode-splits
+# (heads, keys, dtype) of --decode-splits; "int8": B3 over int8 pools
+# (paged only), f32 q
 DECODE_SPLIT_ROWS = (
     ("whisper", 1500, "bf16"), ("smollm", 544, "bf16"),
     ("jamba", 544, "bf16"), ("qwen2-vl", 1183, "bf16"),
@@ -297,31 +298,47 @@ DECODE_SPLIT_ROWS = (
     ("glm4", 544, "bf16"), ("glm4", 4160, "bf16"), ("glm4", 8192, "bf16"),
     ("whisper", 544, "f32"), ("smollm", 544, "f32"), ("jamba", 544, "f32"),
     ("qwen2-vl", 1183, "f32"), ("nemotron", 544, "f32"),
-    ("glm4", 544, "f32"))
+    ("glm4", 544, "f32"),
+    ("smollm", 544, "int8"), ("jamba", 544, "int8"),
+    ("qwen2-vl", 1183, "int8"), ("nemotron", 544, "int8"),
+    ("glm4", 544, "int8"), ("glm4", 4160, "int8"), ("glm4", 8192, "int8"))
 
 
-def decode_split_rows(cs) -> None:
+def decode_split_rows(cs, only: str = "") -> None:
     """The tensor-core decode body's time at each split count of
-    ``DECODE_SPLIT_ROWS``, both K1 and B4, each plan's output checked."""
+    ``DECODE_SPLIT_ROWS`` (those of type ``only``, if given), both K1 and
+    B4 (B3 alone for int8 rows), each plan's output checked."""
     from repro_torch.kernels.decode_attention import ops as dops
     timer = cs.Timer()
     sms = dops.sm_count(torch.device("cuda"))
     heads_of = dict(cs.GQA_GEOMETRIES)
     B = 8
     for geo, n_keys, dt in DECODE_SPLIT_ROWS:
+        if only and dt != only:
+            continue
         heads = heads_of[geo]
-        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+                 "int8": torch.float32}[dt]
+        kv_dtype = torch.int8 if dt == "int8" else dtype
         KV, hd, G = heads["KV"], heads["hd"], heads["H"] // heads["KV"]
-        for paged in (True, False):
+        for paged in (True,) if dt == "int8" else (True, False):
             name = "paged_decode_attention" if paged else "decode_attention"
             args, _, plain, _, _ = cs._gqa_decode_case(
                 dops, paged, heads, B, n_keys, dtype, seed=n_keys + G + hd)
             entry = dops.decode_entry(name, dtype, dtype, G, hd)
-            max_keys = args[1].shape[1] * args[3].shape[1] if paged \
+            if dt == "int8":
+                q, kp, vp, pt, lengths = args
+                kq, vq, ks, vs = cs._quant_pools(kp, vp)
+                args = (q, kq, vq, ks, vs, pt, lengths)
+                name, plain = ("paged_decode_attention_quant",
+                               dops.paged_decode_attention_quant_plain)
+                entry = dops.quant_decode_entry(G, hd)
+            max_keys = args[1].shape[1] * args[-2].shape[1] if paged \
                 else n_keys
-            chosen = dops.entry_split_plan(entry, max_keys, B * KV, dtype,
+            chosen = dops.entry_split_plan(entry, max_keys, B * KV, kv_dtype,
                                            hd, sms)
-            cap = min(4 * sms // (B * KV), -(-max_keys // dops.MMA_KEY_TILE))
+            cap = min(4 * sms // (B * KV),
+                      -(-max_keys // dops.MMA_KEY_TILE))
             plans = {}
             for n in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, 32, chosen[0],
                              cap}):
@@ -333,8 +350,9 @@ def decode_split_rows(cs) -> None:
                 cs.DENSE_BF16_TOL["decode_attention"]
             runs = {}
             for n_split, split_keys in plans:
-                run = cs._decode_entry_run(dops, entry, args,
-                                           split=(split_keys, n_split))
+                run = (cs._quant_entry_run if dt == "int8"
+                       else cs._decode_entry_run)(
+                    dops, entry, args, split=(split_keys, n_split))
                 got = run()
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
@@ -344,7 +362,8 @@ def decode_split_rows(cs) -> None:
             times = {p: [] for p in runs}
             for p in list(runs) + list(runs)[::-1]:
                 times[p].append(timer.ms(runs[p]))
-            bound = cs._decode_bound(args[0], dtype, KV, n_keys, paged)[0]
+            bound = cs._decode_bound(args[0], kv_dtype, KV, n_keys,
+                                     paged)[0]
             for (n_split, split_keys), t in times.items():
                 mark = "*" if (n_split, split_keys) == chosen else " "
                 print(f"[splits] {name} {geo} heads {heads['H']}/{KV} hd "
@@ -400,7 +419,7 @@ def trace_engines(cs, pkgs, make, prompts, tag: str, **trace) -> None:
         res = eng.serve(prompts(eng.model.cfg.vocab_size), timeout_s=900)
         cs.check(all(r.status == "ok" for r in res),
                  f"[ab] {name}: {tag} serve failed")
-        _, ops = cs.phase_trace(eng, f"ab {tag} {name}", **trace)
+        _, ops, _ = cs.phase_trace(eng, f"ab {tag} {name}", **trace)
         counts.setdefault(name, ops)
         del eng, res
         gc.collect()
@@ -430,11 +449,12 @@ def main() -> None:
                       help="time B5's backward at phase 3's rows instead "
                       "of B5/B6, then trace phase 17(c)'s step on each "
                       "tree")
-    mode.add_argument("--decode-splits", action="store_true",
+    mode.add_argument("--decode-splits", nargs="?", const="all",
+                      choices=("all", "bf16", "f32", "int8"),
                       help="time this tree's tensor-core decode body at "
-                      "every split count (no OTHER)")
+                      "every split count (no OTHER), of one type if given")
     a = ap.parse_args()
-    if (a.other is None) != a.decode_splits:
+    if (a.other is None) != (a.decode_splits is not None):
         ap.error("OTHER is needed, except with --decode-splits")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -450,8 +470,9 @@ def main() -> None:
         print(f"[ab] {smi.stdout.strip()}", flush=True)
         from repro_torch.kernels.build import load_all
         from repro_torch.kernels.decode_attention import ops as dops
-        load_all([dops.KERNEL, dops.DENSE_KERNEL])
-        decode_split_rows(cs)
+        load_all([dops.KERNEL, dops.DENSE_KERNEL, dops.QUANT_KERNEL])
+        decode_split_rows(cs, "" if a.decode_splits == "all"
+                          else a.decode_splits)
         return
     print(f"[ab] {smi.stdout.strip()}; other tree {a.other.resolve()}",
           flush=True)

@@ -1,15 +1,18 @@
 // One-token attention over a row's K/V on Hopper's tensor cores (sm_90a)
 // for grouped query heads: the body of paged_decode.cu's
-// paged_decode_attention_bf16_bf16_mma and _f32_f32_tf32 (K1) and of
-// dense_decode.cu's decode_attention_bf16_bf16_mma and _f32_f32_tf32 (B4),
-// which ops.py's decode_entry picks for G = H / KV query heads a K/V head
-// up to 16 at head_dim 64, 128 and 192.  It takes the same
-// row policy as decode_body.cuh (n_keys, row, kRoundScores) and computes
-// the same function: query head h reads KV head h / G over the keys
-// kpos < n_keys(b) of its row.
+// paged_decode_attention_bf16_bf16_mma and _f32_f32_tf32 (K1), of
+// dense_decode.cu's decode_attention_bf16_bf16_mma and _f32_f32_tf32 (B4)
+// and of paged_decode_quant.cu's paged_decode_attention_quant_f32_tf32
+// (B3: f32 q over int8 pools with per-row f32 scales), which ops.py's
+// decode_entry and quant_decode_entry pick for G = H / KV query heads a
+// K/V head up to 16 at head_dim 64, 128 and 192.  It takes the same row
+// policy as decode_body.cuh (n_keys, row, kRoundScores) and scales policy
+// (common.cuh: NoScales, RowScales) and computes the same function: query
+// head h reads KV head h / G over the keys kpos < n_keys(b) of its row.
 //
 // Replaces, with decode_body.cuh, src/repro/kernels/decode_attention/
-// kernel.py::paged_decode_attention (K1) and ::decode_attention (B4).
+// kernel.py::paged_decode_attention (K1), ::decode_attention (B4) and
+// ::paged_decode_attention_quant (B3).
 //
 // What bounds it on the card: bytes.  Each valid key costs one K and one
 // V row of hd elements (2 * hd * 2 bytes in bf16) against 4 * G * hd
@@ -44,11 +47,38 @@
 //     accumulator of an 8-key group is the A fragment of P.V with its keys
 //     in the order 0, 2, 4, 6, 1, 3, 5, 7 (prefill_tf32.cuh's trick); q, K
 //     and V fragments are read from padded rows;
+//   * int8 K/V (B3): the tiles stay int8 in the ring (a quarter of the
+//     f32 bytes) with each key's two f32 row scales copied beside them,
+//     and the fragments are widened in registers: a lane's 32-bit shared
+//     load holds four int8 values, each made an exact f32 by placing its
+//     biased byte in the mantissa of 2^23 (prmt) and taking 2^23 + 128 off
+//     (widen_int8).  An int8 value is exact in TF32, so each k8 step is two
+//     products, Alo.B + Ahi.B (mma2, summed apart): q * scale is split once
+//     into TF32 hi and lo planes in shared memory, the probability times
+//     its V row's scale at each tile.  The score of a key is multiplied by
+//     its K row's scale after the dot.  Both products walk a permuted
+//     order that suits the int8 rows: the k8 steps of Q.K take the head
+//     dim in the order a lane's 4-byte load of a K row holds it (q's
+//     planes are read in the same order, one 16-byte load a row and step),
+//     and P.V's output tiles take their columns in the order a lane's
+//     4-byte load of a V row holds them (tile n's column j is head-dim
+//     column 32 (n / 4) + 4 j + n % 4), undone when the accumulators are
+//     stored.  Every such load of K, V or q falls on 32 distinct banks.
+//     Blocks of 8 warps over 16-key tiles (4 ring stages at head_dim 64,
+//     2 at 128 and 192): two warps an SM sub-partition hide each other's
+//     latencies, which one warp a sub-partition (4 warps, one block an
+//     SM) left exposed (ablations.py --body dec8);
 //   * at the end the warps merge in shared memory, in warp order; the
 //     splits write (m, l, acc) to the workspace and the last block of a
 //     (row, KV head) combines them in split order, as decode_body.cuh
-//     does.  Every sum runs in a fixed order: two launches give the same
-//     bits.
+//     does.  Where every cluster of the grid can be resident at once with
+//     one block an SM, up to kClusterMax = 8 splits of a (row, KV head)
+//     are launched as one thread block cluster instead: each keeps its partial in shared
+//     memory and, after a cluster barrier, combines its share of the
+//     outputs from every split's in split order over distributed shared
+//     memory (no workspace round trip, no counter).  Both merges give the
+//     same bits.
+//     Every sum runs in a fixed order: two launches give the same bits.
 //
 // Rounding follows the reference, as decode_body.cuh: q * scale in q's
 // type; with kRoundScores (B4) the scores rounded to the promoted q/K type
@@ -56,10 +86,15 @@
 // exp(x - m) as 2^(x log2 e - m log2 e) on ex2.approx.ftz (each product
 // rounded on its own, as prefill_mma.cuh); the probabilities rounded to
 // the K/V type for P.V (relative to the warp's running max) while the sum
-// l takes them unrounded; the output acc / max(l, 1e-30) in the K/V type.
-// A row with no keys outputs 0.
+// l takes them unrounded; the output acc / max(l, 1e-30) in the K/V type
+// (f32 for int8 pools).  int8 pools fold their scales in as
+// decode_body.cuh does (one product a score and a probability, where the
+// reference dequantizes each element): within f32's 1e-5 of the plain
+// version.  A row with no keys outputs 0.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -71,44 +106,65 @@ namespace kern {
 namespace decode_gqa {
 
 using bf16 = __nv_bfloat16;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16;  // MMA rows: the group's query heads, G <= 16
 constexpr int kSplitTile = 16;  // split_keys is a multiple of this
+// up to this many splits of a (row, KV head) are launched as one thread
+// block cluster and merged in distributed shared memory (the portable
+// cluster size); more go through the workspace
+constexpr int kClusterMax = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The layout of a block for operands of type T at head dim kHd: a ring of
-// kStages stages a warp (a stage: a K tile, then a V tile, each kKeys rows
-// of kHd values and a 16-byte pad), then q * scale (kRows rows at the same
-// stride), then the last-block flag.  A bf16 tile is 16 keys (one k16 step
-// of P.V); an f32 tile at head_dim 128 and 192 is 8 (one k8 step), so
-// that f32 rows (twice as wide) keep two blocks an SM as bf16 does (~74-113
-// KB a block; 16-key f32 tiles at 128 and 192 held one block an SM and
-// measured slower, 8-key ones at 64 slower than 16: chip_smoke.py phase 3,
-// PERF.md §6).  occupancy() below reports the residency that follows.
-template <typename T, int kHd>
+// The layout of a block for q of type T over K/V of type Tkv (T, or int8
+// with f32 q) at head dim kHd: a ring of kStages stages a warp (a stage: a
+// K tile, then a V tile, each kKeys rows of kHd values and a 16-byte pad,
+// then for int8 the tile's K and V row scales), then q * scale (kRows rows
+// at the K/V rows' stride; int8: its TF32 hi and lo planes, a 16-byte unit
+// a column pair, kQLd bytes a row), then the last-block flag.  A bf16 tile
+// is 16 keys (one k16 step of P.V); an f32 tile at head_dim 128 and 192 is
+// 8 (one k8 step), so that f32 rows (twice as wide) keep two blocks an SM
+// as bf16 does (~74-113 KB a block; 16-key f32 tiles at 128 and 192 held
+// one block an SM and measured slower, 8-key ones at 64 slower than 16:
+// chip_smoke.py phase 3, PERF.md §6).  occupancy() below reports the
+// residency that follows.
+template <typename T, int kHd, typename Tkv = T>
 struct Layout {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int kKeys = kBf16 || kHd <= 64 ? 16 : 8;  // a warp tile
+  static constexpr bool kInt8 = std::is_same<Tkv, int8_t>::value;
+  // int8 tiles (B3): keys a warp tile, ring stages and warps a block
+  // (ablations.py --body dec8 times the others)
+  static constexpr int kInt8Keys = 16;
+  static constexpr int kInt8Stages = kHd <= 64 ? 4 : 2;
+  static constexpr int kInt8Warps = 8;
+  static constexpr int kWarps = kInt8 ? kInt8Warps : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  // blocks an SM the registers are capped for (255 a thread either way)
+  static constexpr int kMinBlocks = kWarps > 4 ? 1 : 2;
+  static constexpr int kKeys =  // a warp tile
+      kInt8 ? kInt8Keys : kBf16 || kHd <= 64 ? 16 : 8;
   static constexpr int kNT = kKeys / 8;  // score tiles of 8 keys
   static constexpr int kStages =
-      kHd <= 64 ? (kBf16 ? 4 : 2) : kHd <= 128 ? 3 : 2;
-  static constexpr int kLd = kHd * (int)sizeof(T) + 16;  // row bytes
-  static constexpr int kLdE = kLd / (int)sizeof(T);      // row elements
+      kInt8 ? kInt8Stages
+            : kHd <= 64 ? (kBf16 ? 4 : 2) : kHd <= 128 ? 3 : 2;
+  static constexpr int kLd = kHd * (int)sizeof(Tkv) + 16;  // row bytes
+  static constexpr int kLdE = kLd / (int)sizeof(Tkv);      // row elements
   static constexpr int kTileBytes = kKeys * kLd;
-  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes + (kInt8 ? 8 * kKeys : 0);
   static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
-  static constexpr int kQBytes = kRows * kLd;
+  static constexpr int kQLd = kInt8 ? 8 * kHd + 16 : kLd;  // q's row bytes
+  static constexpr int kQBytes = kRows * kQLd;
   static constexpr size_t kSmem = (size_t)kRingBytes + kQBytes + 16;
-  static constexpr int kChunks = kHd * (int)sizeof(T) / 16;  // a row's
+  static constexpr int kChunks = kHd * (int)sizeof(Tkv) / 16;  // a row's
   static constexpr int kCopies = kKeys * kChunks / 32;  // a lane's, a tile
   // the warps' merge records (m, l, acc of the 16 rows, its rows kAccLd
   // apart) reuse the rings, and then the last block's split weights
   static constexpr int kAccLd = kHd + 4;
   static constexpr int kRec = kRows * (kAccLd + 2);
-  static_assert(kHd % 16 == 0 && kCopies * 32 == kKeys * kChunks &&
+  static_assert(kHd % (kInt8 ? 32 : 16) == 0 &&
+                    kCopies * 32 == kKeys * kChunks &&
                     kSplitTile % kKeys == 0,
                 "bad head_dim");
+  static_assert(!kInt8 || std::is_same<T, float>::value,
+                "int8 pools take f32 q");
   static_assert((size_t)kWarps * kRec * sizeof(float) <= (size_t)kRingBytes,
                 "the merge records do not fit the rings");
   // per row: the block's max, sum and each warp's weight (the merge)
@@ -193,17 +249,81 @@ __device__ __forceinline__ void scores_tf32(
   }
 }
 
-template <typename T, typename Rows, int kHd>
-__global__ void __launch_bounds__(kThreads, 2)
-decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
-                  const T* __restrict__ k,  // slabs of (KV, kHd); see Rows
-                  const T* __restrict__ v,
-                  T* __restrict__ out,      // (B, H, kHd)
-                  Rows rows, int H, int KV, float scale, int split_keys,
+// Byte e of a 32-bit word of int8 values, biased to unsigned (u = w ^
+// 0x80808080: x + 128), as the f32 bits of its exact value (what a TF32
+// operand reads): the biased byte is the low mantissa byte of 2^23 (one
+// prmt), and 2^23 + 128 is taken off (one add, exact)
+__device__ __forceinline__ uint32_t widen_byte(uint32_t u, int e) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440u + e)) - 8388736.f);
+}
+// the four int8 values of a word
+__device__ __forceinline__ void widen_int8(uint32_t w, uint32_t (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = widen_byte(u, e);
+}
+
+// S = Q K^T over an int8 K tile in split TF32, K exact: q * scale's hi
+// and lo planes from q_s (a 16-byte unit per column pair c, c + 1: hi c,
+// hi c + 1, lo c, lo c + 1), two products a k8 step summed apart (mma2,
+// kFold).  The k8 steps walk the head dim in a permuted order: a lane's
+// 32-bit load of K bytes 16 u + 4 tc .. + 3 feeds steps 2u (bytes 0, 1)
+// and 2u + 1 (bytes 2, 3), so step 2u + s takes column 16 u + 4 tc + 2 s
+// as its k index tc and the next column as tc + 4; q's unit 8 u + 2 tc + s
+// holds both columns of both planes
+template <int kHd>
+__device__ __forceinline__ void scores_int8(
+    float (&s)[Layout<float, kHd, int8_t>::kNT][4],
+    const unsigned char* q_s, const unsigned char* ks, int gr, int tc) {
+  using L = Layout<float, kHd, int8_t>;
+  constexpr int kNT = L::kNT;
+  namespace t32 = prefill_tf32;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  const unsigned char* q0 = q_s + gr * L::kQLd + 32 * tc;  // row gr
+  const unsigned char* q1 = q0 + 8 * L::kQLd;              // row gr + 8
+  const unsigned char* kr = ks + gr * L::kLd + 4 * tc;
+#pragma unroll
+  for (int u = 0; u < kHd / 16; ++u) {
+    uint32_t kw[kNT];  // key n * 8 + gr, columns 16 u + 4 tc + 0..3, biased
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      kw[n] = *reinterpret_cast<const uint32_t*>(kr + n * 8 * L::kLd +
+                                                 16 * u) ^ 0x80808080u;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const uint4 a = *reinterpret_cast<const uint4*>(q0 + 128 * u + 16 * st);
+      const uint4 b = *reinterpret_cast<const uint4*>(q1 + 128 * u + 16 * st);
+      const uint32_t qh[4] = {a.x, b.x, a.y, b.y};
+      const uint32_t ql[4] = {a.z, b.z, a.w, b.w};
+      uint32_t kb[kNT][2];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        kb[n][0] = widen_byte(kw[n], 2 * st);
+        kb[n][1] = widen_byte(kw[n], 2 * st + 1);
+      }
+      t32::mma2<true, kNT>(s, qh, ql, kb);
+    }
+  }
+}
+
+template <typename T, typename Tkv, typename Rows, typename Scales, int kHd>
+__global__ void __launch_bounds__(Layout<T, kHd, Tkv>::kThreads,
+                                  Layout<T, kHd, Tkv>::kMinBlocks)
+decode_gqa_kernel(const T* __restrict__ q,    // (B, H, kHd)
+                  const Tkv* __restrict__ k,  // slabs of (KV, kHd); Rows
+                  const Tkv* __restrict__ v,
+                  T* __restrict__ out,        // (B, H, kHd)
+                  Rows rows, Scales scales, int H, int KV, float scale,
+                  int split_keys,
                   float* __restrict__ ws,   // (B*KV, n_split, G*(kHd+2))
                   int* __restrict__ counters) {  // (B*KV,) 0 between calls
-  using L = Layout<T, kHd>;
+  using L = Layout<T, kHd, Tkv>;
+  constexpr int kWarps = L::kWarps, kThreads = L::kThreads;
   constexpr bool kBf16 = L::kBf16;
+  constexpr bool kInt8 = L::kInt8;
+  static_assert(kInt8 == Scales::kQuant, "int8 pools carry row scales");
   constexpr int kStages = L::kStages;
   constexpr int kKeys = L::kKeys, kNT = L::kNT;
   constexpr int kN = kHd / 8;  // output accumulator tiles of 8 columns
@@ -218,6 +338,27 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
   unsigned char* q_s = smem + L::kRingBytes;
   int* last_s = reinterpret_cast<int*>(q_s + L::kQBytes);
 
+  // the group's rows of q; over int8 pools every 4-value chunk of them is
+  // read first (elementwise where q is not 16-byte aligned), so that its
+  // trip to device memory overlaps the lengths' and the page table's
+  const size_t base = ((size_t)b * H + (size_t)kvh * G) * kHd;
+  constexpr int kQRow = kHd * (int)sizeof(T) / 16;  // chunks a row of q
+  constexpr int kQPer = (kRows * kQRow + kThreads - 1) / kThreads;
+  constexpr int kN16 = 16 / (int)sizeof(T);      // values a chunk
+  float4 xq[kInt8 ? kQPer : 1];
+  if constexpr (kInt8) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(q + base) & 15) == 0;
+#pragma unroll
+    for (int it = 0; it < kQPer; ++it) {
+      const int c = tid + it * kThreads, g = c / kQRow;
+      const T* src = q + base + 4 * c;
+      xq[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < kRows * kQRow && g < G)
+        xq[it] = aligned ? *reinterpret_cast<const float4*>(src)
+                         : make_float4(src[0], src[1], src[2], src[3]);
+    }
+  }
+
   const int n_keys = rows.n_keys(b);
   const int k_begin = split * split_keys;
   const int k_end = min(n_keys, k_begin + split_keys);
@@ -228,14 +369,19 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
   const int nt = (warp + 1) * n_tiles / kWarps - t_begin;
   const int key0 = k_begin + t_begin * kKeys;
 
-  // tile t of this warp into stage st: lane j < kKeys finds key j's slab
-  // (through the page table for K1); each 16-byte copy takes its key's
-  // from that lane, consecutive lanes on consecutive chunks of a row
-  auto load_tile = [&](int t, int st) {
+  // the slab of key j = lane % kKeys of this warp's tile t (0 past the
+  // split's end), read through the page table for K1 and B3
+  auto slab_of = [&](int t) -> size_t {
+    const int kpos = key0 + t * kKeys + lane % kKeys;
+    return kpos < k_end ? rows.row(b, kpos) * KV + kvh : 0;
+  };
+  // tile t of this warp into stage st, lane j < kKeys holding key j's
+  // slab; each 16-byte copy takes its key's from that lane, consecutive
+  // lanes on consecutive chunks of a row; for int8 lane j also copies key
+  // j's K and V row scales (the slab's index in the scales) beside the
+  // tiles
+  auto load_tile = [&](int t, int st, size_t slab_own) {
     const int k0 = key0 + t * kKeys;
-    const int j_own = lane % kKeys;
-    const size_t slab_own =
-        k0 + j_own < k_end ? rows.row(b, k0 + j_own) * KV + kvh : 0;
     unsigned char* ks = ring + st * L::kStageBytes;
     unsigned char* vs = ks + L::kTileBytes;
 #pragma unroll
@@ -244,25 +390,49 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
       const int j = i / L::kChunks, c = i - j * L::kChunks;
       const size_t slab = __shfl_sync(0xffffffffu, slab_own, j);
       const bool in = k0 + j < k_end;
-      const size_t off = slab * kHd + c * (16 / sizeof(T));
+      const size_t off = slab * kHd + c * (16 / sizeof(Tkv));
       cp_async16(smem_addr(ks + j * L::kLd + c * 16), k + off, in);
       cp_async16(smem_addr(vs + j * L::kLd + c * 16), v + off, in);
     }
+    if constexpr (kInt8) {
+      if (lane < kKeys) {
+        const bool in_own = k0 + lane < k_end;
+        unsigned char* sc = vs + L::kTileBytes;
+        cp_async4(smem_addr(sc + 4 * lane), scales.ks + slab_own, in_own);
+        cp_async4(smem_addr(sc + 4 * (kKeys + lane)), scales.vs + slab_own,
+                  in_own);
+      }
+    }
   };
 
-  // the first tiles load while q is staged
+  // the first tiles load while q is staged; the page-table read of the
+  // next tile to load then runs a tile ahead of its copies
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nt) load_tile(st, st);
+    if (st < nt) load_tile(st, st, slab_of(st));
     cp_async_commit();
   }
+  size_t slab_next = kStages - 1 < nt ? slab_of(kStages - 1) : 0;
   // q * scale in q's type, rows G..15 zero: every 16-byte chunk of the
   // group's rows read at once (one trip to device memory), elementwise
   // where q is not 16-byte aligned
-  const size_t base = ((size_t)b * H + (size_t)kvh * G) * kHd;
-  constexpr int kQRow = L::kChunks;              // chunks a row of q
-  constexpr int kQPer = (kRows * kQRow + kThreads - 1) / kThreads;
-  constexpr int kN16 = 16 / (int)sizeof(T);      // values a chunk
-  if ((reinterpret_cast<uintptr_t>(q + base) & 15) == 0) {
+  if constexpr (kInt8) {
+    // int8 pools: q * scale (f32) split into TF32 hi and lo, a 16-byte
+    // unit per column pair: hi c, hi c + 1, lo c, lo c + 1
+#pragma unroll
+    for (int it = 0; it < kQPer; ++it) {
+      const int c = tid + it * kThreads, g = c / kQRow;
+      if (c >= kRows * kQRow) break;
+      uint4 u0, u1;
+      prefill_tf32::split_tf32_int(__fmul_rn(xq[it].x, scale), u0.x, u0.z);
+      prefill_tf32::split_tf32_int(__fmul_rn(xq[it].y, scale), u0.y, u0.w);
+      prefill_tf32::split_tf32_int(__fmul_rn(xq[it].z, scale), u1.x, u1.z);
+      prefill_tf32::split_tf32_int(__fmul_rn(xq[it].w, scale), u1.y, u1.w);
+      uint4* dst = reinterpret_cast<uint4*>(q_s + g * L::kQLd +
+                                            32 * (c - g * kQRow));
+      dst[0] = u0;
+      dst[1] = u1;
+    }
+  } else if ((reinterpret_cast<uintptr_t>(q + base) & 15) == 0) {
     uint4 raw[kQPer];
 #pragma unroll
     for (int it = 0; it < kQPer; ++it) {
@@ -281,14 +451,14 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
 #pragma unroll
       for (int e = 0; e < kN16; ++e)
         val[e] = from_f32<T>(to_f32(src[e]) * scale);
-      *reinterpret_cast<uint4*>(q_s + g * L::kLd + (c - g * kQRow) * 16) =
+      *reinterpret_cast<uint4*>(q_s + g * L::kQLd + (c - g * kQRow) * 16) =
           packed;
     }
   } else {
     for (int i = tid; i < kRows * kHd; i += kThreads) {
       const int g = i / kHd, d = i - g * kHd;
       const float x = g < G ? to_f32(q[base + i]) * scale : 0.f;
-      reinterpret_cast<T*>(q_s + g * L::kLd)[d] = from_f32<T>(x);
+      reinterpret_cast<T*>(q_s + g * L::kQLd)[d] = from_f32<T>(x);
     }
   }
   __syncthreads();  // q_s written
@@ -316,8 +486,10 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
   for (int it = 0; it < nt; ++it) {
     cp_async_wait<kStages - 2>();  // this lane's copies of tile it
     __syncwarp();  // every lane's; and the stage refilled next is read
-    if (it + kStages - 1 < nt)
-      load_tile(it + kStages - 1, (it + kStages - 1) % kStages);
+    if (it + kStages - 1 < nt) {
+      load_tile(it + kStages - 1, (it + kStages - 1) % kStages, slab_next);
+      if (it + kStages < nt) slab_next = slab_of(it + kStages);
+    }
     cp_async_commit();
     const unsigned char* ks = ring + (it % kStages) * L::kStageBytes;
     const unsigned char* vs = ks + L::kTileBytes;
@@ -326,11 +498,26 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
     // scores: accumulator (n, e) is row gr + 8 * (e / 2), key k0 + n * 8
     // + 2 * tc + e % 2
     float s[kNT][4];
-    if constexpr (kBf16)
+    if constexpr (kBf16) {
       scores_bf16<kHd, kQRegs>(s, qf, q_s, ks, lane);
-    else
+    } else if constexpr (kInt8) {
+      scores_int8<kHd>(s, q_s, ks, gr, tc);
+      // each key's K row scale after the dot (its column pair's two)
+      const float* k_scale =
+          reinterpret_cast<const float*>(vs + L::kTileBytes);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float2 sk =
+            *reinterpret_cast<const float2*>(k_scale + n * 8 + 2 * tc);
+        s[n][0] *= sk.x;
+        s[n][1] *= sk.y;
+        s[n][2] *= sk.x;
+        s[n][3] *= sk.y;
+      }
+    } else {
       scores_tf32<kHd>(s, reinterpret_cast<const float*>(q_s),
                        reinterpret_cast<const float*>(ks), gr, tc);
+    }
     if constexpr (Rows::kRoundScores && kBf16) {
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
@@ -407,6 +594,46 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
         prefill_mma::mma_bf16(o[2 * np], pf, vb[0], vb[1]);
         prefill_mma::mma_bf16(o[2 * np + 1], pf, vb[2], vb[3]);
       }
+    } else if constexpr (kInt8) {
+      namespace t32 = prefill_tf32;
+      const float* v_scale =
+          reinterpret_cast<const float*>(vs + L::kTileBytes) + kKeys;
+      // O += (P * v_scale) V per 8-key group kk: the A fragment as in the
+      // f32 branch below, each probability times its V row's scale, then
+      // split; B fragments from keys kk * 8 + 2 * tc (b0) and + 1 (b1):
+      // one 32-bit load of each row's bytes 32 w + 4 gr .. + 3 feeds
+      // output tiles 4 w .. 4 w + 3 at B column gr
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        const float2 sv =
+            *reinterpret_cast<const float2*>(v_scale + kk * 8 + 2 * tc);
+        uint32_t ph[4], pl[4];
+        t32::split_tf32_int(p[kk][0] * sv.x, ph[0], pl[0]);
+        t32::split_tf32_int(p[kk][2] * sv.x, ph[1], pl[1]);
+        t32::split_tf32_int(p[kk][1] * sv.y, ph[2], pl[2]);
+        t32::split_tf32_int(p[kk][3] * sv.y, ph[3], pl[3]);
+        const unsigned char* v0 = vs + (kk * 8 + 2 * tc) * L::kLd + 4 * gr;
+        // output tiles kGv at a time: two at head_dim 192, where the 96
+        // accumulators leave fewest registers for the products in flight
+        constexpr int kGv = kHd > 128 ? 2 : 4;
+#pragma unroll
+        for (int w = 0; w < kHd / 32; ++w) {
+          uint32_t f0[4], f1[4];
+          widen_int8(*reinterpret_cast<const uint32_t*>(v0 + 32 * w), f0);
+          widen_int8(*reinterpret_cast<const uint32_t*>(v0 + L::kLd + 32 * w),
+                     f1);
+#pragma unroll
+          for (int e0 = 0; e0 < 4; e0 += kGv) {
+            uint32_t vb[kGv][2];
+#pragma unroll
+            for (int e = 0; e < kGv; ++e) {
+              vb[e][0] = f0[e0 + e];
+              vb[e][1] = f1[e0 + e];
+            }
+            t32::mma2<true, kGv>(o + 4 * w + e0, ph, pl, vb);
+          }
+        }
+      }
     } else {
       namespace t32 = prefill_tf32;
       const float* vf = reinterpret_cast<const float*>(vs);
@@ -452,12 +679,15 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
       rec[kRows + gr + 8 * h] = l[h];
     }
   }
+  // accumulator (n, e) is column n * 8 + 2 * tc + e % 2 of the head dim;
+  // int8: column 32 (n / 4) + 4 (2 tc + e % 2) + n % 4 (P.V's order)
 #pragma unroll
   for (int n = 0; n < kN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      rec[2 * kRows + (gr + 8 * (e / 2)) * kAccLd + n * 8 + 2 * tc + e % 2] =
-          o[n][e];
+      rec[2 * kRows + (gr + 8 * (e / 2)) * kAccLd +
+          (kInt8 ? 32 * (n / 4) + 4 * (2 * tc + e % 2) + n % 4
+                 : n * 8 + 2 * tc + e % 2)] = o[n][e];
   __syncthreads();
 
   // per row: the block's max, sum and each warp's weight, in warp order
@@ -493,6 +723,61 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
       out[base + i] = from_f32<T>(
           merged(i) / fmaxf(wts[(i / kHd) * (kWarps + 2) + 1], 1e-30f));
     return;
+  }
+
+  {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    if ((int)cluster.num_blocks() == n_split) {
+      // the splits of this (row, KV head) are one cluster (launch_hd, at
+      // most kClusterMax): each block's partial stays in its shared
+      // memory, acc in warp 0's record (rows kAccLd apart), m and l in
+      // wts, and block `split` combines its share of the G * kHd outputs
+      // from every block's, in split order, over distributed shared
+      // memory: no workspace, no counter, no second pass through L2
+      constexpr int kPerC = (kRows * kHd + kThreads - 1) / kThreads;
+      float a[kPerC];
+#pragma unroll
+      for (int j = 0; j < kPerC; ++j) {
+        const int i = tid + j * kThreads;
+        a[j] = i < G * kHd ? merged(i) : 0.f;
+      }
+      __syncthreads();  // every warp's record read
+      float* acc_s = reinterpret_cast<float*>(smem) + 2 * kRows;
+#pragma unroll
+      for (int j = 0; j < kPerC; ++j) {
+        const int i = tid + j * kThreads;
+        if (i < G * kHd) acc_s[(i / kHd) * kAccLd + i % kHd] = a[j];
+      }
+      cluster.sync();  // every block's partial is in
+      const int chunk = (G * kHd + n_split - 1) / n_split;
+      const int hi = min(G * kHd, (split + 1) * chunk);
+      for (int i = split * chunk + tid; i < hi; i += kThreads) {
+        const int g = i / kHd, d = i - g * kHd;
+        float ms[kClusterMax], ls[kClusterMax], as[kClusterMax];
+        float mmax = kNeg;
+#pragma unroll
+        for (int r = 0; r < kClusterMax; ++r) {
+          if (r >= n_split) break;
+          const float* w = cluster.map_shared_rank(wts, r);
+          ms[r] = w[g * (kWarps + 2)];
+          ls[r] = w[g * (kWarps + 2) + 1];
+          as[r] = cluster.map_shared_rank(acc_s, r)[g * kAccLd + d];
+          mmax = fmaxf(mmax, ms[r]);
+        }
+        float o = 0.f, den = 0.f;
+#pragma unroll
+        for (int r = 0; r < kClusterMax; ++r) {
+          if (r >= n_split) break;
+          const float w = expf(ms[r] - mmax);
+          den = fmaf(w, ls[r], den);
+          o = fmaf(w, as[r], o);
+        }
+        out[base + i] = from_f32<T>(o / fmaxf(den, 1e-30f));
+      }
+      cluster.sync();  // no block leaves while its shared memory is read
+      return;
+    }
   }
 
   // this split's partial: acc[G*kHd], then m[G], l[G]
@@ -572,83 +857,157 @@ decode_gqa_kernel(const T* __restrict__ q,  // (B, H, kHd)
   if (tid == 0) counters[pair] = 0;  // ready for the next call
 }
 
-template <typename T, typename Rows, int kHd>
+template <typename T, typename Tkv, typename Rows, typename Scales, int kHd>
 cudaError_t set_smem() {
-  return cudaFuncSetAttribute(decode_gqa_kernel<T, Rows, kHd>,
+  return cudaFuncSetAttribute(decode_gqa_kernel<T, Tkv, Rows, Scales, kHd>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Layout<T, kHd>::kSmem);
+                              (int)Layout<T, kHd, Tkv>::kSmem);
 }
 
-template <typename T, typename Rows, int kHd>
+// Clusters of n_split blocks of the kernel that can be resident on the
+// current device at once with one block an SM, in *n: the count
+// cudaOccupancyMaxActiveClusters gives for cfg with each block holding
+// the most shared memory a block may (so no SM holds two), asked once a
+// device and n_split; the first error of the query, if one fails
+template <typename T, typename Tkv, typename Rows, typename Scales, int kHd>
+cudaError_t max_clusters(cudaLaunchConfig_t cfg, int n_split, int* n) {
+  constexpr int kDevices = 16;
+  static int known[kDevices][kClusterMax + 1];  // the count + 1; 0 unasked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kDevices) return cudaErrorInvalidDevice;
+  if (known[dev][n_split] == 0) {
+    auto* kernel = decode_gqa_kernel<T, Tkv, Rows, Scales, kHd>;
+    int smem = 0;
+    e = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cfg.dynamicSmemBytes = smem;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+    const cudaError_t r = set_smem<T, Tkv, Rows, Scales, kHd>();
+    if (e == cudaSuccess) e = r;
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // returned here, not left for the next launch
+      return e;
+    }
+    known[dev][n_split] = *n + 1;
+  }
+  *n = known[dev][n_split] - 1;
+  return cudaSuccess;
+}
+
+template <typename T, typename Tkv, typename Rows, typename Scales, int kHd>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
-              Rows rows, int B, int H, int KV, float scale, int split_keys,
-              int n_split, void* ws, void* counters, void* stream) {
+              Rows rows, Scales scales, int B, int H, int KV, float scale,
+              int split_keys, int n_split, void* ws, void* counters,
+              void* stream) {
+  using L = Layout<T, kHd, Tkv>;
   // the last block's (split, row) weights and sums live in the rings
   if ((size_t)(2 * n_split + 1) * (H / KV) * sizeof(float) >
-      (size_t)Layout<T, kHd>::kRingBytes)
+      (size_t)L::kRingBytes)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = set_smem<T, Rows, kHd>();
+  const cudaError_t e = set_smem<T, Tkv, Rows, Scales, kHd>();
   if (e != cudaSuccess) return (int)e;
-  decode_gqa_kernel<T, Rows, kHd>
-      <<<dim3(B, KV, n_split), kThreads, Layout<T, kHd>::kSmem,
-         (cudaStream_t)stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                 (T*)out, rows, H, KV, scale, split_keys,
-                                 (float*)ws, (int*)counters);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, KV, n_split);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  if (n_split > 1 && n_split <= kClusterMax) {
+    // a (row, KV head)'s splits are one cluster, merged in distributed
+    // shared memory, where every cluster of the grid is resident at once
+    // with one block an SM.  Else the clusters run in waves (glm4-9b's 16
+    // int8 clusters of 8 took 1.5x the workspace merge's time,
+    // ablations.py --body dec8) or two blocks share an SM that the
+    // workspace merge would have spread (f32 K1's 16 clusters of 8 there
+    // took 1.13-1.24x its time: chip_smoke.py phase 3, PERF.md §6)
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = n_split;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int resident = 0;
+    const cudaError_t ce =
+        max_clusters<T, Tkv, Rows, Scales, kHd>(cfg, n_split, &resident);
+    if (ce != cudaSuccess) return (int)ce;
+    if (resident < B * KV) {
+      cfg.attrs = nullptr;
+      cfg.numAttrs = 0;
+    }
+  }
+  cudaLaunchKernelEx(&cfg, decode_gqa_kernel<T, Tkv, Rows, Scales, kHd>,
+                     (const T*)q, (const Tkv*)k, (const Tkv*)v, (T*)out, rows,
+                     scales, H, KV, scale, split_keys, (float*)ws,
+                     (int*)counters);
   return (int)cudaGetLastError();
 }
 
 // Launch (B, KV, n_split) blocks, split_keys keys a split (a multiple of
-// kSplitTile); q, K/V and the output all of type T (bf16 or f32); G = H / KV
-// from 1 to 16 and head_dim 64, 128 or 192, else cudaErrorInvalidValue
-// (the wrappers never send one).  ws holds B*KV*n_split*G*(hd+2) floats and
-// counters B*KV zeroed ints when n_split > 1.  Returns cudaGetLastError().
-template <typename T, typename Rows>
+// kSplitTile); q and the output of type T (bf16 or f32), K/V of
+// type Tkv (T, or int8 with f32 q and RowScales); G = H / KV from 1 to 16
+// and head_dim 64, 128 or 192, else cudaErrorInvalidValue (the wrappers
+// never send one).  ws holds B*KV*n_split*G*(hd+2) floats and counters
+// B*KV zeroed ints when n_split > 1.  Returns cudaGetLastError().
+template <typename T, typename Rows, typename Tkv = T,
+          typename Scales = NoScales>
 int launch(const void* q, const void* k, const void* v, void* out, Rows rows,
            int B, int H, int KV, int hd, float scale, int split_keys,
-           int n_split, void* ws, void* counters, void* stream) {
+           int n_split, void* ws, void* counters, void* stream,
+           Scales scales = Scales()) {
   if (KV < 1 || H % KV || H / KV > kRows || split_keys < kSplitTile ||
       split_keys % kSplitTile || n_split < 1)
     return (int)cudaErrorInvalidValue;
   if (hd == 64)
-    return launch_hd<T, Rows, 64>(q, k, v, out, rows, B, H, KV, scale,
-                                  split_keys, n_split, ws, counters, stream);
+    return launch_hd<T, Tkv, Rows, Scales, 64>(
+        q, k, v, out, rows, scales, B, H, KV, scale, split_keys, n_split,
+        ws, counters, stream);
   if (hd == 128)
-    return launch_hd<T, Rows, 128>(q, k, v, out, rows, B, H, KV, scale,
-                                   split_keys, n_split, ws, counters, stream);
+    return launch_hd<T, Tkv, Rows, Scales, 128>(
+        q, k, v, out, rows, scales, B, H, KV, scale, split_keys, n_split,
+        ws, counters, stream);
   if (hd == 192)
-    return launch_hd<T, Rows, 192>(q, k, v, out, rows, B, H, KV, scale,
-                                   split_keys, n_split, ws, counters, stream);
+    return launch_hd<T, Tkv, Rows, Scales, 192>(
+        q, k, v, out, rows, scales, B, H, KV, scale, split_keys, n_split,
+        ws, counters, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename Rows, int kHd>
+template <typename T, typename Tkv, typename Rows, typename Scales, int kHd>
 int occupancy_hd(int* out) {
-  using L = Layout<T, kHd>;
-  cudaError_t e = set_smem<T, Rows, kHd>();
+  using L = Layout<T, kHd, Tkv>;
+  cudaError_t e = set_smem<T, Tkv, Rows, Scales, kHd>();
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, decode_gqa_kernel<T, Rows, kHd>);
+  e = cudaFuncGetAttributes(&fa, decode_gqa_kernel<T, Tkv, Rows, Scales, kHd>);
   if (e != cudaSuccess) return (int)e;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   out[2] = (int)L::kSmem;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], decode_gqa_kernel<T, Rows, kHd>, kThreads, L::kSmem);
-  out[4] = kWarps;
+      &out[3], decode_gqa_kernel<T, Tkv, Rows, Scales, kHd>, L::kThreads,
+      L::kSmem);
+  out[4] = L::kWarps;
   out[5] = L::kKeys;
   out[6] = L::kStages;
   return (int)e;
 }
 
-// What the card makes of the kernel for T at head_dim hd: out[0]
-// registers and out[1] local (spill) bytes a thread, out[2] dynamic shared
-// bytes a block, out[3] resident blocks an SM, out[4] warps a block, out[5]
-// keys a warp tile, out[6] ring stages.  Launches nothing.
-template <typename T, typename Rows>
+// What the card makes of the kernel for q of type T over K/V of type Tkv
+// at head_dim hd: out[0] registers and out[1] local (spill) bytes a
+// thread, out[2] dynamic shared bytes a block, out[3] resident blocks an
+// SM, out[4] warps a block, out[5] keys a warp tile, out[6] ring stages.
+// Launches nothing.
+template <typename T, typename Rows, typename Tkv = T,
+          typename Scales = NoScales>
 int occupancy(int hd, int* out) {
-  if (hd == 64) return occupancy_hd<T, Rows, 64>(out);
-  if (hd == 128) return occupancy_hd<T, Rows, 128>(out);
-  if (hd == 192) return occupancy_hd<T, Rows, 192>(out);
+  if (hd == 64) return occupancy_hd<T, Tkv, Rows, Scales, 64>(out);
+  if (hd == 128) return occupancy_hd<T, Tkv, Rows, Scales, 128>(out);
+  if (hd == 192) return occupancy_hd<T, Tkv, Rows, Scales, 192>(out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,10 +20,12 @@ All of them split each row's key range over ``n_split`` blocks and
 combine the partial softmaxes in the same launch
 (``csrc/decode_body.cuh``, ``csrc/decode_mla.cuh``,
 ``csrc/decode_gqa_mma.cuh``).  ``decode_entry`` picks K1's and B4's C
-entry from dtypes, the group size G = H / KV and head_dim alone: bf16
-and f32 at ``G <= MMA_MAX_GROUP`` and ``MMA_HEAD_DIMS`` go to the
-tensor-core body (``*_bf16_bf16_mma``, ``*_f32_f32_tf32``),
-everything else (and B3) to ``decode_body.cuh``.  ``split_plan`` (and
+entry, ``quant_decode_entry`` B3's, from dtypes, the group size G = H /
+KV and head_dim alone: bf16 and f32 at ``G <= MMA_MAX_GROUP`` and
+``MMA_HEAD_DIMS`` go to the tensor-core body (``*_bf16_bf16_mma``,
+``*_f32_f32_tf32``), and so do int8 pools there
+(``paged_decode_attention_quant_f32_tf32``); everything else to
+``decode_body.cuh``.  ``split_plan`` (and
 ``mma_split_plan`` for the tensor-core body) picks the split from
 host-known values only (shapes, ``P * bs``, ``n_valid``), never from
 ``lengths``, so a call reads no device tensor on the host; the f32
@@ -63,8 +65,10 @@ MMA_KEY_TILE = 16        # its splits are multiples of its 16-key tiles
 # --decode-splits; merging the splits costs more than spreading them
 # gains).  Split TF32 does about four times bf16's work on each byte
 # (three products and their splits), and its best splits held a quarter
-# of the bytes
-MMA_SPLIT_BYTES = {torch.bfloat16: 512 << 10, torch.float32: 128 << 10}
+# of the bytes.  int8 pools (B3) count a key's int8 K and V rows and their
+# two f32 scales (2 * hd + 8 bytes)
+MMA_SPLIT_BYTES = {torch.bfloat16: 512 << 10, torch.float32: 128 << 10,
+                   torch.int8: 64 << 10}
 
 
 KERNEL = CudaKernel(
@@ -76,7 +80,8 @@ KERNEL = CudaKernel(
 QUANT_KERNEL = CudaKernel(
     "paged_decode_attention_quant",
     Path(__file__).parent / "csrc" / "paged_decode_quant.cu",
-    {"paged_decode_attention_quant_f32": [_P] * 8 + [_I] * 6 + _SPLIT})
+    {f"paged_decode_attention_quant_{s}": [_P] * 8 + [_I] * 6 + _SPLIT
+     for s in ("f32", "f32_tf32")})
 
 DENSE_KERNEL = CudaKernel(
     "decode_attention",
@@ -161,6 +166,18 @@ def decode_entry(prefix: str, qdt, kvdt, G: int, hd: int) -> str:
     return name
 
 
+def quant_decode_entry(G: int, hd: int) -> str:
+    """The C entry B3 (f32 q over int8 pools) launches for ``G`` query
+    heads a KV head at head_dim ``hd``: the tensor-core body's
+    ``paged_decode_attention_quant_f32_tf32`` at ``G <= MMA_MAX_GROUP``
+    and ``MMA_HEAD_DIMS``, else decode_body.cuh's
+    ``paged_decode_attention_quant_f32``.  From shapes alone, never from a
+    failed build or launch."""
+    if G <= MMA_MAX_GROUP and hd in MMA_HEAD_DIMS:
+        return "paged_decode_attention_quant_f32_tf32"
+    return "paged_decode_attention_quant_f32"
+
+
 def _occupancy(lib, prefix: str, dt: str, hd: int) -> dict:
     fn = getattr(lib, f"{prefix}_gqa_occupancy")
     fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
@@ -175,14 +192,14 @@ def _occupancy(lib, prefix: str, dt: str, hd: int) -> dict:
 
 def gqa_decode_occupancy(kernel, dt: str, hd: int) -> dict:
     """What the card makes of the tensor-core body in ``kernel``
-    (``KERNEL`` or ``DENSE_KERNEL``) for ``dt`` ("bf16" or "f32")
-    operands at head_dim ``hd``: registers and local (spill) bytes a
-    thread, dynamic shared bytes a block, resident blocks an SM, warps a
-    block, keys a warp tile, ring stages.  Builds the library; launches
-    nothing."""
-    prefix = "decode_attention" if kernel is DENSE_KERNEL \
-        else "paged_decode_attention"
-    return _occupancy(kernel.load(), prefix, dt, hd)
+    (``KERNEL`` or ``DENSE_KERNEL`` for ``dt`` "bf16" or "f32" operands,
+    ``QUANT_KERNEL`` for "int8" K/V under f32 q) at head_dim ``hd``:
+    registers and local (spill) bytes a thread, dynamic shared bytes a
+    block, resident blocks an SM, warps a block, keys a warp tile, ring
+    stages.  Builds the library; launches nothing."""
+    if (kernel is QUANT_KERNEL) != (dt == "int8"):
+        raise ValueError(f"{kernel.name} has no {dt} tensor-core body")
+    return _occupancy(kernel.load(), kernel.name, dt, hd)
 
 
 _WORKSPACE = {}
@@ -209,26 +226,36 @@ def _is_mma(entry: str) -> bool:
     return entry.endswith(("_mma", "_tf32"))
 
 
-def entry_split_plan(entry: str, max_keys: int, pairs: int, dtype,
+def key_bytes(kv_dtype, hd: int) -> int:
+    """Bytes a key of K/V of ``kv_dtype`` at head_dim ``hd`` moves: its
+    K and V rows, and for int8 pools their two f32 row scales."""
+    return 2 * hd * kv_dtype.itemsize + (8 if kv_dtype == torch.int8 else 0)
+
+
+def entry_split_plan(entry: str, max_keys: int, pairs: int, kv_dtype,
                      hd: int, sms: int):
     """(n_split, split_keys) that C entry ``entry`` runs with for
-    ``pairs`` (row, KV head) pairs of at most ``max_keys`` keys, q of
-    ``dtype`` at head_dim ``hd``, on a device of ``sms`` SMs:
-    ``mma_split_plan`` for the tensor-core body's entries, ``split_plan``
-    for the others."""
-    if _is_mma(entry):                        # K and V of q's type
-        return mma_split_plan(max_keys, pairs, 2 * hd * dtype.itemsize,
-                              MMA_SPLIT_BYTES[dtype], sms)
+    ``pairs`` (row, KV head) pairs of at most ``max_keys`` keys, K/V of
+    ``kv_dtype`` (q's type, or int8) at head_dim ``hd``, on a device of
+    ``sms`` SMs: ``mma_split_plan`` for the tensor-core body's entries
+    (``MMA_SPLIT_BYTES`` of the K/V type), ``split_plan`` for the
+    others."""
+    if _is_mma(entry):
+        return mma_split_plan(max_keys, pairs, key_bytes(kv_dtype, hd),
+                              MMA_SPLIT_BYTES[kv_dtype], sms)
     return split_plan(max_keys, pairs)
 
 
-def _split_args(q, max_keys: int, KV: int, vd: int = 0, entry: str = ""):
+def _split_args(q, max_keys: int, KV: int, vd: int = 0, entry: str = "",
+                kv_dtype=None):
     """The kernels' trailing split arguments for q (B, H, hd) over rows of
-    at most ``max_keys`` keys, output rows ``vd`` wide (default hd), for
-    C entry ``entry``: split_keys, n_split and the workspace."""
+    at most ``max_keys`` keys of K/V of ``kv_dtype`` (default q's type),
+    output rows ``vd`` wide (default hd), for C entry ``entry``:
+    split_keys, n_split and the workspace."""
     B, H, hd = q.shape
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
     n_split, split_keys = entry_split_plan(
-        entry, max_keys, B * KV, q.dtype, hd,
+        entry, max_keys, B * KV, kv_dtype, hd,
         sm_count(q.device) if _is_mma(entry) else 1)
     G = H // KV
     ws, cnt = workspace(q.device, B * KV * n_split * G * ((vd or hd) + 2),
@@ -358,12 +385,13 @@ def paged_decode_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     P = page_table.shape[1]
+    entry = quant_decode_entry(H // KV, hd)
     QUANT_KERNEL.launch(
-        "paged_decode_attention_quant_f32",
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        entry, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, H, KV, hd, bs, P,
-        ctypes.c_float(1.0 / np.sqrt(hd)), *_split_args(q, P * bs, KV),
+        ctypes.c_float(1.0 / np.sqrt(hd)),
+        *_split_args(q, P * bs, KV, entry=entry, kv_dtype=torch.int8),
         stream)
     return out
 

@@ -67,7 +67,7 @@
 // three products are summed apart and added to the accumulator on the
 // CUDA cores (mma3's fold): dK and dV sum over G * S queries, and carried
 // through that chain of mma.sync instructions the sums drift past the
-// 1e-5 tolerance (prefill_ablations.py --body bwd32, no_fold).  The score
+// 1e-5 tolerance (ablations.py --body bwd32, no_fold).  The score
 // tiles' chains (hd / 8 steps from zero) stay on the tensor cores.
 //
 // Resources (ptxas, chip_smoke.py phase 2): dk/dv 221 registers at 64,
@@ -84,7 +84,7 @@
 // bound's convention, ~0.06 ms as 3 x TF32 at 495 TFLOP/s.  With one
 // 8-warp block an SM the kernels wait on latency (the fragment loads and
 // splits between the products) more than on the tensor cores
-// (prefill_ablations.py --body bwd32 times the splits' and the fold's
+// (ablations.py --body bwd32 times the splits' and the fold's
 // share).
 //
 // Rounding: q and the scores in f32, P = exp(S - lse) as 2^(S log2 e -

@@ -54,7 +54,7 @@
 //   diagonal, window edges and the ragged end).
 //
 // What bounds it on the card (H100; chip_smoke.py phase 3 and
-// prefill_ablations.py): K2 at T = 32 is latency: ~0.3 GFLOP over ~4 MB
+// ablations.py): K2 at T = 32 is latency: ~0.3 GFLOP over ~4 MB
 // of K/V, and the longest slot's block walks ~10 key tiles one after the
 // other.  B2 contiguous at S = 512 is the math, not the bytes: the per-
 // tile softmax between the two products (rounding, masking, exp, max and
@@ -86,13 +86,13 @@
 // registers, accumulators 64, scores and P 48; ptxas reports 239
 // registers and no spills (chip_smoke.py phase 2).  Blocks of 8 warps
 // (128 rows: every K/V tile filled from L2 serves twice the rows of a
-// 4-warp block; prefill_ablations.py measured the 4-warp fill bound by L2,
+// 4-warp block; ablations.py measured the 4-warp fill bound by L2,
 // ~1.5 GB at ~6.4 TB/s at S = 512) run one a SM by registers, so q is
 // staged in a region after the 2-stage ring (134 KB in all), and a warp
 // skips the tiles past its own rows' positions.  Grid (B, H, row blocks)
 // as for GQA (launching each (row, head)'s row blocks together measured
 // slower).  What bounds it: the math between the two products, as at
-// head_dim 128 (prefill_ablations.py: at B = 8, S = 512 the math alone
+// head_dim 128 (ablations.py: at B = 8, S = 512 the math alone
 // takes 0.53 of the body's 0.62 ms, the loads alone 0.40, q and the
 // output alone 0.14).  q's fragments read from shared memory at each
 // head-dim step (48 registers freed), a 3-stage ring and the Q.K^T loop

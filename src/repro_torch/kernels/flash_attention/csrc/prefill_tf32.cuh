@@ -66,7 +66,7 @@
 //   instructions; they issue in passes over two tiles at a time, and the
 //   splits round in integer arithmetic (split_tf32_int; with cvt.rna the
 //   body took 1.24x as long at nemotron's heads, B = 8, S = 512:
-//   prefill_ablations.py --body tf32, cvt_split).  ptxas: 255 registers,
+//   ablations.py --body tf32, cvt_split).  ptxas: 255 registers,
 //   no spills with f32 and int8 tiles (chip_smoke.py phase 2).
 // - kLse (flash_attention_f32_tf32_lse): the epilogue also stores each
 //   row's logsumexp (natural log, f32, (B, H, S); +inf for a row that sees
@@ -178,7 +178,7 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
 // accumulator in), which are added to d on the CUDA cores (rounded to
 // nearest).  An f32 sum carried through a long chain of mma.sync
 // instructions drifts with the chain's length (B2''s dK and dV sum over
-// G * S queries: prefill_ablations.py --body bwd32 logs their error
+// G * S queries: ablations.py --body bwd32 logs their error
 // unfolded, no_fold); folded, each chain is one k8 step long.
 template <int kG>
 __device__ __forceinline__ void fold(float (*d)[4], const float (&t)[kG][4]) {
@@ -278,7 +278,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
 // The register cap asked of the compiler, as blocks a SM: at head_dim 128
 // at most 168 registers a thread (it would take 255; shared memory allows
 // two blocks a SM either way), which measured faster
-// (prefill_ablations.py, min1 / min3); at head_dim 64 no cap (~220
+// (ablations.py, min1 / min3); at head_dim 64 no cap (~220
 // registers, two blocks a SM), where 168 spills and measured slower; at
 // 192 one 8-warp block a SM (shared memory), up to 255 registers.
 template <int kHd>

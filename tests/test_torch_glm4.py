@@ -4,8 +4,8 @@ glm4-9b groups 16 query heads on each of its 2 KV heads (G = 16), adds a
 bias to q, k and v, and rotates half of each head.  A tiny config keeps
 those three (32/2 heads of 16, d 64, 2 layers); weights come from the
 reference's ``init`` through the bridge.  The port's greedy streams must
-equal the JAX engine's, paged (chunked prefill, K2 and K1 at G = 16) and
-dense (B2 and B4).  On the CPU the kernel wrappers run their plain
+equal the JAX engine's, paged (chunked prefill, K2 and K1 at G = 16; over
+an int8 pool, K2q and B3) and dense (B2 and B4).  On the CPU the kernel wrappers run their plain
 versions; the tensor-core decode body that serves G = 16 on the card is
 held against them in ``tests/test_torch_kernels.py``.
 """
@@ -64,6 +64,42 @@ def test_glm4_shaped_streams_match_reference(pair, paged):
     assert [r.status for r in tr] == [r.status for r in jr] == ["ok"] * 3
     for a, b in zip(jr, tr):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_glm4_shaped_int8_streams_match_reference(pair):
+    """The same three requests paged over an int8 pool (int8 K/V and
+    their f32 row scales; chunks of 4 over pages of 4): the port's greedy
+    streams equal the JAX engine's at G = 16 with QKV bias and half
+    rotary.  On the CPU B3 and K2q run their plain versions; B3's
+    tensor-core entry at G = 16 is held against them on the card."""
+    jm, jp, tm, tp = pair
+    prompts = _prompts(21, (9, 13, 5))
+    kw = dict(batch_size=2, capacity=24, max_new_tokens=4, paged=True,
+              prefill_chunk=4, block_size=4, kv_dtype="int8")
+    jr = JaxEngine(jm, jp, **kw).serve(prompts)
+    te = ServeEngine(tm, tp, device="cpu", **kw)
+    tr = te.serve(prompts)
+    assert te.paged and te.pool_stats()["kv_dtype"] == "int8"
+    assert [r.status for r in tr] == [r.status for r in jr] == ["ok"] * 3
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_glm4_9b_int8_decode_takes_the_tensor_core_body():
+    """At glm4-9b's heads (G = 16, head_dim 128) B3 dispatches to the
+    tensor-core entry over int8 tiles; its split plan at chip_smoke phase
+    21(d)'s pool (4128 keys, B = 8) gives every SM at most one block of
+    whole 16-key tiles."""
+    cfg = get_config("glm4-9b")
+    G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    entry = dops.quant_decode_entry(G, hd)
+    assert entry == "paged_decode_attention_quant_f32_tf32"
+    sms = 132                                 # an H100 SXM's
+    n_split, split_keys = dops.entry_split_plan(
+        entry, 4128, 8 * cfg.n_kv_heads, torch.int8, hd, sms)
+    assert 1 < n_split and 8 * cfg.n_kv_heads * n_split <= sms
+    assert split_keys % dops.MMA_KEY_TILE == 0 \
+        and n_split * split_keys >= 4128
 
 
 def test_glm4_9b_decode_takes_the_tensor_core_body():

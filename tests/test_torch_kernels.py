@@ -194,7 +194,8 @@ _PREFILL_BODIES = ["prefill_tf32.cuh", "common.cuh", "prefill_mma.cuh",
     (dops.DENSE_KERNEL, ["decode_mla.cuh", "common.cuh", "decode_gqa_mma.cuh",
                          "prefill_tf32.cuh", "prefill_mma.cuh",
                          "decode_body.cuh"]),
-    (dops.QUANT_KERNEL, ["decode_body.cuh", "common.cuh"]),
+    (dops.QUANT_KERNEL, ["decode_gqa_mma.cuh", "prefill_tf32.cuh",
+                         "common.cuh", "prefill_mma.cuh", "decode_body.cuh"]),
     (fops.KERNEL, _PREFILL_BODIES), (fops.FLASH_KERNEL, _PREFILL_BODIES),
     (fops.QUANT_KERNEL, ["prefill_tf32.cuh", "common.cuh",
                          "prefill_body.cuh"])])
@@ -202,8 +203,8 @@ def test_attention_kernels_share_their_family_body(kernel, bodies):
     """The paged and contiguous entries of each attention family are
     built from shared bodies and the shared helpers: the paged and
     contiguous prefill entries also from the two tensor-core bodies, the
-    int8 prefill from the split-TF32 one, the paged and dense decode also
-    from the tensor-core decode body (which takes the prefill bodies'
+    int8 prefill from the split-TF32 one, the paged, dense and int8 decode
+    also from the tensor-core decode body (which takes the prefill bodies'
     mma.sync and split-TF32 helpers), the dense decode also from the MLA
     body."""
     from repro_torch.kernels import build
@@ -747,11 +748,12 @@ def _split_lengths(B, P, bs, KV, plan=None):
 def _split_pages(entry, bs, hd, dtype, pages):
     """Pages of ``bs`` keys a row takes for ``entry``'s plan to split it:
     ``pages`` for decode_body.cuh's entries, three of the tensor-core
-    body's splits (``MMA_SPLIT_BYTES`` of K/V each) for its own."""
+    body's splits (``MMA_SPLIT_BYTES`` of the K/V type ``dtype`` each) for
+    its own."""
     if not entry.endswith(("_mma", "_tf32")):
         return pages
     return -(-3 * dops.MMA_SPLIT_BYTES[dtype] //
-             (bs * 2 * hd * dtype.itemsize))
+             (bs * dops.key_bytes(dtype, hd)))
 
 
 def _check_decode_rows(got, want, lengths, tol):
@@ -829,19 +831,52 @@ def test_decode_split_boundaries_match_plain(cuda, heads, qdt, kvdt):
     _check_decode_rows(got, want, lengths, _TOL[kvdt])
 
 
+def _quant_launch(entry, args):
+    """B3's C entry ``entry`` on ``args`` (q, int8 pools, their scales,
+    page table, lengths) with the split plan its wrapper gives it: the
+    wrapper where the dispatch picks ``entry``, else a direct launch (the
+    body the dispatch leaves for other shapes, at these operands)."""
+    q, kq, vq, ks, vs, pt, lengths = args
+    B, H, hd = q.shape
+    KV, bs, P = kq.shape[2], kq.shape[1], pt.shape[1]
+    if entry == dops.quant_decode_entry(H // KV, hd):
+        return dops.paged_decode_attention_quant(*args)
+    out = torch.empty_like(q)
+    dops.QUANT_KERNEL.launch(
+        entry, q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), pt.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        B, H, KV, hd, bs, P, ctypes.c_float(1.0 / np.sqrt(hd)),
+        *dops._split_args(q, P * bs, KV, entry=entry, kv_dtype=torch.int8),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["paged_decode_attention_quant_f32_tf32",
+                                   "paged_decode_attention_quant_f32"],
+                         ids=["tf32", "f32"])
 @pytest.mark.parametrize("heads", [_SERVED, _JAMBA], ids=["smollm", "jamba"])
-def test_decode_quant_split_boundaries_match_plain(cuda, heads):
-    """B3 at the same boundaries, within f32's 1e-5; bitwise repeatable."""
-    B = 8
-    c = _quant_case(heads["hd"] + 3, B=B, T=1, **heads)
-    lengths = _split_lengths(B, heads["P"], heads["bs"], heads["KV"])
+def test_decode_quant_split_boundaries_match_plain(cuda, heads, entry):
+    """B3's two bodies at the boundaries of each one's own split plan
+    (rows of 0 and 1 key, one split's keys, one more, the whole table):
+    the tensor-core body's ``_f32_tf32``, which the dispatch picks here
+    (page tables of three of its splits), and decode_body.cuh's
+    ``_f32``, which it keeps for other shapes; once a call, within f32's
+    1e-5 of the plain version, bitwise repeatable."""
+    B, bs, hd = 8, heads["bs"], heads["hd"]
+    P = _split_pages(entry, bs, hd, torch.int8, heads["P"])
+    c = _quant_case(hd + 3, B=B, T=1, **dict(heads, P=P, max_len=P * bs))
+    plan = dops.entry_split_plan(entry, P * bs, B * heads["KV"], torch.int8,
+                                 hd, dops.sm_count(cuda))
+    assert plan[0] > 1
+    lengths = _split_lengths(B, P, bs, heads["KV"], plan)
     args = _quant_args(c, c["q"][:, 0], cuda, lengths=lengths)
-    n0 = dops.QUANT_KERNEL.launches
-    got = dops.paged_decode_attention_quant(*args)
-    again = dops.paged_decode_attention_quant(*args)
+    before = _entry_counts(dops.QUANT_KERNEL)
+    got = _quant_launch(entry, args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.QUANT_KERNEL, before, entry)
+    again = _quant_launch(entry, args)
     want = dops.paged_decode_attention_quant_plain(*args)
     torch.cuda.synchronize()
-    assert dops.QUANT_KERNEL.launches == n0 + 2
     assert torch.equal(got, again)
     _check_decode_rows(got, want, lengths, ATOL_F32)
 
@@ -1052,12 +1087,13 @@ def _quant_args(c, q, device="cpu", lengths=None):
 
 
 @pytest.mark.parametrize("B,H,KV,hd,bs,P", [(3, 4, 2, 16, 4, 4),
-                                            (2, 6, 3, 32, 8, 3)])
+                                            (2, 6, 3, 32, 8, 3),
+                                            (2, 32, 2, 16, 4, 3)])
 def test_plain_paged_decode_quant_matches_pallas_and_reference(ref, B, H, KV,
                                                                hd, bs, P):
     """B3's plain version against the reference's Pallas kernel
     (interpret mode) and its ``paged_attention`` over the dequantized
-    gather, within 1e-5 (f32)."""
+    gather, within 1e-5 (f32); the last case at glm4-9b's G = 16."""
     c = _quant_case(B * 10 + hd, B=B, T=1, H=H, KV=KV, hd=hd, bs=bs, P=P,
                     max_len=P * bs)
     c["lengths"][0] = P * bs
@@ -1145,6 +1181,110 @@ def test_prefill_quant_kernel_matches_plain(cuda, B, heads):
     assert fops.QUANT_KERNEL.launches == n0 + 1
     err = (got - want).abs().max().item()
     assert err <= ATOL_F32, err
+
+
+# -- B3 on the tensor cores: paged_decode_attention_quant_f32_tf32 ----------
+
+def test_quant_decode_entry_picks_the_body_from_shapes(monkeypatch):
+    """B3 (f32 q over int8 pools) goes to the tensor-core body's
+    ``paged_decode_attention_quant_f32_tf32`` exactly at G <= 16 and head
+    dims 64, 128 and 192, to decode_body.cuh's ``_quant_f32`` at every
+    other shape (the tests' head dims 16 and 32, G = 17 and 24); its split
+    arguments are ``mma_split_plan``'s over 2 * hd + 8 bytes a key and the
+    int8 ``MMA_SPLIT_BYTES``, from host ints (the SMs stubbed)."""
+    for G in range(1, 25):
+        for hd in (16, 32, 48, 64, 96, 128, 192, 256):
+            want = "paged_decode_attention_quant_f32" + (
+                "_tf32" if G <= 16 and hd in (64, 128, 192) else "")
+            assert dops.quant_decode_entry(G, hd) == want, (G, hd)
+    assert set(dops.QUANT_KERNEL.entries) == {
+        "paged_decode_attention_quant_f32",
+        "paged_decode_attention_quant_f32_tf32"}
+    assert dops.key_bytes(torch.int8, 128) == 2 * 128 + 8
+    monkeypatch.setattr(dops, "sm_count", lambda device: _H100_SMS)
+    q = torch.zeros((8, 32, 128))
+    entry = dops.quant_decode_entry(16, 128)
+    args = dops._split_args(q, 4128, 2, entry=entry, kv_dtype=torch.int8)
+    assert args[:2] == dops.mma_split_plan(
+        4128, 16, 264, dops.MMA_SPLIT_BYTES[torch.int8], _H100_SMS)[::-1]
+    assert dops._split_args(
+        q, 4128, 2, entry="paged_decode_attention_quant_f32",
+        kv_dtype=torch.int8)[:2] == dops.split_plan(4128, 16)[::-1]
+
+
+@pytest.mark.parametrize("max_keys,pairs,hd", [
+    (640, 40, 64), (4128, 16, 128), (8192, 16, 128), (544, 64, 192),
+    (1184, 64, 128), (1, 1, 64), (5000, 1, 192), (96, 300, 128)])
+def test_quant_split_plan_covers_the_keys_from_host_ints(max_keys, pairs, hd):
+    """The int8 entry's plan (CPU): whole 16-key tiles, every key in
+    exactly one split, no more splits than a row's bytes (int8 K and V
+    rows and their two f32 scales a key) hold int8's MMA_SPLIT_BYTES
+    (rounded up), no more blocks than an H100's 132 SMs unless the pairs
+    alone are more; host ints only."""
+    entry = dops.quant_decode_entry(4, hd)
+    n_split, split_keys = dops.entry_split_plan(
+        entry, max_keys, pairs, torch.int8, hd, _H100_SMS)
+    kb, sb = 2 * hd + 8, dops.MMA_SPLIT_BYTES[torch.int8]
+    assert split_keys % dops.MMA_KEY_TILE == 0
+    assert (n_split - 1) * split_keys < max_keys <= n_split * split_keys
+    assert (n_split - 1) * sb < max_keys * kb
+    assert n_split == 1 or pairs * n_split <= _H100_SMS
+    with pytest.raises(TypeError, match="host ints"):
+        dops.entry_split_plan(entry, torch.tensor(max_keys), pairs,
+                              torch.int8, hd, _H100_SMS)
+
+
+_SMOLLM_Q = dict(_SMOLLM_PAGED, P=40)
+_JAMBA_Q = dict(_JAMBA_PAGED, P=40)
+_GQA_QUANT_HEADS = {"smollm": _SMOLLM_Q, "jamba": _JAMBA_Q,
+                    "nemotron": dict(_NEMOTRON, bs=16, P=40),
+                    "qwen2vl": dict(_QWEN2VL_HEADS, bs=16, P=40),
+                    "glm4": dict(_GLM4_HEADS, bs=16, P=40)}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("geo", list(_GQA_QUANT_HEADS))
+def test_quant_gqa_decode_kernel_matches_plain(cuda, geo, B):
+    """B3's tensor-core entry at smollm-360m's (G = 3, hd 64), jamba's (4,
+    128), nemotron-4-340b's (12, 192), qwen2-vl-72b's (8, 128) and
+    glm4-9b's (16, 128) heads: one launch of
+    ``paged_decode_attention_quant_f32_tf32`` a call, equal to the plain
+    version within f32's 1e-5 over rows of 1 key, one straddling a page,
+    whole pages and a full page table; a row with no keys outputs 0 (B =
+    8: the last row); two launches give the same bits."""
+    heads = _GQA_QUANT_HEADS[geo]
+    P, bs = heads["P"], heads["bs"]
+    c = _quant_case(B + heads["H"] + 5, B=B, T=1, max_len=P * bs, **heads)
+    lengths = _gqa_lengths(B, P, bs)
+    if B == 8:
+        lengths[-1] = 0
+    args = _quant_args(c, c["q"][:, 0], cuda, lengths=lengths)
+    entry = dops.quant_decode_entry(heads["H"] // heads["KV"], heads["hd"])
+    assert entry == "paged_decode_attention_quant_f32_tf32"
+    before = _entry_counts(dops.QUANT_KERNEL)
+    got = dops.paged_decode_attention_quant(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.QUANT_KERNEL, before, entry)
+    again = dops.paged_decode_attention_quant(*args)
+    want = dops.paged_decode_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    _check_decode_rows(got, want, lengths, ATOL_F32)
+
+
+def test_quant_decode_keeps_the_cuda_core_body_elsewhere(cuda):
+    """At a head dim the tensor-core body is not built for (32) B3 runs
+    decode_body.cuh's ``paged_decode_attention_quant_f32``, once a call,
+    equal to the plain version."""
+    c = _quant_case(11, B=4, T=1, H=4, KV=2, hd=32, bs=16, P=8, max_len=128)
+    args = _quant_args(c, c["q"][:, 0], cuda)
+    before = _entry_counts(dops.QUANT_KERNEL)
+    got = dops.paged_decode_attention_quant(*args)
+    want = dops.paged_decode_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    _assert_one_launch_of(dops.QUANT_KERNEL, before,
+                          "paged_decode_attention_quant_f32")
+    assert (got - want).abs().max().item() <= ATOL_F32
 
 
 # -- B7: the fused transform, bit-exact against its plain version ------------
